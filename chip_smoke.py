@@ -6,17 +6,24 @@ Run from the root of a checkout:  python3 chip_smoke.py
 
 Phases (any failure raises and the script exits non-zero):
 
-1. build the three CUDA kernels from ``src/repro_torch/kernels/csrc``;
+1. build every CUDA kernel from ``src/repro_torch/kernels/csrc``, one
+   ``nvcc`` per source, all at once;
 2. serve full-width olmo-1b from its plane accumulators: ``divide`` with
    the paper's schedule, ``ProgressiveServer(resident="quantized")``,
    one stage, a (4, 64) prompt, 48 decode steps with the other 7 stages
-   landing mid-decode; counts every kernel launch of that run;
-3. hold each kernel against its plain version on the path's operands;
+   landing mid-decode; counts every kernel launch of that run; then the
+   slot pool on the same planes: ``SlotPoolEngine(resident="quantized")``
+   with 8 slots, 12 requests of ragged prompts admitted by chunked
+   prefill while the other slots decode, an upgrade every window from
+   stage 1 to 8; counts every kernel launch of that run;
+3. hold each kernel against its plain version on the paths' operands,
+   and every ``flash_verify`` row against a ``flash_decode`` launch;
 4. run the same 2-layer full-width model on the card (kernels) and on
-   the CPU (plain versions) and compare teacher-forced logits at every
-   stage;
-5. time each kernel at the path's shapes beside its bound, its plain
-   version and one PyTorch call that computes the same function.
+   the CPU (plain versions) and compare teacher-forced decode, prefill
+   chunk and verify logits;
+5. time each kernel at the paths' shapes beside its bound, its plain
+   version and one PyTorch call that computes the same function, and
+   one chunk tick of the pool.
 
 The second-to-last line is a JSON object with one entry per kernel, the
 last ``{"ok": true, "device": {...}}``.
@@ -33,6 +40,7 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
+import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit).
@@ -42,6 +50,10 @@ FP32_FLOPS = 67e12          # float32 outside the tensor cores
 DEVICE = "cuda"
 BATCH, PROMPT, STEPS = 4, 64, 48
 ARRIVALS = (6, 12, 18, 24, 30, 36, 42)
+# the slot pool: 8 slots, 8-token prefill chunks, 8-step windows, 12
+# requests (prompts 16-96 tokens, budgets 24-40, numpy seed 3)
+POOL_SLOTS, POOL_CHUNK, POOL_WINDOW, POOL_MAX_LEN = 8, 8, 8, 160
+POOL_REQUESTS = 12
 
 # Stated tolerances, each with its reason.
 # dequant_matmul: the kernel and the plain version form every weight
@@ -49,9 +61,9 @@ ARRIVALS = (6, 12, 18, 24, 30, 36, 42)
 # order of the float32 sum over K (<= 8192 terms): error far below
 # 1e-4 of the output's largest magnitude.
 DQMM_RTOL = 1e-4
-# decode_attention: the kernel writes bfloat16, the plain version
-# float32; one bfloat16 rounding is 2**-9 relative, allow 2**-7 of the
-# largest output magnitude.
+# decode_attention and flash_verify: the kernels write bfloat16, the
+# plain versions float32; one bfloat16 rounding is 2**-9 relative, allow
+# 2**-7 of the largest output magnitude.
 ATTN_RTOL = 2.0 ** -7
 # whole path: bfloat16 activations rounded at other places by the two
 # sums orders compound over 2 layers; allow 3% of the largest logit.
@@ -113,19 +125,29 @@ def bound_ms(n_bytes: float, n_ops: float, peak_ops: float) -> tuple[float, str]
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def reset_counts(bitplane, dqm, da, ops) -> None:
-    bitplane.launches = dqm.launches = da.launches = 0
+def kernel_modules() -> dict:
+    """Each kernel's wrapper module, by its name in the kernels line."""
+    from repro_torch.kernels import bitplane, decode_attention, dequant_matmul
+    from repro_torch.kernels import verify_attention
+
+    return {"plane_or_segments": bitplane, "dequant_matmul": dequant_matmul,
+            "decode_attention": decode_attention, "flash_verify": verify_attention}
+
+
+def reset_counts(ops) -> None:
+    for mod in kernel_modules().values():
+        mod.launches = 0
     ops.reset_launch_counts()
 
 
-def counts(bitplane, dqm, da) -> dict:
-    return {"plane_or_segments": bitplane.launches, "dequant_matmul": dqm.launches,
-            "decode_attention": da.launches}
+def counts(names) -> dict:
+    mods = kernel_modules()
+    return {name: mods[name].launches for name in names}
 
 
 class FiniteLogits:
-    """Wraps a Model: records, without a host sync, whether every decode
-    step's logits were finite."""
+    """Wraps a Model: records, without a host sync, whether the logits of
+    every decode step and prefill chunk were finite."""
 
     def __init__(self, model):
         self.model = model
@@ -139,6 +161,11 @@ class FiniteLogits:
         self.flags.append(torch.isfinite(logits).all())
         return logits, caches
 
+    def prefill_chunk(self, params, caches, tokens, tok_pos):
+        logits, caches = self.model.prefill_chunk(params, caches, tokens, tok_pos)
+        self.flags.append(torch.isfinite(logits).all())
+        return logits, caches
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -149,9 +176,10 @@ def main() -> int:
     from repro_torch.kernels import bitplane, build, ops, ref
     from repro_torch.kernels import decode_attention as da
     from repro_torch.kernels import dequant_matmul as dqm
+    from repro_torch.kernels import verify_attention as va
     from repro_torch.models.model import build_model
     from repro_torch.models.transformer import layer
-    from repro_torch.serving.engine import ProgressiveServer
+    from repro_torch.serving.engine import ProgressiveServer, _chunk_step
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -163,7 +191,8 @@ def main() -> int:
     build.build_all()
     for name in build.SOURCES:
         build.library(name)
-    log(f"[build] 3 kernels built and loaded in {time.perf_counter() - t0:.1f} s")
+    log(f"[build] {len(build.SOURCES)} kernels built and loaded in "
+        f"{time.perf_counter() - t0:.1f} s")
     print(gpu_line(), flush=True)
     log(f"[env] python {sys.version.split()[0]} torch {torch.__version__} "
         f"cuda {torch.version.cuda}")
@@ -186,16 +215,17 @@ def main() -> int:
     srv = ProgressiveServer(checked, prog, max_len=PROMPT + STEPS, resident="quantized",
                             device=dev)
     torch.cuda.synchronize()
-    reset_counts(bitplane, dqm, da, ops)
+    serve_kernels = ("plane_or_segments", "dequant_matmul", "decode_attention")
+    reset_counts(ops)
     t0 = time.perf_counter()
     srv.receive_stage()
     srv.start({"tokens": prompt})
     torch.cuda.synchronize()
     t_prefill = time.perf_counter() - t0
-    after_prefill = counts(bitplane, dqm, da)
+    after_prefill = counts(serve_kernels)
     res = srv.decode(STEPS, stage_arrival=lambda i: i in ARRIVALS)
     torch.cuda.synchronize()
-    path_counts = counts(bitplane, dqm, da)
+    path_counts = counts(serve_kernels)
     op_counts = dict(ops.LAUNCH_COUNTS)
     decode_s = sum(s for _, s in res.window_s)
 
@@ -239,6 +269,10 @@ def main() -> int:
         upgrade_ms.append((time.perf_counter() - t0) * 1e3)
     log(f"[serve] upgrade (ingest + view refresh, synchronised) ms per stage: "
         f"{[round(u, 2) for u in upgrade_ms]}")
+    del state
+
+    # the slot pool on the same planes
+    pool, pool_counts = _pool_phase(model, prog, dev, ops)
 
     # -- 3. each kernel against its plain version on the path's operands ----
     kern: dict[str, dict] = {}
@@ -305,12 +339,41 @@ def main() -> int:
     log(f"[check] decode_attention B={BATCH} H={cfg.n_heads} S={S} hd={cfg.hd} "
         f"(ragged slot, free slot): max |err| {at_err:.3e}")
 
+    # flash_verify: layer 0's live pooled cache, one chunk of rows per
+    # slot: slot 1 ragged (keys past 45 empty) with a short final chunk,
+    # slots 2 and 3 fully masked (free, and decoding), the rest live
+    pcache = layer(pool.caches["cycles"]["0_attn"], 0)
+    PS, T = pcache["k"].shape[2], POOL_CHUNK
+    vk_pos = torch.arange(PS, dtype=torch.int32, device=dev).repeat(POOL_SLOTS, 1)
+    vk_pos[1, 46:] = -1
+    base = torch.tensor([PS - T, 40, -1, -1] + [16 * i for i in range(4, POOL_SLOTS)],
+                        dtype=torch.int32, device=dev)
+    vq_pos = torch.where(base[:, None] >= 0,
+                         base[:, None] + torch.arange(T, dtype=torch.int32, device=dev), -1)
+    vq_pos[1, 6:] = -1
+    vq = torch.randn((POOL_SLOTS, T, cfg.n_heads, cfg.hd), generator=xg,
+                     device=dev).to(cfg.dtype)
+    vo = va.flash_verify(vq, pcache["k"], pcache["v"], vk_pos, vq_pos)
+    vorf = ref.flash_verify_ref(vq, pcache["k"], pcache["v"], vk_pos, vq_pos)
+    check(bool(torch.isfinite(vo).all()), "non-finite verify output")
+    v_err = float((vo.float() - vorf).abs().max())
+    check(v_err <= ATTN_RTOL * float(vorf.abs().max()), v_err)
+    for t in range(T):
+        row = da.flash_decode(vq[:, t].contiguous(), pcache["k"], pcache["v"], vk_pos,
+                              vq_pos[:, t].contiguous())
+        check(torch.equal(vo[:, t], row), f"flash_verify row {t} differs from flash_decode")
+    kern["flash_verify"] = {"max_abs_err": v_err}
+    log(f"[check] flash_verify B={POOL_SLOTS} T={T} H={cfg.n_heads} S={PS} hd={cfg.hd} "
+        f"(ragged slot with a short chunk, free and decoding slots masked): max |err| "
+        f"{v_err:.3e}; each of the {T} rows equal (torch.equal) to a flash_decode launch")
+
     # -- 4. whole path: 2 layers at full width, card against CPU -------------
     t0 = time.perf_counter()
-    path_err = _whole_path(cfg, dev)
+    path_err, chunk_err = _whole_path(cfg, dev)
     log(f"[path] 2-layer full width, cuda kernels vs cpu plain versions, teacher-forced "
-        f"logits at all 8 stages: max |err| / max |logit| = {path_err:.3e} "
-        f"(tolerance {PATH_RTOL}); {time.perf_counter() - t0:.1f} s")
+        f"logits at all 8 stages: max |err| / max |logit| = {path_err:.3e}; prefill "
+        f"chunk and verify logits at stages 1 and 8: {chunk_err:.3e} (tolerance "
+        f"{PATH_RTOL}); {time.perf_counter() - t0:.1f} s")
 
     # -- 5. timings at the path's shapes -------------------------------------
     # Device times replay CUDA graphs, so the host's launch rate does not
@@ -392,21 +455,77 @@ def main() -> int:
                                                                  q_pos)), 5),
         bound_ms=b, bound_by=by, per=f"one decode step ({layers} launches)")
 
+    # flash_verify: one chunk tick's 16 launches, one per layer's pooled cache
+    pcaches = [layer(pool.caches["cycles"]["0_attn"], r) for r in range(layers)]
+    vvalid = (vk_pos[:, None, :] >= 0) & (vk_pos[:, None, :] <= vq_pos[:, :, None]) \
+        & (vq_pos[:, :, None] >= 0)
+    vmask = torch.where(vvalid, 0.0, -1e30).to(cfg.dtype)[:, None]   # (B, 1, T, S)
+    vq_h = vq.transpose(1, 2)                                         # (B, H, T, hd)
+
+    def attend_tick(fn):
+        for c in pcaches:
+            fn(c)
+
+    kv_bytes = 2 * pcache["k"].numel() * pcache["k"].element_size()
+    n_b = kv_bytes + 2 * vq.numel() * vq.element_size() + vk_pos.numel() * 4 \
+        + vq_pos.numel() * 4
+    n_ops = 4 * POOL_SLOTS * T * cfg.n_heads * PS * cfg.hd
+    b, by = bound_ms(layers * n_b, layers * n_ops, FP32_FLOPS)
+    kern["flash_verify"].update(
+        ms=device_ms(lambda: attend_tick(lambda c: va.flash_verify(
+            vq, c["k"], c["v"], vk_pos, vq_pos)), 5),
+        plain_ms=device_ms(lambda: attend_tick(lambda c: ref.flash_verify_ref(
+            vq, c["k"], c["v"], vk_pos, vq_pos)), 3),
+        library_ms=device_ms(lambda: attend_tick(lambda c: sdpa(
+            vq_h, c["k"], c["v"], attn_mask=vmask)), 5),
+        host_ms=host_ms(lambda: attend_tick(lambda c: va.flash_verify(
+            vq, c["k"], c["v"], vk_pos, vq_pos)), 5),
+        bound_ms=b, bound_by=by, per=f"one chunk tick ({layers} launches)")
+
+    # one whole chunk tick of the pool (every slot consuming 8 prompt rows)
+    # and its unembedding: the transposed 206 MB embed.T at M = 64
+    tick_pos = (torch.arange(POOL_SLOTS, dtype=torch.int32, device=dev)[:, None] * 8
+                + torch.arange(T, dtype=torch.int32, device=dev))
+    tick_tok = torch.randint(0, cfg.vocab, (POOL_SLOTS, T), generator=xg, device=dev,
+                             dtype=torch.int32)
+    final = torch.full((POOL_SLOTS,), T - 1, dtype=torch.int32, device=dev)
+
+    def tick():
+        _chunk_step(model, pool.params, pool.caches, tick_tok, tick_pos, final, pool.pos,
+                    pool.last_logits, pool._last_tok, pool._first_cap)
+
+    emb = pool.params["embed"].T
+    x64 = torch.randn((POOL_SLOTS * T, cfg.d_model), generator=xg, device=dev)
+    tick_ms, tick_host_ms = device_ms(tick, 2), host_ms(tick, 3)
+    unembed_ms = device_ms(lambda: dqm.dequant_matmul(x64, emb.q, emb.scale, emb.offset), 5)
+    unembed_bound, _ = bound_ms(emb.q.numel() * 2 + x64.numel() * 4
+                                + POOL_SLOTS * T * cfg.vocab * 4,
+                                2 * x64.shape[0] * emb.q.numel(), FP32_FLOPS)
+    log(f"[time] pool chunk tick ({POOL_SLOTS} slots x {T} rows, all live): "
+        f"{tick_ms:.3f} ms on the device, host issue {tick_host_ms:.3f} ms; its "
+        f"unembedding (dequant_matmul M={x64.shape[0]} on embed.T {tuple(emb.q.shape)}) "
+        f"{unembed_ms:.3f} ms on the device, bound {unembed_bound:.4f} ms")
+
     sources = {"plane_or_segments": ("plane_or.cu", "src/repro/kernels/bitplane.py:89"),
                "dequant_matmul": ("dequant_matmul.cu",
                                   "src/repro/kernels/dequant_matmul.py:70"),
                "decode_attention": ("decode_attention.cu",
-                                    "src/repro/kernels/decode_attention.py:101")}
+                                    "src/repro/kernels/decode_attention.py:101"),
+               "flash_verify": ("verify_attention.cu",
+                                "src/repro/kernels/verify_attention.py:91")}
+    # launches on the two main paths: the single stream, then the pool
+    launches = {name: path_counts.get(name, 0) + pool_counts[name] for name in sources}
     line = []
     for name, (src, replaces) in sources.items():
         k = kern[name]
         log(f"[time] {name} per {k['per']}: kernel {k['ms']:.4f} ms on the device, "
             f"bound {k['bound_ms']:.4f} ms ({k['bound_by']}), plain {k['plain_ms']:.4f} ms, "
             f"library {k['library_ms']:.4f} ms; host issue {k['host_ms']:.4f} ms; "
-            f"launches in the run {path_counts[name]}")
+            f"launches on the paths {launches[name]} (serve "
+            f"{path_counts.get(name, 0)}, pool {pool_counts[name]})")
         line.append({"name": name, "route": "cuda",
                      "source": f"src/repro_torch/kernels/csrc/{src}", "replaces": replaces,
-                     "launches": path_counts[name], "max_abs_err": k["max_abs_err"],
+                     "launches": launches[name], "max_abs_err": k["max_abs_err"],
                      "ms": k["ms"], "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
                      "bound_by": k["bound_by"], "library_ms": k["library_ms"]})
     log(f"[done] {time.perf_counter() - t_script:.1f} s")
@@ -415,6 +534,67 @@ def main() -> int:
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))
     return 0
+
+
+def _pool_phase(model, prog, dev, ops):
+    """Serve 12 requests through the slot pool from stage 1, one upgrade
+    per window up to stage 8, and check what came out and which kernels
+    ran. Returns the drained pool and the run's launch counts."""
+    from repro_torch.serving.engine import PoolRequest, SlotPoolEngine
+
+    cfg = model.cfg
+    rng = np.random.default_rng(3)
+    lengths = rng.integers(16, 97, POOL_REQUESTS)
+    budgets = rng.integers(24, 41, POOL_REQUESTS)
+    prompts = [rng.integers(0, cfg.vocab, int(n)) for n in lengths]
+    checked = FiniteLogits(model)
+    pool = SlotPoolEngine(checked, prog, n_slots=POOL_SLOTS, max_len=POOL_MAX_LEN,
+                          resident="quantized", dispatch_window=POOL_WINDOW,
+                          prefill_chunk=POOL_CHUNK, device=dev)
+    torch.cuda.synchronize()
+    reset_counts(ops)
+    t0 = time.perf_counter()
+    pool.receive_stage()
+    for rid in range(POOL_REQUESTS):
+        pool.submit(PoolRequest(rid=rid, prompt=prompts[rid],
+                                max_new_tokens=int(budgets[rid])))
+    out = pool.run(on_window=lambda _: pool.upgrade_if_available())
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    run_counts = counts(kernel_modules())
+    op_counts = dict(ops.LAUNCH_COUNTS)
+
+    layers, ticks, steps = cfg.n_layers, pool._tick_count, pool._step_count
+    report = pool.resident_report()
+    check(sorted(out) == list(range(POOL_REQUESTS)), sorted(out))
+    for rid, toks in out.items():
+        check(len(toks) == budgets[rid], (rid, len(toks), budgets[rid]))
+        check(all(0 <= t < cfg.vocab for t in toks), f"request {rid}: token out of vocab")
+    check(pool.completed == set(range(POOL_REQUESTS)), pool.completed)
+    check(bool(torch.stack(checked.flags).all()), "non-finite pool logits")
+    check(report["fp_bytes"] == 0, report["fp_bytes"])
+    check(pool.stage == prog.n_stages == 8, f"pool ended at stage {pool.stage}")
+    check(run_counts["plane_or_segments"] == 8, run_counts)
+    check(ticks > 0 and op_counts["prefill_attention"] == run_counts["flash_verify"]
+          == layers * ticks, (op_counts, run_counts, ticks))
+    check(run_counts["decode_attention"] == op_counts["decode_attention"]
+          == layers * steps, (run_counts, steps))
+    check(run_counts["dequant_matmul"] == op_counts["dequant_matmul"]
+          == (layers * 7 + 1) * (ticks + steps), (run_counts, ticks, steps))
+    check("verify_attention" not in op_counts, op_counts)
+    n_tok = sum(len(t) for t in out.values())
+    ttft = [pool.ttft_s[rid] for rid in range(POOL_REQUESTS)]
+    log(f"[pool] {POOL_REQUESTS} requests, prompts {int(lengths.min())}-"
+        f"{int(lengths.max())} tokens, budgets {int(budgets.min())}-{int(budgets.max())}; "
+        f"{POOL_SLOTS} slots, chunk {POOL_CHUNK}, window {POOL_WINDOW}; stages "
+        f"1->{pool.stage}, upgrades at steps {[s for s, _ in pool.upgrades]}")
+    log(f"[pool] {steps} decode steps, {ticks} chunk ticks, "
+        f"{len(pool.window_stats)} windows; launches in the run {run_counts}; "
+        f"every request got its budget of in-vocab tokens, logits finite, fp bytes 0")
+    log(f"[pool] {n_tok} tokens in {wall:.3f} s: {n_tok / wall:.1f} tokens/s; TTFT mean "
+        f"{sum(ttft) / len(ttft) * 1e3:.1f} ms, largest {max(ttft) * 1e3:.1f} ms; upgrade "
+        f"enqueue ms {[round(u['enqueue_s'] * 1e3, 2) for u in pool.upgrade_log]}")
+    return pool, run_counts
 
 
 def _layer_weights(lr: dict) -> list:
@@ -431,10 +611,11 @@ def _leaves(tree):
         yield tree
 
 
-def _whole_path(cfg, dev) -> float:
+def _whole_path(cfg, dev) -> tuple[float, float]:
     """The same 2-layer full-width weights served on the card and on the
-    CPU; teacher-forced logits compared after every stage. Returns the
-    worst max |err| / max |logit|."""
+    CPU; teacher-forced logits compared after every stage, and the logits
+    of a ragged prefill chunk and a verify block into pooled caches at
+    stages 1 and 8. Returns the worst max |err| / max |logit| of each."""
     from repro_torch.core.progressive import divide
     from repro_torch.models.model import build_model
     from repro_torch.serving.engine import ProgressiveServer
@@ -451,7 +632,7 @@ def _whole_path(cfg, dev) -> float:
     g = torch.Generator().manual_seed(4)
     prompt = torch.randint(0, cfg2.vocab, (2, 16), generator=g)
     forced = torch.randint(0, cfg2.vocab, (2, 2), generator=g)
-    worst = 0.0
+    worst = worst_chunk = 0.0
     for s in range(1, gpu.prog.n_stages + 1):
         gpu.receive_stage()
         cpu.receive_stage()
@@ -471,6 +652,32 @@ def _whole_path(cfg, dev) -> float:
             err = float((lg.cpu() - lc).abs().max()) / float(lc.abs().max())
             check(err <= PATH_RTOL, f"stage {s}: relative logit error {err:.3e}")
             worst = max(worst, err)
+        if s in (1, gpu.prog.n_stages):
+            worst_chunk = max(worst_chunk, _chunk_and_verify(model, gpu, cpu, g, dev, s))
+    return worst, worst_chunk
+
+
+def _chunk_and_verify(model, gpu, cpu, g, dev, stage) -> float:
+    """A prefill chunk (slot 0 at positions 0-7, slot 1 a short chunk of 5
+    rows) then a 3-row verify block into pooled caches, on both servers'
+    parameters; returns the worst relative logit error."""
+    vocab = model.cfg.vocab
+    tok_pos = torch.tensor([list(range(8)), [0, 1, 2, 3, 4, -1, -1, -1]],
+                           dtype=torch.int32)
+    calls = [("prefill_chunk", torch.randint(0, vocab, (2, 8), generator=g), tok_pos),
+             ("verify_step", torch.randint(0, vocab, (2, 3), generator=g),
+              torch.tensor([8, 5], dtype=torch.int32))]
+    caches = {"gpu": model.init_caches(2, 18, device=dev),
+              "cpu": model.init_caches(2, 18, device="cpu")}
+    worst = 0.0
+    for name, toks, pos in calls:
+        lg, caches["gpu"] = getattr(model, name)(gpu.params, caches["gpu"], toks.to(dev),
+                                                 pos.to(dev))
+        lc, caches["cpu"] = getattr(model, name)(cpu.params, caches["cpu"], toks, pos)
+        check(bool(torch.isfinite(lg).all()), f"{name}: non-finite logits")
+        err = float((lg.cpu() - lc).abs().max()) / float(lc.abs().max())
+        check(err <= PATH_RTOL, f"stage {stage} {name}: relative logit error {err:.3e}")
+        worst = max(worst, err)
     return worst
 
 

@@ -8,6 +8,7 @@ where every kernel takes its plain PyTorch version.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -19,3 +20,14 @@ def resolve_device(device="cuda") -> torch.device:
         raise RuntimeError("no CUDA device is available; pass device='cpu' to "
                            "run the plain PyTorch versions")
     return dev
+
+
+def to_device(arr: np.ndarray, device: torch.device) -> torch.Tensor:
+    """A host array on ``device`` without waiting for the device: for a
+    card, through a fresh pinned buffer and an asynchronous copy
+    (PyTorch's pinned allocator keeps the buffer until the copy has
+    run). A pageable copy would wait for all queued work."""
+    t = torch.from_numpy(np.ascontiguousarray(arr))
+    if device.type != "cuda":
+        return t.to(device)
+    return t.pin_memory().to(device, non_blocking=True)

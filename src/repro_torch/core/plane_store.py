@@ -34,7 +34,7 @@ from typing import Any, Sequence
 import numpy as np
 import torch
 
-from repro_torch import resolve_device
+from repro_torch import resolve_device, to_device
 from repro_torch.core.bitplanes import PlaneSchedule
 from repro_torch.core.quantize import (QuantizedTensor, affine_span, container_dtype,
                                        dequant_affine, dequantize)
@@ -231,7 +231,7 @@ class PlaneStore:
                     next_plane_shift(t.schedule, self.received[idx])
                 plane[pos:pos + t.size].copy_(items[idx].reshape(-1))
                 pos += t.padded
-            out[dt] = (idxs, plane, torch.from_numpy(shifts).to(self.device))
+            out[dt] = (idxs, plane, to_device(shifts, self.device))
         return out
 
     def _ingest_round(self, items: dict[int, torch.Tensor]) -> None:
@@ -275,7 +275,7 @@ class PlaneStore:
 
         def place(value: np.ndarray, dtype) -> torch.Tensor:
             arr = np.array(np.broadcast_to(value.astype(dtype), meta_shape))
-            return torch.from_numpy(arr).to(self.device)
+            return to_device(arr, self.device)
 
         const = self._qmeta_cache.get(s.key)
         if const is None:

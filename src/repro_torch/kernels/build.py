@@ -1,10 +1,11 @@
 """Build the hand-written CUDA kernels and load them with ctypes.
 
 Each source in ``csrc/`` has a plain C interface and is compiled by
-``nvcc`` on its own into a shared library under ``build/kernels/`` at the
-root of the checkout (``.gitignore`` lists ``build/``). A library's file
-name carries a hash of its source and flags, so an edited source is
-rebuilt and an unchanged one is loaded as it is. Every C entry point
+``nvcc`` on its own, with the ``csrc/`` headers it includes, into a
+shared library under ``build/kernels/`` at the root of the checkout
+(``.gitignore`` lists ``build/``). A library's file name carries a hash
+of its source, the headers and the flags, so an edited source or header
+is rebuilt and an unchanged one is loaded as it is. Every C entry point
 returns ``cudaGetLastError()`` after its launches; :func:`check` turns a
 non-zero code into an exception.
 
@@ -22,7 +23,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-SOURCES = ("plane_or", "dequant_matmul", "decode_attention")
+SOURCES = ("plane_or", "dequant_matmul", "decode_attention", "verify_attention")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 
@@ -35,6 +36,9 @@ SIGNATURES = {
     "decode_attention": ("flash_decode",
                          [P, P, P, P, I64, I64, P, P, I32, I32, I32, I32, I32, I32,
                           F32, F32, I32, P]),
+    "verify_attention": ("flash_verify",
+                         [P, I64, I64, P, P, P, I64, I64, P, I64, I64, P, I32, I32, I32,
+                          I32, I32, I32, I32, F32, F32, I32, P]),
 }
 
 _LOADED: dict[str, ctypes.CDLL] = {}
@@ -51,7 +55,9 @@ def nvcc() -> str:
 
 
 def _target(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
+    # the source and every header of csrc/ (a header edit rebuilds its users)
+    src = (CSRC / f"{name}.cu").read_bytes() + b"".join(
+        h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
     tag = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
     return BUILD_DIR / f"{name}-{tag}.so"
 

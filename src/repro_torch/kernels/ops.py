@@ -13,6 +13,7 @@ import collections
 from repro_torch.kernels import bitplane as _bp
 from repro_torch.kernels import decode_attention as _da
 from repro_torch.kernels import dequant_matmul as _dqm
+from repro_torch.kernels import verify_attention as _va
 
 # Calls per entry point. Diagnostic only: reset freely, never read on a
 # hot path.
@@ -45,3 +46,29 @@ def decode_attention(q, k, v, k_pos, q_pos, *, window: int = 0, softcap: float =
     dtype."""
     _count("decode_attention")
     return _da.flash_decode(q, k, v, k_pos, q_pos, window=window, softcap=softcap)
+
+
+def flash_verify(q, k, v, k_pos, q_pos, *, window: int = 0, softcap: float = 0.0):
+    """Ragged attention of T query rows per slot: q (B, T, H, hd); k/v in
+    the native (B, Kh, S, hd) cache layout; k_pos (B, S); q_pos (B, T)
+    per-row positions (negative = masked row)."""
+    _count("flash_verify")
+    return _va.flash_verify(q, k, v, k_pos, q_pos, window=window, softcap=softcap)
+
+
+def verify_attention(q, k, v, k_pos, q_pos, *, window: int = 0, softcap: float = 0.0):
+    """The model's speculative-verify attention: T = k+1 draft rows per
+    slot at positions pos + t, one pass over the cache. Each row equals
+    a decode step at its position, bit for bit."""
+    _count("verify_attention")
+    return _va.flash_verify(q, k, v, k_pos, q_pos, window=window, softcap=softcap)
+
+
+def prefill_attention(q, k, v, k_pos, q_pos, *, window: int = 0, softcap: float = 0.0):
+    """The model's chunked-prefill attention: a (B, chunk) block of prompt
+    rows per slot, q_pos holding each slot's chunk offsets (-1 for free
+    and decoding slots and past a short final chunk). The same kernel as
+    :func:`verify_attention`; the two names keep the call sites apart in
+    ``LAUNCH_COUNTS``."""
+    _count("prefill_attention")
+    return _va.flash_verify(q, k, v, k_pos, q_pos, window=window, softcap=softcap)

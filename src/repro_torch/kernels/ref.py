@@ -65,3 +65,31 @@ def flash_decode_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bkgs,bksd->bkgd", p, v.to(torch.float32))
     return o.reshape(B, H, hd)
+
+
+def flash_verify_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     k_pos: torch.Tensor, q_pos: torch.Tensor, *,
+                     window: int = 0, softcap: float = 0.0) -> torch.Tensor:
+    """Ragged batched attention of T query rows per slot.
+
+    q: (B, T, H, hd); k/v: (B, Kh, S, hd); k_pos: (B, S); q_pos: (B, T)
+    int32 per-row query positions (negative = masked row). Returns
+    float32 (B, T, H, hd).
+
+    A loop of :func:`flash_decode_ref` over the T rows on purpose: each
+    row is then exactly a decode step at that row's position, which is
+    what makes chunked prefill and speculative verify equal to
+    sequential decode row for row."""
+    rows = [flash_decode_ref(q[:, t], k, v, k_pos, q_pos[:, t], window=window,
+                             softcap=softcap) for t in range(q.shape[1])]
+    return torch.stack(rows, dim=1)
+
+
+def flash_prefill_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      k_pos: torch.Tensor, q_pos: torch.Tensor, *,
+                      window: int = 0, softcap: float = 0.0) -> torch.Tensor:
+    """Chunked-prefill attention: :func:`flash_verify_ref`'s operands and
+    computation, with q_pos rows holding each slot's chunk offsets
+    (slot b's row t is prompt position off_b + t, -1 past a short final
+    chunk and for free or decoding slots)."""
+    return flash_verify_ref(q, k, v, k_pos, q_pos, window=window, softcap=softcap)

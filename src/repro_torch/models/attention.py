@@ -1,11 +1,13 @@
 """Attention: RoPE, chunked online-softmax prefill attention, native
 ``(B, Kh, S, hd)`` KV caches and the self-attention of a decoder block.
 
-Counterpart of ``src/repro/models/attention.py`` for the ``prefill`` and
-``decode`` modes. The caches keep the decode kernel's native layout from
-prefill on, so a decode step writes one token per slot into its cache
-*in place* (PyTorch tensors are mutable; the reference returns new
-arrays) and reads the cache with ``ops.decode_attention`` without a
+Counterpart of ``src/repro/models/attention.py`` for the ``prefill``,
+``decode``, ``verify`` and ``prefill_chunk`` modes without a window. The
+caches keep the kernels' native layout from prefill on, so a decode step,
+a verify block or a prefill chunk writes its tokens into the cache *in
+place* (PyTorch tensors are mutable; the reference returns new arrays)
+and reads the cache with ``ops.decode_attention``,
+``ops.verify_attention`` or ``ops.prefill_attention`` without a
 transpose or a pad.
 """
 from __future__ import annotations
@@ -71,15 +73,20 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def write_kv_slot(cache: torch.Tensor, new: torch.Tensor, pos: torch.Tensor,
                   active: torch.Tensor | None = None) -> torch.Tensor:
-    """Write a token's K or V into the native cache at each slot's own
-    position, in place. cache: (B, K, S, hd); new: (B, K, 1, hd); pos:
-    (B,) int32, already clamped into range. ``active`` (B,) bool keeps a
-    slot's cache row as it was. Returns ``cache``."""
-    rows = torch.arange(cache.shape[0], device=cache.device)
-    val = new[:, :, 0].to(cache.dtype)                    # (B, K, hd)
+    """Write a block of T contiguous rows of K or V into the native cache
+    at each slot's own start position, in place. cache: (B, K, S, hd);
+    new: (B, K, T, hd), T = 1 for a decode step; pos: (B,) int32 start
+    rows, clamped into [0, S - T] as the reference's
+    ``dynamic_update_slice`` clamps them. ``active`` (B,) bool keeps a
+    slot's cache rows byte-identical. Returns ``cache``."""
+    B, _, S, _ = cache.shape
+    T = new.shape[2]
+    rows = torch.arange(B, device=cache.device)[:, None]
+    at = torch.clamp(pos.long(), 0, S - T)[:, None] + torch.arange(T, device=cache.device)
+    val = new.transpose(1, 2).to(cache.dtype)             # (B, T, K, hd)
     if active is not None:
-        val = torch.where(active[:, None, None], val, cache[rows, :, pos])
-    cache[rows, :, pos] = val
+        val = torch.where(active[:, None, None, None], val, cache[rows, :, at])
+    cache[rows, :, at] = val
     return cache
 
 
@@ -108,11 +115,27 @@ def decode_pos_vector(pos, batch: int, device) -> torch.Tensor:
 
 
 def self_attention(cfg: ArchConfig, p, x: torch.Tensor, *, mode: str, cache, pos):
-    """Full causal self-attention (sliding windows and ring caches are
-    still to be ported, ROADMAP A5). ``mode`` is ``prefill`` (returns
-    the prompt's native caches) or ``decode`` (writes one token per slot
-    into ``cache`` in place and attends through
-    ``ops.decode_attention``). Returns (out, cache)."""
+    """Full causal self-attention. ``mode`` is one of:
+
+    * ``prefill``: returns the prompt's native caches;
+    * ``decode``: writes one token per slot into ``cache`` in place
+      (``pos`` (B,), negative = the slot writes nothing) and attends
+      through ``ops.decode_attention``;
+    * ``verify``: a block of T tokens per slot at ``pos[b] + t`` (a
+      negative base masks the slot's every row), written as one
+      contiguous block, attended through ``ops.verify_attention``;
+    * ``prefill_chunk``: a (B, T) block of prompt rows whose positions
+      ``pos`` (B, T) arrive precomputed (negative = masked row), written
+      row by row, attended through ``ops.prefill_attention``.
+
+    The multi-row modes write the whole block first, then attend: the
+    per-row causal mask keeps rows beyond each query invisible. Masked
+    rows write nothing, so their cache rows stay byte-identical.
+    Sliding windows and ring caches are still to be ported (ROADMAP A8).
+    Returns (out, cache)."""
+    if cfg.window:
+        raise NotImplementedError("sliding-window attention and ring caches are "
+                                  "still to be ported (ROADMAP A8)")
     theta = cfg.rope_theta
     B, Tq, _ = x.shape
     q, k, v = project_qkv(cfg, p, x, x)
@@ -124,23 +147,40 @@ def self_attention(cfg: ArchConfig, p, x: torch.Tensor, *, mode: str, cache, pos
         # one transpose at prefill; decode never transposes
         new_cache = {"k": k.transpose(1, 2).contiguous(),
                      "v": v.transpose(1, 2).contiguous()}
-    elif mode == "decode":
-        pos_vec = decode_pos_vector(pos, B, x.device)       # (B,)
-        q = rope(q, pos_vec[:, None], theta)
-        k = rope(k, pos_vec[:, None], theta)
-        # inactive slots (pos < 0) write nothing
-        live = pos_vec >= 0
-        at = torch.clamp(pos_vec, min=0)
-        write_kv_slot(cache["k"], k.transpose(1, 2), at, live)
-        write_kv_slot(cache["v"], v.transpose(1, 2), at, live)
-        S = cache["k"].shape[2]
-        # the kernel masks k_pos > q_pos per slot, so stale entries beyond
-        # each slot's position never contribute
-        k_pos = torch.arange(S, dtype=torch.int32, device=x.device).expand(B, S)
-        out = ops.decode_attention(q[:, 0], cache["k"], cache["v"], k_pos,
-                                   pos_vec)[:, None]        # (B, 1, H, hd)
-        new_cache = cache
+        return dense(out.reshape(B, Tq, -1), p["wo"], dtype=cfg.dtype), new_cache
+    if mode == "decode":
+        tok_pos = decode_pos_vector(pos, B, x.device)[:, None]      # (B, 1)
+    elif mode == "verify":
+        base = decode_pos_vector(pos, B, x.device)[:, None]
+        rows = torch.arange(Tq, dtype=torch.int32, device=x.device)
+        tok_pos = torch.where(base >= 0, base + rows, -1)          # (B, T)
+    elif mode == "prefill_chunk":
+        tok_pos = pos.to(device=x.device, dtype=torch.int32)       # (B, T)
     else:
-        raise NotImplementedError(f"attention mode {mode!r} is still to be ported "
-                                  "(ROADMAP A9/A10)")
-    return dense(out.reshape(B, Tq, -1), p["wo"], dtype=cfg.dtype), new_cache
+        raise ValueError(f"unknown attention mode {mode!r}")
+    q = rope(q, tok_pos, theta)
+    k = rope(k, tok_pos, theta)
+    kn, vn = k.transpose(1, 2), v.transpose(1, 2)                  # (B, K, T, hd)
+    if mode == "prefill_chunk":
+        # row by row: a T-wide block write of a short final chunk would
+        # clamp near the cache end and drag its padding onto prompt rows
+        for t in range(Tq):
+            live = tok_pos[:, t] >= 0
+            write_kv_slot(cache["k"], kn[:, :, t:t + 1], tok_pos[:, t], live)
+            write_kv_slot(cache["v"], vn[:, :, t:t + 1], tok_pos[:, t], live)
+    else:
+        # decode and verify: one contiguous block per slot
+        live = tok_pos[:, 0] >= 0
+        write_kv_slot(cache["k"], kn, tok_pos[:, 0], live)
+        write_kv_slot(cache["v"], vn, tok_pos[:, 0], live)
+    S = cache["k"].shape[2]
+    # the kernels mask k_pos > q_pos per row, so stale entries beyond each
+    # row's position never contribute
+    k_pos = torch.arange(S, dtype=torch.int32, device=x.device).expand(B, S)
+    if mode == "decode":
+        out = ops.decode_attention(q[:, 0], cache["k"], cache["v"], k_pos,
+                                   tok_pos[:, 0])[:, None]          # (B, 1, H, hd)
+    else:
+        attend = ops.verify_attention if mode == "verify" else ops.prefill_attention
+        out = attend(q, cache["k"], cache["v"], k_pos, tok_pos)    # (B, T, H, hd)
+    return dense(out.reshape(B, Tq, -1), p["wo"], dtype=cfg.dtype), cache

@@ -35,6 +35,7 @@ class ArchConfig:
     rope_theta: float = 10_000.0
     norm_type: str = "nonparam_ln"
     act: str = "silu"
+    window: int = 0             # sliding-window span (0 = full attention)
     attn_chunk: int = 1024      # online-softmax KV chunk of prefill attention
     dtype: Any = torch.bfloat16  # activations and KV caches
 

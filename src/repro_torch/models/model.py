@@ -5,6 +5,8 @@ Counterpart of ``src/repro/models/model.py`` for the dense decoder:
     init(generator, device=)           -> params
     prefill(params, batch)             -> (last_logits, caches)
     decode_step(params, caches, tokens, pos) -> (logits, caches)
+    prefill_chunk(params, caches, tokens, tok_pos) -> (logits, caches)
+    verify_step(params, caches, tokens, pos) -> (logits, caches)
     init_caches(batch, max_len, device=)     -> zeroed caches
     grow_caches(caches, max_len)       -> prefill caches padded for decoding
 
@@ -71,6 +73,37 @@ class Model:
                                   caches=caches, pos=pos)
         x = apply_norm(cfg, params["final_norm"], x)
         return self._unembed(params, x)[:, 0, :], caches
+
+    def prefill_chunk(self, params, caches, tokens: torch.Tensor, tok_pos: torch.Tensor):
+        """Ragged chunked prefill: consume a (B, C) block of prompt tokens
+        straight into the pooled ``caches``, each slot at its own depth.
+        ``tok_pos`` (B, C) int32 is token (b, t)'s prompt position;
+        negative marks a masked row (a free or decoding slot riding the
+        batched launch, or padding past a short final chunk), which
+        writes nothing. Returns ``(logits (B, C, V), caches)``:
+        logits[:, t] is the next-token distribution after prompt
+        position tok_pos[:, t]."""
+        cfg = self.cfg
+        x = self._embed(params, tokens)
+        x, caches = tfm.run_stack(cfg, params["decoder"], x, mode="prefill_chunk",
+                                  caches=caches, pos=tok_pos)
+        x = apply_norm(cfg, params["final_norm"], x)
+        return self._unembed(params, x), caches
+
+    def verify_step(self, params, caches, tokens: torch.Tensor, pos):
+        """Speculative verify: score a (B, T) block in one pass. Token t of
+        slot b sits at ``pos[b] + t``; a negative base masks the slot.
+        Returns ``(logits (B, T, V), caches)``: logits[:, t] is exactly
+        what t + 1 sequential ``decode_step`` calls would give. K/V of all
+        T rows are written; rejected rows stay in place, invisible to the
+        causal mask, until later rounds overwrite them."""
+        cfg = self.cfg
+        pos = decode_pos_vector(pos, tokens.shape[0], tokens.device)
+        x = self._embed(params, tokens)
+        x, caches = tfm.run_stack(cfg, params["decoder"], x, mode="verify",
+                                  caches=caches, pos=pos)
+        x = apply_norm(cfg, params["final_norm"], x)
+        return self._unembed(params, x), caches
 
     def init_caches(self, batch: int, max_len: int, *, device="cuda"):
         return tfm.stack_init_caches(self.cfg, batch, max_len,

@@ -93,7 +93,8 @@ def stack_init_caches(cfg: ArchConfig, batch: int, max_len: int, *, device="cuda
 def run_stack(cfg: ArchConfig, params: dict, x: torch.Tensor, *, mode: str,
               caches=None, pos=None):
     """Returns (x, caches). ``prefill`` builds the prompt's caches (stacked
-    like the params); ``decode`` writes into ``caches`` in place."""
+    like the params); ``decode``, ``verify`` and ``prefill_chunk`` write
+    into ``caches`` in place and return them."""
     _check_layers(cfg)
     per_layer: dict[str, list] = {f"{j}_{kind}": [] for j, kind in enumerate(cfg.cycle)}
     for r in range(cfg.n_cycles):
@@ -103,7 +104,7 @@ def run_stack(cfg: ArchConfig, params: dict, x: torch.Tensor, *, mode: str,
             x, nc = block_apply(cfg, kind, layer(params["cycles"][slot], r), x,
                                 mode=mode, cache=c, pos=pos)
             per_layer[slot].append(nc)
-    if mode == "decode":
+    if mode in ("decode", "verify", "prefill_chunk"):
         return x, caches
     return x, {"cycles": {slot: {name: torch.stack([c[name] for c in cs])
                                  for name in ("k", "v")}

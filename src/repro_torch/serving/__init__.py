@@ -1,5 +1,6 @@
-from repro_torch.serving.engine import (GenerationResult, PrecisionManagedEngine,
-                                        ProgressiveServer, resident_report)
+from repro_torch.serving.engine import (GenerationResult, PoolRequest, PoolStepStats,
+                                        PrecisionManagedEngine, ProgressiveServer,
+                                        SlotPoolEngine, resident_report)
 
-__all__ = ["GenerationResult", "PrecisionManagedEngine", "ProgressiveServer",
-           "resident_report"]
+__all__ = ["GenerationResult", "PoolRequest", "PoolStepStats", "PrecisionManagedEngine",
+           "ProgressiveServer", "SlotPoolEngine", "resident_report"]

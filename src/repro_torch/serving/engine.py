@@ -2,10 +2,17 @@
 weights, serves at once, and upgrades precision in place between decode
 steps as later planes arrive. The KV cache survives every upgrade.
 
-Counterpart of ``src/repro/serving/engine.py`` for the pull-mode
-single-stream server with ``resident="quantized"``: the live parameter
-tree holds :class:`~repro_torch.core.quantize.QuantizedTensor` views of
-the PlaneStore accumulators, eq. (5) runs inside every matmul
+Counterpart of ``src/repro/serving/engine.py`` in pull mode with
+``resident="quantized"``, for two engines over the same precision
+machinery:
+
+* :class:`ProgressiveServer`: one lock-stepped request stream;
+* :class:`SlotPoolEngine`: continuous batching over a fixed pool of
+  decode slots, with chunked prefill admitting requests mid-flight.
+
+The live parameter tree holds
+:class:`~repro_torch.core.quantize.QuantizedTensor` views of the
+PlaneStore accumulators, eq. (5) runs inside every matmul
 (``kernels/dequant_matmul``) and no float weight buffer exists. An
 upgrade is one ``plane_or_segments`` launch per container dtype plus new
 scale/offset values.
@@ -13,12 +20,14 @@ scale/offset values.
 from __future__ import annotations
 
 import dataclasses
+import os
 import time
 from typing import Any, Callable
 
+import numpy as np
 import torch
 
-from repro_torch import resolve_device
+from repro_torch import resolve_device, to_device
 from repro_torch.core.progressive import (ProgressiveModel, ReceiverState,
                                           tree_flatten_with_path)
 from repro_torch.core.quantize import QuantizedTensor
@@ -107,10 +116,22 @@ class PrecisionManagedEngine:
         self.device = resolve_device(device)
         self.state = ReceiverState.init(prog, device=self.device)
         self.params = None  # live parameter tree at the current precision
+        self._last_upgrade_split: dict[str, float] = {}
 
     @property
     def stage(self) -> int:
         return self.state.received_stages
+
+    @property
+    def stages_available(self) -> int:
+        """Stages the engine could upgrade to right now: in pull mode every
+        stage of ``self.prog`` is at hand."""
+        return self.prog.n_stages
+
+    def _wait(self) -> None:
+        """Wait for the work queued on the engine's card (nothing on the CPU)."""
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
 
     def _refresh_params(self) -> None:
         self.params = self.state.materialize_resident(quantized_resident_eligible)
@@ -125,10 +146,15 @@ class PrecisionManagedEngine:
         """Pull the next stage's planes from ``self.prog`` and OR them into
         the accumulators (one ``plane_or_segments`` launch per container
         dtype), then refresh the parameter views: new accumulator views
-        and new scale/offset values, no weight dequantization."""
+        and new scale/offset values, no weight dequantization. The host
+        time of each half lands in ``_last_upgrade_split``."""
+        t0 = time.perf_counter()
         s = self.state.received_stages + 1
         self.state = self.state.receive(self.prog.stage(s))
+        t1 = time.perf_counter()
         self._refresh_params()
+        self._last_upgrade_split = {"ingest_s": t1 - t0,
+                                    "refresh_s": time.perf_counter() - t1}
 
 
 class ProgressiveServer(PrecisionManagedEngine):
@@ -152,10 +178,6 @@ class ProgressiveServer(PrecisionManagedEngine):
         self.caches = self.model.grow_caches(caches, self.max_len)
         self.pos = tokens.shape[1]
         self.last_logits = last_logits
-
-    def _wait(self) -> None:
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
 
     def decode(self, steps: int, *, stage_arrival: Callable[[int], bool] | None = None,
                sync: bool = False, dispatch_window: int = 8) -> GenerationResult:
@@ -204,3 +226,426 @@ class ProgressiveServer(PrecisionManagedEngine):
             stage_at_step=stage_at, upgrades=upgrades, per_step_s=per_step,
             window_s=window_s, ttft_s=ttft or 0.0, tpot_s=total / max(steps, 1),
             mode="sync" if sync else "async")
+
+
+# ---------------------------------------------------------------------------
+# Continuous batching: the slot pool
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class PoolRequest:
+    """One serving request: a prompt and a generation budget."""
+
+    rid: int
+    prompt: Any                  # (S,) int token ids
+    max_new_tokens: int
+    extras: dict = dataclasses.field(default_factory=dict)
+    # per-request side inputs of vision and encoder archs (ROADMAP A8);
+    # the dense decoder accepts none
+
+
+@dataclasses.dataclass
+class _Slot:
+    rid: int | None = None       # None = free
+    dispatched: int = 0          # decode steps issued for this request
+    budget: int = 0
+
+    @property
+    def free(self) -> bool:
+        return self.rid is None
+
+
+@dataclasses.dataclass
+class PoolStepStats:
+    """Host-visible outcome of a flushed dispatch window: ``upgrades``
+    precision upgrades were enqueued while this window's steps were in
+    flight, and enqueueing them held the host for ``upgrade_enqueue_s``."""
+
+    steps: int
+    wall_s: float
+    tokens_emitted: int
+    upgrades: int = 0
+    upgrade_enqueue_s: float = 0.0
+    prefill_ticks: int = 0  # chunked-prefill blocks advanced this window
+
+
+def _later(what: str, item: str) -> NotImplementedError:
+    return NotImplementedError(f"{what} is still to be ported (ROADMAP {item})")
+
+
+class SlotPoolEngine(PrecisionManagedEngine):
+    """Continuous-batching progressive serving.
+
+    ``n_slots`` decode slots share one set of native ``(B, Kh, S, hd)``
+    caches and one live parameter tree over the PlaneStore accumulators.
+    Requests queue FIFO and are admitted into free slots mid-flight;
+    admission is chunked: a prompt is staged on the host and consumed
+    ``prefill_chunk`` tokens per tick by one batched ragged
+    ``Model.prefill_chunk`` that writes its K/V straight into the slot's
+    cache rows (free and decoding slots ride along masked). A tick runs
+    before every decode step. A mid-prefill slot's device ``pos`` stays
+    -1, which masks it out of the interleaved decode steps; the tick that
+    holds its last prompt token installs its end position, last-row
+    logits and first greedy token on the device (:func:`_chunk_step`).
+    A slot's device ``pos`` is >= 0 exactly while it decodes.
+
+    Decode is dispatched in bounded asynchronous windows: greedy tokens
+    chain on the device, and the host waits once per window, in
+    :meth:`flush`, where it reads the window's tokens. Neither
+    :meth:`step` nor the prefill tick waits for the device: the per-slot
+    state lives on the device and changes by index fills, and the tick's
+    host arrays go up through pinned memory without a sync. Upgrades
+    apply between windows (:meth:`upgrade_if_available`); with
+    ``double_buffer`` they are only enqueued, since the store ORs into
+    new buffers while queued steps read the old ones.
+
+    Left for later, each raising ``NotImplementedError``: batch-1
+    admission (``chunked_prefill=False``) and its prompt buckets, which
+    need ``Model.prefill(n_valid)`` (ROADMAP A9); ``receiver=`` and
+    ``resident="fp"`` (A6); ``mesh=`` (A13); sliding-window rings and
+    recurrent-slot resets (A8, which brings the reference's
+    ``ring_margin`` too); telemetry, which the reference turns on with
+    ``REPRO_TELEMETRY`` (A11). ``PoolRequest.extras`` are refused
+    as the reference refuses them for a text-only arch; vision and
+    encoder side inputs come with A8. The reference's
+    ``decode_cache_size``/``prefill_cache_size`` count JAX executables
+    and have no counterpart: nothing is compiled here.
+    """
+
+    def __init__(self, model: Model, prog: ProgressiveModel, *, n_slots: int,
+                 max_len: int, receiver=None, resident: str = "fp",
+                 dispatch_window: int = 8, eos_id: int | None = None,
+                 chunked_prefill: bool | None = None,
+                 prefill_chunk: int = 8, double_buffer: bool = True, mesh=None,
+                 device="cuda"):
+        if receiver is not None:
+            raise _later("serving from a wire-fed receiver (receiver=)", "A6")
+        if mesh is not None:
+            raise _later("sharded serving (mesh=)", "A13")
+        if chunked_prefill is False:
+            raise _later("batch-1 admission (chunked_prefill=False) with prompt "
+                         "buckets, which needs Model.prefill(n_valid),", "A9")
+        if model.cfg.window:
+            raise _later("sliding-window ring caches", "A8")
+        if os.environ.get("REPRO_TELEMETRY", "") not in ("", "0"):
+            raise _later("serving telemetry (REPRO_TELEMETRY)", "A11")
+        if n_slots < 1:
+            raise ValueError("n_slots must be >= 1")
+        super().__init__(model, prog, max_len, resident=resident, device=device)
+        self.prefill_chunk = max(1, int(prefill_chunk))
+        self.double_buffer = bool(double_buffer)
+        self.n_slots = n_slots
+        self.dispatch_window = max(1, dispatch_window)
+        dev = self.device
+        self.caches = model.init_caches(n_slots, max_len, device=dev)
+        self.pos = torch.full((n_slots,), -1, dtype=torch.int32, device=dev)
+        self.last_logits = torch.zeros((n_slots, model.cfg.vocab), dtype=torch.float32,
+                                       device=dev)
+        self.slots = [_Slot() for _ in range(n_slots)]
+        self.queue: list[PoolRequest] = []         # FIFO admission backlog
+        self.outputs: dict[int, list[int]] = {}    # rid -> generated tokens
+        self.stage_log: dict[int, list[int]] = {}  # rid -> stage per token
+        self.admit_stage: dict[int, int] = {}      # rid -> prefill stage
+        self.admitted_order: list[int] = []        # rids, actual admission
+        self.completed: set[int] = set()
+        self._retired: set[int] = set()  # evicted, final window not yet flushed
+        # in-flight dispatched steps awaiting a flush:
+        # (tokens (B, 1) device tensor, {slot: rid} snapshot, stage)
+        self._pending: list[tuple[torch.Tensor, dict[int, int], int]] = []
+        self._win_t0: float | None = None
+        self.window_stats: list[PoolStepStats] = []
+        self.upgrade_stall_s = 0.0     # host time blocked on upgrades
+        self.upgrade_enqueue_s = 0.0   # host time enqueueing them
+        self.upgrade_log: list[dict] = []           # per-upgrade record
+        self.upgrades: list[tuple[int, int]] = []   # (global step, stage)
+        self._step_count = 0
+        self._tick_count = 0           # chunked-prefill blocks consumed
+        self._win_upgrades = 0
+        self._win_upgrade_enqueue_s = 0.0
+        self._win_prefill_ticks = 0
+        # slot -> staged prompt and consumption offset; such a slot holds
+        # a request (not free) but does not decode yet
+        self._prefill_state: dict[int, dict] = {}
+        # device-side companions the chunk step fills when a slot's prefill
+        # completes: its first greedy token, as the last-token chain that a
+        # speculative draft consumes and as a capture read at flush
+        self._last_tok = torch.zeros((n_slots, 1), dtype=torch.int32, device=dev)
+        self._first_cap = torch.zeros((n_slots,), dtype=torch.int32, device=dev)
+        self._submit_t: dict[int, float] = {}   # rid -> submit wall time
+        self.ttft_s: dict[int, float] = {}      # rid -> first-token latency
+        # eos is checked at flush boundaries: a request may decode up to
+        # dispatch_window - 1 tokens past its eos, which are dropped
+        self.eos_id = eos_id
+
+    # -- admission / eviction ----------------------------------------------
+    def free_slots(self) -> list[int]:
+        return [i for i, s in enumerate(self.slots) if s.free]
+
+    def active_rids(self) -> dict[int, int]:
+        """Slots that decode: admitted, prefill complete."""
+        return {i: s.rid for i, s in enumerate(self.slots)
+                if not s.free and i not in self._prefill_state}
+
+    def submit(self, request: PoolRequest) -> None:
+        """Queue a request; it is admitted into the next free slot at the
+        next admission point (at once if a slot is free). A malformed
+        request raises here, before any device work."""
+        self._validate_request(request)
+        self._submit_t[request.rid] = time.perf_counter()
+        self.queue.append(request)
+        self._admit_from_queue()
+
+    def _validate_request(self, req: PoolRequest) -> None:
+        """Host-side (numpy) checks, with the reference's errors."""
+        if req.max_new_tokens < 1:
+            raise ValueError("max_new_tokens must be >= 1")
+        prompt = np.asarray(req.prompt)
+        if prompt.ndim != 1:
+            raise ValueError(
+                f"PoolRequest.prompt must be one-dimensional (S,), got "
+                f"shape {prompt.shape}")
+        if prompt.shape[0] < 1:
+            raise ValueError("PoolRequest.prompt must hold >= 1 token")
+        if prompt.shape[0] + req.max_new_tokens > self.max_len:
+            # write positions reach prompt_len + budget - 1; past max_len
+            # the cache write would clamp onto the last row
+            raise ValueError(
+                f"request needs {prompt.shape[0]} prompt + "
+                f"{req.max_new_tokens} new tokens > max_len {self.max_len}")
+        for k in req.extras:
+            # the dense decoder takes no side inputs
+            raise ValueError(f"unknown extras key {k!r}; this arch accepts []")
+
+    def _admit_from_queue(self) -> None:
+        while self.queue and (free := self.free_slots()):
+            self._admit(free[0], self.queue.pop(0))
+
+    def _admit(self, slot: int, req: PoolRequest) -> None:
+        if self.params is None:
+            raise RuntimeError("no planes received yet — call receive_stage()")
+        prompt = np.asarray(req.prompt, np.int32)
+        self.slots[slot] = _Slot(rid=req.rid, dispatched=0, budget=req.max_new_tokens)
+        self.outputs.setdefault(req.rid, [])
+        self.stage_log.setdefault(req.rid, [])
+        self.admit_stage[req.rid] = self.stage
+        self.admitted_order.append(req.rid)
+        self._post_admit(slot, req, int(prompt.shape[0]))
+        self._begin_chunked_prefill(slot, req, prompt)
+
+    def _post_admit(self, slot: int, req: PoolRequest, prompt_len: int) -> None:
+        """Subclass hook, called once per admission before the prompt is
+        consumed."""
+
+    def _begin_chunked_prefill(self, slot: int, req: PoolRequest,
+                               prompt: np.ndarray) -> None:
+        """Host bookkeeping only: stage the prompt for :meth:`_prefill_tick`.
+        A prior occupant's stale cache rows need no reset: the causal mask
+        hides every row past a query's position, and a row is written
+        before any query reaches it."""
+        self._prefill_state[slot] = {"prompt": prompt, "off": 0, "rid": req.rid,
+                                     "len": int(prompt.shape[0])}
+
+    def _prefill_tick(self) -> None:
+        """Advance every mid-prefill slot by one (B, chunk) block in one
+        batched ``prefill_chunk``; free and decoding slots ride along
+        masked (tok_pos = -1). A slot whose last prompt token is in this
+        block gets its end position, last-row logits and first greedy
+        token installed on the device, so it joins the next decode step
+        with no host sync."""
+        if not self._prefill_state:
+            return
+        C, B = self.prefill_chunk, self.n_slots
+        # one int32 buffer, one asynchronous copy: tokens (B, C),
+        # positions (B, C), final row (B,)
+        host = np.zeros((B, 2 * C + 1), np.int32)
+        host[:, C:] = -1
+        done: list[int] = []
+        for slot, st in self._prefill_state.items():
+            off, L = st["off"], st["len"]
+            if off == 0:
+                # the stage the prompt is consumed at: an upgrade may land
+                # between submit and the first tick
+                self.admit_stage[st["rid"]] = self.stage
+            n = min(C, L - off)
+            host[slot, :n] = st["prompt"][off:off + n]
+            host[slot, C:C + n] = np.arange(off, off + n, dtype=np.int32)
+            if off + n == L:
+                host[slot, 2 * C] = n - 1
+                done.append(slot)
+            st["off"] = off + n
+        staged = to_device(host, self.device)
+        (self.caches, self.pos, self.last_logits, self._last_tok,
+         self._first_cap) = _chunk_step(
+            self.model, self.params, self.caches, staged[:, :C], staged[:, C:2 * C],
+            staged[:, 2 * C], self.pos, self.last_logits, self._last_tok,
+            self._first_cap)
+        self._tick_count += 1
+        self._win_prefill_ticks += 1
+        for slot in done:
+            del self._prefill_state[slot]
+            self._on_prefill_complete(slot)
+
+    def _on_prefill_complete(self, slot: int) -> None:
+        """Subclass hook when a slot's chunked prefill finishes."""
+
+    def _note_first_token(self, rid: int) -> None:
+        t = self._submit_t.get(rid)
+        if t is not None and rid not in self.ttft_s:
+            self.ttft_s[rid] = time.perf_counter() - t
+
+    def _evict(self, slot: int) -> int:
+        rid = self.slots[slot].rid
+        self.slots[slot] = _Slot()
+        self.pos[slot:slot + 1].fill_(-1)   # a fill: no copy, no sync
+        self._retired.add(rid)         # completed once its last window flushes
+        return rid
+
+    # -- batched ragged decode ---------------------------------------------
+    def step(self) -> dict[int, int]:
+        """One scheduling tick: advance chunked prefills by one block (if
+        any are staged), then dispatch one batched decode step for every
+        decoding slot (free and mid-prefill slots ride along masked).
+        Returns the ``{slot: rid}`` snapshot the decode step ran for,
+        empty when nothing decodes yet. Nothing here waits for the
+        device."""
+        if self.params is None:
+            raise RuntimeError("no planes received yet — call receive_stage()")
+        if self._win_t0 is None:
+            self._win_t0 = time.perf_counter()
+        self._prefill_tick()
+        snapshot = self.active_rids()
+        if not snapshot:
+            return snapshot
+        nxt = torch.argmax(self.last_logits, dim=-1).to(torch.int32)[:, None]
+        logits, self.caches = self.model.decode_step(self.params, self.caches, nxt,
+                                                     self.pos)
+        # the decoding slots are exactly those with pos >= 0
+        self.pos = torch.where(self.pos >= 0, self.pos + 1, self.pos)
+        self.last_logits = logits
+        self._pending.append((nxt, snapshot, self.stage))
+        self._step_count += 1
+        # dispatch-time bookkeeping: budgets count down without reading
+        # token values, so length-complete slots free at once
+        for slot in snapshot:
+            s = self.slots[slot]
+            s.dispatched += 1
+            if s.dispatched >= s.budget:
+                self._evict(slot)
+        return snapshot
+
+    def flush(self) -> PoolStepStats | None:
+        """Wait for the in-flight window, hand its token values to their
+        requests, complete eos- and budget-finished ones."""
+        if not self._pending:
+            return None
+        # the window's one host sync: the copy queues behind every step
+        toks = torch.cat([t for t, _, _ in self._pending], dim=1).cpu().numpy()
+        wall = time.perf_counter() - (self._win_t0 or time.perf_counter())
+        emitted = 0
+        eos_hit: set[int] = set()
+        for j, (_, snapshot, stage) in enumerate(self._pending):
+            for slot, rid in snapshot.items():
+                if rid in eos_hit:
+                    continue
+                tok = int(toks[slot, j])
+                if not self.outputs[rid]:
+                    self._note_first_token(rid)
+                self.outputs[rid].append(tok)
+                self.stage_log[rid].append(stage)
+                emitted += 1
+                if self.eos_id is not None and tok == self.eos_id:
+                    eos_hit.add(rid)
+                    # the slot may already be freed by budget bookkeeping
+                    if not self.slots[slot].free and self.slots[slot].rid == rid:
+                        self._evict(slot)
+        self.completed |= self._retired
+        self._retired.clear()
+        stats = PoolStepStats(steps=len(self._pending), wall_s=wall,
+                              tokens_emitted=emitted, upgrades=self._win_upgrades,
+                              upgrade_enqueue_s=self._win_upgrade_enqueue_s,
+                              prefill_ticks=self._win_prefill_ticks)
+        return self._record_window(stats)
+
+    def _record_window(self, stats: PoolStepStats) -> PoolStepStats:
+        """Window chokepoint: append the stats, reset the window's
+        accumulators."""
+        self.window_stats.append(stats)
+        self._pending.clear()
+        self._win_t0 = None
+        self._win_upgrades = 0
+        self._win_upgrade_enqueue_s = 0.0
+        self._win_prefill_ticks = 0
+        return stats
+
+    def upgrade_if_available(self) -> bool:
+        """Advance one stage (pull mode: the caller models the arrival
+        cadence). With ``double_buffer`` (default) this only enqueues the
+        OR and the view refresh: the store writes new accumulators while
+        queued decode steps read the old ones, and the next dispatched
+        step reads the new ones in stream order. ``double_buffer=False``
+        waits for the device after the upgrade, for A/B stall
+        measurement. ``upgrade_log`` records each upgrade's host times."""
+        if self.stage >= self.prog.n_stages or self.stages_available <= self.stage:
+            return False
+        t0 = time.perf_counter()
+        self.receive_stage()
+        enqueue_s = time.perf_counter() - t0
+        if not self.double_buffer:
+            self._wait()
+        stall_s = time.perf_counter() - t0
+        self.upgrade_enqueue_s += enqueue_s
+        self.upgrade_stall_s += stall_s
+        self._win_upgrades += 1
+        self._win_upgrade_enqueue_s += enqueue_s
+        split = self._last_upgrade_split
+        self.upgrade_log.append({
+            "step": self._step_count, "stage": self.stage,
+            "enqueue_s": enqueue_s, "stall_s": stall_s,
+            "ingest_s": split.get("ingest_s", 0.0),
+            "refresh_s": split.get("refresh_s", 0.0),
+            "fence_s": stall_s - enqueue_s,
+            "sharded": False, "double_buffer": self.double_buffer})
+        self.upgrades.append((self._step_count, self.stage))
+        return True
+
+    def run(self, *, max_steps: int = 100_000,
+            on_window: Callable[[int], None] | None = None) -> dict[int, list[int]]:
+        """Drive the pool until every submitted request completes.
+        ``on_window(step_count)`` runs at every window boundary (to admit
+        staggered arrivals or upgrade)."""
+        while any(not s.free for s in self.slots) or self.queue:
+            for _ in range(self.dispatch_window):
+                if not any(not s.free for s in self.slots):
+                    break
+                self.step()
+                if self._step_count >= max_steps:
+                    break
+            self.flush()
+            self._admit_from_queue()
+            if on_window is not None:
+                on_window(self._step_count)
+            if self._step_count >= max_steps:
+                break
+        self.flush()
+        return {rid: list(v) for rid, v in self.outputs.items()}
+
+
+def _chunk_step(model: Model, params, caches, tokens, tok_pos, final_row, pos,
+                last_logits, last_tok, first_cap):
+    """Consume one (B, C) prompt block into the pooled caches and, for each
+    slot whose last prompt token is in it (``final_row[b] >= 0`` is that
+    row), hand off on the device: end position, last-row logits and the
+    argmax first token (into the last-token chain and the first-token
+    capture). Other slots pass through untouched. No host sync."""
+    logits, caches = model.prefill_chunk(params, caches, tokens, tok_pos)
+    B, C = tokens.shape
+    slots = torch.arange(B, device=logits.device)
+    row = torch.clamp(final_row, 0, C - 1).long()
+    sel = logits[slots, row]                                   # (B, V)
+    done = final_row >= 0
+    last_logits = torch.where(done[:, None], sel.to(last_logits.dtype), last_logits)
+    pos = torch.where(done, tok_pos[slots, row] + 1, pos)
+    first = torch.argmax(sel, dim=-1).to(torch.int32)
+    last_tok = torch.where(done[:, None], first[:, None], last_tok)
+    first_cap = torch.where(done, first, first_cap)
+    return caches, pos, last_logits, last_tok, first_cap

@@ -8,13 +8,17 @@ without one. Run on the card with:
 This file imports no JAX, so it runs where only PyTorch is installed.
 Tolerances: ``plane_or_segments`` exact; ``dequant_matmul`` within 1e-4
 of the output's largest magnitude (only the order of the float32 sum
-over K differs); ``flash_decode`` within 2e-5 (float32) or 2**-7
-(bfloat16 output rounding) of the output's largest magnitude.
+over K differs); ``flash_decode`` and ``flash_verify`` within 2e-5
+(float32) or 2**-7 (bfloat16 output rounding) of the output's largest
+magnitude; every ``flash_verify`` row exactly equal to a ``flash_decode``
+launch for that row.
 """
+import numpy as np
 import pytest
 import torch
 
-from repro_torch.kernels import bitplane, decode_attention, dequant_matmul, ref
+from repro_torch.kernels import (bitplane, decode_attention, dequant_matmul, ref,
+                                 verify_attention)
 
 pytestmark = pytest.mark.gpu
 
@@ -67,7 +71,8 @@ def test_dequant_matmul(dev, M, K, N, qdtype, layout, xdtype):
 
 
 @pytest.mark.parametrize("B,H,Kh,S,hd", [(4, 16, 16, 112, 128), (3, 8, 2, 50, 64),
-                                         (2, 8, 1, 300, 256), (1, 4, 4, 7, 32)])
+                                         (2, 8, 1, 300, 256), (1, 4, 4, 7, 32),
+                                         (2, 24, 2, 70, 16)])
 @pytest.mark.parametrize("window,softcap", [(0, 0.0), (24, 0.0), (0, 30.0)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_decode(dev, B, H, Kh, S, hd, window, softcap, dtype):
@@ -107,3 +112,120 @@ def test_mixed_devices_raise(dev):
         bitplane.plane_or_segments(torch.zeros(1024, dtype=torch.uint16, device=dev),
                                    torch.zeros(1024, dtype=torch.uint16),
                                    torch.zeros(1, dtype=torch.int32, device=dev))
+
+
+def _verify_operands(dev, B, T, H, Kh, S, hd, dtype, seed):
+    """Slot 0 ends at the cache end; slot 1 (if any) is ragged, with empty
+    cache entries past S // 2 and its last rows masked as past a short
+    final chunk; the last slot (if B > 2) is free."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q = torch.randn((B, T, H, hd), generator=g, device=dev).to(dtype)
+    k = torch.randn((B, Kh, S, hd), generator=g, device=dev).to(dtype)
+    v = torch.randn((B, Kh, S, hd), generator=g, device=dev).to(dtype)
+    k_pos = torch.arange(S, dtype=torch.int32, device=dev).repeat(B, 1)
+    q_pos = (torch.arange(T, dtype=torch.int32, device=dev) + (S - T)).repeat(B, 1)
+    if B > 1:
+        k_pos[1, S // 2:] = -1
+        q_pos[1] = torch.arange(T, dtype=torch.int32, device=dev) + S // 4
+        q_pos[1, max(1, T - 2):] = -1
+    if B > 2:
+        q_pos[-1] = -1
+    return q, k, v, k_pos, q_pos
+
+
+@pytest.mark.parametrize("B,T,H,Kh,S,hd", [(8, 8, 16, 16, 160, 128), (3, 5, 8, 2, 50, 64),
+                                           (2, 8, 16, 2, 300, 256), (3, 1, 4, 4, 7, 32),
+                                           (3, 3, 24, 2, 33, 16)])
+@pytest.mark.parametrize("window,softcap", [(0, 0.0), (24, 0.0), (0, 30.0)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_verify(dev, B, T, H, Kh, S, hd, window, softcap, dtype):
+    """(3, 3, 24, 2, ...) has G = 12 query heads per kv head: a slot's 36
+    rows span five tiles, each tile mixing tokens."""
+    q, k, v, k_pos, q_pos = _verify_operands(dev, B, T, H, Kh, S, hd, dtype, B * S + hd)
+    out = verify_attention.flash_verify(q, k, v, k_pos, q_pos, window=window,
+                                        softcap=softcap)
+    want = ref.flash_verify_ref(q, k, v, k_pos, q_pos, window=window, softcap=softcap)
+    assert out.shape == q.shape and out.dtype == dtype
+    assert torch.isfinite(out).all()
+    tol = 2e-5 if dtype == torch.float32 else 2.0 ** -7
+    assert (out.float() - want).abs().max().item() <= tol * max(1.0, want.abs().max().item())
+
+
+@pytest.mark.parametrize("B,T,H,Kh,S,hd", [(8, 8, 16, 16, 160, 128), (3, 5, 8, 2, 50, 64),
+                                           (3, 3, 24, 2, 33, 16)])
+@pytest.mark.parametrize("window,softcap", [(0, 0.0), (16, 25.0)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_verify_rows_equal_flash_decode(dev, B, T, H, Kh, S, hd, window, softcap,
+                                              dtype):
+    """Bit for bit: each verify row is a decode step at its position."""
+    q, k, v, k_pos, q_pos = _verify_operands(dev, B, T, H, Kh, S, hd, dtype, S + T)
+    out = verify_attention.flash_verify(q, k, v, k_pos, q_pos, window=window,
+                                        softcap=softcap)
+    for t in range(T):
+        row = decode_attention.flash_decode(q[:, t].contiguous(), k, v, k_pos,
+                                            q_pos[:, t].contiguous(), window=window,
+                                            softcap=softcap)
+        assert torch.equal(out[:, t], row), f"row {t}"
+
+
+def test_flash_verify_reads_q_through_strides(dev):
+    """A q whose token axis is not the outer one (a transposed view) gives
+    the same result as its contiguous copy."""
+    q, k, v, k_pos, q_pos = _verify_operands(dev, 3, 4, 8, 2, 40, 32, torch.float32, 7)
+    qt = q.transpose(0, 1).contiguous().transpose(0, 1)
+    assert not qt.is_contiguous()
+    assert torch.equal(verify_attention.flash_verify(qt, k, v, k_pos, q_pos),
+                       verify_attention.flash_verify(q, k, v, k_pos, q_pos))
+
+
+def test_flash_verify_counts_cuda_launches(dev):
+    before = verify_attention.launches
+    q, k, v, k_pos, q_pos = _verify_operands(dev, 2, 3, 4, 2, 16, 8, torch.float32, 1)
+    verify_attention.flash_verify(q, k, v, k_pos, q_pos)
+    torch.cuda.synchronize()
+    assert verify_attention.launches == before + 1
+
+
+def test_flash_verify_mixed_devices_raise(dev):
+    q, k, v, k_pos, q_pos = _verify_operands(dev, 2, 3, 4, 2, 16, 8, torch.float32, 1)
+    with pytest.raises(ValueError):
+        verify_attention.flash_verify(q, k.cpu(), v, k_pos, q_pos)
+    with pytest.raises(ValueError):
+        verify_attention.flash_verify(q, k, v, k_pos, q_pos.cpu())
+
+
+def test_pool_step_and_upgrade_never_sync(dev):
+    """On the card, ``step()`` (prefill ticks included) and a double-
+    buffered upgrade run under ``torch.cuda.set_sync_debug_mode("error")``,
+    which raises on any operation that waits for the device."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.progressive import divide
+    from repro_torch.models.model import build_model
+    from repro_torch.serving.engine import PoolRequest, SlotPoolEngine
+
+    cfg = get_config("olmo-1b").reduced(n_layers=2, d_model=64, d_ff=128, vocab=128,
+                                        n_heads=2, n_kv=2)
+    model = build_model(cfg)
+    prog = divide(model.init(torch.Generator(device=dev).manual_seed(0), device=dev))
+    pool = SlotPoolEngine(model, prog, n_slots=3, max_len=32, resident="quantized",
+                          dispatch_window=2, prefill_chunk=4, device=dev)
+    pool.receive_stage()
+    rng = np.random.default_rng(0)
+    for rid in range(5):
+        pool.submit(PoolRequest(rid=rid, prompt=rng.integers(0, 128, 3 + 2 * rid),
+                                max_new_tokens=6))
+    torch.cuda.synchronize()
+    while any(not s.free for s in pool.slots) or pool.queue:
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            for _ in range(pool.dispatch_window):
+                if any(not s.free for s in pool.slots):
+                    pool.step()
+            pool.upgrade_if_available()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        pool.flush()
+        pool._admit_from_queue()
+    assert pool.completed == set(range(5))
+    assert all(len(v) == 6 for v in pool.outputs.values())
+    assert pool.stage == prog.n_stages and pool._tick_count > 0

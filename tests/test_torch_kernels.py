@@ -11,7 +11,10 @@ Tolerances: ``plane_or_segments`` is integer work and must match
 exactly. ``dequant_matmul`` and ``flash_decode`` are float32 on both
 sides and differ only in the order of float32 sums (the Pallas kernel
 sweeps K or S in blocks): rtol 2e-5 and atol 2e-4 / 2e-5, as the
-reference's own kernel tests allow.
+reference's own kernel tests allow. ``flash_verify``'s plain version is
+held within atol 1e-5 (float32, outputs of magnitude <= 3) against the
+JAX plain version and the interpret-mode Pallas kernel, and its rows
+exactly against the port's ``flash_decode_ref``.
 """
 import jax
 import jax.numpy as jnp
@@ -22,7 +25,10 @@ import torch
 from repro.kernels.bitplane import plane_or_segments as jax_plane_or_segments
 from repro.kernels.decode_attention import flash_decode as jax_flash_decode
 from repro.kernels.dequant_matmul import dequant_matmul as jax_dequant_matmul
-from repro_torch.kernels import bitplane, decode_attention, dequant_matmul, ops
+from repro.kernels.ref import flash_verify_ref as jax_flash_verify_ref
+from repro.kernels.verify_attention import flash_verify as jax_flash_verify
+from repro_torch.kernels import (bitplane, decode_attention, dequant_matmul, ops, ref,
+                                 verify_attention)
 
 NP_UINT = {8: np.uint8, 16: np.uint16, 32: np.uint32}
 TORCH_UINT = {8: torch.uint8, 16: torch.uint16, 32: torch.uint32}
@@ -174,6 +180,84 @@ def test_flash_decode_rejects_bad_operands():
 
 
 # ---------------------------------------------------------------------------
+# flash_verify: float32 tolerance against JAX, exact against decode rows
+# ---------------------------------------------------------------------------
+
+def _verify_inputs(seed, B, T, H, Kh, hd, S):
+    """Slot 0 at the end of the cache, slot 1 ragged (empty cache entries
+    past 30, its last rows masked as past a short final chunk), slot 2
+    free (every row masked)."""
+    rng = np.random.default_rng(seed)
+    q = rng.standard_normal((B, T, H, hd)).astype(np.float32)
+    k = rng.standard_normal((B, Kh, S, hd)).astype(np.float32)
+    v = rng.standard_normal((B, Kh, S, hd)).astype(np.float32)
+    k_pos = np.broadcast_to(np.arange(S, dtype=np.int32), (B, S)).copy()
+    k_pos[1, 30:] = -1
+    q_pos = np.stack([np.arange(S - T, S), np.arange(20, 20 + T),
+                      np.full(T, -1)]).astype(np.int32)
+    q_pos[1, max(1, T - 2):] = -1
+    return q, k, v, k_pos, q_pos
+
+
+@pytest.mark.parametrize("G,T,window,softcap", [
+    (1, 1, 0, 0.0), (1, 5, 0, 0.0), (1, 8, 0, 0.0),     # MHA (olmo's G = 1)
+    (2, 1, 0, 0.0), (2, 5, 0, 0.0), (2, 8, 0, 0.0),     # GQA
+    (2, 5, 12, 0.0),                                    # sliding window
+    (1, 8, 0, 30.0),                                    # softcap
+    (2, 8, 12, 25.0),                                   # both
+])
+def test_flash_verify_vs_jax(G, T, window, softcap):
+    """S = 37 is no multiple of the Pallas block, so the JAX kernel pads
+    the cache with zero rows; the port's plain version never pads. A
+    masked row attends to nothing and comes out as the mean of V over the
+    cache it sees (padding included, in the JAX kernel), a value every
+    caller discards: against the kernel, only the live rows are held."""
+    B, Kh, hd, S = 3, 2, 16, 37
+    q, k, v, k_pos, q_pos = _verify_inputs(G * 10 + T, B, T, Kh * G, Kh, hd, S)
+    args = [jnp.asarray(a) for a in (q, k, v, k_pos, q_pos)]
+    want_ref = np.asarray(jax_flash_verify_ref(*args, window=window, softcap=softcap))
+    want_kernel = np.asarray(jax_flash_verify(*args, window=window, softcap=softcap,
+                                              bs=16, interpret=True))
+    got = ops.flash_verify(*(_t(a) for a in (q, k, v, k_pos, q_pos)), window=window,
+                           softcap=softcap)
+    assert got.shape == (B, T, Kh * G, hd) and got.dtype == torch.float32
+    assert torch.isfinite(got).all()
+    np.testing.assert_allclose(got.numpy(), want_ref, rtol=0, atol=1e-5)
+    live = q_pos >= 0
+    np.testing.assert_allclose(got.numpy()[live], want_kernel[live], rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("window,softcap", [(0, 0.0), (12, 25.0)])
+def test_flash_verify_rows_equal_flash_decode(window, softcap):
+    """Each row of the verify plain version is a decode step at that row's
+    position, bit for bit: the property chunked prefill and lossless
+    speculation rest on."""
+    q, k, v, k_pos, q_pos = (_t(a) for a in _verify_inputs(5, 3, 6, 4, 2, 16, 40))
+    out = ref.flash_verify_ref(q, k, v, k_pos, q_pos, window=window, softcap=softcap)
+    for t in range(q.shape[1]):
+        row = ref.flash_decode_ref(q[:, t], k, v, k_pos, q_pos[:, t], window=window,
+                                   softcap=softcap)
+        assert torch.equal(out[:, t], row), f"row {t}"
+    assert torch.equal(ref.flash_prefill_ref(q, k, v, k_pos, q_pos, window=window,
+                                             softcap=softcap), out)
+
+
+def test_flash_verify_rejects_bad_operands():
+    q = torch.zeros(2, 3, 4, 8)
+    k = torch.zeros(2, 2, 16, 8)
+    k_pos = torch.zeros(2, 16, dtype=torch.int32)
+    q_pos = torch.zeros(2, 3, dtype=torch.int32)
+    with pytest.raises(ValueError):
+        verify_attention.flash_verify(q, k, k[:, :, :8], k_pos, q_pos)
+    with pytest.raises(ValueError):
+        verify_attention.flash_verify(q, k, k, k_pos, q_pos[:, :2])
+    with pytest.raises(ValueError):
+        verify_attention.flash_verify(q[:, :, :3], k, k, k_pos, q_pos)
+    with pytest.raises(ValueError):
+        verify_attention.flash_verify(q[0], k, k, k_pos, q_pos)
+
+
+# ---------------------------------------------------------------------------
 # the wrapper contract: CPU tensors take the plain version and launch nothing
 # ---------------------------------------------------------------------------
 
@@ -199,3 +283,18 @@ def test_cpu_tensors_take_the_plain_version_and_count_no_launch():
                                  "decode_attention": 1}
     assert (bitplane.launches, dequant_matmul.launches,
             decode_attention.launches) == before
+
+
+def test_verify_entry_points_count_calls_and_launch_nothing_on_the_cpu():
+    """The three names of the verify kernel count under the reference's
+    names; a CPU call leaves the kernel's own launch count where it was."""
+    before = verify_attention.launches
+    ops.reset_launch_counts()
+    kv = torch.zeros(1, 1, 4, 8)
+    args = (torch.zeros(1, 2, 1, 8), kv, kv, torch.arange(4, dtype=torch.int32)[None],
+            torch.tensor([[2, 3]], dtype=torch.int32))
+    for fn in (ops.flash_verify, ops.verify_attention, ops.prefill_attention):
+        assert fn(*args).shape == (1, 2, 1, 8)
+    assert ops.LAUNCH_COUNTS == {"flash_verify": 1, "verify_attention": 1,
+                                 "prefill_attention": 1}
+    assert verify_attention.launches == before
