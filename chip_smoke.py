@@ -1,29 +1,43 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's main path on one NVIDIA H100 and hold every
-CUDA kernel of that path against its plain PyTorch version.
+"""Drive the PyTorch port's main paths on one NVIDIA H100 and hold every
+CUDA kernel of those paths against its plain PyTorch version.
 
 Run from the root of a checkout:  python3 chip_smoke.py
 
-Phases (any failure raises and the script exits non-zero):
+Phases (any failure raises and the script exits non-zero); each path runs
+with the launch counts set to 0 just before it and read just after:
 
 1. build every CUDA kernel from ``src/repro_torch/kernels/csrc``, one
    ``nvcc`` per source, all at once;
-2. serve full-width olmo-1b from its plane accumulators: ``divide`` with
-   the paper's schedule, ``ProgressiveServer(resident="quantized")``,
-   one stage, a (4, 64) prompt, 48 decode steps with the other 7 stages
-   landing mid-decode; counts every kernel launch of that run; then the
-   slot pool on the same planes: ``SlotPoolEngine(resident="quantized")``
-   with 8 slots, 12 requests of ragged prompts admitted by chunked
-   prefill while the other slots decode, an upgrade every window from
-   stage 1 to 8; counts every kernel launch of that run;
-3. hold each kernel against its plain version on the paths' operands,
+2. ``[divide]``: split full-width olmo-1b into eight 2-bit planes on the
+   card (``plane_extract``, 8 launches a tensor); the in-memory receiver
+   after all 8 stages holds ``quantize(leaf).q`` of every tensor, bit for
+   bit; every plane of the largest tensor equals the plain version;
+3. serve full-width olmo-1b from its plane accumulators:
+   ``ProgressiveServer(resident="quantized")``, one stage, a (4, 64)
+   prompt, 48 decode steps with the other 7 stages landing mid-decode;
+   then the slot pool on the same planes: ``SlotPoolEngine`` with 8
+   slots, 12 requests of ragged prompts admitted by chunked prefill while
+   the other slots decode, an upgrade every window from stage 1 to 8;
+4. ``[wire]``: the same model from wire bytes: ``wire.encode`` (v3),
+   ``ProgressiveClient.feed`` in seeded ragged chunks of 1 B to 64 MB,
+   one stage at each arrival of phase 3's schedule, and
+   ``ProgressiveServer(receiver=WireStoreReceiver(...))``: the store's
+   fingerprint equals the in-memory receiver's after every stage and the
+   tokens equal phase 3's; a unit of stage 3 damaged on a second feed is
+   quarantined and repaired to the clean fingerprint; raw v1 streams the
+   2-layer full-width model the same way;
+5. ``[upgrade per tensor]``: stage 8 as one ``plane_or`` a tensor on the
+   live stage-7 accumulator views, byte-equal to the batched
+   ``plane_or_segments`` upgrade, both timed;
+6. hold each kernel against its plain version on the paths' operands,
    and every ``flash_verify`` row against a ``flash_decode`` launch;
-4. run the same 2-layer full-width model on the card (kernels) and on
+7. run the same 2-layer full-width model on the card (kernels) and on
    the CPU (plain versions) and compare teacher-forced decode, prefill
    chunk and verify logits;
-5. time each kernel at the paths' shapes beside its bound, its plain
-   version and one PyTorch call that computes the same function, and
-   one chunk tick of the pool.
+8. time each kernel at the paths' shapes beside its bound, its plain
+   version and one PyTorch call (or chain of calls) that computes the
+   same function, and one chunk tick of the pool.
 
 The second-to-last line is a JSON object with one entry per kernel, the
 last ``{"ok": true, "device": {...}}``.
@@ -54,6 +68,8 @@ ARRIVALS = (6, 12, 18, 24, 30, 36, 42)
 # requests (prompts 16-96 tokens, budgets 24-40, numpy seed 3)
 POOL_SLOTS, POOL_CHUNK, POOL_WINDOW, POOL_MAX_LEN = 8, 8, 8, 160
 POOL_REQUESTS = 12
+# wire chunks: log-uniform from 1 byte to 64 MB (numpy seed 5)
+CHUNK_MAX = 64 << 20
 
 # Stated tolerances, each with its reason.
 # dequant_matmul: the kernel and the plain version form every weight
@@ -125,24 +141,29 @@ def bound_ms(n_bytes: float, n_ops: float, peak_ops: float) -> tuple[float, str]
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def kernel_modules() -> dict:
-    """Each kernel's wrapper module, by its name in the kernels line."""
+def kernel_counters() -> dict:
+    """Each kernel's launch counter (its wrapper module and the counter's
+    name there), by its name in the kernels line."""
     from repro_torch.kernels import bitplane, decode_attention, dequant_matmul
     from repro_torch.kernels import verify_attention
 
-    return {"plane_or_segments": bitplane, "dequant_matmul": dequant_matmul,
-            "decode_attention": decode_attention, "flash_verify": verify_attention}
+    return {"plane_or_segments": (bitplane, "launches"),
+            "dequant_matmul": (dequant_matmul, "launches"),
+            "decode_attention": (decode_attention, "launches"),
+            "flash_verify": (verify_attention, "launches"),
+            "plane_or": (bitplane, "plane_or_launches"),
+            "plane_extract": (bitplane, "plane_extract_launches")}
 
 
 def reset_counts(ops) -> None:
-    for mod in kernel_modules().values():
-        mod.launches = 0
+    for mod, attr in kernel_counters().values():
+        setattr(mod, attr, 0)
     ops.reset_launch_counts()
 
 
-def counts(names) -> dict:
-    mods = kernel_modules()
-    return {name: mods[name].launches for name in names}
+def counts(names=None) -> dict:
+    return {name: getattr(mod, attr) for name, (mod, attr) in kernel_counters().items()
+            if names is None or name in names}
 
 
 class FiniteLogits:
@@ -172,7 +193,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     from repro_torch.configs import get_config
-    from repro_torch.core.progressive import ReceiverState, divide
+    from repro_torch.core.progressive import ReceiverState
     from repro_torch.kernels import bitplane, build, ops, ref
     from repro_torch.kernels import decode_attention as da
     from repro_torch.kernels import dequant_matmul as dqm
@@ -191,24 +212,18 @@ def main() -> int:
     build.build_all()
     for name in build.SOURCES:
         build.library(name)
-    log(f"[build] {len(build.SOURCES)} kernels built and loaded in "
+    log(f"[build] {len(build.SOURCES)} kernel sources built and loaded in "
         f"{time.perf_counter() - t0:.1f} s")
     print(gpu_line(), flush=True)
     log(f"[env] python {sys.version.split()[0]} torch {torch.__version__} "
         f"cuda {torch.version.cuda}")
 
-    # -- 2. full-width serve -------------------------------------------------
+    # -- 2. divide on the card -----------------------------------------------
     cfg = get_config("olmo-1b")
     model = build_model(cfg)
-    gen = torch.Generator(device=dev).manual_seed(0)
-    t0 = time.perf_counter()
-    params = model.init(gen, device=dev)
-    n_params = sum(t.numel() for t in _leaves(params))
-    prog = divide(params)
-    del params
-    torch.cuda.synchronize()
-    log(f"[serve] olmo-1b full width: {n_params} parameters, {prog.n_stages} stages, "
-        f"{len(prog.tensors)} tensors; init + divide {time.perf_counter() - t0:.1f} s")
+    prog, n_params, clean_fps, divide_counts = _divide_phase(model, dev, ops)
+
+    # -- 3. full-width serve -------------------------------------------------
     prompt = torch.randint(0, cfg.vocab, (BATCH, PROMPT),
                            generator=torch.Generator().manual_seed(1))
     checked = FiniteLogits(model)
@@ -274,16 +289,20 @@ def main() -> int:
     # the slot pool on the same planes
     pool, pool_counts = _pool_phase(model, prog, dev, ops)
 
-    # -- 3. each kernel against its plain version on the path's operands ----
-    kern: dict[str, dict] = {}
+    # -- 4. the same model from wire bytes -----------------------------------
+    wire_counts = _wire_phase(model, prog, dev, ops, prompt, res, clean_fps)
+    _wire_v1_check(cfg, dev)
+
+    # -- 5. stage 8 one tensor at a time -------------------------------------
+    # the accumulators after stage 7, stage 8's operands, and the batched
+    # upgrade's result (the stage-8 accumulators: q of every tensor)
+    upgrade_counts, acc, plane, shifts, out, per_tensor, slots = _upgrade_phase(prog, dev,
+                                                                                ops)
+
+    # -- 6. each kernel against its plain version on the path's operands ----
+    kern: dict[str, dict] = {"plane_or": {"max_abs_err": 0},
+                             "plane_extract": {"max_abs_err": 0}}
     # plane_or_segments: the accumulators after stage 7 and stage 8's plane
-    state = ReceiverState.init(prog, device=dev)
-    for s in range(1, prog.n_stages):
-        state = state.receive(prog.stage(s))
-    acc = state.store.buffers["uint16"]
-    _, plane, shifts = state.store.round_operands(dict(prog.stage(prog.n_stages)))["uint16"]
-    del state
-    out = bitplane.plane_or_segments(acc, plane, shifts)
     exact = True
     chunk = 1 << 26
     for c0 in range(0, acc.numel(), chunk):
@@ -294,7 +313,6 @@ def main() -> int:
     check(exact, "plane_or_segments differs from its plain version")
     kern["plane_or_segments"] = {"max_abs_err": 0}
     log(f"[check] plane_or_segments on the {acc.numel()}-element uint16 buffer: exact")
-    del out
 
     # dequant_matmul: every distinct (M, K, N) of the path, on the live
     # accumulators of layer 0 at stage 8
@@ -367,7 +385,7 @@ def main() -> int:
         f"(ragged slot with a short chunk, free and decoding slots masked): max |err| "
         f"{v_err:.3e}; each of the {T} rows equal (torch.equal) to a flash_decode launch")
 
-    # -- 4. whole path: 2 layers at full width, card against CPU -------------
+    # -- 7. whole path: 2 layers at full width, card against CPU -------------
     t0 = time.perf_counter()
     path_err, chunk_err = _whole_path(cfg, dev)
     log(f"[path] 2-layer full width, cuda kernels vs cpu plain versions, teacher-forced "
@@ -375,7 +393,7 @@ def main() -> int:
         f"chunk and verify logits at stages 1 and 8: {chunk_err:.3e} (tolerance "
         f"{PATH_RTOL}); {time.perf_counter() - t0:.1f} s")
 
-    # -- 5. timings at the path's shapes -------------------------------------
+    # -- 8. timings at the path's shapes -------------------------------------
     # Device times replay CUDA graphs, so the host's launch rate does not
     # enter them; host_ms gives the host's side. Per-step operands walk
     # the 16 layers' own weights and caches, as decode does, so the 50 MB
@@ -394,6 +412,49 @@ def main() -> int:
         host_ms=host_ms(lambda: bitplane.plane_or_segments(acc, plane, shifts), 5),
         bound_ms=b, bound_by=by, per="one upgrade launch")
     del a16, p16
+
+    # plane_or: stage 8 one launch a tensor on the live stage-7 views
+    def upgrade_each(fn):
+        for a, p, s in per_tensor:
+            fn(a, p, s)
+
+    n_el = sum(a.numel() for a, _, _ in per_tensor)
+    b, by = bound_ms(sum(2 * a.numel() * a.element_size() + p.numel() * p.element_size()
+                         for a, p, _ in per_tensor), 2 * n_el, FP32_FLOPS)
+    kern["plane_or"].update(
+        ms=device_ms(lambda: upgrade_each(lambda a, p, s: bitplane.plane_or(a, p, shift=s)),
+                     3),
+        plain_ms=device_ms(lambda: upgrade_each(lambda a, p, s: ref.plane_or_ref(a, p, s)),
+                           2),
+        library_ms=device_ms(lambda: upgrade_each(lambda a, p, s: torch.bitwise_or(
+            a.view(torch.int16), torch.bitwise_left_shift(p.to(torch.int16), s))), 3),
+        host_ms=host_ms(lambda: upgrade_each(lambda a, p, s: bitplane.plane_or(a, p,
+                                                                               shift=s)), 3),
+        bound_ms=b, bound_by=by,
+        per=f"one stage-8 upgrade, a launch a tensor ({len(per_tensor)} launches)")
+
+    # plane_extract: one 2-bit plane of every tensor from its uint16 q (the
+    # stage-8 accumulators are q, bit for bit), written as uint8
+    qs = [out[t.offset:t.offset + t.size].reshape(t.shape) for t in slots]
+
+    def extract_each(fn):
+        for q in qs:
+            fn(q)
+
+    b, by = bound_ms(3 * n_el, 3 * n_el, FP32_FLOPS)
+    kern["plane_extract"].update(
+        ms=device_ms(lambda: extract_each(lambda q: bitplane.plane_extract(
+            q, bits=16, before=6, width=2, out_dtype=torch.uint8)), 3),
+        plain_ms=device_ms(lambda: extract_each(lambda q: ref.plane_extract_ref(
+            q, 16, 6, 2, torch.uint8)), 2),
+        library_ms=device_ms(lambda: extract_each(lambda q: torch.bitwise_right_shift(
+            torch.bitwise_and(torch.bitwise_left_shift(q.to(torch.int32), 6), 0xFFFF),
+            14).to(torch.uint8)), 2),
+        host_ms=host_ms(lambda: extract_each(lambda q: bitplane.plane_extract(
+            q, bits=16, before=6, width=2, out_dtype=torch.uint8)), 3),
+        bound_ms=b, bound_by=by,
+        per=f"one plane of the model, a launch a tensor ({len(qs)} launches)")
+    del qs, out
 
     # dequant_matmul: the decode step's 113 launches, in its order
     stack = P["decoder"]["cycles"]["0_attn"]
@@ -512,17 +573,22 @@ def main() -> int:
                "decode_attention": ("decode_attention.cu",
                                     "src/repro/kernels/decode_attention.py:101"),
                "flash_verify": ("verify_attention.cu",
-                                "src/repro/kernels/verify_attention.py:91")}
-    # launches on the two main paths: the single stream, then the pool
-    launches = {name: path_counts.get(name, 0) + pool_counts[name] for name in sources}
+                                "src/repro/kernels/verify_attention.py:91"),
+               "plane_or": ("plane_or.cu", "src/repro/kernels/bitplane.py:53"),
+               "plane_extract": ("plane_extract.cu", "src/repro/kernels/bitplane.py:149")}
+    # launches on the main paths, each path counted from 0
+    paths = {"divide": divide_counts, "serve": path_counts, "pool": pool_counts,
+             "wire": wire_counts, "upgrade per tensor": upgrade_counts}
+    launches = {name: sum(c.get(name, 0) for c in paths.values()) for name in sources}
+    check(all(launches[name] > 0 for name in sources), launches)
     line = []
     for name, (src, replaces) in sources.items():
         k = kern[name]
         log(f"[time] {name} per {k['per']}: kernel {k['ms']:.4f} ms on the device, "
             f"bound {k['bound_ms']:.4f} ms ({k['bound_by']}), plain {k['plain_ms']:.4f} ms, "
             f"library {k['library_ms']:.4f} ms; host issue {k['host_ms']:.4f} ms; "
-            f"launches on the paths {launches[name]} (serve "
-            f"{path_counts.get(name, 0)}, pool {pool_counts[name]})")
+            f"launches on the paths {launches[name]} ("
+            + ", ".join(f"{p} {c.get(name, 0)}" for p, c in paths.items()) + ")")
         line.append({"name": name, "route": "cuda",
                      "source": f"src/repro_torch/kernels/csrc/{src}", "replaces": replaces,
                      "launches": launches[name], "max_abs_err": k["max_abs_err"],
@@ -534,6 +600,293 @@ def main() -> int:
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))
     return 0
+
+
+def _divide_phase(model, dev, ops):
+    """``[divide]``: random full-width weights split into planes on the
+    card, counted from 0; then the in-memory receiver through all 8
+    stages, its fingerprint after each (the wire phase's reference), and
+    its stage-8 accumulators against ``quantize(leaf).q`` of every tensor;
+    every plane of the largest tensor against the plain version. Returns
+    the divided model, the parameter count, the 8 fingerprints and the
+    path's launch counts."""
+    from repro_torch.core.bitplanes import concat
+    from repro_torch.core.progressive import ReceiverState, divide, tree_flatten_with_path
+    from repro_torch.core.quantize import quantize
+    from repro_torch.kernels import bitplane, ref
+
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device=dev).manual_seed(0), device=dev)
+    leaves = dict(tree_flatten_with_path(params))
+    n_params = sum(t.numel() for t in leaves.values())
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    reset_counts(ops)
+    t0 = time.perf_counter()
+    prog = divide(params)
+    torch.cuda.synchronize()
+    t_divide = time.perf_counter() - t0
+    run_counts, op_counts = counts(), dict(ops.LAUNCH_COUNTS)
+    n_t = len(prog.tensors)
+    check(run_counts["plane_extract"] == op_counts["plane_extract"] == 8 * n_t,
+          (run_counts, n_t))
+    check(sum(run_counts.values()) == 8 * n_t and op_counts == {"plane_extract": 8 * n_t},
+          (run_counts, op_counts))
+    log(f"[divide] olmo-1b full width: {n_params} parameters, {n_t} tensors, "
+        f"{prog.n_stages} stages of 2-bit planes; init {t_init:.1f} s, divide on the card "
+        f"{t_divide:.2f} s; launches {run_counts}")
+
+    state = ReceiverState.init(prog, device=dev)
+    fps = []
+    for s in range(1, prog.n_stages + 1):
+        state = state.receive(prog.stage(s))
+        fps.append(state.store.fingerprint())
+    for i, t in enumerate(prog.tensors):
+        check(torch.equal(state.store._slice_acc(i), quantize(leaves[t.path], 16).q),
+              f"stage-8 accumulator of {t.path} differs from quantize(leaf).q")
+    del state
+    big = max(prog.tensors, key=lambda t: int(np.prod(t.shape)))
+    q = quantize(leaves[big.path], 16).q
+    before = 0
+    for w, p in zip(big.plan.schedule.widths, big.planes):
+        got = bitplane.plane_extract(q, bits=16, before=before, width=w, out_dtype=torch.uint8)
+        check(torch.equal(got, ref.plane_extract_ref(q, 16, before, w, torch.uint8))
+              and torch.equal(got, p), f"plane at {before} of {big.path}")
+        before += w
+    wide = bitplane.plane_extract(q, bits=16, before=3, width=9)
+    check(torch.equal(wide, ref.plane_extract_ref(q, 16, 3, 9)), "uint16 plane")
+    check(torch.equal(concat(big.planes, 16, big.plan.schedule.widths), q),
+          "concat of the planes differs from q")
+    log(f"[divide] stage-8 accumulators equal quantize(leaf).q of all {n_t} tensors, bit "
+        f"for bit; fingerprints after each stage {[fp['uint16'] for fp in fps]}; the 8 "
+        f"planes of {'/'.join(big.path)} {tuple(big.shape)} (and a 9-bit uint16 plane) "
+        f"equal the plain version, and concat of them (plane_or) restores its q")
+    del params, leaves, q
+    return prog, n_params, fps, run_counts
+
+
+def _ragged(rng) -> int:
+    """A chunk size, log-uniform from 1 byte to CHUNK_MAX."""
+    return int(np.exp(rng.uniform(0.0, np.log(CHUNK_MAX))))
+
+
+def _feeder(client, blob, seed):
+    """``feed_to(end)`` feeds the next bytes of ``blob`` up to ``end`` in
+    seeded ragged chunks and returns the host seconds it took."""
+    view, rng, fed = memoryview(blob), np.random.default_rng(seed), [0]
+
+    def feed_to(end: int) -> float:
+        t0 = time.perf_counter()
+        pos = fed[0]
+        while pos < end:
+            n = min(end - pos, _ragged(rng))
+            client.feed(view[pos:pos + n])
+            pos += n
+        fed[0] = end
+        return time.perf_counter() - t0
+
+    return feed_to
+
+
+def _stage_ends(wire, blob) -> tuple[dict, list[int]]:
+    meta, hdr = wire.decode_header(blob)
+    ends = [hdr]
+    for n in wire.layout_from_header(meta, hdr).stage_bytes:
+        ends.append(ends[-1] + n)
+    return meta, ends
+
+
+def _wire_phase(model, prog, dev, ops, prompt, res, clean_fps) -> dict:
+    """``[wire]``: the single stream of phase 3 served from v3 wire bytes
+    through a CUDA ProgressiveClient, counted from 0 (encode, feed,
+    ingest, serve); then a damaged unit on a second feed. Returns the
+    path's launch counts."""
+    from repro_torch.core import wire
+    from repro_torch.serving.engine import ProgressiveServer, WireStoreReceiver
+    from repro_torch.transmission import ProgressiveClient
+
+    n_el = sum(t.planes[0].numel() for t in prog.tensors)
+    reset_counts(ops)
+    t0 = time.perf_counter()
+    blob = wire.encode(prog, integrity=True)
+    t_encode = time.perf_counter() - t0
+    meta, ends = _stage_ends(wire, blob)
+    n_units = len(meta["units"])
+    check(ends[-1] == len(blob) and len(meta["checkpoints"]) == 8, (ends[-1], len(blob)))
+    # the quantized model's 16 bits a weight, plus the v3 frames only
+    check(len(blob) - ends[0] == 2 * n_el + n_units * wire.FRAME_BYTES_V3,
+          (len(blob), ends[0], n_el, n_units))
+    log(f"[wire] encode v3 {t_encode:.2f} s: {len(blob)} bytes, header {ends[0]}, "
+        f"{n_units} units, framing {wire.framing_overhead(meta)['overhead_bytes']} bytes")
+
+    snaps = []
+    client = ProgressiveClient(on_stage_complete=lambda s: snaps.append(client.store.copy()),
+                               device=dev)
+    feed_to = _feeder(client, blob, 5)
+    feed_s = [feed_to(ends[1])]
+    checked = FiniteLogits(model)
+    srv = ProgressiveServer(checked, prog, max_len=PROMPT + STEPS, resident="quantized",
+                            device=dev, receiver=WireStoreReceiver(client, prog))
+
+    def arrive(i: int) -> bool:
+        if i not in ARRIVALS:
+            return False
+        feed_s.append(feed_to(ends[client.stages_complete + 1]))
+        return True
+
+    srv.receive_stage()
+    srv.start({"tokens": prompt})
+    wres = srv.decode(STEPS, stage_arrival=arrive)
+    torch.cuda.synchronize()
+    run_counts, op_counts = counts(), dict(ops.LAUNCH_COUNTS)
+    decode_s = sum(s for _, s in wres.window_s)
+    check(client.complete and client.bytes_fed == len(blob) and srv.stage == 8)
+    check(wres.upgrades == res.upgrades, (wres.upgrades, res.upgrades))
+    check(torch.equal(wres.tokens, res.tokens), "wire-fed tokens differ from phase 3's")
+    check(bool(torch.stack(checked.flags).all()), "non-finite wire-fed logits")
+    check(srv.resident_report()["fp_bytes"] == 0)
+    check(run_counts["plane_or_segments"] == op_counts["plane_or_segments"] == 8, run_counts)
+    check(run_counts["dequant_matmul"] > 0 and run_counts["decode_attention"] > 0
+          and run_counts["plane_extract"] == run_counts["plane_or"] == 0, run_counts)
+    got = [st.fingerprint() for st in snaps]
+    check(got == clean_fps, "wire-fed store fingerprints differ from the in-memory ones")
+    del snaps
+    log(f"[wire] fed in seeded ragged chunks of 1 B to {CHUNK_MAX >> 20} MB, one stage at "
+        f"each arrival: host feed s per stage {[round(f, 3) for f in feed_s]}, "
+        f"{len(blob) / sum(feed_s) / 1e9:.3f} GB/s; store fingerprint equal to the "
+        f"in-memory receiver's after each of the 8 stages")
+    log(f"[wire] served: {STEPS} steps x {BATCH} with 7 upgrades and the feeding in "
+        f"{decode_s:.3f} s, {BATCH * STEPS / decode_s:.1f} tokens/s; tokens equal "
+        f"(torch.equal) to the in-memory server's; launches {run_counts}; health "
+        f"{srv._receiver.transport_health()}")
+    del srv, client
+
+    # a second feed with one byte of a stage-3 unit flipped
+    seq = meta["checkpoints"][1] + int(np.argmax(meta["unit_bytes"][meta["checkpoints"][1]:
+                                                                   meta["checkpoints"][2]]))
+    layout = wire.layout_from_header(meta, ends[0])
+    o = layout.unit_offsets()[seq]
+    e = o + meta["unit_bytes"][seq]
+    flip = o + (e - o) // 2
+    client = ProgressiveClient(device=dev)
+    feed = _feeder(client, blob, 6)
+    feed(ends[0])
+    ingest_ms, orig = [], client.store.ingest
+
+    def timed_ingest(items):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        orig(items)
+        torch.cuda.synchronize()
+        ingest_ms.append((time.perf_counter() - t) * 1e3)
+
+    client.store.ingest = timed_ingest
+    feed(flip)
+    client.feed(bytes([blob[flip] ^ 0x20]))
+    _feeder(client, memoryview(blob)[flip + 1:], 7)(len(blob) - flip - 1)
+    check(client.stages_complete == 2 and not client.complete, client.stages_complete)
+    check(list(client.nacks) == [seq] and client.quarantine_log[0]["seq"] == seq,
+          client.quarantine_log)
+    check(client.store.fingerprint() == clean_fps[1], "damaged stream diverged at stage 2")
+    check(client.feed_repair(seq, memoryview(blob)[o:e]), "repair refused")
+    check(client.complete and not client.nacks, client.nacks)
+    check(client.store.fingerprint() == clean_fps[-1], "repaired store differs")
+    log(f"[wire] unit {seq} of stage 3 ({e - o} bytes) damaged: quarantined "
+        f"({client.quarantine_log[0]['reason'][:40]}...), stages held at 2 with the "
+        f"clean stage-2 fingerprint; after feed_repair all 8 stages, fingerprint equal to "
+        f"the clean one; ingest ms a stage (synchronised) "
+        f"{[round(t, 2) for t in ingest_ms]}")
+    return run_counts
+
+
+def _wire_v1_check(cfg, dev) -> None:
+    """Raw v1 bytes of the 2-layer full-width model through a CUDA client:
+    fingerprints after every stage equal the in-memory receiver's, and the
+    wire-fed server's tokens equal the pull-mode server's."""
+    from repro_torch.core import wire
+    from repro_torch.core.progressive import ReceiverState, divide
+    from repro_torch.models.model import build_model
+    from repro_torch.serving.engine import ProgressiveServer, WireStoreReceiver
+    from repro_torch.transmission import ProgressiveClient
+
+    model = build_model(dataclasses.replace(cfg, n_layers=2))
+    prog = divide(model.init(torch.Generator(device=dev).manual_seed(3), device=dev))
+    blob = wire.encode(prog)
+    meta, ends = _stage_ends(wire, blob)
+    check(meta["version"] == 1 and ends[-1] == len(blob))
+    fps = []
+    client = ProgressiveClient(on_stage_complete=lambda s: fps.append(
+        client.store.fingerprint()), device=dev)
+    feed_to = _feeder(client, blob, 8)
+    feed_to(ends[1])
+    prompt = torch.randint(0, cfg.vocab, (2, 16), generator=torch.Generator().manual_seed(4))
+    steps, arrivals = 16, set(range(1, 15, 2))
+    wired = ProgressiveServer(model, prog, max_len=32, resident="quantized", device=dev,
+                              receiver=WireStoreReceiver(client, prog))
+    pull = ProgressiveServer(model, prog, max_len=32, resident="quantized", device=dev)
+    for srv in (wired, pull):
+        srv.receive_stage()
+        srv.start({"tokens": prompt})
+
+    def arrive(i: int) -> bool:
+        if i not in arrivals:
+            return False
+        feed_to(ends[client.stages_complete + 1])
+        return True
+
+    got = wired.decode(steps, stage_arrival=arrive)
+    want = pull.decode(steps, stage_arrival=lambda i: i in arrivals)
+    check(client.complete and wired.stage == pull.stage == 8)
+    check(torch.equal(got.tokens, want.tokens), "v1 wire-fed tokens differ")
+    state = ReceiverState.init(prog, device=dev)
+    for s in range(8):
+        state = state.receive(prog.stage(s + 1))
+        check(state.store.fingerprint() == fps[s], f"v1 stage {s + 1} fingerprint")
+    log(f"[wire] raw v1, 2-layer full width: {len(blob)} bytes in ragged chunks; "
+        f"fingerprints equal the in-memory receiver's after each of the 8 stages; "
+        f"{steps} x 2 tokens equal (torch.equal) to the pull-mode server's")
+
+
+def _upgrade_phase(prog, dev, ops):
+    """``[upgrade per tensor]``: the store after stage 7; stage 8 as one
+    ``plane_or`` a tensor on its live accumulator views (counted from 0),
+    then as the batched ``plane_or_segments`` launch; byte-equal, both
+    timed with the host clock, synchronised. Returns the path's counts,
+    the batched operands and result, the per-tensor operands and the
+    slots."""
+    from repro_torch.core.plane_store import next_plane_shift
+    from repro_torch.core.progressive import ReceiverState
+
+    state = ReceiverState.init(prog, device=dev)
+    for s in range(1, prog.n_stages):
+        state = state.receive(prog.stage(s))
+    store = state.store
+    last = dict(prog.stage(prog.n_stages))
+    per_tensor = [(store._slice_acc(i), last[i], next_plane_shift(t.schedule, 7))
+                  for i, t in enumerate(store.slots)]
+    acc = store.buffers["uint16"]
+    _, plane, shifts = store.round_operands(last)["uint16"]
+    torch.cuda.synchronize()
+    reset_counts(ops)
+    t0 = time.perf_counter()
+    outs = [ops.plane_or(a, p, shift=s) for a, p, s in per_tensor]
+    torch.cuda.synchronize()
+    t_each = time.perf_counter() - t0
+    run_counts, op_counts = counts(), dict(ops.LAUNCH_COUNTS)
+    check(run_counts["plane_or"] == op_counts["plane_or"] == len(per_tensor)
+          and sum(run_counts.values()) == len(per_tensor), run_counts)
+    t0 = time.perf_counter()
+    out = ops.plane_or_segments(acc, plane, shifts)
+    torch.cuda.synchronize()
+    t_batched = time.perf_counter() - t0
+    for t, o in zip(store.slots, outs):
+        check(torch.equal(o.reshape(-1), out[t.offset:t.offset + t.size]),
+              f"per-tensor upgrade of {t.key} differs from the batched one")
+    log(f"[upgrade per tensor] stage 8 as {len(outs)} plane_or launches on the live stage-7 "
+        f"views (uint16 acc, uint8 plane): {t_each * 1e3:.3f} ms; one batched "
+        f"plane_or_segments launch: {t_batched * 1e3:.3f} ms (host clock, synchronised, "
+        f"first calls); byte-equal")
+    return run_counts, acc, plane, shifts, out, per_tensor, store.slots
 
 
 def _pool_phase(model, prog, dev, ops):
@@ -561,7 +914,7 @@ def _pool_phase(model, prog, dev, ops):
     out = pool.run(on_window=lambda _: pool.upgrade_if_available())
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    run_counts = counts(kernel_modules())
+    run_counts = counts()
     op_counts = dict(ops.LAUNCH_COUNTS)
 
     layers, ticks, steps = cfg.n_layers, pool._tick_count, pool._step_count
@@ -601,14 +954,6 @@ def _layer_weights(lr: dict) -> list:
     """One layer's seven matmul weights in the order decode runs them."""
     a, m = lr["attn"], lr["mlp"]
     return [a["wq"], a["wk"], a["wv"], a["wo"], m["wi_gate"], m["wi_up"], m["wo"]]
-
-
-def _leaves(tree):
-    if isinstance(tree, dict):
-        for v in tree.values():
-            yield from _leaves(v)
-    else:
-        yield tree
 
 
 def _whole_path(cfg, dev) -> tuple[float, float]:

@@ -45,8 +45,15 @@ DEFAULT_BLOCK = 1024
 
 
 def dtype_name(dtype: torch.dtype) -> str:
-    """'uint16' for torch.uint16: the reference's buffer keys."""
+    """numpy's name of a dtype: 'uint16' for torch.uint16 (the
+    reference's buffer keys), 'bfloat16' for torch.bfloat16 (the wire
+    header's names, which ml_dtypes gives numpy)."""
     return str(dtype).rsplit(".", 1)[-1]
+
+
+# the wire header's dtype names of float leaves -> torch dtypes
+FLOAT_DTYPES = {dtype_name(d): d for d in (torch.float32, torch.bfloat16, torch.float16,
+                                           torch.float64)}
 
 
 def next_plane_shift(schedule: PlaneSchedule, received: int) -> int:
@@ -123,16 +130,39 @@ class PlaneStore:
         return out
 
     @classmethod
+    def _from_entries(cls, entries: list[dict], *, block: int, device) -> "PlaneStore":
+        """Build from per-tensor descriptor dicts (key, schedule, lo, hi,
+        shape, orig_dtype), laid out in order."""
+        slots = [TensorSlot(**e, offset=off, size=size, padded=padded)
+                 for e, (off, size, padded) in zip(entries, cls._layout(entries, block))]
+        return cls(slots, block=block, device=device)
+
+    @classmethod
     def from_model(cls, model, *, block: int = DEFAULT_BLOCK, device="cuda"
                    ) -> "PlaneStore":
         """Build from a server-side :class:`ProgressiveModel` (keys are
         leaf paths)."""
-        entries = [{"key": t.path, "schedule": t.plan.schedule, "lo": t.lo,
-                    "hi": t.hi, "shape": tuple(t.shape), "orig_dtype": t.orig_dtype}
-                   for t in model.tensors]
-        slots = [TensorSlot(**e, offset=off, size=size, padded=padded)
-                 for e, (off, size, padded) in zip(entries, cls._layout(entries, block))]
-        return cls(slots, block=block, device=device)
+        return cls._from_entries(
+            [{"key": t.path, "schedule": t.plan.schedule, "lo": t.lo, "hi": t.hi,
+              "shape": tuple(t.shape), "orig_dtype": t.orig_dtype} for t in model.tensors],
+            block=block, device=device)
+
+    @classmethod
+    def from_wire_meta(cls, meta, *, block: int = DEFAULT_BLOCK, device="cuda"
+                       ) -> "PlaneStore":
+        """Build from a decoded wire header (keys are path strings; lo and
+        hi stay on the host, where the quantized views read them)."""
+        if any(t.get("slice_axis") is not None for t in meta["tensors"]):
+            raise NotImplementedError("sliced tensors (per-expert ranges) are still to "
+                                      "be ported (ROADMAP A8)")
+        return cls._from_entries(
+            [{"key": t["path"],
+              "schedule": PlaneSchedule(bits=t["bits"], widths=tuple(t["widths"])),
+              "lo": torch.tensor(t["lo"], dtype=torch.float32),
+              "hi": torch.tensor(t["hi"], dtype=torch.float32),
+              "shape": tuple(t["shape"]), "orig_dtype": FLOAT_DTYPES[t["dtype"]]}
+             for t in meta["tensors"]],
+            block=block, device=device)
 
     def copy(self) -> "PlaneStore":
         """Cheap snapshot: ingest never writes into a buffer, it replaces
@@ -173,7 +203,7 @@ class PlaneStore:
         container dtype: equal to the reference store's iff the
         accumulator state is bit-identical. Copies to the host; an audit,
         not a hot path."""
-        return {dt: int(zlib.crc32(buf.cpu().numpy().tobytes()))
+        return {dt: int(zlib.crc32(buf.cpu().numpy()))
                 for dt, buf in sorted(self.buffers.items())}
 
     # -- eq. (4): batched upgrade -----------------------------------------

@@ -64,6 +64,11 @@ class TensorPlanes:
     shape: tuple
     orig_dtype: Any
     planes: list[torch.Tensor]  # MSB-first, len == n_planes
+    # the reference's slice fields, for the wire header; divide slices
+    # nothing yet (ROADMAP A8)
+    slice_axis: int | None = None
+    slice_idx: int = 0
+    n_slices: int = 1
 
     @property
     def bits(self) -> int:

@@ -23,22 +23,24 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-SOURCES = ("plane_or", "dequant_matmul", "decode_attention", "verify_attention")
+SOURCES = ("plane_or", "plane_extract", "dequant_matmul", "decode_attention",
+           "verify_attention")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 
 P, I32, I64, F32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
-# C entry point of each library: (name, argtypes); every one returns int.
+# C entry points of each library: {name: argtypes}; every one returns int.
 SIGNATURES = {
-    "plane_or": ("plane_or_segments", [P, P, P, P, I64, I32, I32, P]),
-    "dequant_matmul": ("dequant_matmul",
-                       [P, I32, P, I32, I64, I64, P, P, P, P, I32, I32, I32, I32, P]),
-    "decode_attention": ("flash_decode",
-                         [P, P, P, P, I64, I64, P, P, I32, I32, I32, I32, I32, I32,
-                          F32, F32, I32, P]),
-    "verify_attention": ("flash_verify",
-                         [P, I64, I64, P, P, P, I64, I64, P, I64, I64, P, I32, I32, I32,
-                          I32, I32, I32, I32, F32, F32, I32, P]),
+    "plane_or": {"plane_or_segments": [P, P, P, P, I64, I32, I32, P],
+                 "plane_or": [P, P, P, I64, I32, I32, I32, P]},
+    "plane_extract": {"plane_extract": [P, P, I64, I32, I32, I32, I32, I32, P]},
+    "dequant_matmul": {"dequant_matmul": [P, I32, P, I32, I64, I64, P, P, P, P, I32, I32,
+                                          I32, I32, P]},
+    "decode_attention": {"flash_decode": [P, P, P, P, I64, I64, P, P, I32, I32, I32, I32,
+                                          I32, I32, F32, F32, I32, P]},
+    "verify_attention": {"flash_verify": [P, I64, I64, P, P, P, I64, I64, P, I64, I64, P,
+                                          I32, I32, I32, I32, I32, I32, I32, F32, F32,
+                                          I32, P]},
 }
 
 _LOADED: dict[str, ctypes.CDLL] = {}
@@ -99,9 +101,9 @@ def library(name: str) -> ctypes.CDLL:
         if job is not None:
             _finish(job)
         lib = ctypes.CDLL(str(_target(name)))
-        fn_name, argtypes = SIGNATURES[name]
-        fn = getattr(lib, fn_name)
-        fn.argtypes, fn.restype = argtypes, ctypes.c_int
+        for fn_name, argtypes in SIGNATURES[name].items():
+            fn = getattr(lib, fn_name)
+            fn.argtypes, fn.restype = argtypes, ctypes.c_int
         _LOADED[name] = lib
     return lib
 

@@ -35,9 +35,21 @@ def dequant_matmul(x, q, scale, offset):
     return _dqm.dequant_matmul(x, q, scale, offset)
 
 
+def plane_or(acc, plane, *, shift):
+    _count("plane_or")
+    return _bp.plane_or(acc, plane, shift=shift)
+
+
 def plane_or_segments(acc, plane, shifts, *, block: int = 1024):
     _count("plane_or_segments")
     return _bp.plane_or_segments(acc, plane, shifts, block=block)
+
+
+def plane_extract(q, *, bits, before, width, out_dtype=None):
+    """Eq. (3) on the server side; ``out_dtype`` defaults to q's dtype, as
+    the reference's kernel writes."""
+    _count("plane_extract")
+    return _bp.plane_extract(q, bits=bits, before=before, width=width, out_dtype=out_dtype)
 
 
 def decode_attention(q, k, v, k_pos, q_pos, *, window: int = 0, softcap: float = 0.0):

@@ -18,12 +18,26 @@ NEG_INF = -1e30
 
 def plane_or_ref(acc: torch.Tensor, plane: torch.Tensor, shift) -> torch.Tensor:
     """Eq. (4): ``acc | (plane << shift)`` in acc's container dtype.
-    ``shift`` is an int or an integer tensor broadcastable against acc."""
+    ``shift`` is an int or an integer tensor broadcastable against acc;
+    plane may be any uint dtype. Shifts wrap, as the reference's uint32
+    shift does: only the low bits that fit acc's dtype are kept."""
     wide = torch.int32 if acc.element_size() <= 2 else torch.int64
     if isinstance(shift, torch.Tensor):
         shift = shift.to(wide)
     out = acc.to(wide) | (plane.to(wide) << shift)
     return out.to(acc.dtype)
+
+
+def plane_extract_ref(q: torch.Tensor, bits: int, before: int, width: int,
+                      out_dtype: torch.dtype | None = None) -> torch.Tensor:
+    """Eq. (3): ``((q << before) & (2^bits - 1)) >> (bits - width)``, the
+    ``width``-bit plane that starts ``before`` bits below the top of a
+    ``bits``-bit value, in ``out_dtype`` (default: q's dtype). The shift
+    wraps as the reference's uint32 shift does; the mask keeps the low
+    ``bits`` bits, so int32 holds every value when ``bits`` < 32."""
+    wide = torch.int32 if bits < 32 else torch.int64
+    plane = ((q.to(wide) << before) & (2 ** bits - 1)) >> (bits - width)
+    return plane.to(q.dtype if out_dtype is None else out_dtype)
 
 
 def plane_or_segments_ref(acc: torch.Tensor, plane: torch.Tensor,

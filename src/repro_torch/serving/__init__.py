@@ -1,6 +1,6 @@
 from repro_torch.serving.engine import (GenerationResult, PoolRequest, PoolStepStats,
                                         PrecisionManagedEngine, ProgressiveServer,
-                                        SlotPoolEngine, resident_report)
+                                        SlotPoolEngine, WireStoreReceiver, resident_report)
 
 __all__ = ["GenerationResult", "PoolRequest", "PoolStepStats", "PrecisionManagedEngine",
-           "ProgressiveServer", "SlotPoolEngine", "resident_report"]
+           "ProgressiveServer", "SlotPoolEngine", "WireStoreReceiver", "resident_report"]

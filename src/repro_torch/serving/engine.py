@@ -2,13 +2,15 @@
 weights, serves at once, and upgrades precision in place between decode
 steps as later planes arrive. The KV cache survives every upgrade.
 
-Counterpart of ``src/repro/serving/engine.py`` in pull mode with
+Counterpart of ``src/repro/serving/engine.py`` with
 ``resident="quantized"``, for two engines over the same precision
 machinery:
 
-* :class:`ProgressiveServer`: one lock-stepped request stream;
+* :class:`ProgressiveServer`: one lock-stepped request stream, in pull
+  mode or fed from wire bytes through a :class:`WireStoreReceiver`;
 * :class:`SlotPoolEngine`: continuous batching over a fixed pool of
-  decode slots, with chunked prefill admitting requests mid-flight.
+  decode slots, with chunked prefill admitting requests mid-flight (pull
+  mode).
 
 The live parameter tree holds
 :class:`~repro_torch.core.quantize.QuantizedTensor` views of the
@@ -28,7 +30,8 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device, to_device
-from repro_torch.core.progressive import (ProgressiveModel, ReceiverState,
+from repro_torch.core import wire
+from repro_torch.core.progressive import (ProgressiveModel, ReceiverState, rebuild_params,
                                           tree_flatten_with_path)
 from repro_torch.core.quantize import QuantizedTensor
 from repro_torch.models.common import quantized_resident_eligible
@@ -93,15 +96,70 @@ def resident_report(params) -> dict:
             "effective_bits": eff_bits}
 
 
+class WireStoreReceiver:
+    """A wire-fed :class:`~repro_torch.transmission.client.ProgressiveClient`
+    as a server's parameter source: the store the byte stream fills is the
+    one the server decodes from, with no second ingest.
+
+    The views cover completed stages only: the client ORs a stage's planes
+    when the stage completes, so the served parameters are exactly a
+    stage prefix."""
+
+    def __init__(self, client, prog: ProgressiveModel):
+        self.client = client
+        self.prog = prog
+
+    @property
+    def stages_complete(self) -> int:
+        return self.client.stages_complete
+
+    @property
+    def store(self):
+        return self.client.store
+
+    def transport_health(self) -> dict:
+        """The client's fault-tolerance counters (inert zeros on a trusted
+        v1/v2 stream). ``stages_complete`` counts verified checkpoints
+        only, so while a damaged unit is re-fetched the engine serves at
+        the last verified stage."""
+        c = self.client
+        return {
+            "integrity": c.integrity,
+            "stages_complete": c.stages_complete,
+            "verified_units": c.verified_units,
+            "pending_nacks": len(c.nacks),
+            "quarantined": len(c.quarantine_log),
+            "duplicate_units": c.duplicate_units,
+            "resume_cursor": list(c.resume_cursor),
+        }
+
+    def materialize(self):
+        """Float parameters: still to be ported (ROADMAP A6)."""
+        raise NotImplementedError(
+            "WireStoreReceiver.materialize() (float leaves through "
+            "PlaneStore.materialize_leaves) is still to be ported (ROADMAP A6)")
+
+    def materialize_resident(self, eligible=quantized_resident_eligible, *, bits=None):
+        """Quantized-resident view over the client's store: weight leaves
+        stay QuantizedTensor views of the accumulators, keyed by path
+        string (``wire.path_str``)."""
+        if self.client.store is None:
+            raise RuntimeError("wire header not received yet")
+        leaves = self.client.store.quantized_leaves(eligible=eligible, bits=bits)
+        return rebuild_params(self.prog, leaves, key_fn=wire.path_str)
+
+
 class PrecisionManagedEngine:
     """Shared precision machinery: the plane accumulators (its own
-    ReceiverState, pull mode) and the residency-aware parameter refresh.
+    ReceiverState in pull mode, or a receiver's store) and the
+    residency-aware parameter refresh.
 
     ``resident="fp"`` (a float copy of the model refreshed at each
     upgrade) is still to be ported (ROADMAP A6); only
     ``resident="quantized"`` runs."""
 
     def __init__(self, model: Model, prog: ProgressiveModel, max_len: int,
+                 receiver: WireStoreReceiver | None = None,
                  resident: str = "fp", *, device="cuda"):
         if resident not in RESIDENT_MODES:
             raise ValueError(f"resident must be one of {RESIDENT_MODES}, got {resident!r}")
@@ -114,18 +172,25 @@ class PrecisionManagedEngine:
         self.max_len = max_len
         self.resident = resident
         self.device = resolve_device(device)
-        self.state = ReceiverState.init(prog, device=self.device)
+        self._receiver = receiver
+        self.state = (None if receiver is not None
+                      else ReceiverState.init(prog, device=self.device))
+        self._consumed = 0  # receiver mode: stages reflected in params
         self.params = None  # live parameter tree at the current precision
         self._last_upgrade_split: dict[str, float] = {}
 
     @property
     def stage(self) -> int:
+        if self._receiver is not None:
+            return self._consumed
         return self.state.received_stages
 
     @property
     def stages_available(self) -> int:
-        """Stages the engine could upgrade to right now: in pull mode every
-        stage of ``self.prog`` is at hand."""
+        """Stages the engine could upgrade to right now: every stage of
+        ``self.prog`` in pull mode, the completed ones with a receiver."""
+        if self._receiver is not None:
+            return self._receiver.stages_complete
         return self.prog.n_stages
 
     def _wait(self) -> None:
@@ -134,7 +199,14 @@ class PrecisionManagedEngine:
             torch.cuda.synchronize(self.device)
 
     def _refresh_params(self) -> None:
-        self.params = self.state.materialize_resident(quantized_resident_eligible)
+        if self._receiver is None:
+            self.params = self.state.materialize_resident(quantized_resident_eligible)
+            return
+        store = self._receiver.store
+        if store is not None and store.device != self.device:
+            raise ValueError(f"the receiver's store lies on {store.device}, the engine "
+                             f"on {self.device}")
+        self.params = self._receiver.materialize_resident()
 
     def resident_report(self) -> dict:
         """Leaf-type audit of the live params (see :func:`resident_report`)."""
@@ -145,12 +217,21 @@ class PrecisionManagedEngine:
     def receive_stage(self) -> None:
         """Pull the next stage's planes from ``self.prog`` and OR them into
         the accumulators (one ``plane_or_segments`` launch per container
-        dtype), then refresh the parameter views: new accumulator views
-        and new scale/offset values, no weight dequantization. The host
-        time of each half lands in ``_last_upgrade_split``."""
+        dtype), or, with a receiver, catch up to every stage it has
+        completed (its client ORed them already); then refresh the
+        parameter views: new accumulator views and new scale/offset
+        values, no weight dequantization. The host time of each half
+        lands in ``_last_upgrade_split``."""
         t0 = time.perf_counter()
-        s = self.state.received_stages + 1
-        self.state = self.state.receive(self.prog.stage(s))
+        if self._receiver is not None:
+            avail = self._receiver.stages_complete
+            if avail <= self._consumed:
+                raise RuntimeError(f"receiver has no new stage (at {avail}, "
+                                   f"served {self._consumed})")
+            self._consumed = avail
+        else:
+            s = self.state.received_stages + 1
+            self.state = self.state.receive(self.prog.stage(s))
         t1 = time.perf_counter()
         self._refresh_params()
         self._last_upgrade_split = {"ingest_s": t1 - t0,
@@ -159,12 +240,19 @@ class PrecisionManagedEngine:
 
 class ProgressiveServer(PrecisionManagedEngine):
     """Single lock-stepped request stream over the device-resident plane
-    accumulators. Pull mode: ``receive_stage()`` ingests the next stage's
-    planes from ``self.prog``."""
+    accumulators. Two feeding modes:
+
+    * pull (default): ``receive_stage()`` ingests the next stage's planes
+      from ``self.prog`` into the server's own ReceiverState;
+    * receiver: with ``receiver=`` (a :class:`WireStoreReceiver` over a
+      wire client) the server holds no accumulators of its own, and
+      ``receive_stage()`` refreshes the views of the client's store."""
 
     def __init__(self, model: Model, prog: ProgressiveModel, max_len: int,
-                 resident: str = "fp", *, device="cuda"):
-        super().__init__(model, prog, max_len, resident=resident, device=device)
+                 receiver: WireStoreReceiver | None = None, resident: str = "fp", *,
+                 device="cuda"):
+        super().__init__(model, prog, max_len, receiver=receiver, resident=resident,
+                         device=device)
         self.caches = None
         self.pos = 0
         self.last_logits = None
@@ -301,8 +389,8 @@ class SlotPoolEngine(PrecisionManagedEngine):
 
     Left for later, each raising ``NotImplementedError``: batch-1
     admission (``chunked_prefill=False``) and its prompt buckets, which
-    need ``Model.prefill(n_valid)`` (ROADMAP A9); ``receiver=`` and
-    ``resident="fp"`` (A6); ``mesh=`` (A13); sliding-window rings and
+    need ``Model.prefill(n_valid)`` (ROADMAP A9); ``receiver=`` (A9, with
+    ``Session.run_serving_pool`` of A7); ``resident="fp"`` (A6); ``mesh=`` (A13); sliding-window rings and
     recurrent-slot resets (A8, which brings the reference's
     ``ring_margin`` too); telemetry, which the reference turns on with
     ``REPRO_TELEMETRY`` (A11). ``PoolRequest.extras`` are refused
@@ -319,7 +407,8 @@ class SlotPoolEngine(PrecisionManagedEngine):
                  prefill_chunk: int = 8, double_buffer: bool = True, mesh=None,
                  device="cuda"):
         if receiver is not None:
-            raise _later("serving from a wire-fed receiver (receiver=)", "A6")
+            raise _later("the pool's wire-fed receiver (receiver=, with "
+                         "Session.run_serving_pool of A7)", "A9")
         if mesh is not None:
             raise _later("sharded serving (mesh=)", "A13")
         if chunked_prefill is False:

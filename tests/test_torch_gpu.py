@@ -6,7 +6,8 @@ without one. Run on the card with:
     python -m pytest -m gpu tests/test_torch_gpu.py
 
 This file imports no JAX, so it runs where only PyTorch is installed.
-Tolerances: ``plane_or_segments`` exact; ``dequant_matmul`` within 1e-4
+Tolerances: ``plane_or_segments``, ``plane_or`` and ``plane_extract``
+exact; ``dequant_matmul`` within 1e-4
 of the output's largest magnitude (only the order of the float32 sum
 over K differs); ``flash_decode`` and ``flash_verify`` within 2e-5
 (float32) or 2**-7 (bfloat16 output rounding) of the output's largest
@@ -105,6 +106,85 @@ def test_wrappers_count_cuda_launches(dev):
     torch.cuda.synchronize()
     assert (bitplane.launches, dequant_matmul.launches,
             decode_attention.launches) == tuple(b + 1 for b in before)
+
+
+UINTS = (torch.uint8, torch.uint16, torch.uint32)
+
+
+def _uint(g, dev, n, dtype, offset=0):
+    """n random values of ``dtype`` starting ``offset`` elements into a
+    buffer (an offset view takes the kernels' element-wise path)."""
+    bits = 8 * torch.empty((), dtype=dtype).element_size()
+    raw = torch.randint(0, 2 ** bits, (n + offset,), generator=g, device=dev,
+                        dtype=torch.int64)
+    return raw.to(dtype)[offset:]
+
+
+@pytest.mark.parametrize("acc_dtype", UINTS)
+@pytest.mark.parametrize("plane_dtype", UINTS)
+@pytest.mark.parametrize("n,offset", [(1_048_576, 0), (1961, 0), (5, 0), (4099, 3)],
+                         ids=["aligned", "tail", "tiny", "unaligned"])
+def test_plane_or_exact(dev, acc_dtype, plane_dtype, n, offset):
+    g = torch.Generator(device=dev).manual_seed(n + offset)
+    acc = _uint(g, dev, n, acc_dtype, offset)
+    plane = _uint(g, dev, n, plane_dtype, offset)
+    before = acc.clone()
+    for shift in (0, 2, 14, 31):
+        out = bitplane.plane_or(acc, plane, shift=shift)
+        assert out.dtype == acc_dtype
+        assert torch.equal(out, ref.plane_or_ref(acc, plane, shift))
+    assert torch.equal(acc, before)          # out of place
+
+
+@pytest.mark.parametrize("q_dtype", UINTS)
+@pytest.mark.parametrize("out_dtype", UINTS)
+@pytest.mark.parametrize("n,offset", [(1_048_576, 0), (1961, 0), (5, 0), (4099, 3)],
+                         ids=["aligned", "tail", "tiny", "unaligned"])
+def test_plane_extract_exact(dev, q_dtype, out_dtype, n, offset):
+    g = torch.Generator(device=dev).manual_seed(n + offset + 1)
+    q = _uint(g, dev, n, q_dtype, offset)
+    bits = 8 * q.element_size()
+    out_bits = 8 * torch.empty((), dtype=out_dtype).element_size()
+    for before, width in ((0, 2), (bits - 2, 2), (1, min(bits - 1, out_bits)), (0, 1)):
+        got = bitplane.plane_extract(q, bits=bits, before=before, width=width,
+                                     out_dtype=out_dtype)
+        assert got.dtype == out_dtype
+        assert torch.equal(got, ref.plane_extract_ref(q, bits, before, width, out_dtype))
+
+
+def test_bitplane_kernels_count_cuda_launches_and_reject_mixed_devices(dev):
+    before = (bitplane.plane_or_launches, bitplane.plane_extract_launches)
+    q = torch.arange(100, dtype=torch.int32, device=dev).to(torch.uint16)
+    plane = bitplane.plane_extract(q, bits=16, before=14, width=2, out_dtype=torch.uint8)
+    bitplane.plane_or(q, plane, shift=0)
+    torch.cuda.synchronize()
+    assert (bitplane.plane_or_launches, bitplane.plane_extract_launches) == \
+        (before[0] + 1, before[1] + 1)
+    with pytest.raises(ValueError):
+        bitplane.plane_or(q, plane.cpu(), shift=0)
+    with pytest.raises(ValueError):
+        bitplane.plane_extract(q[::2], bits=16, before=0, width=2)
+
+
+def test_split_and_concat_on_the_card(dev):
+    """``bitplanes.split`` (eq. 3) and ``concat`` (eq. 4) of a CUDA tensor
+    launch ``plane_extract`` and ``plane_or`` once a plane, and a full
+    prefix of planes restores q."""
+    from repro_torch.core import bitplanes
+    from repro_torch.core.quantize import quantize
+
+    qt = quantize(torch.randn((37, 301), generator=torch.Generator(device=dev).manual_seed(5),
+                              device=dev), 16)
+    widths = (4, 4, 8)
+    before = (bitplane.plane_or_launches, bitplane.plane_extract_launches)
+    planes = bitplanes.split(qt, widths)
+    assert [p.dtype for p in planes] == [torch.uint8] * 3
+    assert torch.equal(bitplanes.concat(planes, 16, widths), qt.q)
+    top8 = ((qt.q.to(torch.int32) >> 8) << 8).to(torch.uint16)
+    assert torch.equal(bitplanes.concat(planes[:2], 16, widths), top8)
+    torch.cuda.synchronize()
+    assert (bitplane.plane_or_launches, bitplane.plane_extract_launches) == \
+        (before[0] + 5, before[1] + 3)
 
 
 def test_mixed_devices_raise(dev):
@@ -229,3 +309,44 @@ def test_pool_step_and_upgrade_never_sync(dev):
     assert pool.completed == set(range(5))
     assert all(len(v) == 6 for v in pool.outputs.values())
     assert pool.stage == prog.n_stages and pool._tick_count > 0
+
+
+def test_client_feed_and_catch_up_upgrade_never_sync(dev):
+    """On the card, a v3 client fed one stage's bytes (verify, upload,
+    unpack, OR) and the wire-fed server's catch-up upgrade run under
+    ``torch.cuda.set_sync_debug_mode("error")``, which raises on any
+    operation that waits for the device. The store then equals the
+    in-memory receiver's."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import wire
+    from repro_torch.core.progressive import ReceiverState, divide
+    from repro_torch.models.model import build_model
+    from repro_torch.serving.engine import ProgressiveServer, WireStoreReceiver
+    from repro_torch.transmission import ProgressiveClient
+
+    cfg = get_config("olmo-1b").reduced(n_layers=2, d_model=64, d_ff=128, vocab=128,
+                                        n_heads=2, n_kv=2)
+    model = build_model(cfg)
+    prog = divide(model.init(torch.Generator(device=dev).manual_seed(0), device=dev))
+    blob = wire.encode(prog, integrity=True)
+    meta, hdr = wire.decode_header(blob)
+    ends = np.cumsum([hdr] + wire.layout_from_header(meta, hdr).stage_bytes).tolist()
+    client = ProgressiveClient(device=dev)
+    srv = ProgressiveServer(model, prog, max_len=16, resident="quantized", device=dev,
+                            receiver=WireStoreReceiver(client, prog))
+    client.feed(blob[:ends[1]])
+    srv.receive_stage()
+    srv.start({"tokens": torch.arange(8).reshape(1, 8)})
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for a in range(ends[1], ends[2], 997):
+            client.feed(blob[a:min(a + 997, ends[2])])
+        srv.receive_stage()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert client.stages_complete == srv.stage == 2
+    state = ReceiverState.init(prog, device=dev)
+    for s in (1, 2):
+        state = state.receive(prog.stage(s))
+    assert client.store.fingerprint() == state.store.fingerprint()

@@ -7,8 +7,8 @@ made with numpy. The CUDA kernels themselves are held against the same
 plain versions on the card (``tests/test_torch_gpu.py`` and
 ``chip_smoke.py``).
 
-Tolerances: ``plane_or_segments`` is integer work and must match
-exactly. ``dequant_matmul`` and ``flash_decode`` are float32 on both
+Tolerances: ``plane_or_segments``, ``plane_or`` and ``plane_extract``
+are integer work and must match exactly. ``dequant_matmul`` and ``flash_decode`` are float32 on both
 sides and differ only in the order of float32 sums (the Pallas kernel
 sweeps K or S in blocks): rtol 2e-5 and atol 2e-4 / 2e-5, as the
 reference's own kernel tests allow. ``flash_verify``'s plain version is
@@ -22,6 +22,8 @@ import numpy as np
 import pytest
 import torch
 
+from repro.kernels.bitplane import plane_extract as jax_plane_extract
+from repro.kernels.bitplane import plane_or as jax_plane_or
 from repro.kernels.bitplane import plane_or_segments as jax_plane_or_segments
 from repro.kernels.decode_attention import flash_decode as jax_flash_decode
 from repro.kernels.dequant_matmul import dequant_matmul as jax_dequant_matmul
@@ -74,6 +76,83 @@ def test_plane_or_segments_rejects_bad_operands():
     with pytest.raises(TypeError):
         bitplane.plane_or_segments(acc, acc.to(torch.uint8),
                                    torch.zeros(2, dtype=torch.int32))
+
+
+# ---------------------------------------------------------------------------
+# plane_extract and plane_or: exact
+# ---------------------------------------------------------------------------
+
+# (bits, widths) per container dtype: the paper's eight 2-bit planes and
+# an uneven division of 16 bits, and their 8- and 32-bit counterparts
+DIVISIONS = {8: [(8, (2, 2, 2, 2)), (8, (2, 2, 4))],
+             16: [(16, (2,) * 8), (16, (4, 4, 8))],
+             32: [(20, (5, 5, 5, 5)), (32, (4, 4, 8, 16))]}
+
+
+def _division_cases():
+    return [(c, bits, w) for c, divs in DIVISIONS.items() for bits, w in divs]
+
+
+@pytest.mark.parametrize("container,bits,widths", _division_cases())
+def test_plane_extract_and_plane_or_exact(container, bits, widths):
+    """Every plane of a (37, 53) tensor (1,961 elements, no multiple of
+    the 1024 block) extracted in q's dtype and in the plane's container
+    dtype, then ORed back plane by plane, each step against the JAX
+    kernels in interpret mode; the last OR restores q."""
+    rng = np.random.default_rng(bits + len(widths))
+    q = rng.integers(0, 2 ** bits, (37, 53), dtype=np.uint64).astype(NP_UINT[container])
+    acc = np.zeros_like(q)
+    jacc = jnp.asarray(acc)
+    before = 0
+    for w in widths:
+        want = np.asarray(jax_plane_extract(jnp.asarray(q), bits=bits, before=before,
+                                            width=w, interpret=True))
+        got = bitplane.plane_extract(_t(q), bits=bits, before=before, width=w)
+        assert got.dtype == TORCH_UINT[container]
+        np.testing.assert_array_equal(got.numpy(), want)
+        small = bitplane.plane_extract(_t(q), bits=bits, before=before, width=w,
+                                       out_dtype=TORCH_UINT[8 if w <= 8 else 16 if w <= 16
+                                                            else 32])
+        np.testing.assert_array_equal(small.numpy(), want)
+        before += w
+        jacc = jax_plane_or(jacc, jnp.asarray(want), shift=bits - before, interpret=True)
+        acc_t = bitplane.plane_or(_t(acc), small, shift=bits - before)
+        assert acc_t.dtype == TORCH_UINT[container]
+        np.testing.assert_array_equal(acc_t.numpy(), np.asarray(jacc))
+        acc = acc_t.numpy()
+    np.testing.assert_array_equal(acc, q)
+
+
+@pytest.mark.parametrize("acc_bits,plane_bits", [(8, 32), (16, 8), (32, 8), (16, 32)])
+def test_plane_or_mixed_dtypes_and_wrapping_shift_exact(acc_bits, plane_bits):
+    """Planes wider than the accumulator and shifts that push bits past
+    its top: only the bits that fit acc's dtype survive, as the
+    reference's uint32 shift and cast keep them."""
+    rng = np.random.default_rng(acc_bits * plane_bits)
+    acc = rng.integers(0, 2 ** acc_bits, 3001, dtype=np.uint64).astype(NP_UINT[acc_bits])
+    plane = rng.integers(0, 2 ** plane_bits, 3001, dtype=np.uint64).astype(
+        NP_UINT[plane_bits])
+    for shift in (0, 3, acc_bits - 1, 31):
+        want = np.asarray(jax_plane_or(jnp.asarray(acc), jnp.asarray(plane), shift=shift,
+                                       interpret=True))
+        got = bitplane.plane_or(_t(acc), _t(plane), shift=shift)
+        np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_plane_or_and_plane_extract_reject_bad_operands():
+    q = torch.zeros(10, dtype=torch.uint16)
+    with pytest.raises(ValueError):
+        bitplane.plane_or(q, q[:5], shift=0)
+    with pytest.raises(ValueError):
+        bitplane.plane_or(q, q, shift=32)
+    with pytest.raises(TypeError):
+        bitplane.plane_or(q, q.to(torch.int32), shift=0)
+    with pytest.raises(ValueError):
+        bitplane.plane_extract(q, bits=16, before=10, width=8)
+    with pytest.raises(ValueError):
+        bitplane.plane_extract(q, bits=16, before=0, width=12, out_dtype=torch.uint8)
+    with pytest.raises(TypeError):
+        bitplane.plane_extract(q.to(torch.int16), bits=16, before=0, width=2)
 
 
 # ---------------------------------------------------------------------------
@@ -283,6 +362,18 @@ def test_cpu_tensors_take_the_plain_version_and_count_no_launch():
                                  "decode_attention": 1}
     assert (bitplane.launches, dequant_matmul.launches,
             decode_attention.launches) == before
+
+
+def test_bitplane_entry_points_count_calls_and_launch_nothing_on_the_cpu():
+    before = (bitplane.plane_or_launches, bitplane.plane_extract_launches)
+    ops.reset_launch_counts()
+    q = torch.tensor([0b1101_0010_0000_0111], dtype=torch.uint16)
+    top = ops.plane_extract(q, bits=16, before=0, width=4, out_dtype=torch.uint8)
+    assert top.dtype == torch.uint8 and int(top[0]) == 0b1101
+    acc = ops.plane_or(torch.zeros(1, dtype=torch.uint16), top, shift=12)
+    assert int(acc[0]) == 0b1101 << 12
+    assert ops.LAUNCH_COUNTS == {"plane_extract": 1, "plane_or": 1}
+    assert (bitplane.plane_or_launches, bitplane.plane_extract_launches) == before
 
 
 def test_verify_entry_points_count_calls_and_launch_nothing_on_the_cpu():
