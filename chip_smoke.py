@@ -30,14 +30,22 @@ with the launch counts set to 0 just before it and read just after:
 5. ``[upgrade per tensor]``: stage 8 as one ``plane_or`` a tensor on the
    live stage-7 accumulator views, byte-equal to the batched
    ``plane_or_segments`` upgrade, both timed;
-6. hold each kernel against its plain version on the paths' operands,
-   and every ``flash_verify`` row against a ``flash_decode`` launch;
+6. hold each kernel against its plain version on the paths' operands
+   (``dequant_matmul`` on both routes, GEMV and tensor-core, at M = 4, 8,
+   64 and 256, with activations of zero and of large positive mean), and
+   every ``flash_verify`` row against a ``flash_decode`` launch;
 7. run the same 2-layer full-width model on the card (kernels) and on
    the CPU (plain versions) and compare teacher-forced decode, prefill
    chunk and verify logits;
 8. time each kernel at the paths' shapes beside its bound, its plain
    version and one PyTorch call (or chain of calls) that computes the
-   same function, and one chunk tick of the pool.
+   same function: ``dequant_matmul`` over a decode step's, a chunk
+   tick's and the prefill's operands, and both of its routes at M = 1 to
+   256; one chunk tick of the pool and the single stream's prefill.
+
+``dequant_matmul``'s launches are also counted by route on every path:
+the prefill and the chunk ticks run the tensor-core kernel, decode the
+GEMV kernel.
 
 The second-to-last line is a JSON object with one entry per kernel, the
 last ``{"ok": true, "device": {...}}``.
@@ -60,6 +68,7 @@ import torch  # noqa: E402
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit).
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS = 67e12          # float32 outside the tensor cores
+BF16_FLOPS = 989e12         # bf16 on the tensor cores (dequant_matmul's mma route)
 
 DEVICE = "cuda"
 BATCH, PROMPT, STEPS = 4, 64, 48
@@ -68,14 +77,20 @@ ARRIVALS = (6, 12, 18, 24, 30, 36, 42)
 # requests (prompts 16-96 tokens, budgets 24-40, numpy seed 3)
 POOL_SLOTS, POOL_CHUNK, POOL_WINDOW, POOL_MAX_LEN = 8, 8, 8, 160
 POOL_REQUESTS = 12
+# dequant_matmul's rows: checked at the paths' M (decode, the pool's
+# decode, a chunk tick, the prefill), both routes timed at each of these
+DQMM_CHECK_M = (4, 8, 64, 256)
+DQMM_TIME_M = (1, 2, 4, 8, 16, 32, 64, 256)
 # wire chunks: log-uniform from 1 byte to 64 MB (numpy seed 5)
 CHUNK_MAX = 64 << 20
 
 # Stated tolerances, each with its reason.
-# dequant_matmul: the kernel and the plain version form every weight
+# dequant_matmul: the GEMV kernel and the plain version form every weight
 # with the same two rounded float32 operations and differ only in the
-# order of the float32 sum over K (<= 8192 terms): error far below
-# 1e-4 of the output's largest magnitude.
+# order of the float32 sum over K (<= 8192 terms); the tensor-core
+# kernel's products are exact and only its float32 sums round (q
+# centred, so its two epilogue terms do not cancel): error far below
+# 1e-4 of the output's largest magnitude on both routes.
 DQMM_RTOL = 1e-4
 # decode_attention and flash_verify: the kernels write bfloat16, the
 # plain versions float32; one bfloat16 rounding is 2**-9 relative, allow
@@ -156,9 +171,37 @@ def kernel_counters() -> dict:
 
 
 def reset_counts(ops) -> None:
+    from repro_torch.kernels import dequant_matmul
+
     for mod, attr in kernel_counters().values():
         setattr(mod, attr, 0)
+    by_route = dequant_matmul.launches_by_route
+    by_route.update(dict.fromkeys(by_route, 0))
     ops.reset_launch_counts()
+
+
+def route_counts() -> dict:
+    """``dequant_matmul``'s CUDA launches by route since the last reset."""
+    from repro_torch.kernels import dequant_matmul
+
+    return dict(dequant_matmul.launches_by_route)
+
+
+def expect_routes(calls) -> dict:
+    """Launches by route for ``calls``: (launches, M, K-contiguous)
+    triples, all on uint16 accumulators."""
+    from repro_torch.kernels import dequant_matmul
+
+    want = dict.fromkeys(dequant_matmul.launches_by_route, 0)
+    for n, M, k_contiguous in calls:
+        want[dequant_matmul.route(M, torch.uint16, k_contiguous)] += n
+    return want
+
+
+def pass_calls(layers: int, passes: int, M: int) -> list:
+    """``passes`` forward passes at M rows: 7 launches a layer on the (K, N)
+    layer weights and the unembedding on the K-contiguous ``embed.T``."""
+    return [(passes * layers * 7, M, False), (passes, M, True)]
 
 
 def counts(names=None) -> dict:
@@ -237,10 +280,10 @@ def main() -> int:
     srv.start({"tokens": prompt})
     torch.cuda.synchronize()
     t_prefill = time.perf_counter() - t0
-    after_prefill = counts(serve_kernels)
+    after_prefill, prefill_routes = counts(serve_kernels), route_counts()
     res = srv.decode(STEPS, stage_arrival=lambda i: i in ARRIVALS)
     torch.cuda.synchronize()
-    path_counts = counts(serve_kernels)
+    path_counts, serve_routes = counts(serve_kernels), route_counts()
     op_counts = dict(ops.LAUNCH_COUNTS)
     decode_s = sum(s for _, s in res.window_s)
 
@@ -260,13 +303,20 @@ def main() -> int:
     check(path_counts["plane_or_segments"] == 8, path_counts)
     check(all(path_counts[k] > 0 for k in path_counts))
     check(op_counts == path_counts, (op_counts, path_counts))
+    # the prefill's layer weights at M = BATCH * PROMPT and its unembedding
+    # of the last position at M = BATCH; decode at M = BATCH
+    prefill_calls = [(layers * 7, BATCH * PROMPT, False), (1, BATCH, True)]
+    check(prefill_routes == expect_routes(prefill_calls), prefill_routes)
+    check(serve_routes == expect_routes(prefill_calls + pass_calls(layers, STEPS, BATCH)),
+          serve_routes)
     tok_s = BATCH * STEPS / decode_s
     log(f"[serve] stages {res.stage_at_step[0]}->{res.stage_at_step[-1]}, upgrades "
         f"{res.upgrades}; logits finite; resident {report['quantized_bytes']} B "
         f"quantized, {report['fp_bytes']} B fp")
     log(f"[serve] launches in the run {path_counts}; per decode step "
         f"dequant_matmul {per_step['dequant_matmul']:.0f}, decode_attention "
-        f"{per_step['decode_attention']:.0f}")
+        f"{per_step['decode_attention']:.0f}; dequant_matmul by route: prefill "
+        f"{prefill_routes}, whole run {serve_routes}")
     log(f"[serve] receive_stage + prefill {t_prefill * 1e3:.1f} ms; decode "
         f"{STEPS} steps x {BATCH} slots with 7 upgrades: {decode_s:.3f} s, "
         f"{tok_s:.1f} tokens/s, {decode_s / STEPS * 1e3:.2f} ms/step")
@@ -287,10 +337,11 @@ def main() -> int:
     del state
 
     # the slot pool on the same planes
-    pool, pool_counts = _pool_phase(model, prog, dev, ops)
+    pool, pool_counts, pool_routes = _pool_phase(model, prog, dev, ops)
 
     # -- 4. the same model from wire bytes -----------------------------------
-    wire_counts = _wire_phase(model, prog, dev, ops, prompt, res, clean_fps)
+    wire_counts, wire_routes = _wire_phase(model, prog, dev, ops, prompt, res, clean_fps,
+                                           serve_routes)
     _wire_v1_check(cfg, dev)
 
     # -- 5. stage 8 one tensor at a time -------------------------------------
@@ -314,31 +365,43 @@ def main() -> int:
     kern["plane_or_segments"] = {"max_abs_err": 0}
     log(f"[check] plane_or_segments on the {acc.numel()}-element uint16 buffer: exact")
 
-    # dequant_matmul: every distinct (M, K, N) of the path, on the live
-    # accumulators of layer 0 at stage 8
+    # dequant_matmul: both routes at the paths' M (decode 4, the pool's
+    # decode 8, a chunk tick 64, the prefill 256) on the live stage-8
+    # accumulators of layer 0 and on embed.T, float32 and bfloat16 x, of
+    # zero mean and of large positive mean
     P = srv.params
     l0 = layer(P["decoder"]["cycles"]["0_attn"], 0)
     weights = {"attn.wq": l0["attn"]["wq"], "mlp.wi_gate": l0["mlp"]["wi_gate"],
                "mlp.wo": l0["mlp"]["wo"], "embed.T": P["embed"].T}
-    # (name, M): decode runs every weight at M = BATCH, prefill the layer
-    # weights at M = BATCH * PROMPT and the unembedding at M = BATCH
-    shapes = [(w, BATCH) for w in weights] + \
-             [(w, BATCH * PROMPT) for w in ("attn.wq", "mlp.wi_gate", "mlp.wo")]
     xg = torch.Generator(device=dev).manual_seed(2)
-    dq_err = 0.0
-    for name, M in shapes:
-        w = weights[name]
+    routes = {"gemv": dqm._launch_gemv, "mma": dqm._launch_mma}
+    route_err, worst = dict.fromkeys(routes, 0.0), {}
+    for name, w in weights.items():
         K = w.q.shape[0]
-        x = torch.randn((M, K), generator=xg, device=dev).to(cfg.dtype)
-        y = dqm.dequant_matmul(x, w.q, w.scale, w.offset)
-        yr = ref.dequant_matmul_ref(x, w.q, w.scale, w.offset)
-        err = float((y - yr).abs().max())
-        mag = float(yr.abs().max())
-        check(err <= DQMM_RTOL * mag, (name, M, err, mag))
-        dq_err = max(dq_err, err)
-        log(f"[check] dequant_matmul {name} M={M} K={K} N={w.q.shape[1]} "
-            f"q strides {tuple(w.q.stride())}: max |err| {err:.3e} (max |y| {mag:.3e})")
-    kern["dequant_matmul"] = {"max_abs_err": dq_err}
+        for M in DQMM_CHECK_M:
+            for xkind in ("randn", "silu", "relu3"):
+                x = torch.randn((M, K), generator=xg, device=dev)
+                x = {"randn": x, "silu": torch.nn.functional.silu(2 * x),
+                     "relu3": torch.relu(x) + 3}[xkind]
+                for xd in (torch.float32, torch.bfloat16):
+                    xt = x.to(xd)
+                    yr = ref.dequant_matmul_ref(xt, w.q, w.scale, w.offset)
+                    mag = float(yr.abs().max())
+                    for kernel, launch in routes.items():
+                        y = launch(xt, w.q, w.scale, w.offset)
+                        err = float((y - yr).abs().max())
+                        check(err <= DQMM_RTOL * mag, (name, M, xkind, xd, kernel, err, mag))
+                        route_err[kernel] = max(route_err[kernel], err)
+                        key = (name, M)
+                        worst[key] = max(worst.get(key, 0.0), err / mag)
+        log(f"[check] dequant_matmul {name} K={K} N={w.q.shape[1]} q strides "
+            f"{tuple(w.q.stride())}, routes {list(routes)}, x randn / silu / "
+            f"relu+3 in float32 and bfloat16: max |err| / max |y| by M "
+            + ", ".join(f"{M}: {worst[(name, M)]:.2e}" for M in DQMM_CHECK_M)
+            + f" (tolerance {DQMM_RTOL})")
+    log(f"[check] dequant_matmul largest |err| by route: {route_err}")
+    # each route's entry in the kernels line carries its own largest error
+    kern["dequant_matmul"] = {"max_abs_err": route_err["gemv"]}
 
     # decode_attention: layer 0's live cache, slot 1 ragged (its keys past
     # position 40 empty), slot 3 free
@@ -456,39 +519,80 @@ def main() -> int:
         per=f"one plane of the model, a launch a tensor ({len(qs)} launches)")
     del qs, out
 
-    # dequant_matmul: the decode step's 113 launches, in its order
+    # dequant_matmul: the decode step's 113 launches (M = BATCH), a chunk
+    # tick's 113 (M = slots x chunk) and the prefill's 112 layer launches
+    # (M = BATCH x PROMPT), each in its path's order over the 16 layers'
+    # own weights; bfloat16 x for the layers, float32 for the unembedding,
+    # as the model passes them
     stack = P["decoder"]["cycles"]["0_attn"]
-    xs = {k: torch.randn((BATCH, k), generator=xg, device=dev).to(cfg.dtype)
-          for k in (cfg.d_model, cfg.d_ff)}
-    calls = [(xs[w.q.shape[0]], w) for r in range(layers)
-             for w in _layer_weights(layer(stack, r))] + [(xs[cfg.d_model], P["embed"].T)]
-    check(len(calls) == per_step["dequant_matmul"], len(calls))
+    layer_ws = [w for r in range(layers) for w in _layer_weights(layer(stack, r))]
+    emb_w = P["embed"].T
+    dense = {id(w): w.q.to(torch.float32) * w.scale.reshape(()) + w.offset.reshape(())
+             for w in layer_ws + [emb_w]}
 
-    def run(fn, subset=calls):
-        for x, w in subset:
+    def path_calls(M, unembed=True):
+        xs = {k: torch.randn((M, k), generator=xg, device=dev).to(cfg.dtype)
+              for k in (cfg.d_model, cfg.d_ff)}
+        calls = [(xs[w.q.shape[0]], w) for w in layer_ws]
+        if unembed:
+            calls.append((torch.randn((M, cfg.d_model), generator=xg, device=dev), emb_w))
+        return calls
+
+    def run(calls, fn=dqm.dequant_matmul):
+        for x, w in calls:
             fn(x, w.q, w.scale, w.offset)
 
+    calls = path_calls(BATCH)
+    check(len(calls) == per_step["dequant_matmul"], len(calls))
     for shape in sorted({tuple(w.q.shape) for _, w in calls}):
         sub = [(x, w) for x, w in calls if tuple(w.q.shape) == shape]
         K, N = shape
-        n_b = len(sub) * (K * N * 2 + BATCH * K * 2 + BATCH * N * 4)
-        b, by = bound_ms(n_b, len(sub) * 2 * BATCH * K * N, FP32_FLOPS)
+        b, by = _dqmm_bound(sub)
         log(f"[time] dequant_matmul M={BATCH} K={K} N={N} x{len(sub)} per step: kernel "
-            f"{device_ms(lambda: run(dqm.dequant_matmul, sub), 3) * 1e3:.1f} us, "
-            f"bound {b * 1e3:.1f} us ({by})")
-    n_b = sum(w.q.numel() * w.q.element_size() + x.numel() * x.element_size()
-              + BATCH * w.q.shape[1] * 4 for x, w in calls)
-    n_ops = sum(2 * BATCH * w.q.numel() for _, w in calls)
-    b, by = bound_ms(n_b, n_ops, FP32_FLOPS)
-    step = {"ms": device_ms(lambda: run(dqm.dequant_matmul), 3),
-            "plain_ms": device_ms(lambda: run(ref.dequant_matmul_ref), 1),
-            "host_ms": host_ms(lambda: run(dqm.dequant_matmul), 3)}
-    dense_w = [(x.float(), w.q.to(torch.float32) * w.scale.reshape(()) + w.offset.reshape(()))
-               for x, w in calls]
-    step["library_ms"] = device_ms(lambda: [torch.matmul(x, w) for x, w in dense_w], 3)
-    del dense_w
-    kern["dequant_matmul"].update(step, bound_ms=b, bound_by=by,
-                                  per=f"one decode step ({len(calls)} launches)")
+            f"{device_ms(lambda: run(sub), 3) * 1e3:.1f} us, bound {b * 1e3:.1f} us ({by})")
+
+    def dqmm_row(calls, per, reps=3):
+        b, by = _dqmm_bound(calls)
+        xf = [(x.float(), dense[id(w)]) for x, w in calls]
+        row = {"ms": device_ms(lambda: run(calls), reps),
+               "plain_ms": device_ms(lambda: run(calls, ref.dequant_matmul_ref), 1),
+               "library_ms": device_ms(lambda: [torch.matmul(x, w) for x, w in xf], reps),
+               "host_ms": host_ms(lambda: run(calls), reps),
+               "bound_ms": b, "bound_by": by, "per": per,
+               "route_ms": {k: device_ms(lambda: run(calls, fn), reps)
+                            for k, fn in routes.items()}}
+        log(f"[time] dequant_matmul per {per}: kernel {row['ms']:.4f} ms on the device "
+            f"(by route {', '.join(f'{k} {v:.4f}' for k, v in row['route_ms'].items())}), "
+            f"bound {b:.4f} ms ({by}), plain {row['plain_ms']:.4f} ms, library "
+            f"{row['library_ms']:.4f} ms (torch.matmul on dequantised float32 weights); host "
+            f"issue {row['host_ms']:.4f} ms")
+        return row
+
+    step = dqmm_row(calls, f"one decode step ({len(calls)} launches at M={BATCH})")
+    kern["dequant_matmul"].update(step)
+    tick_M, prefill_M = POOL_SLOTS * POOL_CHUNK, BATCH * PROMPT
+    calls = path_calls(tick_M)
+    kern["dequant_matmul"]["tick"] = dqmm_row(
+        calls, f"one chunk tick ({len(calls)} launches at M={tick_M})", 2)
+    calls = path_calls(prefill_M, unembed=False)
+    kern["dequant_matmul"]["prefill"] = dqmm_row(
+        calls, f"one prefill's layer weights ({len(calls)} launches at M={prefill_M})", 2)
+    del calls
+
+    # both routes at every M, on layer 0's seven weights and on embed.T:
+    # the measurements that set dequant_matmul.MMA_MIN_M
+    by_m = {}
+    for M in DQMM_TIME_M:
+        calls = path_calls(M)
+        groups = {"layer 0": calls[:7], "embed.T": calls[-1:]}
+        by_m[M] = {g: {k: device_ms(lambda: run(sub, fn), 3) for k, fn in routes.items()}
+                   for g, sub in groups.items()}
+        log(f"[time] dequant_matmul M={M} (routes: layer weights to "
+            f"{dqm.route(M, torch.uint16)}, embed.T to {dqm.route(M, torch.uint16, True)}): "
+            + "; ".join(f"{g} " + ", ".join(f"{k} {t:.4f} ms" for k, t in r.items())
+                        for g, r in by_m[M].items()))
+    kern["dequant_matmul"]["by_M"] = by_m
+    del dense, calls
 
     # decode_attention: the decode step's 16 launches, one per layer's cache
     caches = [layer(srv.caches["cycles"]["0_attn"], r) for r in range(layers)]
@@ -558,14 +662,21 @@ def main() -> int:
     emb = pool.params["embed"].T
     x64 = torch.randn((POOL_SLOTS * T, cfg.d_model), generator=xg, device=dev)
     tick_ms, tick_host_ms = device_ms(tick, 2), host_ms(tick, 3)
-    unembed_ms = device_ms(lambda: dqm.dequant_matmul(x64, emb.q, emb.scale, emb.offset), 5)
-    unembed_bound, _ = bound_ms(emb.q.numel() * 2 + x64.numel() * 4
-                                + POOL_SLOTS * T * cfg.vocab * 4,
-                                2 * x64.shape[0] * emb.q.numel(), FP32_FLOPS)
+    unembed = {k: device_ms(lambda: fn(x64, emb.q, emb.scale, emb.offset), 5)
+               for k, fn in routes.items()}
+    unembed_bound, by = _dqmm_bound([(x64, emb)])
     log(f"[time] pool chunk tick ({POOL_SLOTS} slots x {T} rows, all live): "
         f"{tick_ms:.3f} ms on the device, host issue {tick_host_ms:.3f} ms; its "
-        f"unembedding (dequant_matmul M={x64.shape[0]} on embed.T {tuple(emb.q.shape)}) "
-        f"{unembed_ms:.3f} ms on the device, bound {unembed_bound:.4f} ms")
+        f"unembedding (dequant_matmul M={x64.shape[0]} on embed.T {tuple(emb.q.shape)}, "
+        f"float32 x) on the device: " + ", ".join(f"{k} {t:.4f} ms" for k, t in unembed.items())
+        + f", bound {unembed_bound:.4f} ms ({by})")
+
+    # the single stream's prefill alone: a (BATCH, PROMPT) prompt at stage 8
+    prompt_dev = prompt.to(dev)
+    prefill_ms = device_ms(lambda: model.prefill(srv.params, {"tokens": prompt_dev}), 1)
+    prefill_host_ms = host_ms(lambda: model.prefill(srv.params, {"tokens": prompt_dev}), 1)
+    log(f"[time] single-stream prefill ({BATCH} x {PROMPT} tokens, stage 8): "
+        f"{prefill_ms:.3f} ms on the device, host issue {prefill_host_ms:.3f} ms")
 
     sources = {"plane_or_segments": ("plane_or.cu", "src/repro/kernels/bitplane.py:89"),
                "dequant_matmul": ("dequant_matmul.cu",
@@ -581,19 +692,42 @@ def main() -> int:
              "wire": wire_counts, "upgrade per tensor": upgrade_counts}
     launches = {name: sum(c.get(name, 0) for c in paths.values()) for name in sources}
     check(all(launches[name] > 0 for name in sources), launches)
+    # dequant_matmul's launches by route on the paths that run it
+    route_paths = {"serve": serve_routes, "pool": pool_routes, "wire": wire_routes}
+    by_route = {k: sum(r[k] for r in route_paths.values()) for k in dqm.launches_by_route}
+    check(sum(by_route.values()) == launches["dequant_matmul"] and all(by_route.values()),
+          (by_route, launches["dequant_matmul"]))
+    log(f"[time] dequant_matmul launches by route on the paths: {by_route} ("
+        + ", ".join(f"{p} {r}" for p, r in route_paths.items()) + ")")
+    dq = kern["dequant_matmul"]
+    dq["launches_by_route"] = by_route
+    # one entry a CUDA kernel: dequant_matmul's launches are its GEMV
+    # kernel's, the tensor-core kernel's are dequant_matmul_mma's (the
+    # wrapper's count, ops.LAUNCH_COUNTS["dequant_matmul"], is their sum);
+    # the tensor-core kernel's row is the chunk tick
+    kern["dequant_matmul_mma"] = {**dq["tick"], "max_abs_err": route_err["mma"]}
+    sources["dequant_matmul_mma"] = ("dequant_matmul_mma.cu",
+                                     "src/repro/kernels/dequant_matmul.py:70")
+    launches["dequant_matmul"], launches["dequant_matmul_mma"] = by_route["gemv"], by_route["mma"]
     line = []
     for name, (src, replaces) in sources.items():
         k = kern[name]
+        dq_route = {"dequant_matmul": "gemv", "dequant_matmul_mma": "mma"}.get(name)
+        per_path = ({p: r[dq_route] for p, r in route_paths.items()} if dq_route
+                    else {p: c.get(name, 0) for p, c in paths.items()})
         log(f"[time] {name} per {k['per']}: kernel {k['ms']:.4f} ms on the device, "
             f"bound {k['bound_ms']:.4f} ms ({k['bound_by']}), plain {k['plain_ms']:.4f} ms, "
             f"library {k['library_ms']:.4f} ms; host issue {k['host_ms']:.4f} ms; "
             f"launches on the paths {launches[name]} ("
-            + ", ".join(f"{p} {c.get(name, 0)}" for p, c in paths.items()) + ")")
-        line.append({"name": name, "route": "cuda",
-                     "source": f"src/repro_torch/kernels/csrc/{src}", "replaces": replaces,
-                     "launches": launches[name], "max_abs_err": k["max_abs_err"],
-                     "ms": k["ms"], "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
-                     "bound_by": k["bound_by"], "library_ms": k["library_ms"]})
+            + ", ".join(f"{p} {n}" for p, n in per_path.items()) + ")")
+        entry = {"name": name, "route": "cuda",
+                 "source": f"src/repro_torch/kernels/csrc/{src}", "replaces": replaces,
+                 "launches": launches[name], "max_abs_err": k["max_abs_err"],
+                 "ms": k["ms"], "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
+                 "bound_by": k["bound_by"], "library_ms": k["library_ms"]}
+        if name == "dequant_matmul":
+            entry.update({key: dq[key] for key in ("launches_by_route", "tick", "prefill")})
+        line.append(entry)
     log(f"[done] {time.perf_counter() - t_script:.1f} s")
     print(json.dumps({"kernels": line}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
@@ -696,11 +830,12 @@ def _stage_ends(wire, blob) -> tuple[dict, list[int]]:
     return meta, ends
 
 
-def _wire_phase(model, prog, dev, ops, prompt, res, clean_fps) -> dict:
+def _wire_phase(model, prog, dev, ops, prompt, res, clean_fps, serve_routes) -> tuple:
     """``[wire]``: the single stream of phase 3 served from v3 wire bytes
     through a CUDA ProgressiveClient, counted from 0 (encode, feed,
     ingest, serve); then a damaged unit on a second feed. Returns the
-    path's launch counts."""
+    path's launch counts and ``dequant_matmul``'s launches by route, which
+    equal the in-memory server's."""
     from repro_torch.core import wire
     from repro_torch.serving.engine import ProgressiveServer, WireStoreReceiver
     from repro_torch.transmission import ProgressiveClient
@@ -738,7 +873,7 @@ def _wire_phase(model, prog, dev, ops, prompt, res, clean_fps) -> dict:
     srv.start({"tokens": prompt})
     wres = srv.decode(STEPS, stage_arrival=arrive)
     torch.cuda.synchronize()
-    run_counts, op_counts = counts(), dict(ops.LAUNCH_COUNTS)
+    run_counts, op_counts, routes = counts(), dict(ops.LAUNCH_COUNTS), route_counts()
     decode_s = sum(s for _, s in wres.window_s)
     check(client.complete and client.bytes_fed == len(blob) and srv.stage == 8)
     check(wres.upgrades == res.upgrades, (wres.upgrades, res.upgrades))
@@ -748,6 +883,7 @@ def _wire_phase(model, prog, dev, ops, prompt, res, clean_fps) -> dict:
     check(run_counts["plane_or_segments"] == op_counts["plane_or_segments"] == 8, run_counts)
     check(run_counts["dequant_matmul"] > 0 and run_counts["decode_attention"] > 0
           and run_counts["plane_extract"] == run_counts["plane_or"] == 0, run_counts)
+    check(routes == serve_routes, (routes, serve_routes))
     got = [st.fingerprint() for st in snaps]
     check(got == clean_fps, "wire-fed store fingerprints differ from the in-memory ones")
     del snaps
@@ -757,7 +893,8 @@ def _wire_phase(model, prog, dev, ops, prompt, res, clean_fps) -> dict:
         f"in-memory receiver's after each of the 8 stages")
     log(f"[wire] served: {STEPS} steps x {BATCH} with 7 upgrades and the feeding in "
         f"{decode_s:.3f} s, {BATCH * STEPS / decode_s:.1f} tokens/s; tokens equal "
-        f"(torch.equal) to the in-memory server's; launches {run_counts}; health "
+        f"(torch.equal) to the in-memory server's; launches {run_counts}, dequant_matmul "
+        f"by route {routes}; health "
         f"{srv._receiver.transport_health()}")
     del srv, client
 
@@ -796,7 +933,7 @@ def _wire_phase(model, prog, dev, ops, prompt, res, clean_fps) -> dict:
         f"clean stage-2 fingerprint; after feed_repair all 8 stages, fingerprint equal to "
         f"the clean one; ingest ms a stage (synchronised) "
         f"{[round(t, 2) for t in ingest_ms]}")
-    return run_counts
+    return run_counts, routes
 
 
 def _wire_v1_check(cfg, dev) -> None:
@@ -892,7 +1029,8 @@ def _upgrade_phase(prog, dev, ops):
 def _pool_phase(model, prog, dev, ops):
     """Serve 12 requests through the slot pool from stage 1, one upgrade
     per window up to stage 8, and check what came out and which kernels
-    ran. Returns the drained pool and the run's launch counts."""
+    ran. Returns the drained pool, the run's launch counts and
+    ``dequant_matmul``'s launches by route."""
     from repro_torch.serving.engine import PoolRequest, SlotPoolEngine
 
     cfg = model.cfg
@@ -914,7 +1052,7 @@ def _pool_phase(model, prog, dev, ops):
     out = pool.run(on_window=lambda _: pool.upgrade_if_available())
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    run_counts = counts()
+    run_counts, routes = counts(), route_counts()
     op_counts = dict(ops.LAUNCH_COUNTS)
 
     layers, ticks, steps = cfg.n_layers, pool._tick_count, pool._step_count
@@ -935,6 +1073,10 @@ def _pool_phase(model, prog, dev, ops):
     check(run_counts["dequant_matmul"] == op_counts["dequant_matmul"]
           == (layers * 7 + 1) * (ticks + steps), (run_counts, ticks, steps))
     check("verify_attention" not in op_counts, op_counts)
+    # a chunk tick runs every weight at M = slots x chunk, a decode step at
+    # M = slots
+    check(routes == expect_routes(pass_calls(layers, ticks, POOL_SLOTS * POOL_CHUNK)
+                                  + pass_calls(layers, steps, POOL_SLOTS)), routes)
     n_tok = sum(len(t) for t in out.values())
     ttft = [pool.ttft_s[rid] for rid in range(POOL_REQUESTS)]
     log(f"[pool] {POOL_REQUESTS} requests, prompts {int(lengths.min())}-"
@@ -943,11 +1085,28 @@ def _pool_phase(model, prog, dev, ops):
         f"1->{pool.stage}, upgrades at steps {[s for s, _ in pool.upgrades]}")
     log(f"[pool] {steps} decode steps, {ticks} chunk ticks, "
         f"{len(pool.window_stats)} windows; launches in the run {run_counts}; "
+        f"dequant_matmul by route {routes}; "
         f"every request got its budget of in-vocab tokens, logits finite, fp bytes 0")
     log(f"[pool] {n_tok} tokens in {wall:.3f} s: {n_tok / wall:.1f} tokens/s; TTFT mean "
         f"{sum(ttft) / len(ttft) * 1e3:.1f} ms, largest {max(ttft) * 1e3:.1f} ms; upgrade "
         f"enqueue ms {[round(u['enqueue_s'] * 1e3, 2) for u in pool.upgrade_log]}")
-    return pool, run_counts
+    return pool, run_counts, routes
+
+
+def _dqmm_bound(calls) -> tuple[float, str]:
+    """The least time for ``dequant_matmul`` over ``calls`` ((x, weight)
+    pairs), whichever route runs it: each x, q and output crossing device
+    memory once, or the function's 2MKN products once at the bf16
+    tensor-core peak (its products are exact in bf16 once q and x are
+    split), whichever is larger. The splits' extra passes are the
+    kernel's cost, not the function's."""
+    n_b, n_ops = 0, 0
+    for x, w in calls:
+        M, (K, N) = x.shape[0], w.q.shape
+        n_b += w.q.numel() * w.q.element_size() + x.numel() * x.element_size() + M * N * 4
+        n_ops += 2 * M * K * N
+    t_bytes, t_ops = n_b / HBM_BYTES_PER_S * 1e3, n_ops / BF16_FLOPS * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def _layer_weights(lr: dict) -> list:

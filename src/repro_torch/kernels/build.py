@@ -23,8 +23,8 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-SOURCES = ("plane_or", "plane_extract", "dequant_matmul", "decode_attention",
-           "verify_attention")
+SOURCES = ("plane_or", "plane_extract", "dequant_matmul", "dequant_matmul_mma",
+           "decode_attention", "verify_attention")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 
@@ -36,6 +36,8 @@ SIGNATURES = {
     "plane_extract": {"plane_extract": [P, P, I64, I32, I32, I32, I32, I32, P]},
     "dequant_matmul": {"dequant_matmul": [P, I32, P, I32, I64, I64, P, P, P, P, I32, I32,
                                           I32, I32, P]},
+    "dequant_matmul_mma": {"dequant_matmul_mma": [P, I32, P, I32, I64, I64, P, P, P, I32, I32,
+                                                  I32, I32, P]},
     "decode_attention": {"flash_decode": [P, P, P, P, I64, I64, P, P, I32, I32, I32, I32,
                                           I32, I32, F32, F32, I32, P]},
     "verify_attention": {"flash_verify": [P, I64, I64, P, P, P, I64, I64, P, I64, I64, P,

@@ -2,10 +2,13 @@
 // weight buffer in device memory.
 //
 // Replaces src/repro/kernels/dequant_matmul.py `dequant_matmul` (the Pallas
-// `_kernel`). At decode M is the batch (1-16), so the product does about
-// 2*M operations per weight element and is bound by the bytes of q: the
-// whole model's accumulators cross device memory once per decode step.
-// The design keeps that one pass and nothing else:
+// `_kernel`) at small M, the GEMV route: below 16 rows of x for (K, N) q,
+// below 4 for the K-contiguous view, and for uint32 containers at any M
+// (dequant_matmul_mma.cu is the tensor-core route above). At decode M is
+// the batch (1-8), so the product does about 2*M operations per weight
+// element and is bound by the bytes of q: the whole model's accumulators
+// cross device memory once per decode step. The design keeps that one
+// pass and nothing else:
 //
 //  * q in (K, N) layout with N contiguous (`dqmm_cols`): a block owns 32*V
 //    consecutive columns and one chunk of K; its 8 warps take every 8th row

@@ -55,6 +55,45 @@ def dequant_matmul_ref(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor,
     return x.to(torch.float32) @ w
 
 
+def dequant_matmul_split_ref(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor,
+                             offset: torch.Tensor, *, depth: int = 16) -> torch.Tensor:
+    """The tensor-core route's arithmetic (``csrc/dequant_matmul_mma.cu``)
+    emulated on the CPU, for the tests: q centred on c, the accumulator
+    value whose weight is nearest 0, and split into bf16-exact byte planes
+    (``q - c = 256*h + l``; uint8 keeps ``q - c``); float32 x split into
+    three bf16 terms, bfloat16 x kept; products exact, sums in float32 in
+    ``depth``-deep steps (an mma's K); then
+    ``y = scale * (256*A_h + A_l) + (offset + scale*c) * sum_k x``.
+    uint8/16 q only, as the kernel."""
+    s = scale.to(torch.float32).reshape(())
+    o = offset.to(torch.float32).reshape(())
+    top = 255 if q.element_size() == 1 else 65535
+    cf = torch.clamp(torch.round(-o / s), 0, top)
+    d = (s.double() * cf.double() + o.double()).float()      # one fused multiply-add
+    c, v = int(cf), q.to(torch.int64)
+    planes = ([v - c] if q.element_size() == 1
+              else [(v >> 8) - (c >> 8), (v & 255) - (c & 255)])
+    xf = x.to(torch.float32)
+    terms = [xf]
+    if x.dtype == torch.float32:
+        terms = []
+        for _ in range(3):
+            t = xf.to(torch.bfloat16).to(torch.float32)
+            terms.append(t)
+            xf = xf - t
+    sums = []
+    for p in planes:
+        pd = p.double()
+        acc = torch.zeros((x.shape[0], q.shape[1]), dtype=torch.float32)
+        for k0 in range(0, x.shape[1], depth):
+            step = sum(t[:, k0:k0 + depth].double() @ pd[k0:k0 + depth] for t in terms)
+            acc = acc + step.float()
+        sums.append(acc)
+    a = sums[0] if len(sums) == 1 else (256.0 * sums[0].double() + sums[1].double()).float()
+    bias = (d * x.to(torch.float32).sum(dim=1, keepdim=True)).float()
+    return (s.double() * a.double() + bias.double()).float()
+
+
 def flash_decode_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      k_pos: torch.Tensor, q_pos: torch.Tensor, *,
                      window: int = 0, softcap: float = 0.0) -> torch.Tensor:

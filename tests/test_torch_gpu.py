@@ -7,11 +7,12 @@ without one. Run on the card with:
 
 This file imports no JAX, so it runs where only PyTorch is installed.
 Tolerances: ``plane_or_segments``, ``plane_or`` and ``plane_extract``
-exact; ``dequant_matmul`` within 1e-4
-of the output's largest magnitude (only the order of the float32 sum
-over K differs); ``flash_decode`` and ``flash_verify`` within 2e-5
-(float32) or 2**-7 (bfloat16 output rounding) of the output's largest
-magnitude; every ``flash_verify`` row exactly equal to a ``flash_decode``
+exact; ``dequant_matmul`` within 1e-4 of the output's largest magnitude
+on both routes (the GEMV kernel differs from the plain version only in
+the order of the float32 sum over K; the tensor-core kernel's products
+are exact and its float32 sums round, see its source note);
+``flash_decode`` and ``flash_verify`` within 2e-5 (float32) or 2**-7
+(bfloat16 output rounding) of the output's largest magnitude; every ``flash_verify`` row exactly equal to a ``flash_decode``
 launch for that row.
 """
 import numpy as np
@@ -48,15 +49,20 @@ def test_plane_or_segments_exact(dev, dtype, offset):
     assert torch.equal(acc, before)          # out of place
 
 
-@pytest.mark.parametrize("M,K,N", [(1, 64, 96), (4, 2048, 2048), (16, 300, 130),
-                                   (256, 512, 512), (5, 8192, 64)])
-@pytest.mark.parametrize("qdtype", [torch.uint8, torch.uint16, torch.uint32])
-@pytest.mark.parametrize("layout", ["kn", "transposed", "strided"])
-@pytest.mark.parametrize("xdtype", [torch.float32, torch.bfloat16])
-def test_dequant_matmul(dev, M, K, N, qdtype, layout, xdtype):
-    g = torch.Generator(device=dev).manual_seed(M + K + N)
+def _dqmm_operands(dev, M, K, N, qdtype, layout, xdtype, seed, xkind="randn"):
+    """x (M, K) of ``xkind``: ``randn``, ``silu`` (SiLU of 2 randn) or
+    ``relu3`` (relu(randn) + 3), the last two of large positive mean; q
+    (K, N) of uniform ``qdtype`` values as ``kn`` (N contiguous),
+    ``transposed`` (the view of an (N, K) table, as ``embed.T``) or
+    ``strided`` (every other column)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
     hi = 256 if qdtype == torch.uint8 else 65536
-    x = torch.randn((M, K), generator=g, device=dev).to(xdtype)
+    x = torch.randn((M, K), generator=g, device=dev)
+    if xkind == "silu":
+        x = torch.nn.functional.silu(2 * x)
+    elif xkind == "relu3":
+        x = torch.relu(x) + 3
+    x = x.to(xdtype)
     if layout == "transposed":
         q = torch.randint(0, hi, (N, K), generator=g, device=dev).to(qdtype).T
     elif layout == "strided":
@@ -65,10 +71,105 @@ def test_dequant_matmul(dev, M, K, N, qdtype, layout, xdtype):
         q = torch.randint(0, hi, (K, N), generator=g, device=dev).to(qdtype)
     scale = torch.tensor([[3.0 / hi]], device=dev)
     offset = torch.tensor([[-1.4]], device=dev)
-    y = dequant_matmul.dequant_matmul(x, q, scale, offset)
+    return x, q, scale, offset
+
+
+def _assert_dqmm_close(y, x, q, scale, offset):
     want = ref.dequant_matmul_ref(x, q, scale, offset)
     err = (y - want).abs().max().item()
     assert err <= 1e-4 * want.abs().max().item() + 1e-6
+
+
+# M = 16, 17, 64 and 256, and the transposed layout at any M, take the
+# tensor-core route (uint8/16 q); the rest and every uint32 q the GEMV route
+@pytest.mark.parametrize("M,K,N", [(1, 64, 96), (4, 2048, 2048), (16, 300, 130),
+                                   (256, 512, 512), (5, 8192, 64)]
+                         + [(m, k, n) for m in (16, 17, 64, 256) for k in (300, 2048, 8192)
+                            for n in (130, 2048)])
+@pytest.mark.parametrize("qdtype", [torch.uint8, torch.uint16, torch.uint32])
+@pytest.mark.parametrize("layout", ["kn", "transposed", "strided"])
+@pytest.mark.parametrize("xdtype", [torch.float32, torch.bfloat16])
+def test_dequant_matmul(dev, M, K, N, qdtype, layout, xdtype):
+    x, q, scale, offset = _dqmm_operands(dev, M, K, N, qdtype, layout, xdtype, M + K + N)
+    _assert_dqmm_close(dequant_matmul.dequant_matmul(x, q, scale, offset), x, q, scale, offset)
+
+
+@pytest.mark.parametrize("M,K,N", [(16, 8192, 2048), (64, 2048, 8192), (64, 8192, 2048),
+                                   (256, 8192, 2048), (64, 2048, 50304)])
+@pytest.mark.parametrize("qdtype", [torch.uint8, torch.uint16])
+@pytest.mark.parametrize("layout", ["kn", "transposed"])
+@pytest.mark.parametrize("xdtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("xkind", ["silu", "relu3"])
+def test_dequant_matmul_positive_mean(dev, M, K, N, qdtype, layout, xdtype, xkind):
+    """Activations of large positive mean, where an uncentred split of q
+    would cancel: the tensor-core route stays within 1e-4 of max |y|."""
+    x, q, scale, offset = _dqmm_operands(dev, M, K, N, qdtype, layout, xdtype, M + K, xkind)
+    before = dequant_matmul.launches_by_route["mma"]
+    y = dequant_matmul.dequant_matmul(x, q, scale, offset)
+    assert dequant_matmul.launches_by_route["mma"] == before + 1
+    _assert_dqmm_close(y, x, q, scale, offset)
+
+
+@pytest.mark.parametrize("M", [1, 4, 8, 16, 64, 256])
+@pytest.mark.parametrize("kernel", ["gemv", "mma"])
+@pytest.mark.parametrize("qdtype", [torch.uint8, torch.uint16])
+@pytest.mark.parametrize("layout", ["kn", "transposed", "strided"])
+@pytest.mark.parametrize("xdtype", [torch.float32, torch.bfloat16])
+def test_dequant_matmul_each_route(dev, M, kernel, qdtype, layout, xdtype):
+    """Both kernels at every M the paths run, whichever route M picks."""
+    x, q, scale, offset = _dqmm_operands(dev, M, 2048, 2048, qdtype, layout, xdtype, M,
+                                         "relu3")
+    launch = {"gemv": dequant_matmul._launch_gemv, "mma": dequant_matmul._launch_mma}[kernel]
+    before = dict(dequant_matmul.launches_by_route)
+    y = launch(x, q, scale, offset)
+    assert dequant_matmul.launches_by_route[kernel] == before[kernel] + 1
+    _assert_dqmm_close(y, x, q, scale, offset)
+
+
+@pytest.mark.parametrize("kernel", ["gemv", "mma"])
+@pytest.mark.parametrize("M", [4, 64])
+def test_dequant_matmul_noncontiguous_x(dev, kernel, M):
+    """x as a transposed view: the wrapper's contiguous copy lives until
+    the kernel is queued, on either route."""
+    x, q, scale, offset = _dqmm_operands(dev, M, 2048, 2048, torch.uint16, "kn",
+                                         torch.float32, M)
+    xt = x.T.contiguous().T
+    assert not xt.is_contiguous()
+    launch = {"gemv": dequant_matmul._launch_gemv, "mma": dequant_matmul._launch_mma}[kernel]
+    _assert_dqmm_close(launch(xt, q, scale, offset), x, q, scale, offset)
+
+
+def test_dequant_matmul_route_by_rows(dev):
+    """M = 64 (the chunk tick) launches the tensor-core kernel, M = 4
+    (decode) the GEMV kernel on (K, N) q and the tensor-core kernel on the
+    K-contiguous view (the unembedding), at M = 1 too; uint32 q the GEMV
+    kernel at any M; each launch counts once in all and once for its
+    route."""
+    for M, qdtype, layout, kind in [(64, torch.uint16, "kn", "mma"),
+                                    (4, torch.uint16, "kn", "gemv"),
+                                    (4, torch.uint16, "transposed", "mma"),
+                                    (1, torch.uint16, "transposed", "mma"),
+                                    (64, torch.uint32, "kn", "gemv")]:
+        x, q, scale, offset = _dqmm_operands(dev, M, 512, 256, qdtype, layout, torch.bfloat16,
+                                             1)
+        before, by = dequant_matmul.launches, dict(dequant_matmul.launches_by_route)
+        dequant_matmul.dequant_matmul(x, q, scale, offset)
+        assert dequant_matmul.launches == before + 1
+        assert dequant_matmul.launches_by_route == {**by, kind: by[kind] + 1}
+    with pytest.raises(ValueError):
+        dequant_matmul._launch_mma(x, q, scale, offset)
+
+
+@pytest.mark.parametrize("M,K,N,layout", [(64, 8192, 2048, "kn"), (256, 2048, 2048, "kn"),
+                                          (64, 2048, 50304, "transposed"),
+                                          (4, 8192, 2048, "kn")])
+def test_dequant_matmul_is_deterministic(dev, M, K, N, layout):
+    """Two launches on the same operands are bit-identical: the K chunks'
+    partial sums are added in a fixed order, without atomics."""
+    x, q, scale, offset = _dqmm_operands(dev, M, K, N, torch.uint16, layout, torch.float32, 7)
+    a = dequant_matmul.dequant_matmul(x, q, scale, offset)
+    b = dequant_matmul.dequant_matmul(x, q, scale, offset)
+    assert torch.equal(a, b)
 
 
 @pytest.mark.parametrize("B,H,Kh,S,hd", [(4, 16, 16, 112, 128), (3, 8, 2, 50, 64),

@@ -11,7 +11,9 @@ Tolerances: ``plane_or_segments``, ``plane_or`` and ``plane_extract``
 are integer work and must match exactly. ``dequant_matmul`` and ``flash_decode`` are float32 on both
 sides and differ only in the order of float32 sums (the Pallas kernel
 sweeps K or S in blocks): rtol 2e-5 and atol 2e-4 / 2e-5, as the
-reference's own kernel tests allow. ``flash_verify``'s plain version is
+reference's own kernel tests allow. The emulation of the tensor-core
+route's arithmetic is held to the same tolerance, and to 1e-4 of the
+largest output magnitude. ``flash_verify``'s plain version is
 held within atol 1e-5 (float32, outputs of magnitude <= 3) against the
 JAX plain version and the interpret-mode Pallas kernel, and its rows
 exactly against the port's ``flash_decode_ref``.
@@ -29,6 +31,7 @@ from repro.kernels.decode_attention import flash_decode as jax_flash_decode
 from repro.kernels.dequant_matmul import dequant_matmul as jax_dequant_matmul
 from repro.kernels.ref import flash_verify_ref as jax_flash_verify_ref
 from repro.kernels.verify_attention import flash_verify as jax_flash_verify
+from repro_torch.core.quantize import dequant_affine, quantize
 from repro_torch.kernels import (bitplane, decode_attention, dequant_matmul, ops, ref,
                                  verify_attention)
 
@@ -180,6 +183,84 @@ def test_dequant_matmul_vs_jax(M, transposed, bits):
                                         torch.tensor([[offset]]))
     assert got.dtype == torch.float32 and got.shape == (M, N)
     np.testing.assert_allclose(got.numpy(), want, rtol=2e-5, atol=2e-4)
+
+
+def _stage_operands(seed, M, K, N, bits, stage, transposed, xkind):
+    """Gaussian weights quantized to ``bits`` (the port's ``quantize``),
+    the accumulator after the first stage (its top 2 bits) or the last
+    (all bits) with the port's eq.-(5) affine for that precision, and x
+    of zero (``randn``) or large positive mean (``relu3``: relu(randn) +
+    3; ``silu``: SiLU of 2 randn)."""
+    rng = np.random.default_rng(seed)
+    w = torch.from_numpy((0.02 * rng.standard_normal((K, N))).astype(np.float32))
+    qt = quantize(w, bits)
+    m = 2 if stage == "first" else bits
+    q = (qt.q.to(torch.int64) >> (bits - m) << (bits - m)).to(qt.q.dtype)
+    scale, offset = dequant_affine(qt.lo, qt.hi, bits, received_bits=m)
+    z = rng.standard_normal((M, K)).astype(np.float32)
+    x = {"randn": z, "relu3": np.maximum(z, 0) + 3,
+         "silu": 2 * z / (1 + np.exp(-2 * z))}[xkind].astype(np.float32)
+    if transposed:   # q as the transposed view of a row-major (N, K) table
+        q = q.T.contiguous().T
+    return x, q, scale.reshape(1, 1), offset.reshape(1, 1)
+
+
+@pytest.mark.parametrize("xkind,xdtype", [("randn", torch.float32), ("relu3", torch.float32),
+                                          ("silu", torch.bfloat16),
+                                          ("relu3", torch.bfloat16)])
+@pytest.mark.parametrize("transposed", [False, True], ids=["kn", "embed_T"])
+@pytest.mark.parametrize("stage", ["first", "last"])
+@pytest.mark.parametrize("bits", [8, 16])
+def test_dequant_matmul_split_emulation_vs_jax(bits, stage, transposed, xkind, xdtype):
+    """The tensor-core route's arithmetic (q centred and split into bf16
+    byte planes, float32 x into three bf16 terms, float32 sums 16 deep),
+    emulated by ``ref.dequant_matmul_split_ref``, against the JAX kernel
+    in interpret mode at K = 8192 (its default K block of 512), with the
+    port's stage-1 and stage-8 affines and activations of zero and of
+    large positive mean: within
+    the kernel tests' rtol 2e-5 / atol 2e-4, and within 1e-4 of max |y|
+    (``chip_smoke.py``'s ``DQMM_RTOL``)."""
+    M, K, N = 16, 8192, 80
+    x, q, scale, offset = _stage_operands(bits + 100 * transposed, M, K, N, bits, stage,
+                                          transposed, xkind)
+    xt = torch.from_numpy(x).to(xdtype)
+    x_jax = xt.to(torch.float32).numpy()   # the same values, bf16-exact or not
+    q_jax = jnp.asarray(q.T.contiguous().numpy()).T if transposed else jnp.asarray(q.numpy())
+    want = np.asarray(jax_dequant_matmul(jnp.asarray(x_jax), q_jax, scale.numpy(),
+                                         offset.numpy(), bm=16, bn=128, bk=512,
+                                         interpret=True))
+    got = ref.dequant_matmul_split_ref(xt, q, scale, offset)
+    assert got.dtype == torch.float32 and got.shape == (M, N)
+    np.testing.assert_allclose(got.numpy(), want, rtol=2e-5, atol=2e-4)
+    assert np.abs(got.numpy() - want).max() <= 1e-4 * np.abs(want).max()
+
+
+def test_dequant_matmul_cpu_takes_plain_version_and_counts_nothing():
+    """On the CPU the wrapper returns the plain version, whatever route M
+    would pick on the card, and counts no launch; either CUDA launch
+    refuses a CPU tensor; the route
+    is the tensor-core kernel from ``MMA_MIN_M`` rows of uint8/16 q and at
+    every M on the K-contiguous view, and the GEMV kernel below and for
+    uint32 q."""
+    rng = np.random.default_rng(5)
+    scale, offset = torch.tensor([[3.0 / 65536]]), torch.tensor([[-1.4]])
+    before = (dequant_matmul.launches, dict(dequant_matmul.launches_by_route))
+    for M in (1, 4, 16, 64):
+        x = _t(rng.standard_normal((M, 96)).astype(np.float32))
+        q = _t(rng.integers(0, 65536, (96, 40)).astype(np.uint16))
+        got = dequant_matmul.dequant_matmul(x, q, scale, offset)
+        assert torch.equal(got, ref.dequant_matmul_ref(x, q, scale, offset))
+        for launch in (dequant_matmul._launch_gemv, dequant_matmul._launch_mma):
+            with pytest.raises(ValueError):
+                launch(x, q, scale, offset)
+    assert (dequant_matmul.launches, dict(dequant_matmul.launches_by_route)) == before
+    lo = dequant_matmul.MMA_MIN_M
+    for kc in (False, True):
+        assert dequant_matmul.route(lo, torch.uint16, kc) == "mma"
+        assert dequant_matmul.route(64, torch.uint8, kc) == "mma"
+        assert dequant_matmul.route(lo - 1, torch.uint16, kc) == ("mma" if kc else "gemv")
+        assert dequant_matmul.route(256, torch.uint32, kc) == "gemv"
+    assert dequant_matmul.route(1, torch.uint8, True) == "mma"
 
 
 def test_dequant_matmul_rejects_bad_operands():
