@@ -41,7 +41,9 @@ with the launch counts set to 0 just before it and read just after:
    version and one PyTorch call (or chain of calls) that computes the
    same function: ``dequant_matmul`` over a decode step's, a chunk
    tick's and the prefill's operands, and both of its routes at M = 1 to
-   256; one chunk tick of the pool and the single stream's prefill.
+   256; both attention kernels at the paths' shapes and on one synthetic
+   layer at S = 1024 and 4096 keys; one chunk tick of the pool and the
+   single stream's prefill.
 
 ``dequant_matmul``'s launches are also counted by route on every path:
 the prefill and the chunk ticks run the tensor-core kernel, decode the
@@ -81,6 +83,9 @@ POOL_REQUESTS = 12
 # decode, a chunk tick, the prefill), both routes timed at each of these
 DQMM_CHECK_M = (4, 8, 64, 256)
 DQMM_TIME_M = (1, 2, 4, 8, 16, 32, 64, 256)
+# the attention kernels are also checked and timed on one synthetic layer
+# at these cache lengths (keys), beyond what the body's ring holds at once
+ATTN_LONG_S = (1024, 4096)
 # wire chunks: log-uniform from 1 byte to 64 MB (numpy seed 5)
 CHUNK_MAX = 64 << 20
 
@@ -647,6 +652,11 @@ def main() -> int:
             vq, c["k"], c["v"], vk_pos, vq_pos)), 5),
         bound_ms=b, bound_by=by, per=f"one chunk tick ({layers} launches)")
 
+    # both attention kernels at long caches, where the body's ring cycles
+    for S_long in ATTN_LONG_S:
+        for name, row in _attention_long(cfg, dev, xg, S_long, da, va, ref).items():
+            kern[name].setdefault("by_S", {})[S_long] = row
+
     # one whole chunk tick of the pool (every slot consuming 8 prompt rows)
     # and its unembedding: the transposed 206 MB embed.T at M = 64
     tick_pos = (torch.arange(POOL_SLOTS, dtype=torch.int32, device=dev)[:, None] * 8
@@ -727,6 +737,8 @@ def main() -> int:
                  "bound_by": k["bound_by"], "library_ms": k["library_ms"]}
         if name == "dequant_matmul":
             entry.update({key: dq[key] for key in ("launches_by_route", "tick", "prefill")})
+        if "by_S" in k:
+            entry["by_S"] = k["by_S"]
         line.append(entry)
     log(f"[done] {time.perf_counter() - t_script:.1f} s")
     print(json.dumps({"kernels": line}))
@@ -1183,6 +1195,59 @@ def _chunk_and_verify(model, gpu, cpu, g, dev, stage) -> float:
         check(err <= PATH_RTOL, f"stage {stage} {name}: relative logit error {err:.3e}")
         worst = max(worst, err)
     return worst
+
+
+def _attention_long(cfg, dev, g, S, da, va, ref) -> dict:
+    """``[check]`` and ``[time]`` both attention kernels on one synthetic
+    layer of S keys, every key live, at the paths' heads: decode at the
+    single stream's batch, verify at the pool's slots and chunk (each row
+    also ``torch.equal`` to a decode launch). Device ms a launch beside
+    ``scaled_dot_product_attention`` and the bytes bound."""
+    H, Kh, hd = cfg.n_heads, cfg.n_kv, cfg.hd
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    rows = {}
+    for name, B, T in (("decode_attention", BATCH, 1), ("flash_verify", POOL_SLOTS, POOL_CHUNK)):
+        k = torch.randn((B, Kh, S, hd), generator=g, device=dev).to(cfg.dtype)
+        v = torch.randn((B, Kh, S, hd), generator=g, device=dev).to(cfg.dtype)
+        q = torch.randn((B, T, H, hd), generator=g, device=dev).to(cfg.dtype)
+        k_pos = torch.arange(S, dtype=torch.int32, device=dev).repeat(B, 1)
+        q_pos = (torch.arange(T, dtype=torch.int32, device=dev) + S - T).repeat(B, 1)
+        if T == 1:
+            q1, qp1 = q[:, 0].contiguous(), q_pos[:, 0].contiguous()
+            fn = lambda: da.flash_decode(q1, k, v, k_pos, qp1)             # noqa: E731
+            want = ref.flash_decode_ref(q1, k, v, k_pos, qp1)[:, None]
+        else:
+            fn = lambda: va.flash_verify(q, k, v, k_pos, q_pos)            # noqa: E731
+            want = ref.flash_verify_ref(q, k, v, k_pos, q_pos)
+        out = fn().reshape(want.shape)
+        check(bool(torch.isfinite(out).all()), f"{name} S={S}: non-finite output")
+        err = float((out.float() - want).abs().max())
+        check(err <= ATTN_RTOL * float(want.abs().max()), f"{name} S={S}: {err}")
+        if T > 1:
+            for t in range(T):
+                row = da.flash_decode(q[:, t].contiguous(), k, v, k_pos,
+                                      q_pos[:, t].contiguous())
+                check(torch.equal(out[:, t], row), f"flash_verify S={S} row {t} differs")
+        valid = k_pos[:, None, :] <= q_pos[:, :, None]
+        mask = torch.where(valid, 0.0, -1e30).to(cfg.dtype)[:, None]    # (B, 1, T, S)
+        qh = q.transpose(1, 2)                                          # (B, H, T, hd)
+        n_b = 2 * k.numel() * k.element_size() + 2 * q.numel() * q.element_size() \
+            + k_pos.numel() * 4 + q_pos.numel() * 4
+        b, by = bound_ms(n_b, 4 * B * T * H * S * hd, FP32_FLOPS)
+        row = {"ms": device_ms(fn, 10),
+               "library_ms": device_ms(lambda: sdpa(qh, k, v, attn_mask=mask,
+                                                  enable_gqa=Kh != H), 10),
+               "bound_ms": b, "bound_by": by, "max_abs_err": err}
+        rows[name] = row
+        log(f"[check] {name} S={S} B={B} T={T} H={H} hd={hd} (one synthetic layer, all "
+            f"keys live): max |err| {err:.3e}"
+            + (f"; each of the {T} rows equal (torch.equal) to a flash_decode launch"
+               if T > 1 else ""))
+        log(f"[time] {name} S={S} B={B} T={T} H={H} hd={hd}, one launch: kernel "
+            f"{row['ms']:.4f} ms on the device, sdpa {row['library_ms']:.4f} ms, bound "
+            f"{b:.4f} ms ({by})")
+        del k, v
+    return rows
 
 
 def _to_cpu(tree):

@@ -4,10 +4,13 @@
 // Replaces src/repro/kernels/decode_attention.py `flash_decode` (the Pallas
 // `_kernel`). Bound: device-memory bytes; every cache byte of K and V is read
 // once per decode step. The kernel is attention_rows.cuh's body at one token
-// per slot: one block per (slot, kv-head) holds the G query heads of the
-// slot's token as its rows (a second block per 8 heads beyond the first 8).
-// flash_verify (verify_attention.cu) compiles the same body, so each of its
-// rows is bit-identical to this kernel at that row's query and position.
+// per slot: one block of 8 warps per (slot, kv-head) holds the G query heads
+// of the slot's token as its rows (a second block per 8 heads beyond the
+// first 8); the slot's keys are staged in chunks of 32 through a ring in
+// shared memory, fed by a copy warp through the tensor memory accelerator,
+// one key a lane for the scores. flash_verify (verify_attention.cu)
+// compiles the same body, so each of its rows is bit-identical to this
+// kernel at that row's query and position.
 #include "attention_rows.cuh"
 
 // q: (B, H, hd); k, v: (B, Kh, S, hd), all contiguous and of one dtype,

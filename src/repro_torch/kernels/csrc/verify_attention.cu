@@ -3,15 +3,18 @@
 // block, each row with its own position (a negative position masks the row).
 //
 // Replaces src/repro/kernels/verify_attention.py `flash_verify` (the Pallas
-// `_kernel`). Bound: device-memory bytes; each block reads its (slot,
-// kv-head) cache row once for up to 8 rows. The Pallas kernel transposes q
-// to (B, Kh, T*G, hd), pads the rows to 8 sublanes and pads S on the host;
-// here the kernel reads q and writes out in their (B, T, H, hd) layout
-// through strides and masks the ragged edge itself. The body is
-// attention_rows.cuh's, which flash_decode (decode_attention.cu) compiles
-// with the same flags: every row is bit-identical to a flash_decode launch
-// at that row's query and position, so chunked prefill and verify equal
-// sequential decode row for row.
+// `_kernel`). Bound: device-memory bytes; each block of 8 compute warps
+// reads its (slot, kv-head) cache row once, through a ring of 32-key chunks
+// that a copy warp fills, for up to 8 rows, each lane scoring one key
+// against all of them. The
+// Pallas kernel transposes q to (B, Kh, T*G, hd), pads the rows to 8
+// sublanes and pads S on the host; here the kernel reads q and writes out in
+// their (B, T, H, hd) layout through strides and masks the ragged edge
+// itself. The body is attention_rows.cuh's, which flash_decode
+// (decode_attention.cu) compiles with the same flags: a row's arithmetic
+// depends only on S, hd and the dtype, so every row is bit-identical to a
+// flash_decode launch at that row's query and position, and chunked prefill
+// and verify equal sequential decode row for row.
 #include "attention_rows.cuh"
 
 // q: (B, T, H, hd) with element strides (q_sb, q_st, hd, 1); k, v:

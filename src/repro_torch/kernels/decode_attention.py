@@ -7,11 +7,15 @@ it in, so the wrapper neither transposes nor pads.
 
 Bound on the H100: device-memory bytes. Decode reads all of K and V once
 per token while the arithmetic is a rank-1 sliver per key. The kernel
-runs one block per (slot, kv-head), reads every cache row once with
-coalesced loads and keeps the online-softmax state in registers. With
-B*Kh blocks it fills at most B*Kh of the 132 SMs; splitting S across
-blocks is left for later. Its body (``csrc/attention_rows.cuh``) is the
-one ``flash_verify`` compiles, at one token per slot.
+runs one block per (slot, kv-head) and reads every cache row once: a
+copy warp stages 32-key chunks through a ring in shared memory with the
+tensor memory accelerator, chunk c goes to compute warp c % 8, each lane
+scores one key, and the 8 warps' online-softmax states combine in warp
+order. With B*Kh blocks it fills at most B*Kh of the 132 SMs; splitting
+S across blocks, scores on the tensor cores and skipping fully masked
+chunks are later questions (ROADMAP). Its body
+(``csrc/attention_rows.cuh``) is the one ``flash_verify`` compiles, at
+one token per slot.
 
 q is scaled by hd**-0.5 inside (callers pass it unscaled), masked scores
 are -1e30 and the denominator is guarded by 1e-30, so a free slot

@@ -7,10 +7,13 @@ chunked-prefill block of the slot pool (``ops.prefill_attention``): each
 row carries its own position, and a negative position masks the row.
 
 Bound on the H100: device-memory bytes. Each block reads its (slot,
-kv-head) cache row once for a tile of up to 8 query rows. q is read and
-the output written in their (B, T, H, hd) layout through strides, with no
-transpose or padding on the host. The kernel body is the decode kernel's
-(``csrc/attention_rows.cuh``), so every row is bit-identical to a
+kv-head) cache row once for a tile of up to 8 query rows, in 32-key
+chunks that a copy warp stages through a ring in shared memory; a lane
+of a compute warp scores one key against every row of the tile. q is
+read and the output written in their (B, T, H, hd) layout through
+strides, with no transpose or padding on the host. The kernel body is
+the decode kernel's (``csrc/attention_rows.cuh``): a row's arithmetic
+depends only on S, hd and the dtype, so every row is bit-identical to a
 ``flash_decode`` launch at that row's query and position.
 
 A tensor on the CPU takes the plain version (``ref.flash_verify_ref``);

@@ -172,9 +172,28 @@ def test_dequant_matmul_is_deterministic(dev, M, K, N, layout):
     assert torch.equal(a, b)
 
 
+# Shapes at the edges of the attention body's design (csrc/attention_rows.cuh):
+# S around one 32-key chunk (31, 32, 33) and one key (1); around 8 chunks,
+# one a warp (255, 256, 257: a ninth goes back to warp 0); around the
+# largest cache that stays resident in the bfloat16 ring at hd = 128 (416,
+# 417: 13 chunks fit); and a cache that cycles through the ring (float32
+# and bfloat16 at hd = 256, S = 1000). Their B = EDGE_B slots include one
+# whose keys are all masked (k_pos = -1 throughout).
+EDGE_B = 5
+EDGE_S_HD = [(31, 128), (32, 128), (33, 128), (1, 128), (255, 64), (256, 64), (257, 64),
+             (416, 128), (417, 128), (1000, 256)]
+
+
+def _mask_edge_slot(k_pos):
+    """In the edge shapes' batches, slot 2's keys are all masked."""
+    if k_pos.shape[0] == EDGE_B:
+        k_pos[2] = -1
+
+
 @pytest.mark.parametrize("B,H,Kh,S,hd", [(4, 16, 16, 112, 128), (3, 8, 2, 50, 64),
                                          (2, 8, 1, 300, 256), (1, 4, 4, 7, 32),
-                                         (2, 24, 2, 70, 16)])
+                                         (2, 24, 2, 70, 16)]
+                         + [(EDGE_B, 16, 16, S, hd) for S, hd in EDGE_S_HD])
 @pytest.mark.parametrize("window,softcap", [(0, 0.0), (24, 0.0), (0, 30.0)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_decode(dev, B, H, Kh, S, hd, window, softcap, dtype):
@@ -184,6 +203,7 @@ def test_flash_decode(dev, B, H, Kh, S, hd, window, softcap, dtype):
     v = torch.randn((B, Kh, S, hd), generator=g, device=dev).to(dtype)
     k_pos = torch.arange(S, dtype=torch.int32, device=dev).repeat(B, 1)
     k_pos[0, S // 2:] = -1
+    _mask_edge_slot(k_pos)
     q_pos = torch.full((B,), S - 1, dtype=torch.int32, device=dev)
     q_pos[-1] = -1 if B > 1 else S // 3
     out = decode_attention.flash_decode(q, k, v, k_pos, q_pos, window=window,
@@ -311,12 +331,22 @@ def _verify_operands(dev, B, T, H, Kh, S, hd, dtype, seed):
         q_pos[1, max(1, T - 2):] = -1
     if B > 2:
         q_pos[-1] = -1
+    _mask_edge_slot(k_pos)
     return q, k, v, k_pos, q_pos
+
+
+# the edge shapes at the path's heads (8 rows a tile) and with GQA; and 5
+# or 6 chunks (S = 150, 180, 190), whose last chunks warps 4-7 share by
+# rows, at 2, 4 and 8 rows a tile
+EDGE_VERIFY = ([(EDGE_B, 8, 16, 16, S, hd) for S, hd in EDGE_S_HD]
+               + [(EDGE_B, 3, 8, 2, S, 64) for S in (1, 32, 33, 257)]
+               + [(EDGE_B, 2, 16, 16, 150, 128), (EDGE_B, 4, 16, 16, 180, 128),
+                  (EDGE_B, 8, 16, 16, 190, 128), (EDGE_B, 2, 8, 2, 150, 64)])
 
 
 @pytest.mark.parametrize("B,T,H,Kh,S,hd", [(8, 8, 16, 16, 160, 128), (3, 5, 8, 2, 50, 64),
                                            (2, 8, 16, 2, 300, 256), (3, 1, 4, 4, 7, 32),
-                                           (3, 3, 24, 2, 33, 16)])
+                                           (3, 3, 24, 2, 33, 16)] + EDGE_VERIFY)
 @pytest.mark.parametrize("window,softcap", [(0, 0.0), (24, 0.0), (0, 30.0)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_verify(dev, B, T, H, Kh, S, hd, window, softcap, dtype):
@@ -333,7 +363,7 @@ def test_flash_verify(dev, B, T, H, Kh, S, hd, window, softcap, dtype):
 
 
 @pytest.mark.parametrize("B,T,H,Kh,S,hd", [(8, 8, 16, 16, 160, 128), (3, 5, 8, 2, 50, 64),
-                                           (3, 3, 24, 2, 33, 16)])
+                                           (3, 3, 24, 2, 33, 16)] + EDGE_VERIFY)
 @pytest.mark.parametrize("window,softcap", [(0, 0.0), (16, 25.0)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_verify_rows_equal_flash_decode(dev, B, T, H, Kh, S, hd, window, softcap,
@@ -347,6 +377,31 @@ def test_flash_verify_rows_equal_flash_decode(dev, B, T, H, Kh, S, hd, window, s
                                             q_pos[:, t].contiguous(), window=window,
                                             softcap=softcap)
         assert torch.equal(out[:, t], row), f"row {t}"
+
+
+@pytest.mark.parametrize("kernel", ["decode", "verify"])
+@pytest.mark.parametrize("S,hd", [(160, 128), (417, 128), (1000, 256)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_attention_row_independent_of_batch(dev, kernel, S, hd, dtype):
+    """One slot's output is the same bits launched alone (B = 1) and as
+    slot 3 of 8 (other slots ragged, masked and free), and a second launch
+    of the same operands repeats the first bit for bit."""
+    T = 1 if kernel == "decode" else 8
+    q, k, v, k_pos, q_pos = _verify_operands(dev, 8, T, 16, 16, S, hd, dtype, S + hd)
+    q_pos[3] = torch.arange(T, dtype=torch.int32, device=dev) + S // 2
+    k_pos[3, S - 3:] = -1
+
+    def run(*ops):
+        if kernel == "decode":
+            qq, kk, vv, kp, qp = ops
+            return decode_attention.flash_decode(qq[:, 0].contiguous(), kk, vv, kp,
+                                                 qp[:, 0].contiguous())[:, None]
+        return verify_attention.flash_verify(*ops)
+
+    batch = run(q, k, v, k_pos, q_pos)
+    alone = run(*(t[3:4].contiguous() for t in (q, k, v, k_pos, q_pos)))
+    assert torch.equal(batch[3:4], alone)
+    assert torch.equal(run(q, k, v, k_pos, q_pos), batch)
 
 
 def test_flash_verify_reads_q_through_strides(dev):

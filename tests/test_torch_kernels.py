@@ -16,7 +16,11 @@ route's arithmetic is held to the same tolerance, and to 1e-4 of the
 largest output magnitude. ``flash_verify``'s plain version is
 held within atol 1e-5 (float32, outputs of magnitude <= 3) against the
 JAX plain version and the interpret-mode Pallas kernel, and its rows
-exactly against the port's ``flash_decode_ref``.
+exactly against the port's ``flash_decode_ref``. An emulation of the CUDA
+attention body's order of arithmetic (chunks of 32 keys, warp = chunk mod
+8, the warp-order combine) is held to the same decode and verify
+tolerances against the JAX kernels, and its verify rows exactly against
+its decode rows.
 """
 import jax
 import jax.numpy as jnp
@@ -415,6 +419,135 @@ def test_flash_verify_rejects_bad_operands():
         verify_attention.flash_verify(q[:, :, :3], k, k, k_pos, q_pos)
     with pytest.raises(ValueError):
         verify_attention.flash_verify(q[0], k, k, k_pos, q_pos)
+
+
+# ---------------------------------------------------------------------------
+# the CUDA attention body's order of arithmetic, emulated on the CPU
+# ---------------------------------------------------------------------------
+
+_CHUNK, _WARPS, _NP = 32, 8, 4
+
+
+def _fma(a, b, c):
+    """fmaf to within double rounding: the product is exact in float64."""
+    return (a.double() * b.double() + c.double()).float()
+
+
+def _exp(x):
+    # through float64, so every element rounds alike wherever it lies
+    return torch.exp(x.double()).float()
+
+
+def _emulate_attention_rows(q, k, v, k_pos, q_pos, window=0, softcap=0.0):
+    """Each row of ``csrc/attention_rows.cuh`` in its order of arithmetic.
+
+    q (B, T, H, hd), k/v (B, Kh, S, hd) float32, k_pos (B, S), q_pos (B, T).
+    Scores: q scaled, dims zero-padded to HDP = 32 * DPL, NP = 4 partial
+    fma sums over d % 4 in d order, added as a fixed tree. Keys in chunks
+    of 32 (a lane each), chunk c to warp c % 8; per chunk and row one max,
+    p = exp(x - m_new), the 32 p added by the xor butterfly, l = fma(l,
+    corr, sum), acc = acc * corr, then the 32 keys' fma into acc in cache
+    order. The 8 warps' states combine in warp order. Nothing here depends
+    on B, T, the heads or other rows."""
+    B, T, H, hd = q.shape
+    Kh, S = k.shape[1], k.shape[2]
+    G = H // Kh
+    hdp = 32 * next(n for n in (1, 2, 4, 8) if hd <= 32 * n)
+    scale = torch.tensor(hd ** -0.5, dtype=torch.float32)
+    pad = (0, hdp - hd)
+    qs = torch.nn.functional.pad(q * scale, pad)                    # (B, T, H, hdp)
+    heads = torch.arange(H) // G
+    kk = torch.nn.functional.pad(k, pad)[:, heads]                  # (B, H, S, hdp)
+    vv = torch.nn.functional.pad(v, pad)[:, heads]
+    n_chunks = -(-S // _CHUNK)
+    s_pad = n_chunks * _CHUNK - S
+    part = torch.zeros((_NP, B, T, H, S))
+    for d in range(hdp):
+        part[d % _NP] = _fma(qs[..., d, None], kk[:, None, :, :, d], part[d % _NP])
+    sc = (part[0] + part[1]) + (part[2] + part[3])
+    if softcap:
+        sc = (torch.tanh((sc / softcap).double()).float()) * softcap
+    kp, qp = k_pos[:, None, None, :], q_pos[:, :, None, None]
+    valid = (kp >= 0) & (kp <= qp) & (qp >= 0)
+    if window:
+        valid &= kp > qp - window
+    x = torch.where(valid, sc, torch.tensor(-1e30))
+    x = torch.nn.functional.pad(x, (0, s_pad), value=-float("inf"))
+    vv = torch.nn.functional.pad(vv, (0, 0, 0, s_pad))
+    m = torch.full((_WARPS, B, T, H), -1e30)
+    l = torch.zeros((_WARPS, B, T, H))
+    acc = torch.zeros((_WARPS, B, T, H, hdp))
+    lanes = torch.arange(_CHUNK)
+    for c in range(n_chunks):
+        w, keys = c % _WARPS, slice(c * _CHUNK, (c + 1) * _CHUNK)
+        xc = x[..., keys]
+        m_new = torch.maximum(m[w], xc.max(-1).values)
+        p = _exp(xc - m_new[..., None])
+        corr = _exp(m[w] - m_new)
+        ps = p
+        for o in (16, 8, 4, 2, 1):
+            ps = ps + ps[..., lanes ^ o]
+        l[w] = _fma(l[w], corr, ps[..., 0])
+        a = acc[w] * corr[..., None]
+        for s in range(_CHUNK):
+            a = _fma(p[..., s, None], vv[:, None, :, c * _CHUNK + s], a)
+        acc[w], m[w] = a, m_new
+    mx = m.max(0).values
+    den = torch.zeros((B, T, H))
+    num = torch.zeros((B, T, H, hdp))
+    for w in range(_WARPS):
+        cw = _exp(m[w] - mx)
+        den = _fma(l[w], cw, den)
+        num = _fma(acc[w], cw[..., None], num)
+    return (num / torch.clamp(den, min=1e-30)[..., None])[..., :hd]
+
+
+@pytest.mark.parametrize("S,Kh,window,softcap", [
+    (64, 4, 0, 0.0),      # MHA, two whole chunks
+    (70, 2, 24, 0.0),     # GQA, a ragged third chunk, sliding window
+    (300, 1, 16, 25.0),   # MQA, 10 chunks: warps 0 and 1 take two each
+])
+def test_attention_rows_emulation_vs_jax_flash_decode(S, Kh, window, softcap):
+    """The CUDA body's order of arithmetic, held against the JAX kernel in
+    interpret mode at the decode tolerance; every row that attends to a key
+    (the JAX kernel pads S with masked keys, which a free row would see)."""
+    B, H, hd = 4, 8, 32
+    q, k, v = _attention_inputs(S + Kh, B, H, Kh, hd, S)
+    q_pos = np.array([S - 1, 40, 7, -1], np.int32)
+    k_pos = np.broadcast_to(np.arange(S, dtype=np.int32), (B, S)).copy()
+    k_pos[1, 45:] = -1
+    want = np.asarray(jax_flash_decode(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jnp.asarray(k_pos),
+        jnp.asarray(q_pos), window=window, softcap=softcap, bs=32, interpret=True))
+    got = _emulate_attention_rows(_t(q)[:, None], _t(k), _t(v), _t(k_pos),
+                                  _t(q_pos)[:, None], window=window, softcap=softcap)[:, 0]
+    assert torch.isfinite(got).all()
+    live = q_pos >= 0
+    np.testing.assert_allclose(got.numpy()[live], want[live], rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.parametrize("G,T,window,softcap", [(1, 8, 0, 0.0), (2, 5, 12, 25.0)])
+def test_attention_rows_emulation_vs_jax_flash_verify(G, T, window, softcap):
+    """The emulated CUDA body against the JAX plain version and the JAX
+    kernel in interpret mode at the verify tolerance (live rows against the
+    kernel, as ``test_flash_verify_vs_jax``), and each of its verify rows
+    equal, bit for bit, to the emulated decode launch of that row."""
+    B, Kh, hd, S = 3, 2, 16, 37
+    q, k, v, k_pos, q_pos = _verify_inputs(G * 10 + T, B, T, Kh * G, Kh, hd, S)
+    args = [jnp.asarray(a) for a in (q, k, v, k_pos, q_pos)]
+    want_ref = np.asarray(jax_flash_verify_ref(*args, window=window, softcap=softcap))
+    want_kernel = np.asarray(jax_flash_verify(*args, window=window, softcap=softcap,
+                                              bs=16, interpret=True))
+    tq, tk, tv, tkp, tqp = (_t(a) for a in (q, k, v, k_pos, q_pos))
+    got = _emulate_attention_rows(tq, tk, tv, tkp, tqp, window=window, softcap=softcap)
+    assert torch.isfinite(got).all()
+    np.testing.assert_allclose(got.numpy(), want_ref, rtol=0, atol=1e-5)
+    live = q_pos >= 0
+    np.testing.assert_allclose(got.numpy()[live], want_kernel[live], rtol=0, atol=1e-5)
+    for t in range(T):
+        row = _emulate_attention_rows(tq[:, t:t + 1], tk, tv, tkp, tqp[:, t:t + 1],
+                                      window=window, softcap=softcap)
+        assert torch.equal(got[:, t:t + 1], row), f"row {t}"
 
 
 # ---------------------------------------------------------------------------
