@@ -32,22 +32,26 @@ with the launch counts set to 0 just before it and read just after:
    ``plane_or_segments`` upgrade, both timed;
 6. hold each kernel against its plain version on the paths' operands
    (``dequant_matmul`` on both routes, GEMV and tensor-core, at M = 4, 8,
-   64 and 256, with activations of zero and of large positive mean), and
-   every ``flash_verify`` row against a ``flash_decode`` launch;
+   64 and 256, with activations of zero and of large positive mean; every
+   row of a GEMV launch at M = 4 and 8 ``torch.equal`` to that row
+   launched alone), and every ``flash_verify`` row against a
+   ``flash_decode`` launch;
 7. run the same 2-layer full-width model on the card (kernels) and on
    the CPU (plain versions) and compare teacher-forced decode, prefill
    chunk and verify logits;
 8. time each kernel at the paths' shapes beside its bound, its plain
    version and one PyTorch call (or chain of calls) that computes the
-   same function: ``dequant_matmul`` over a decode step's, a chunk
-   tick's and the prefill's operands, and both of its routes at M = 1 to
-   256; both attention kernels at the paths' shapes and on one synthetic
-   layer at S = 1024 and 4096 keys; one chunk tick of the pool and the
-   single stream's prefill.
+   same function: ``dequant_matmul`` over a decode step's (M = 4), the
+   pool's decode step's (M = 8), a chunk tick's and the prefill's
+   operands, and both of its routes at M = 1 to 256; both attention
+   kernels at the paths' shapes and on one synthetic layer at S = 1024
+   and 4096 keys; one chunk tick of the pool and the single stream's
+   prefill.
 
 ``dequant_matmul``'s launches are also counted by route on every path:
 the prefill and the chunk ticks run the tensor-core kernel, decode the
-GEMV kernel.
+GEMV route, every launch of it on its one-pass kernels (checked on each
+path).
 
 The second-to-last line is a JSON object with one entry per kernel, the
 last ``{"ok": true, "device": {...}}``.
@@ -82,7 +86,7 @@ POOL_REQUESTS = 12
 # dequant_matmul's rows: checked at the paths' M (decode, the pool's
 # decode, a chunk tick, the prefill), both routes timed at each of these
 DQMM_CHECK_M = (4, 8, 64, 256)
-DQMM_TIME_M = (1, 2, 4, 8, 16, 32, 64, 256)
+DQMM_TIME_M = (1, 2, 4, 8, 12, 16, 32, 64, 256)
 # the attention kernels are also checked and timed on one synthetic layer
 # at these cache lengths (keys), beyond what the body's ring holds at once
 ATTN_LONG_S = (1024, 4096)
@@ -90,12 +94,11 @@ ATTN_LONG_S = (1024, 4096)
 CHUNK_MAX = 64 << 20
 
 # Stated tolerances, each with its reason.
-# dequant_matmul: the GEMV kernel and the plain version form every weight
-# with the same two rounded float32 operations and differ only in the
-# order of the float32 sum over K (<= 8192 terms); the tensor-core
-# kernel's products are exact and only its float32 sums round (q
-# centred, so its two epilogue terms do not cancel): error far below
-# 1e-4 of the output's largest magnitude on both routes.
+# dequant_matmul: on both routes q is centred (so the two epilogue terms
+# do not cancel), the products are exact (bfloat16 x) or rounded once
+# (float32 x on the GEMV route) and only the float32 sums over K (<= 8192
+# terms) round, where the plain version rounds each weight and sums in
+# another order: error far below 1e-4 of the output's largest magnitude.
 DQMM_RTOL = 1e-4
 # decode_attention and flash_verify: the kernels write bfloat16, the
 # plain versions float32; one bfloat16 rounding is 2**-9 relative, allow
@@ -180,8 +183,8 @@ def reset_counts(ops) -> None:
 
     for mod, attr in kernel_counters().values():
         setattr(mod, attr, 0)
-    by_route = dequant_matmul.launches_by_route
-    by_route.update(dict.fromkeys(by_route, 0))
+    for by in (dequant_matmul.launches_by_route, dequant_matmul.launches_by_gemv_kernel):
+        by.update(dict.fromkeys(by, 0))
     ops.reset_launch_counts()
 
 
@@ -192,21 +195,32 @@ def route_counts() -> dict:
     return dict(dequant_matmul.launches_by_route)
 
 
+def check_one_pass(routes: dict, what: str) -> dict:
+    """Every GEMV-route launch since the last reset (decode's layer weights
+    and, below ``MMA_MIN_M``, its unembedding) went through the one-pass
+    kernels: none through the general ones. Returns the counts."""
+    from repro_torch.kernels import dequant_matmul
+
+    by = dict(dequant_matmul.launches_by_gemv_kernel)
+    check(by["general"] == 0 and by["one_pass"] == routes["gemv"] > 0, (what, by, routes))
+    return by
+
+
 def expect_routes(calls) -> dict:
-    """Launches by route for ``calls``: (launches, M, K-contiguous)
-    triples, all on uint16 accumulators."""
+    """Launches by route for ``calls``: (launches, M) pairs, all on uint16
+    accumulators."""
     from repro_torch.kernels import dequant_matmul
 
     want = dict.fromkeys(dequant_matmul.launches_by_route, 0)
-    for n, M, k_contiguous in calls:
-        want[dequant_matmul.route(M, torch.uint16, k_contiguous)] += n
+    for n, M in calls:
+        want[dequant_matmul.route(M, torch.uint16)] += n
     return want
 
 
 def pass_calls(layers: int, passes: int, M: int) -> list:
     """``passes`` forward passes at M rows: 7 launches a layer on the (K, N)
     layer weights and the unembedding on the K-contiguous ``embed.T``."""
-    return [(passes * layers * 7, M, False), (passes, M, True)]
+    return [(passes * layers * 7, M), (passes, M)]
 
 
 def counts(names=None) -> dict:
@@ -289,6 +303,7 @@ def main() -> int:
     res = srv.decode(STEPS, stage_arrival=lambda i: i in ARRIVALS)
     torch.cuda.synchronize()
     path_counts, serve_routes = counts(serve_kernels), route_counts()
+    serve_gemv = check_one_pass(serve_routes, "serve")
     op_counts = dict(ops.LAUNCH_COUNTS)
     decode_s = sum(s for _, s in res.window_s)
 
@@ -310,7 +325,7 @@ def main() -> int:
     check(op_counts == path_counts, (op_counts, path_counts))
     # the prefill's layer weights at M = BATCH * PROMPT and its unembedding
     # of the last position at M = BATCH; decode at M = BATCH
-    prefill_calls = [(layers * 7, BATCH * PROMPT, False), (1, BATCH, True)]
+    prefill_calls = [(layers * 7, BATCH * PROMPT), (1, BATCH)]
     check(prefill_routes == expect_routes(prefill_calls), prefill_routes)
     check(serve_routes == expect_routes(prefill_calls + pass_calls(layers, STEPS, BATCH)),
           serve_routes)
@@ -321,7 +336,7 @@ def main() -> int:
     log(f"[serve] launches in the run {path_counts}; per decode step "
         f"dequant_matmul {per_step['dequant_matmul']:.0f}, decode_attention "
         f"{per_step['decode_attention']:.0f}; dequant_matmul by route: prefill "
-        f"{prefill_routes}, whole run {serve_routes}")
+        f"{prefill_routes}, whole run {serve_routes}; GEMV route by kernel {serve_gemv}")
     log(f"[serve] receive_stage + prefill {t_prefill * 1e3:.1f} ms; decode "
         f"{STEPS} steps x {BATCH} slots with 7 upgrades: {decode_s:.3f} s, "
         f"{tok_s:.1f} tokens/s, {decode_s / STEPS * 1e3:.2f} ms/step")
@@ -405,6 +420,24 @@ def main() -> int:
             + ", ".join(f"{M}: {worst[(name, M)]:.2e}" for M in DQMM_CHECK_M)
             + f" (tolerance {DQMM_RTOL})")
     log(f"[check] dequant_matmul largest |err| by route: {route_err}")
+    # below MMA_MIN_M a GEMV row does not depend on M: at the decode paths'
+    # M every row of a launch equals (torch.equal) that row launched alone,
+    # and a second launch repeats the first, in the dtypes the model passes
+    for name, w in weights.items():
+        xd = torch.float32 if name == "embed.T" else cfg.dtype
+        for M in (BATCH, POOL_SLOTS):
+            check(dqm.route(M, w.q.dtype) == "gemv", (name, M))
+            x = torch.randn((M, w.q.shape[0]), generator=xg, device=dev).to(xd)
+            y = dqm.dequant_matmul(x, w.q, w.scale, w.offset)
+            check(torch.equal(dqm.dequant_matmul(x, w.q, w.scale, w.offset), y),
+                  f"dequant_matmul {name} M={M}: two launches differ")
+            for i in range(M):
+                check(torch.equal(dqm.dequant_matmul(x[i:i + 1], w.q, w.scale, w.offset),
+                                  y[i:i + 1]),
+                      f"dequant_matmul {name}: row {i} of an M={M} launch differs alone")
+    log(f"[check] dequant_matmul GEMV route on {list(weights)}: every row of an M = "
+        f"{BATCH} and an M = {POOL_SLOTS} launch equal (torch.equal) to a 1-row launch, "
+        f"and launches repeat bit for bit")
     # each route's entry in the kernels line carries its own largest error
     kern["dequant_matmul"] = {"max_abs_err": route_err["gemv"]}
 
@@ -575,6 +608,9 @@ def main() -> int:
 
     step = dqmm_row(calls, f"one decode step ({len(calls)} launches at M={BATCH})")
     kern["dequant_matmul"].update(step)
+    calls = path_calls(POOL_SLOTS)
+    kern["dequant_matmul"]["pool_step"] = dqmm_row(
+        calls, f"one pool decode step ({len(calls)} launches at M={POOL_SLOTS})")
     tick_M, prefill_M = POOL_SLOTS * POOL_CHUNK, BATCH * PROMPT
     calls = path_calls(tick_M)
     kern["dequant_matmul"]["tick"] = dqmm_row(
@@ -592,8 +628,7 @@ def main() -> int:
         groups = {"layer 0": calls[:7], "embed.T": calls[-1:]}
         by_m[M] = {g: {k: device_ms(lambda: run(sub, fn), 3) for k, fn in routes.items()}
                    for g, sub in groups.items()}
-        log(f"[time] dequant_matmul M={M} (routes: layer weights to "
-            f"{dqm.route(M, torch.uint16)}, embed.T to {dqm.route(M, torch.uint16, True)}): "
+        log(f"[time] dequant_matmul M={M} (route {dqm.route(M, torch.uint16)}): "
             + "; ".join(f"{g} " + ", ".join(f"{k} {t:.4f} ms" for k, t in r.items())
                         for g, r in by_m[M].items()))
     kern["dequant_matmul"]["by_M"] = by_m
@@ -736,7 +771,8 @@ def main() -> int:
                  "ms": k["ms"], "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
                  "bound_by": k["bound_by"], "library_ms": k["library_ms"]}
         if name == "dequant_matmul":
-            entry.update({key: dq[key] for key in ("launches_by_route", "tick", "prefill")})
+            entry.update({key: dq[key] for key in ("launches_by_route", "pool_step", "tick",
+                                                   "prefill", "by_M")})
         if "by_S" in k:
             entry["by_S"] = k["by_S"]
         line.append(entry)
@@ -886,6 +922,7 @@ def _wire_phase(model, prog, dev, ops, prompt, res, clean_fps, serve_routes) -> 
     wres = srv.decode(STEPS, stage_arrival=arrive)
     torch.cuda.synchronize()
     run_counts, op_counts, routes = counts(), dict(ops.LAUNCH_COUNTS), route_counts()
+    gemv_by = check_one_pass(routes, "wire")
     decode_s = sum(s for _, s in wres.window_s)
     check(client.complete and client.bytes_fed == len(blob) and srv.stage == 8)
     check(wres.upgrades == res.upgrades, (wres.upgrades, res.upgrades))
@@ -906,7 +943,7 @@ def _wire_phase(model, prog, dev, ops, prompt, res, clean_fps, serve_routes) -> 
     log(f"[wire] served: {STEPS} steps x {BATCH} with 7 upgrades and the feeding in "
         f"{decode_s:.3f} s, {BATCH * STEPS / decode_s:.1f} tokens/s; tokens equal "
         f"(torch.equal) to the in-memory server's; launches {run_counts}, dequant_matmul "
-        f"by route {routes}; health "
+        f"by route {routes}, GEMV route by kernel {gemv_by}; health "
         f"{srv._receiver.transport_health()}")
     del srv, client
 
@@ -1065,6 +1102,7 @@ def _pool_phase(model, prog, dev, ops):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     run_counts, routes = counts(), route_counts()
+    gemv_by = check_one_pass(routes, "pool")
     op_counts = dict(ops.LAUNCH_COUNTS)
 
     layers, ticks, steps = cfg.n_layers, pool._tick_count, pool._step_count
@@ -1097,7 +1135,7 @@ def _pool_phase(model, prog, dev, ops):
         f"1->{pool.stage}, upgrades at steps {[s for s, _ in pool.upgrades]}")
     log(f"[pool] {steps} decode steps, {ticks} chunk ticks, "
         f"{len(pool.window_stats)} windows; launches in the run {run_counts}; "
-        f"dequant_matmul by route {routes}; "
+        f"dequant_matmul by route {routes}, GEMV route by kernel {gemv_by}; "
         f"every request got its budget of in-vocab tokens, logits finite, fp bytes 0")
     log(f"[pool] {n_tok} tokens in {wall:.3f} s: {n_tok / wall:.1f} tokens/s; TTFT mean "
         f"{sum(ttft) / len(ttft) * 1e3:.1f} ms, largest {max(ttft) * 1e3:.1f} ms; upgrade "

@@ -10,26 +10,30 @@ tied unembedding's ``embed.T``, a transposed view whose K axis is
 contiguous (never a ``.contiguous()`` copy).
 
 - ``gemv`` (``csrc/dequant_matmul.cu``), below ``MMA_MIN_M`` rows (16)
-  of (K, N) q, and for uint32 containers: decoding at M = 1-8 does 2M
-  operations per weight element and is bound by the bytes of q; float32
-  FMAs on the CUDA cores, a split-K column kernel for (K, N) and a
-  warp-per-column kernel for the K-contiguous view. Each weight is
-  formed as two separately rounded float32 operations, ``q * scale``
-  then ``+ offset``, as the plain version does.
+  of uint8/16 q, and for uint32 containers at any M: decoding at M = 1-8
+  does 2M operations per weight element and is bound by the bytes of q.
+  Its one-pass kernels stage every row of x in one block, so q crosses
+  device memory once a launch, and fix the chunks of K by K, N and the
+  layout (:func:`gemv_k_chunk`), adding them in chunk order inside one
+  thread block cluster; q is centred on the accumulator value whose
+  weight is nearest 0 and the affine applied once a column. A row's
+  result is therefore the same at every M, bit for bit. uint32 q, and q
+  whose strides or alignment rule out 8-value vector loads, take PR 12's
+  general kernels (:func:`one_pass` says which; ``launches_by_gemv_kernel``
+  counts each).
 - ``mma`` (``csrc/dequant_matmul_mma.cu``) from ``MMA_MIN_M`` rows of
-  (K, N) q, and at every M on the K-contiguous ``embed.T``, for uint8/16
-  containers: the pool's chunk tick (M = 64), the prefill (M = 256) and
-  the unembedding. The centred accumulator
+  uint8/16 q, on both layouts: the pool's chunk tick (M = 64) and the
+  prefill (M = 256). The centred accumulator
   ``q - c`` is split into bf16-exact byte planes, x into one (bfloat16)
   or three (float32) bf16 terms, and the products run on the tensor
   cores with float32 accumulation; the source note gives the rounding
-  and why q is centred.
+  and why q is centred. It cuts K by M, K, N and the SM count (in its C
+  launcher), so its rows depend on M.
 
-Each route cuts K into chunks by M, K, N and the SM count (the
-tensor-core kernel in its C launcher) and adds their partial sums in a
-fixed order, so a launch is deterministic; but a row's result depends
-on M (the route and the chunking), so a row is not bit-equal to the same
-row computed in a launch of another M.
+Both routes add their chunks of K in a fixed order, so a launch is
+deterministic. Below ``MMA_MIN_M`` a row's result does not depend on M;
+from there on it does (the route switch and the tensor-core chunking),
+so a row is not bit-equal to the same row launched at M < 16.
 
 A tensor on the CPU takes the plain version (``ref.dequant_matmul_ref``);
 a CUDA tensor launches a kernel or raises.
@@ -45,18 +49,25 @@ from repro_torch.kernels.ref import dequant_matmul_ref
 
 X_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 Q_DTYPES = (torch.uint8, torch.uint16, torch.uint32)
-MT = 4          # rows of x per block of the GEMV column kernel (csrc MT)
-# Rows from which the tensor-core kernel runs on uint8/16 (K, N) q with N
-# contiguous, set by timing both kernels on the H100 at M = 1-256
-# (PERF.md). Below it, and for uint32 q, the GEMV kernel runs. On the
-# K-contiguous view (embed.T) the tensor-core kernel runs at every M: the
-# warp-per-column GEMV is no faster there from M = 1 on.
+# Rows from which the tensor-core kernel runs on uint8/16 q, on both
+# layouts, set by timing both kernels on the H100 at M = 1-256 (PERF.md).
+# Below it, and for uint32 q, the GEMV kernel runs.
 MMA_MIN_M = 16
+# The one-pass GEMV kernels' chunks of K (csrc/dequant_matmul.cu): 32
+# columns a (K, N) block, about GEMV_BLOCKS blocks a launch with at most
+# GEMV_CLUSTER chunks (one thread block cluster: the H100 holds enough
+# clusters of 2 at once, too few of 4) unless K needs more, chunks of a
+# multiple of 512 rows up to 4096 ((K, N) q) or 2048 (K-contiguous q), at
+# most GEMV_MAX_CHUNKS.
+GEMV_COLS, GEMV_BLOCKS, GEMV_CLUSTER = 32, 128, 2
+GEMV_MAX_CHUNK = {False: 4096, True: 2048}
+GEMV_MAX_CHUNKS = 4
 
-# Launches of the CUDA kernels, in all and by route; the CPU path does
-# not count.
+# Launches of the CUDA kernels, in all and by route, and the GEMV route's
+# by kernel; the CPU path does not count.
 launches = 0
 launches_by_route = {"gemv": 0, "mma": 0}
+launches_by_gemv_kernel = {"one_pass": 0, "general": 0}
 
 
 @functools.lru_cache(maxsize=None)
@@ -64,21 +75,43 @@ def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
-def route(M: int, q_dtype: torch.dtype, k_contiguous: bool = False) -> str:
+def route(M: int, q_dtype: torch.dtype) -> str:
     """The kernel a CUDA launch of M rows takes over a ``q_dtype``
-    container, K-contiguous (``embed.T``) or not."""
+    container, in either layout."""
     if q_dtype == torch.uint32:
         return "gemv"
-    return "mma" if k_contiguous or M >= MMA_MIN_M else "gemv"
+    return "mma" if M >= MMA_MIN_M else "gemv"
 
 
-def k_splits(M: int, K: int, N: int, q_bytes: int, sms: int) -> int:
-    """Chunks of K for the GEMV column kernel: enough blocks for two per
-    SM, with at least 64 rows of K per chunk."""
-    cols = 32 * (8 if q_bytes == 1 else 16 // q_bytes)
-    blocks = -(-N // cols) * -(-M // MT)
-    want = -(-2 * sms // blocks)
-    return max(1, min(want, K // 64))
+def gemv_k_chunk(K: int, N: int, k_contiguous: bool) -> int | None:
+    """Rows of K a block of the one-pass GEMV kernels sums (see
+    ``GEMV_COLS``): a function of K, N and the layout only, so a row's
+    sum order never depends on M. None where K needs more than
+    ``GEMV_MAX_CHUNKS`` chunks."""
+    want = 1
+    if not k_contiguous:
+        want = max(1, min(GEMV_CLUSTER, GEMV_BLOCKS // -(-N // GEMV_COLS), K // 512))
+    want = max(want, -(-K // GEMV_MAX_CHUNK[k_contiguous]))
+    if want > GEMV_MAX_CHUNKS:
+        return None
+    rows = -(-K // want)
+    return -(-rows // 512) * 512
+
+
+def one_pass(q: torch.Tensor) -> bool:
+    """Whether the GEMV route runs q through its one-pass kernels: uint8/16
+    q read with 8-value vector loads (N contiguous with N and the row
+    stride multiples of 8, or K contiguous with K and the column stride
+    multiples of 8; aligned to 8 values) and K within its chunks. Not a
+    function of M."""
+    if q.dtype not in (torch.uint8, torch.uint16) or q.data_ptr() % (8 * q.element_size()):
+        return False
+    (K, N), kc = q.shape, _k_contiguous(q)
+    if kc:
+        vec = K % 8 == 0 and q.stride(1) % 8 == 0
+    else:
+        vec = q.stride(1) == 1 and N % 8 == 0 and q.stride(0) % 8 == 0
+    return vec and gemv_k_chunk(K, N, kc) is not None
 
 
 def dequant_matmul(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor,
@@ -89,7 +122,7 @@ def dequant_matmul(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor,
     _check_shapes(x, q, scale, offset)
     if x.device.type == "cpu":
         return dequant_matmul_ref(x, q, scale, offset)
-    if route(x.shape[0], q.dtype, _k_contiguous(q)) == "mma":
+    if route(x.shape[0], q.dtype) == "mma":
         return _launch_mma(x, q, scale, offset)
     return _launch_gemv(x, q, scale, offset)
 
@@ -136,20 +169,22 @@ def _counted(kind: str, code: int, out: torch.Tensor) -> torch.Tensor:
 
 
 def _launch_gemv(x, q, scale, offset) -> torch.Tensor:
-    """The CUDA-core kernel at any M (the tests and the card's timing
+    """The CUDA-core kernels at any M (the tests and the card's timing
     call it directly to hold both routes at every M)."""
-    x, out, args, sms = _operands(x, q, scale, offset)
+    x, out, args, _ = _operands(x, q, scale, offset)
     (M, K), N = x.shape, q.shape[1]
-    if _k_contiguous(q):
-        ksplit = 1                  # the warp-per-column kernel: no K chunks
+    lib, stream = build.library("dequant_matmul"), build.stream_handle(x.device)
+    if one_pass(q):
+        kc = _k_contiguous(q)
+        code = lib.dequant_matmul_gemv(*args, out.data_ptr(), M, K, N, int(kc),
+                                       gemv_k_chunk(K, N, kc), stream)
+        kernel = "one_pass"
     else:
-        ksplit = k_splits(M, K, N, q.element_size(), sms)
-        ksplit = -(-K // -(-K // ksplit))
-    part = (torch.empty((ksplit, M, N), dtype=torch.float32, device=x.device)
-            if ksplit > 1 else out)
-    code = build.library("dequant_matmul").dequant_matmul(
-        *args, part.data_ptr(), out.data_ptr(), M, K, N, ksplit, build.stream_handle(x.device))
-    return _counted("gemv", code, out)
+        code = lib.dequant_matmul_general(*args, out.data_ptr(), M, K, N, stream)
+        kernel = "general"
+    _counted("gemv", code, out)
+    launches_by_gemv_kernel[kernel] += 1
+    return out
 
 
 def _launch_mma(x, q, scale, offset) -> torch.Tensor:

@@ -94,6 +94,80 @@ def dequant_matmul_split_ref(x: torch.Tensor, q: torch.Tensor, scale: torch.Tens
     return (s.double() * a.double() + bias.double()).float()
 
 
+def dequant_matmul_gemv_ref(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor,
+                            offset: torch.Tensor) -> torch.Tensor:
+    """The GEMV route's one-pass arithmetic (``csrc/dequant_matmul.cu``)
+    emulated on the CPU, for the tests: q centred on c (as the tensor-core
+    route), ``q - c`` exact; K cut into the kernel's chunks
+    (``dequant_matmul.gemv_k_chunk``); in a chunk each thread's rows added
+    in K order by fused multiply-adds (taken in float64 and rounded once
+    to float32: the products are exact there), then (K, N) q's rows of a
+    warp by an xor butterfly and the 8 warps in order, K-contiguous q's 32
+    lanes by a butterfly; the chunks in order; the row sums of x in the
+    kernel's units and order; then
+    ``y = fma(scale, A, (offset + scale*c) * sum_k x)``. uint8/16 q only.
+    Rows are independent of M, as the kernel's."""
+    from repro_torch.kernels.dequant_matmul import GEMV_COLS, gemv_k_chunk
+
+    s = scale.to(torch.float32).reshape(())
+    o = offset.to(torch.float32).reshape(())
+    top = 255 if q.element_size() == 1 else 65535
+    cf = torch.clamp(torch.round(-o / s), 0, top)
+    d = (s.double() * cf.double() + o.double()).float()      # one fused multiply-add
+    (M, K), N = x.shape, q.shape[1]
+    kc = q.stride(0) == 1 and K > 1
+    chunk = gemv_k_chunk(K, N, kc)
+    xf = torch.nn.functional.pad(x.to(torch.float32), (0, -(-K // chunk) * chunk - K))
+    wq = torch.nn.functional.pad((q.to(torch.int64) - int(cf)).to(torch.float32),
+                                 (0, 0, 0, xf.shape[1] - K))
+
+    def fma(a, b, c):
+        return (a.double() * b.double() + c.double()).float()
+
+    def butterfly(v, masks):   # lanes on the last axis; lane l adds lane l ^ o
+        idx = torch.arange(v.shape[-1])
+        for m in masks:
+            v = v + v[..., idx ^ m]
+        return v[..., 0]
+
+    def in_order(v):           # v[:, 0] + v[:, 1] + ... in float32
+        total = v[:, 0]
+        for i in range(1, v.shape[1]):
+            total = total + v[:, i]
+        return total
+
+    acc_total = sx_total = None
+    for k0 in range(0, xf.shape[1], chunk):
+        xc, wc = xf[:, k0:k0 + chunk], wq[k0:k0 + chunk]
+        # row sums: thread t adds units t, t + 256, ... of 8 values in order
+        units = xc.reshape(M, chunk // 8, 8)
+        units = torch.nn.functional.pad(units, (0, 0, 0, -(-chunk // 2048) * 256 - chunk // 8))
+        units = units.reshape(M, -1, 256, 8)
+        sx = torch.zeros((M, 256), dtype=torch.float32)
+        for i in range(units.shape[1]):
+            for j in range(8):
+                sx = sx + units[:, i, :, j]
+        sx = in_order(butterfly(sx.reshape(M, 8, 32), (16, 8, 4, 2, 1)))
+        if kc:   # lane l: values 8 l .. 8 l + 7 of every 256
+            xs, ws = xc.reshape(M, -1, 32, 8), wc.reshape(-1, 32, 8, N)
+            acc = torch.zeros((M, 32, N), dtype=torch.float32)
+            for t in range(xs.shape[1]):
+                for j in range(8):
+                    acc = fma(xs[:, t, :, j, None], ws[None, t, :, j], acc)
+            part = butterfly(acc.transpose(1, 2), (16, 8, 4, 2, 1))
+        else:    # row r = rpw w + l // (GEMV_COLS / 8) of every 8 rpw
+            rpw = 256 // GEMV_COLS
+            xs, ws = xc.reshape(M, -1, 8 * rpw), wc.reshape(-1, 8 * rpw, N)
+            acc = torch.zeros((M, 8 * rpw, N), dtype=torch.float32)
+            for step in range(xs.shape[1]):
+                acc = fma(xs[:, step, :, None], ws[None, step], acc)
+            masks = [1 << i for i in range(rpw.bit_length() - 1)]
+            part = in_order(butterfly(acc.reshape(M, 8, rpw, N).transpose(2, 3), masks))
+        acc_total = part if acc_total is None else acc_total + part
+        sx_total = sx if sx_total is None else sx_total + sx
+    return fma(s, acc_total, (d * sx_total)[:, None])
+
+
 def flash_decode_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      k_pos: torch.Tensor, q_pos: torch.Tensor, *,
                      window: int = 0, softcap: float = 0.0) -> torch.Tensor:

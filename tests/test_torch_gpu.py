@@ -8,9 +8,10 @@ without one. Run on the card with:
 This file imports no JAX, so it runs where only PyTorch is installed.
 Tolerances: ``plane_or_segments``, ``plane_or`` and ``plane_extract``
 exact; ``dequant_matmul`` within 1e-4 of the output's largest magnitude
-on both routes (the GEMV kernel differs from the plain version only in
-the order of the float32 sum over K; the tensor-core kernel's products
-are exact and its float32 sums round, see its source note);
+on both routes (on both, q is centred and the products are exact or
+rounded once, and the float32 sums over K round: see the source notes),
+and every row of a GEMV launch below 16 rows ``torch.equal`` to the
+same row launched alone;
 ``flash_decode`` and ``flash_verify`` within 2e-5 (float32) or 2**-7
 (bfloat16 output rounding) of the output's largest magnitude; every ``flash_verify`` row exactly equal to a ``flash_decode``
 launch for that row.
@@ -80,8 +81,8 @@ def _assert_dqmm_close(y, x, q, scale, offset):
     assert err <= 1e-4 * want.abs().max().item() + 1e-6
 
 
-# M = 16, 17, 64 and 256, and the transposed layout at any M, take the
-# tensor-core route (uint8/16 q); the rest and every uint32 q the GEMV route
+# M = 16, 17, 64 and 256 take the tensor-core route (uint8/16 q); the rest
+# and every uint32 q the GEMV route
 @pytest.mark.parametrize("M,K,N", [(1, 64, 96), (4, 2048, 2048), (16, 300, 130),
                                    (256, 512, 512), (5, 8192, 64)]
                          + [(m, k, n) for m in (16, 17, 64, 256) for k in (300, 2048, 8192)
@@ -141,23 +142,109 @@ def test_dequant_matmul_noncontiguous_x(dev, kernel, M):
 
 def test_dequant_matmul_route_by_rows(dev):
     """M = 64 (the chunk tick) launches the tensor-core kernel, M = 4
-    (decode) the GEMV kernel on (K, N) q and the tensor-core kernel on the
-    K-contiguous view (the unembedding), at M = 1 too; uint32 q the GEMV
-    kernel at any M; each launch counts once in all and once for its
-    route."""
-    for M, qdtype, layout, kind in [(64, torch.uint16, "kn", "mma"),
-                                    (4, torch.uint16, "kn", "gemv"),
-                                    (4, torch.uint16, "transposed", "mma"),
-                                    (1, torch.uint16, "transposed", "mma"),
-                                    (64, torch.uint32, "kn", "gemv")]:
+    (decode) the GEMV kernel on both layouts, the K-contiguous view (the
+    unembedding) at M = 1 too, and on the one-pass kernels; uint32 q the
+    GEMV kernel at any M, on the general kernels; each launch counts once
+    in all, once for its route and, on the GEMV route, once for its
+    kernel."""
+    for M, qdtype, layout, kind, gemv_kernel in [
+            (64, torch.uint16, "kn", "mma", None),
+            (64, torch.uint16, "transposed", "mma", None),
+            (4, torch.uint16, "kn", "gemv", "one_pass"),
+            (4, torch.uint16, "transposed", "gemv", "one_pass"),
+            (1, torch.uint16, "transposed", "gemv", "one_pass"),
+            (4, torch.uint16, "strided", "gemv", "general"),
+            (64, torch.uint32, "kn", "gemv", "general")]:
         x, q, scale, offset = _dqmm_operands(dev, M, 512, 256, qdtype, layout, torch.bfloat16,
                                              1)
+        assert dequant_matmul.route(M, qdtype) == kind
         before, by = dequant_matmul.launches, dict(dequant_matmul.launches_by_route)
+        by_kernel = dict(dequant_matmul.launches_by_gemv_kernel)
         dequant_matmul.dequant_matmul(x, q, scale, offset)
         assert dequant_matmul.launches == before + 1
         assert dequant_matmul.launches_by_route == {**by, kind: by[kind] + 1}
+        want = by_kernel if gemv_kernel is None else {
+            **by_kernel, gemv_kernel: by_kernel[gemv_kernel] + 1}
+        assert dequant_matmul.launches_by_gemv_kernel == want
     with pytest.raises(ValueError):
         dequant_matmul._launch_mma(x, q, scale, offset)
+
+
+@pytest.mark.parametrize("K,N,layout", [(2048, 2048, "kn"), (8192, 2048, "kn"),
+                                        (2048, 8192, "kn"), (2048, 4096, "transposed"),
+                                        (8192, 512, "transposed"), (2100, 136, "kn"),
+                                        (2104, 136, "transposed")])
+@pytest.mark.parametrize("qdtype", [torch.uint8, torch.uint16])
+@pytest.mark.parametrize("xdtype", [torch.float32, torch.bfloat16])
+def test_dequant_matmul_row_independent_of_M(dev, K, N, layout, qdtype, xdtype):
+    """Below 16 rows the GEMV route's one-pass kernels fix the chunks of
+    K and their order by K, N and the layout alone: every row of an M-row
+    launch (M = 2-15) is ``torch.equal`` to that row launched alone, and
+    a second launch repeats the first bit for bit."""
+    x, q, scale, offset = _dqmm_operands(dev, 15, K, N, qdtype, layout, xdtype, K + N, "relu3")
+    assert dequant_matmul.one_pass(q)
+    alone = torch.cat([dequant_matmul.dequant_matmul(x[i:i + 1], q, scale, offset)
+                       for i in range(15)])
+    _assert_dqmm_close(alone, x, q, scale, offset)
+    for M in range(2, 16):
+        assert dequant_matmul.route(M, qdtype) == "gemv"
+        y = dequant_matmul.dequant_matmul(x[:M], q, scale, offset)
+        assert torch.equal(y, alone[:M]), M
+        assert torch.equal(dequant_matmul.dequant_matmul(x[:M], q, scale, offset), y), M
+
+
+@pytest.mark.parametrize("M", [1, 4, 8])
+@pytest.mark.parametrize("K,N,layout", [(2048, 512, "kn"), (8192, 256, "kn"), (2100, 136, "kn"),
+                                        (2048, 96, "transposed"), (4096, 72, "transposed")])
+@pytest.mark.parametrize("qdtype", [torch.uint8, torch.uint16])
+def test_dequant_matmul_gemv_equals_its_emulation(dev, M, K, N, layout, qdtype):
+    """The one-pass kernels' sums are ``ref.dequant_matmul_gemv_ref``'s, bit
+    for bit, with bfloat16 x (every product and fused multiply-add of the
+    emulation is exact in float64 there): the chunks, the thread's K
+    order, the butterflies and the warp and chunk order are the kernel's."""
+    x, q, scale, offset = _dqmm_operands(dev, M, K, N, qdtype, layout, torch.bfloat16, K + N,
+                                         "relu3")
+    y = dequant_matmul._launch_gemv(x, q, scale, offset)
+    want = ref.dequant_matmul_gemv_ref(x.cpu(), q.cpu(), scale.cpu(), offset.cpu())
+    assert torch.equal(y.cpu(), want)
+
+
+# The one-pass kernels' edges: K not a multiple of its chunk (2100: chunks
+# of 768), N not a multiple of a block's columns (136, 130), K below one
+# chunk (72), K cut into the most chunks (16384: 8), the whole embed.T
+# (N = 50304), and M past 16 (groups of 16 rows, one pass each)
+@pytest.mark.parametrize("M,K,N,layout", [(4, 2100, 2048, "kn"), (8, 2048, 136, "kn"),
+                                          (3, 72, 520, "kn"), (8, 16384, 64, "kn"),
+                                          (5, 2104, 130, "transposed"),
+                                          (8, 72, 520, "transposed"),
+                                          (4, 2048, 50304, "transposed"),
+                                          (8, 2048, 50304, "transposed"),
+                                          (40, 2048, 2048, "kn"), (17, 2048, 200, "transposed")])
+@pytest.mark.parametrize("qdtype", [torch.uint8, torch.uint16])
+@pytest.mark.parametrize("xdtype", [torch.float32, torch.bfloat16])
+def test_dequant_matmul_one_pass_edges(dev, M, K, N, layout, qdtype, xdtype):
+    x, q, scale, offset = _dqmm_operands(dev, M, K, N, qdtype, layout, xdtype, M + K + N)
+    assert dequant_matmul.one_pass(q)
+    before = dequant_matmul.launches_by_gemv_kernel["one_pass"]
+    y = dequant_matmul._launch_gemv(x, q, scale, offset)
+    assert dequant_matmul.launches_by_gemv_kernel["one_pass"] == before + 1
+    _assert_dqmm_close(y, x, q, scale, offset)
+
+
+@pytest.mark.parametrize("M", [4, 8])
+@pytest.mark.parametrize("K,N,layout", [(2048, 2048, "kn"), (8192, 2048, "kn"),
+                                        (2048, 8192, "kn"), (2048, 50304, "transposed")])
+@pytest.mark.parametrize("qdtype", [torch.uint8, torch.uint16])
+@pytest.mark.parametrize("xdtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("xkind", ["silu", "relu3"])
+def test_dequant_matmul_gemv_positive_mean(dev, M, K, N, layout, qdtype, xdtype, xkind):
+    """Activations of large positive mean at decode M on the GEMV route:
+    q centred, the one-pass kernels stay within 1e-4 of max |y|."""
+    x, q, scale, offset = _dqmm_operands(dev, M, K, N, qdtype, layout, xdtype, M + K, xkind)
+    before = dequant_matmul.launches_by_gemv_kernel["one_pass"]
+    y = dequant_matmul.dequant_matmul(x, q, scale, offset)
+    assert dequant_matmul.launches_by_gemv_kernel["one_pass"] == before + 1
+    _assert_dqmm_close(y, x, q, scale, offset)
 
 
 @pytest.mark.parametrize("M,K,N,layout", [(64, 8192, 2048, "kn"), (256, 2048, 2048, "kn"),

@@ -239,13 +239,62 @@ def test_dequant_matmul_split_emulation_vs_jax(bits, stage, transposed, xkind, x
     assert np.abs(got.numpy() - want).max() <= 1e-4 * np.abs(want).max()
 
 
+@pytest.mark.parametrize("transposed", [False, True], ids=["kn", "embed_T"])
+@pytest.mark.parametrize("stage", ["first", "last"])
+@pytest.mark.parametrize("bits", [8, 16])
+def test_dequant_matmul_gemv_emulation_vs_jax(bits, stage, transposed):
+    """The GEMV route's one-pass arithmetic (q centred, exact products,
+    the kernel's fixed chunks of K and its order of sums), emulated by
+    ``ref.dequant_matmul_gemv_ref``, against the JAX kernel in interpret
+    mode with its default blocks (bk = 512), at K = 2048 and 8192, M = 8,
+    with the port's stage-1 and stage-8 affines and activations of zero
+    mean (float32) and of large positive mean (bfloat16): within the
+    kernel tests' rtol 2e-5 / atol 2e-4 and within 1e-4 of max |y|
+    (``chip_smoke.py``'s ``DQMM_RTOL``), both sides being float32 sums of
+    the same products in other orders. Rows of M = 1 and 4 launches are
+    bit-equal to the M = 8 rows, as on the card."""
+    N = 80
+    for K, xkind, xdtype in [(2048, "randn", torch.float32), (8192, "relu3", torch.bfloat16)]:
+        x, q, scale, offset = _stage_operands(bits + 10 * transposed + K, 8, K, N, bits, stage,
+                                              transposed, xkind)
+        xt = torch.from_numpy(x).to(xdtype)
+        q_jax = (jnp.asarray(q.T.contiguous().numpy()).T if transposed
+                 else jnp.asarray(q.numpy()))
+        want = np.asarray(jax_dequant_matmul(jnp.asarray(xt.to(torch.float32).numpy()), q_jax,
+                                             scale.numpy(), offset.numpy(), interpret=True))
+        got = ref.dequant_matmul_gemv_ref(xt, q, scale, offset)
+        assert got.dtype == torch.float32 and got.shape == (8, N)
+        np.testing.assert_allclose(got.numpy(), want, rtol=2e-5, atol=2e-4)
+        assert np.abs(got.numpy() - want).max() <= 1e-4 * np.abs(want).max()
+        for M in (1, 4):
+            assert torch.equal(ref.dequant_matmul_gemv_ref(xt[:M], q, scale, offset), got[:M])
+
+
+def test_dequant_matmul_gemv_chunks_depend_on_K_N_and_layout_only():
+    """The one-pass kernels' chunks of K: a multiple of 512 up to 4096
+    ((K, N) q) or 2048 (embed.T), at most 4, in clusters of 2 where the
+    blocks of 32 (K, N) columns alone do not fill the card; whole K for
+    embed.T; ``one_pass`` sends uint32 q and q that 8-value vector loads
+    cannot read to the general kernels."""
+    chunk = dequant_matmul.gemv_k_chunk
+    assert [chunk(K, N, False) for K, N in [(2048, 2048), (8192, 2048), (2048, 8192)]] \
+        == [1024, 4096, 2048]
+    assert chunk(2048, 50304, True) == 2048 and chunk(8192, 64, True) == 2048
+    assert chunk(300, 130, False) == 512 and chunk(16384, 64, False) == 4096
+    assert chunk(16385, 64, False) is None and chunk(8200, 64, True) is None
+    q = torch.zeros((64, 48), dtype=torch.uint16)
+    one_pass = dequant_matmul.one_pass
+    assert one_pass(q) and one_pass(torch.zeros((48, 64), dtype=torch.uint8).T)
+    assert not one_pass(q.to(torch.uint32)) and not one_pass(q[:, ::2])
+    assert not one_pass(q[:, 1:]) and not one_pass(torch.zeros((64, 44), dtype=torch.uint16))
+
+
 def test_dequant_matmul_cpu_takes_plain_version_and_counts_nothing():
     """On the CPU the wrapper returns the plain version, whatever route M
     would pick on the card, and counts no launch; either CUDA launch
-    refuses a CPU tensor; the route
-    is the tensor-core kernel from ``MMA_MIN_M`` rows of uint8/16 q and at
-    every M on the K-contiguous view, and the GEMV kernel below and for
-    uint32 q."""
+    refuses a CPU tensor; the route is the tensor-core kernel from
+    ``MMA_MIN_M`` rows of uint8/16 q, on both layouts, and the GEMV kernel
+    below and for uint32 q."""
     rng = np.random.default_rng(5)
     scale, offset = torch.tensor([[3.0 / 65536]]), torch.tensor([[-1.4]])
     before = (dequant_matmul.launches, dict(dequant_matmul.launches_by_route))
@@ -259,12 +308,11 @@ def test_dequant_matmul_cpu_takes_plain_version_and_counts_nothing():
                 launch(x, q, scale, offset)
     assert (dequant_matmul.launches, dict(dequant_matmul.launches_by_route)) == before
     lo = dequant_matmul.MMA_MIN_M
-    for kc in (False, True):
-        assert dequant_matmul.route(lo, torch.uint16, kc) == "mma"
-        assert dequant_matmul.route(64, torch.uint8, kc) == "mma"
-        assert dequant_matmul.route(lo - 1, torch.uint16, kc) == ("mma" if kc else "gemv")
-        assert dequant_matmul.route(256, torch.uint32, kc) == "gemv"
-    assert dequant_matmul.route(1, torch.uint8, True) == "mma"
+    assert dequant_matmul.route(lo, torch.uint16) == "mma"
+    assert dequant_matmul.route(64, torch.uint8) == "mma"
+    assert dequant_matmul.route(lo - 1, torch.uint16) == "gemv"
+    assert dequant_matmul.route(256, torch.uint32) == "gemv"
+    assert dequant_matmul.route(1, torch.uint8) == "gemv"
 
 
 def test_dequant_matmul_rejects_bad_operands():
