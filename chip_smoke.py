@@ -19,6 +19,21 @@ with the launch counts set to 0 just before it and read just after:
    then the slot pool on the same planes: ``SlotPoolEngine`` with 8
    slots, 12 requests of ragged prompts admitted by chunked prefill while
    the other slots decode, an upgrade every window from stage 1 to 8;
+   then self-speculation on the same planes. ``[spec]``:
+   ``SpeculativeEngine`` (draft 4 bits), (a) at each of the 8 stages
+   from a fresh start at batch 4, 24 tokens, k = 4 and adaptive, each
+   ``torch.equal`` to ``ProgressiveServer`` at that stage, (b) at batch
+   1, 48 tokens with stages 2-8 landing between rounds, ``torch.equal``
+   to a batch-1 server replayed at the run's per-token stage log (the
+   plain server's runs come before the counts); every B2 launch but the
+   prefills' layer weights on the GEMV route's one-pass kernels, verify
+   passes included; the draft view shares every q of the target view
+   (zero extra bytes). ``[spec pool]``:
+   ``SpeculativeSlotPool`` (k = 3) on the pool's 12 requests at stage 8,
+   each request's tokens ``torch.equal`` to a plain ``SlotPoolEngine``'s.
+   ``[reject]``: both engines again, on the same seed-0 weights with the
+   decoder's scaled by 2, where the 4-bit draft is rejected in part,
+   tokens ``torch.equal`` to the plain engines' (stages 4-8; the pool);
 4. ``[wire]``: the same model from wire bytes: ``wire.encode`` (v3),
    ``ProgressiveClient.feed`` in seeded ragged chunks of 1 B to 64 MB,
    one stage at each arrival of phase 3's schedule, and
@@ -34,8 +49,14 @@ with the launch counts set to 0 just before it and read just after:
    (``dequant_matmul`` on both routes, GEMV and tensor-core, at M = 4, 8,
    64 and 256, with activations of zero and of large positive mean; every
    row of a GEMV launch at M = 4 and 8 ``torch.equal`` to that row
-   launched alone), and every ``flash_verify`` row against a
-   ``flash_decode`` launch;
+   launched alone; the plane mask ``keep`` = 0, 2, 4, 8, 16 on both
+   routes and on the forced GEMV route (``rows="decode"``) at the verify
+   shapes M = 5, 20, 32, 72, a full-width keep bit-equal to none, and
+   every forced-GEMV row at those M equal to the row alone), every
+   ``flash_verify`` row against a ``flash_decode`` launch (T = 8 and the
+   verify shapes T = 2, 5, 9), and a verify step's logits and the K/V it
+   writes ``torch.equal`` to sequential decode steps after reject-all,
+   alternate and accept-all rounds;
 7. run the same 2-layer full-width model on the card (kernels) and on
    the CPU (plain versions) and compare teacher-forced decode, prefill
    chunk and verify logits;
@@ -46,12 +67,14 @@ with the launch counts set to 0 just before it and read just after:
    operands, and both of its routes at M = 1 to 256; both attention
    kernels at the paths' shapes and on one synthetic layer at S = 1024
    and 4096 keys; one chunk tick of the pool and the single stream's
-   prefill.
+   prefill; the plane mask's cost over a decode step's launches; one
+   verify step at M = 20 and 32 on either route and a speculation
+   round.
 
 ``dequant_matmul``'s launches are also counted by route on every path:
-the prefill and the chunk ticks run the tensor-core kernel, decode the
-GEMV route, every launch of it on its one-pass kernels (checked on each
-path).
+the prefill and the chunk ticks run the tensor-core kernel, decode and
+verify the GEMV route, every launch of it on its one-pass kernels
+(checked on each path).
 
 The second-to-last line is a JSON object with one entry per kernel, the
 last ``{"ok": true, "device": {...}}``.
@@ -86,6 +109,16 @@ POOL_REQUESTS = 12
 # dequant_matmul's rows: checked at the paths' M (decode, the pool's
 # decode, a chunk tick, the prefill), both routes timed at each of these
 DQMM_CHECK_M = (4, 8, 64, 256)
+# self-speculation: verify's rows (batch 1 at k = 4, batch 4 at k = 4,
+# the pool's 8 slots at k = 3, 8 slots at k = 8), the masks checked, the
+# verify blocks' T, and the single stream's tokens a start
+VERIFY_M = (5, 20, 32, 72)
+KEEP_CHECK = (0, 2, 4, 8, 16)
+VERIFY_T = (2, 5, 9)
+SPEC_TOKENS = 24
+# the speculative paths are also run on phase 2's weights with the
+# decoder's scaled by this, where the 4-bit draft is rejected in part
+DECODER_SCALE = 2.0
 DQMM_TIME_M = (1, 2, 4, 8, 12, 16, 32, 64, 256)
 # the attention kernels are also checked and timed on one synthetic layer
 # at these cache lengths (keys), beyond what the body's ring holds at once
@@ -359,6 +392,15 @@ def main() -> int:
     # the slot pool on the same planes
     pool, pool_counts, pool_routes = _pool_phase(model, prog, dev, ops)
 
+    # self-speculation on the same planes: the single stream and the pool
+    spec = _spec_phase(model, prog, dev, ops, prompt, report["quantized_bytes"])
+    spec_pool = _spec_pool_phase(model, prog, dev, ops)
+    # both speculative engines on a model whose draft the target rejects
+    prog_scaled = _scaled_model(model, dev)
+    _spec_rejections(model, prog_scaled, prompt, dev)
+    _spec_pool_rejections(model, prog_scaled, dev)
+    del prog_scaled
+
     # -- 4. the same model from wire bytes -----------------------------------
     wire_counts, wire_routes = _wire_phase(model, prog, dev, ops, prompt, res, clean_fps,
                                            serve_routes)
@@ -438,8 +480,59 @@ def main() -> int:
     log(f"[check] dequant_matmul GEMV route on {list(weights)}: every row of an M = "
         f"{BATCH} and an M = {POOL_SLOTS} launch equal (torch.equal) to a 1-row launch, "
         f"and launches repeat bit for bit")
+    # the plane mask as an operand: keep = 0, 2, 4, 8, 16 on both routes at
+    # the paths' M, and on the forced GEMV route (rows="decode") at the
+    # verify shapes, against the plain version on the masked q; a
+    # full-width keep is bit-equal to the unmasked launch
+    keep_err, keep_abs = dict.fromkeys(routes, 0.0), dict.fromkeys(routes, 0.0)
+    keep_mag = 0.0
+    for name, w in weights.items():
+        K = w.q.shape[0]
+        xd = torch.float32 if name == "embed.T" else cfg.dtype
+        full = torch.full((1, 1), 16, dtype=torch.int32, device=dev)
+        for M in DQMM_CHECK_M + VERIFY_M:
+            x = (torch.relu(torch.randn((M, K), generator=xg, device=dev)) + 3).to(xd)
+            kinds = routes if M in DQMM_CHECK_M else {"gemv": routes["gemv"]}
+            for keep in KEEP_CHECK:
+                kt = torch.full((1, 1), keep, dtype=torch.int32, device=dev)
+                yr = ref.dequant_matmul_ref(x, w.q, w.scale, w.offset, kt)
+                mag = float(yr.abs().max())
+                keep_mag = max(keep_mag, mag)
+                for kernel, launch in kinds.items():
+                    err = float((launch(x, w.q, w.scale, w.offset, kt) - yr).abs().max())
+                    check(err <= DQMM_RTOL * mag, (name, M, keep, kernel, err, mag))
+                    keep_err[kernel] = max(keep_err[kernel], err / mag)
+                    keep_abs[kernel] = max(keep_abs[kernel], err)
+            for kernel, launch in kinds.items():
+                check(torch.equal(launch(x, w.q, w.scale, w.offset, full),
+                                  launch(x, w.q, w.scale, w.offset)),
+                      f"{name} M={M} {kernel}: a full-width keep changes bits")
+    log(f"[check] dequant_matmul with the plane mask keep = {list(KEEP_CHECK)} on "
+        f"{list(weights)}, relu+3 x in the model's dtypes: both routes at M = "
+        f"{list(DQMM_CHECK_M)}, the forced GEMV route at M = {list(VERIFY_M)}; max |err| / "
+        f"max |y| by route {', '.join(f'{k} {v:.2e}' for k, v in keep_err.items())} "
+        f"(tolerance {DQMM_RTOL}; max |err| {keep_abs}, largest max |y| {keep_mag:.1f}); a "
+        f"full-width keep bit-equal to no keep")
+    # the forced GEMV route (verify's rows="decode") at the verify shapes:
+    # every row equal to that row launched alone, masked or not
+    four = torch.full((1, 1), 4, dtype=torch.int32, device=dev)
+    for name, w in weights.items():
+        xd = torch.float32 if name == "embed.T" else cfg.dtype
+        x = torch.randn((max(VERIFY_M), w.q.shape[0]), generator=xg, device=dev).to(xd)
+        for kt in (None, four):
+            alone = torch.cat([dqm.dequant_matmul(x[i:i + 1], w.q, w.scale, w.offset, kt,
+                                                  rows="decode") for i in range(x.shape[0])])
+            for M in VERIFY_M:
+                y = dqm.dequant_matmul(x[:M], w.q, w.scale, w.offset, kt, rows="decode")
+                check(torch.equal(y, alone[:M]), f"dequant_matmul {name} rows='decode' "
+                      f"M={M} keep={kt is not None}: a row differs alone")
+    log(f"[check] dequant_matmul rows='decode' on {list(weights)}: every row of an M = "
+        f"{list(VERIFY_M)} launch equal (torch.equal) to that row launched alone, without "
+        f"a mask and with keep = 4")
     # each route's entry in the kernels line carries its own largest error
-    kern["dequant_matmul"] = {"max_abs_err": route_err["gemv"]}
+    # unmasked; the masked checks' errors ride beside it
+    kern["dequant_matmul"] = {"max_abs_err": route_err["gemv"], "keep_checked": KEEP_CHECK,
+                              "keep_max_rel_err": keep_err, "keep_max_abs_err": keep_abs}
 
     # decode_attention: layer 0's live cache, slot 1 ragged (its keys past
     # position 40 empty), slot 3 free
@@ -482,6 +575,29 @@ def main() -> int:
                               vq_pos[:, t].contiguous())
         check(torch.equal(vo[:, t], row), f"flash_verify row {t} differs from flash_decode")
     kern["flash_verify"] = {"max_abs_err": v_err}
+    # the verify shapes T = k + 1: every row equal to a flash_decode launch
+    for T2 in VERIFY_T:
+        qb = torch.randn((BATCH, T2, cfg.n_heads, cfg.hd), generator=xg,
+                         device=dev).to(cfg.dtype)
+        qp = (torch.arange(T2, dtype=torch.int32, device=dev)
+              + torch.tensor([40, PS - T2, 7, 100], dtype=torch.int32, device=dev)[:, None])
+        qp[2] = -1
+        kp = vk_pos[:BATCH]
+        out_v = va.flash_verify(qb, pcache["k"][:BATCH], pcache["v"][:BATCH], kp, qp)
+        for t in range(T2):
+            row = da.flash_decode(qb[:, t].contiguous(), pcache["k"][:BATCH],
+                                  pcache["v"][:BATCH], kp, qp[:, t].contiguous())
+            check(torch.equal(out_v[:, t], row), f"flash_verify T={T2} row {t} differs")
+    log(f"[check] flash_verify at the verify shapes T = {list(VERIFY_T)} (B={BATCH}, one "
+        f"slot masked): every row equal (torch.equal) to a flash_decode launch")
+    # a verify step against sequential decode steps on the full-width model
+    eng = spec["engine"]
+    n_rounds = _verify_patterns(model, srv.params, eng.params, eng.draft_params, dev,
+                                torch.Generator(device=dev).manual_seed(6))
+    log(f"[check] verify_step vs sequential decode_step, {layers} layers full width, "
+        f"batch {BATCH} ragged, k = 4 (draft 4 bits): after reject-all, alternate and "
+        f"accept-all ({n_rounds} rounds), every verify row's logits and every cache row "
+        f"equal (torch.equal)")
     log(f"[check] flash_verify B={POOL_SLOTS} T={T} H={cfg.n_heads} S={PS} hd={cfg.hd} "
         f"(ragged slot with a short chunk, free and decoding slots masked): max |err| "
         f"{v_err:.3e}; each of the {T} rows equal (torch.equal) to a flash_decode launch")
@@ -634,6 +750,22 @@ def main() -> int:
     kern["dequant_matmul"]["by_M"] = by_m
     del dense, calls
 
+    # the plane mask's cost: a decode step's 113 launches with keep = 4
+    # against the full-width keep, in one call
+    calls = path_calls(BATCH)
+    keeps = {"keep=4": four, "keep=16": torch.full((1, 1), 16, dtype=torch.int32, device=dev)}
+    mask_ms = {}
+    for rep_i in range(2):
+        for label, kt in keeps.items():
+            mask_ms.setdefault(label, []).append(device_ms(lambda: [
+                dqm.dequant_matmul(x, w.q, w.scale, w.offset, kt) for x, w in calls], 3))
+    log(f"[time] dequant_matmul plane mask, one decode step ({len(calls)} launches at "
+        f"M={BATCH}), two turns each: " + ", ".join(f"{k} {v[0]:.4f}, {v[1]:.4f} ms"
+                                                   for k, v in mask_ms.items()))
+    kern["dequant_matmul"]["mask_ms"] = mask_ms
+    del calls
+    kern["dequant_matmul"]["verify_step"] = _verify_timings(model, spec["engine"], dev, xg)
+
     # decode_attention: the decode step's 16 launches, one per layer's cache
     caches = [layer(srv.caches["cycles"]["0_attn"], r) for r in range(layers)]
     valid = (k_pos >= 0) & (k_pos <= q_pos[:, None])
@@ -734,11 +866,13 @@ def main() -> int:
                "plane_extract": ("plane_extract.cu", "src/repro/kernels/bitplane.py:149")}
     # launches on the main paths, each path counted from 0
     paths = {"divide": divide_counts, "serve": path_counts, "pool": pool_counts,
+             "spec": spec["counts"], "spec pool": spec_pool["counts"],
              "wire": wire_counts, "upgrade per tensor": upgrade_counts}
     launches = {name: sum(c.get(name, 0) for c in paths.values()) for name in sources}
     check(all(launches[name] > 0 for name in sources), launches)
     # dequant_matmul's launches by route on the paths that run it
-    route_paths = {"serve": serve_routes, "pool": pool_routes, "wire": wire_routes}
+    route_paths = {"serve": serve_routes, "pool": pool_routes, "spec": spec["routes"],
+                   "spec pool": spec_pool["routes"], "wire": wire_routes}
     by_route = {k: sum(r[k] for r in route_paths.values()) for k in dqm.launches_by_route}
     check(sum(by_route.values()) == launches["dequant_matmul"] and all(by_route.values()),
           (by_route, launches["dequant_matmul"]))
@@ -772,7 +906,9 @@ def main() -> int:
                  "bound_by": k["bound_by"], "library_ms": k["library_ms"]}
         if name == "dequant_matmul":
             entry.update({key: dq[key] for key in ("launches_by_route", "pool_step", "tick",
-                                                   "prefill", "by_M")})
+                                                   "prefill", "by_M", "keep_checked",
+                                                   "keep_max_rel_err", "keep_max_abs_err",
+                                                   "mask_ms", "verify_step")})
         if "by_S" in k:
             entry["by_S"] = k["by_S"]
         line.append(entry)
@@ -1083,10 +1219,7 @@ def _pool_phase(model, prog, dev, ops):
     from repro_torch.serving.engine import PoolRequest, SlotPoolEngine
 
     cfg = model.cfg
-    rng = np.random.default_rng(3)
-    lengths = rng.integers(16, 97, POOL_REQUESTS)
-    budgets = rng.integers(24, 41, POOL_REQUESTS)
-    prompts = [rng.integers(0, cfg.vocab, int(n)) for n in lengths]
+    lengths, budgets, prompts = _pool_requests(cfg)
     checked = FiniteLogits(model)
     pool = SlotPoolEngine(checked, prog, n_slots=POOL_SLOTS, max_len=POOL_MAX_LEN,
                           resident="quantized", dispatch_window=POOL_WINDOW,
@@ -1141,6 +1274,434 @@ def _pool_phase(model, prog, dev, ops):
         f"{sum(ttft) / len(ttft) * 1e3:.1f} ms, largest {max(ttft) * 1e3:.1f} ms; upgrade "
         f"enqueue ms {[round(u['enqueue_s'] * 1e3, 2) for u in pool.upgrade_log]}")
     return pool, run_counts, routes
+
+
+def _pool_requests(cfg):
+    """The pool paths' requests: prompt lengths, budgets and prompts."""
+    rng = np.random.default_rng(3)
+    lengths = rng.integers(16, 97, POOL_REQUESTS)
+    budgets = rng.integers(24, 41, POOL_REQUESTS)
+    return lengths, budgets, [rng.integers(0, cfg.vocab, int(n)) for n in lengths]
+
+
+def _b2_steps(rounds) -> tuple[int, int]:
+    """Decode steps and verify passes of speculation rounds (their accept
+    records): a round of k drafts is k decode steps and one verify, a
+    k = 0 round one decode step."""
+    return (sum(r["k"] if r["k"] else 1 for r in rounds),
+            sum(1 for r in rounds if r["k"]))
+
+
+def _spec_phase(model, prog, dev, ops, prompt, plain_bytes) -> dict:
+    """``[spec]``: ``SpeculativeEngine`` on phase 3's planes (in-memory
+    receiver). The plain server's tokens at each stage come first; then,
+    counted from 0: (a) at each of the 8 stages, a fresh start at batch 4
+    and SPEC_TOKENS tokens, k = 4 and adaptive, each ``torch.equal`` to
+    ``ProgressiveServer(resident="quantized")`` at the same stage; (b) at
+    batch 1, 48 tokens with stages 2-8 landing between rounds,
+    ``torch.equal`` to a batch-1 server replayed at the run's per-token
+    stage log. Every B2 launch but the prefills' layer weights runs on the
+    GEMV route's one-pass kernels, the verify passes included; the draft
+    adds no resident bytes. Returns the path's counts, B2's launches by
+    route and the stage-8 engine's record."""
+    from repro_torch.serving import ProgressiveServer, SpecConfig, SpeculativeEngine
+
+    cfg, layers = model.cfg, model.cfg.n_layers
+    plain = ProgressiveServer(model, prog, max_len=PROMPT + SPEC_TOKENS, resident="quantized",
+                              device=dev)
+    engines = {name: SpeculativeEngine(model, prog, max_len=PROMPT + SPEC_TOKENS + 9,
+                                       spec=SpecConfig(draft_bits=4, k=k), device=dev)
+               for name, k in (("k4", 4), ("adaptive", None))}
+    wants, plain_s = {}, 0.0
+    for s in range(1, prog.n_stages + 1):
+        plain.receive_stage()
+        plain.start({"tokens": prompt})
+        pres = plain.decode(SPEC_TOKENS)
+        wants[s] = pres.tokens.cpu()
+        plain_s += sum(t for _, t in pres.window_s)
+    torch.cuda.synchronize()
+    reset_counts(ops)
+    rounds, starts, by_stage = [], 0, {}
+    spec_s = {name: 0.0 for name in engines}
+    for s in range(1, prog.n_stages + 1):
+        for name, eng in engines.items():
+            eng.receive_stage()
+            eng.start({"tokens": prompt})
+            res = eng.decode(SPEC_TOKENS)
+            starts += 1
+            check(torch.equal(res.tokens, wants[s]), f"[spec] {name} stage {s}: tokens differ "
+                  f"from the plain server's")
+            rounds += res.accept_rounds
+            spec_s[name] += res.wall_s
+            by_stage[(name, s)] = (res.rounds, res.drafted, res.accepted,
+                                   eng.current_draft_bits(),
+                                   sorted({r["k"] for r in res.accept_rounds}))
+    # (b) batch 1, the stages landing between rounds
+    eng1 = SpeculativeEngine(model, prog, max_len=PROMPT + 48 + 9,
+                             spec=SpecConfig(draft_bits=4, k=4), device=dev)
+    eng1.receive_stage()
+    eng1.start({"tokens": prompt[:1]})
+    starts += 1
+    res1 = eng1.decode(48, stage_arrival=lambda done: done >= ARRIVALS[eng1.stage - 1])
+    rounds += res1.accept_rounds
+    torch.cuda.synchronize()
+    run_counts, op_counts, routes = counts(), dict(ops.LAUNCH_COUNTS), route_counts()
+    gemv_by = check_one_pass(routes, "spec")
+    check(eng1.stage == 8 and [u for _, u in res1.upgrades] == list(range(2, 9)),
+          res1.upgrades)
+    replay = _stage_replay(model, prog, prompt[:1], res1.stage_log[0], dev)
+    check(res1.tokens[0].tolist() == replay, "[spec] batch-1 tokens differ from the "
+          "stage-log replay")
+    steps, verifies = _b2_steps(rounds)
+    want_routes = {"mma": layers * 7 * starts,
+                   "gemv": (layers * 7 + 1) * (steps + verifies) + starts}
+    check(routes == want_routes, (routes, want_routes))
+    check(run_counts["flash_verify"] == op_counts["verify_attention"] == layers * verifies,
+          (run_counts, verifies))
+    check(run_counts["decode_attention"] == layers * steps, run_counts)
+    check(run_counts["plane_or_segments"] == 3 * 8, run_counts)
+    want = wants[prog.n_stages]
+    # zero extra bytes: the views share every q; no float leaf
+    eng = engines["k4"]
+    rep = eng.resident_report()
+    check(rep["extra_draft_bytes"] == 0 and rep["fp_bytes"] == 0, rep["extra_draft_bytes"])
+    check(rep["quantized_bytes"] == plain_bytes, (rep["quantized_bytes"], plain_bytes))
+    shared = _shared_q(eng.params, eng.draft_params)
+    # the draft is a different model: one decode step of each view from
+    # the plain server's stage-8 caches
+    tok = want[:, -1:].to(dev)
+    lt, _ = model.decode_step(eng.params, _clone(plain.caches), tok, plain.pos)
+    ld, _ = model.decode_step(eng.draft_params, _clone(plain.caches), tok, plain.pos)
+    gap = float((ld - lt).abs().max()) / float(lt.abs().max())
+    check(gap > 0, "the draft view's logits equal the target's")
+    distinct = len(set(want.reshape(-1).tolist()))
+    log(f"[spec] (a) batch {BATCH}, prompt {PROMPT}, {SPEC_TOKENS} tokens from a fresh start "
+        f"at each of the 8 stages, k = 4 and adaptive (draft 4 bits): tokens equal "
+        f"(torch.equal) to ProgressiveServer(resident='quantized') at every stage")
+    toks = prog.n_stages * BATCH * SPEC_TOKENS
+    log(f"[spec] plain ProgressiveServer in the same phase: {toks / plain_s:.1f} tokens/s "
+        f"over its 8 runs ({plain_s:.3f} s, windows of 8 steps)")
+    for name in engines:
+        log(f"[spec] {name}: {toks / spec_s[name]:.1f} tokens/s over the 8 runs "
+            f"({spec_s[name]:.3f} s); by stage (rounds, drafted, accepted, draft bits, "
+            f"k chosen): " + "; ".join(f"{s} {by_stage[(name, s)]}"
+                                       for s in range(1, prog.n_stages + 1)))
+    log(f"[spec] (b) batch 1, 48 tokens, stages 2-8 landing between rounds at "
+        f"{[u for u in res1.upgrades]}: {res1.rounds} rounds, {res1.accepted}/{res1.drafted} "
+        f"drafts accepted, {48 / res1.wall_s:.1f} tokens/s; tokens equal to a batch-1 "
+        f"ProgressiveServer replayed at the run's per-token stage log")
+    log(f"[spec] launches in the run {run_counts}; dequant_matmul by route {routes} "
+        f"(decode steps {steps}, verify passes {verifies} at M = T x slots, "
+        f"prefills {starts}): every launch but the prefills' layer weights on the GEMV "
+        f"route, GEMV route by kernel {gemv_by}")
+    log(f"[spec] the draft (4 bits) against the target (16) at stage 8, one decode step: "
+        f"max |logit difference| / max |logit| {gap:.3e}, argmax equal in "
+        f"{int((ld.argmax(-1) == lt.argmax(-1)).sum())} of {BATCH} slots; the plain stream "
+        f"at stage 8 holds {distinct} distinct tokens of {want.numel()}")
+    log(f"[spec] zero extra bytes: draft and target share all {shared} q tensors "
+        f"(data_ptr), extra_draft_bytes 0, fp_bytes 0, quantized_bytes "
+        f"{rep['quantized_bytes']} = the plain server's")
+    return {"counts": run_counts, "routes": routes, "engine": eng, "plain": plain,
+            "tok_s": {**{name: toks / spec_s[name] for name in engines},
+                      "plain": toks / plain_s}}
+
+
+def _scaled_model(model, dev):
+    """Phase 2's seed-0 weights with every decoder weight scaled by
+    DECODER_SCALE, divided on the card. With the weights as initialised
+    the residual stream keeps the input token's own embedding on top, so
+    the tied unembedding repeats the last token and any draft agrees with
+    its target; scaled, the layers pick the next token, the stream varies,
+    and the 4-bit draft is rejected in part."""
+    from repro_torch.core.progressive import divide
+
+    def scaled(tree):
+        if isinstance(tree, dict):
+            return {k: scaled(v) for k, v in tree.items()}
+        return tree * DECODER_SCALE
+
+    params = model.init(torch.Generator(device=dev).manual_seed(0), device=dev)
+    params["decoder"] = scaled(params["decoder"])
+    return divide(params)
+
+
+def _spec_rejections(model, prog, prompt, dev) -> dict:
+    """``[reject]`` single stream: on the scaled model, draft 4 bits,
+    k = 4, batch 4, a fresh start at stages 4-8, each run's tokens
+    ``torch.equal`` to the plain server's at that stage; the rounds
+    reject drafts, accept part of a slot's and leave the slots ragged, so
+    that the partial-accept gather and ragged positions run. Fails unless
+    some round accepts part of a slot's drafts."""
+    from repro_torch.serving import ProgressiveServer, SpecConfig, SpeculativeEngine
+
+    plain = ProgressiveServer(model, prog, max_len=PROMPT + SPEC_TOKENS, resident="quantized",
+                              device=dev)
+    eng = SpeculativeEngine(model, prog, max_len=PROMPT + SPEC_TOKENS + 9,
+                            spec=SpecConfig(draft_bits=4, k=4), device=dev)
+    by_stage, drafted, accepted, partial, distinct = {}, 0, 0, 0, set()
+    for s in range(1, prog.n_stages + 1):
+        plain.receive_stage()
+        eng.receive_stage()
+        if s < 4:
+            continue
+        plain.start({"tokens": prompt})
+        want = plain.decode(SPEC_TOKENS).tokens.cpu()
+        eng.start({"tokens": prompt})
+        res = eng.decode(SPEC_TOKENS)
+        check(torch.equal(res.tokens, want), f"[reject] stage {s}: speculative tokens differ "
+              f"from the plain server's")
+        rnds = [r for r in res.accept_rounds if r["k"]]
+        by_stage[s] = (res.drafted, res.accepted,
+                       sum(1 for r in rnds if min(r["accepted"]) == 0),
+                       sum(1 for r in rnds if any(0 < n < r["k"] for n in r["accepted"])),
+                       sum(1 for r in rnds if len(set(r["accepted"])) > 1), len(rnds))
+        drafted += res.drafted
+        accepted += res.accepted
+        partial += by_stage[s][3]
+        distinct |= set(want.reshape(-1).tolist())
+    check(accepted < drafted and partial > 0, f"[reject] no draft rejected, or none in part "
+          f"({accepted}/{drafted}, {partial} partial rounds)")
+    log(f"[reject] the decoder's weights x {DECODER_SCALE} (seed 0): plain streams of "
+        f"{len(distinct)} distinct tokens over stages 4-8; SpeculativeEngine, draft 4 bits, "
+        f"k = 4, batch {BATCH}, {SPEC_TOKENS} tokens from a fresh start at each stage: tokens "
+        f"equal (torch.equal) to ProgressiveServer's at every stage; by stage (drafted, "
+        f"accepted, rounds with a slot rejecting every draft, with a slot accepting part, "
+        f"with ragged slots, rounds): " + "; ".join(f"{s} {r}" for s, r in by_stage.items())
+        + f"; acceptance {accepted}/{drafted} = {accepted / drafted:.3f}")
+    return {"drafted": drafted, "accepted": accepted, "partial": partial}
+
+
+def _spec_pool_rejections(model, prog, dev) -> dict:
+    """``[reject]`` pool: the scaled model's 8 stages, the pool phase's 12
+    requests on ``SpeculativeSlotPool`` (draft 4 bits, k = 3), each
+    request's tokens ``torch.equal`` to a plain ``SlotPoolEngine``'s:
+    the pool's partial takes and position bounds run. Fails unless some
+    draft is rejected."""
+    from repro_torch.serving import PoolRequest, SlotPoolEngine, SpecConfig
+    from repro_torch.serving import SpeculativeSlotPool
+
+    _, budgets, prompts = _pool_requests(model.cfg)
+    out = {}
+    for name, eng in (("plain", SlotPoolEngine(model, prog, n_slots=POOL_SLOTS,
+                                               max_len=POOL_MAX_LEN, resident="quantized",
+                                               dispatch_window=POOL_WINDOW,
+                                               prefill_chunk=POOL_CHUNK, device=dev)),
+                      ("spec", SpeculativeSlotPool(model, prog, n_slots=POOL_SLOTS,
+                                                   max_len=POOL_MAX_LEN,
+                                                   spec=SpecConfig(draft_bits=4, k=3),
+                                                   dispatch_window=POOL_WINDOW,
+                                                   prefill_chunk=POOL_CHUNK,
+                                                   device=dev))):
+        for _ in range(prog.n_stages):
+            eng.receive_stage()
+        for rid in range(POOL_REQUESTS):
+            eng.submit(PoolRequest(rid=rid, prompt=prompts[rid],
+                                   max_new_tokens=int(budgets[rid])))
+        out[name] = eng.run()
+    for rid in range(POOL_REQUESTS):
+        check(out["spec"][rid] == out["plain"][rid], f"[reject] pool request {rid}: tokens "
+              f"differ from the plain pool's")
+    log_ = eng.accept_log
+    drafted = sum(r["k"] * len(r["accepted"]) for r in log_)
+    accepted = sum(sum(r["accepted"]) for r in log_)
+    partial = sum(1 for r in log_ if any(0 < n < r["k"] for n in r["accepted"]))
+    check(accepted < drafted, f"[reject] pool: no draft rejected ({accepted}/{drafted})")
+    log(f"[reject] SpeculativeSlotPool on the same model, draft 4 bits, k = 3, the pool's "
+        f"{POOL_REQUESTS} requests at stage 8: every request's tokens equal (torch.equal) to a "
+        f"plain SlotPoolEngine's; acceptance {accepted}/{drafted} = {accepted / drafted:.3f}; "
+        f"{partial} of {len(log_)} rounds accept part of a slot's drafts")
+    return {"drafted": drafted, "accepted": accepted, "partial": partial}
+
+
+def _clone(caches):
+    return {"cycles": {n: {kv: t.clone() for kv, t in c.items()}
+                       for n, c in caches["cycles"].items()}, "tail": {}}
+
+
+def _shared_q(target, draft) -> int:
+    """Check that every quantized leaf of the draft view reads the target
+    view's q (the same storage); returns how many."""
+    from repro_torch.core.progressive import tree_flatten_with_path
+    from repro_torch.core.quantize import QuantizedTensor
+
+    t, d = dict(tree_flatten_with_path(target)), dict(tree_flatten_with_path(draft))
+    n = 0
+    for path, leaf in t.items():
+        if isinstance(leaf, QuantizedTensor):
+            check(d[path].q.data_ptr() == leaf.q.data_ptr(), f"draft q of {path} not shared")
+            check(d[path].keep_bits is not None and leaf.keep_bits is not None, path)
+            n += 1
+    check(n > 0, "no quantized leaves")
+    return n
+
+
+def _stage_replay(model, prog, prompt, stage_log, dev) -> list:
+    """Plain greedy tokens of a batch-1 ``ProgressiveServer`` replayed at a
+    speculative run's per-token stage log: token j's value is computed at
+    stage_log[j], its K/V written by the step that computes token j + 1."""
+    from repro_torch.serving import ProgressiveServer
+
+    srv = ProgressiveServer(model, prog, max_len=prompt.shape[1] + len(stage_log),
+                            resident="quantized", device=dev)
+    while srv.stage < stage_log[0]:
+        srv.receive_stage()
+    srv.start({"tokens": prompt})
+    toks = [torch.argmax(srv.last_logits, dim=-1)[:, None]]
+    pos = prompt.shape[1]
+    for stage in stage_log[1:]:
+        while srv.stage < stage:
+            srv.receive_stage()
+        logits, srv.caches = model.decode_step(srv.params, srv.caches, toks[-1], pos)
+        pos += 1
+        toks.append(torch.argmax(logits, dim=-1)[:, None])
+    return torch.cat(toks, dim=1)[0].tolist()
+
+
+def _spec_pool_phase(model, prog, dev, ops) -> dict:
+    """``[spec pool]``: ``SpeculativeSlotPool`` (8 slots, chunk 8, k = 3)
+    on all 8 stages, the pool phase's 12 requests, counted from 0; each
+    request's tokens ``torch.equal`` to a plain ``SlotPoolEngine``'s on
+    the same requests at stage 8 (both prefill in ticks of M = 64, whose
+    rows do not depend on the other rows, and decode on GEMV rows)."""
+    from repro_torch.serving import PoolRequest, SlotPoolEngine, SpecConfig
+    from repro_torch.serving import SpeculativeSlotPool
+
+    cfg, layers = model.cfg, model.cfg.n_layers
+    lengths, budgets, prompts = _pool_requests(cfg)
+    spec = SpeculativeSlotPool(model, prog, n_slots=POOL_SLOTS, max_len=POOL_MAX_LEN,
+                               spec=SpecConfig(draft_bits=4, k=3), dispatch_window=POOL_WINDOW,
+                               prefill_chunk=POOL_CHUNK, device=dev)
+    plain = SlotPoolEngine(model, prog, n_slots=POOL_SLOTS, max_len=POOL_MAX_LEN,
+                           resident="quantized", dispatch_window=POOL_WINDOW,
+                           prefill_chunk=POOL_CHUNK, device=dev)
+    for p in (plain, spec):
+        for _ in range(prog.n_stages):
+            p.receive_stage()
+    torch.cuda.synchronize()
+    reset_counts(ops)
+    t0 = time.perf_counter()
+    for rid in range(POOL_REQUESTS):
+        spec.submit(PoolRequest(rid=rid, prompt=prompts[rid], max_new_tokens=int(budgets[rid])))
+    out = spec.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    run_counts, op_counts, routes = counts(), dict(ops.LAUNCH_COUNTS), route_counts()
+    gemv_by = check_one_pass(routes, "spec pool")
+    for rid in range(POOL_REQUESTS):
+        plain.submit(PoolRequest(rid=rid, prompt=prompts[rid],
+                                 max_new_tokens=int(budgets[rid])))
+    want = plain.run()
+    for rid in range(POOL_REQUESTS):
+        check(len(out[rid]) == budgets[rid], (rid, len(out[rid])))
+        check(out[rid] == want[rid], f"[spec pool] request {rid}: tokens differ from the "
+              f"plain pool's")
+    steps, verifies = _b2_steps(spec.accept_log)
+    ticks = spec._tick_count
+    check(routes == {"mma": (layers * 7 + 1) * ticks,
+                     "gemv": (layers * 7 + 1) * (steps + verifies)},
+          (routes, ticks, steps, verifies))
+    check(run_counts["flash_verify"] == layers * (ticks + verifies)
+          and op_counts["verify_attention"] == layers * verifies, (run_counts, op_counts))
+    drafted = sum(r["k"] * len(r["accepted"]) for r in spec.accept_log)
+    accepted = sum(sum(r["accepted"]) for r in spec.accept_log)
+    n_tok = sum(len(t) for t in out.values())
+    ttft = [spec.ttft_s[rid] for rid in range(POOL_REQUESTS)]
+    log(f"[spec pool] {POOL_REQUESTS} requests (prompts {int(lengths.min())}-"
+        f"{int(lengths.max())}, budgets {int(budgets.min())}-{int(budgets.max())}), "
+        f"{POOL_SLOTS} slots, chunk {POOL_CHUNK}, k = 3 on all 8 stages: every request's "
+        f"tokens equal (torch.equal) to a plain SlotPoolEngine's at stage 8")
+    log(f"[spec pool] {n_tok} tokens in {wall:.3f} s: {n_tok / wall:.1f} tokens/s; TTFT mean "
+        f"{sum(ttft) / len(ttft) * 1e3:.1f} ms, largest {max(ttft) * 1e3:.1f} ms; "
+        f"{len(spec.accept_log)} rounds, {ticks} chunk ticks; acceptance "
+        f"{accepted}/{drafted} = {accepted / max(drafted, 1):.3f}; launches {run_counts}; "
+        f"dequant_matmul by route {routes}, GEMV route by kernel {gemv_by}")
+    return {"counts": run_counts, "routes": routes, "tok_s": n_tok / wall}
+
+
+def _verify_patterns(model, params, target, draft, dev, g) -> int:
+    """A verify step's logits and the K/V it writes against sequential
+    ``decode_step``s of the same blocks, after reject-all, alternate and
+    accept-all patterns: rounds of k draft steps (draft view) and one
+    T = k + 1 verify (target view) on one set of caches, the same blocks
+    decoded token by token on another, ragged across BATCH slots. Returns
+    the rounds checked."""
+    B, k, n_rounds = BATCH, 4, 3
+    prompt = torch.randint(0, model.cfg.vocab, (B, 16), generator=g, device=dev)
+    checked = 0
+    for pattern in ("reject_all", "alternate", "accept_all"):
+        logits, caches = model.prefill(params, {"tokens": prompt})
+        spec_c = model.grow_caches(caches, 16 + n_rounds * (k + 1) + 1)
+        seq_c = _clone(spec_c)
+        last = torch.argmax(logits, dim=-1).to(torch.int32)[:, None]
+        pos = torch.full((B,), 16, dtype=torch.int32, device=dev)
+        for rnd in range(n_rounds):
+            toks, cur = [last], last
+            for j in range(k):
+                lg, spec_c = model.decode_step(draft, spec_c, cur, pos + j)
+                cur = torch.argmax(lg, dim=-1).to(torch.int32)[:, None]
+                toks.append(cur)
+            block = torch.cat(toks, dim=1)
+            vlog, spec_c = model.verify_step(target, spec_c, block, pos)
+            for t in range(k + 1):
+                lg, seq_c = model.decode_step(params, seq_c, block[:, t:t + 1], pos + t)
+                check(torch.equal(vlog[:, t], lg), f"verify row {t} of round {rnd} "
+                      f"({pattern}) differs from its decode step")
+            for n, c in spec_c["cycles"].items():
+                for kv in ("k", "v"):
+                    check(torch.equal(c[kv], seq_c["cycles"][n][kv]),
+                          f"{pattern} round {rnd}: cache {kv} differs")
+            acc = {"reject_all": [0] * B, "accept_all": [k] * B,
+                   "alternate": [k if (rnd + b) % 2 else 0 for b in range(B)]}[pattern]
+            acc_t = torch.tensor(acc, device=dev)
+            last = torch.gather(torch.argmax(vlog, dim=-1).to(torch.int32), 1, acc_t[:, None])
+            pos = pos + acc_t.to(torch.int32) + 1
+            checked += 1
+    return checked
+
+
+def _verify_timings(model, eng, dev, g) -> dict:
+    """``[time]`` one verify step by CUDA-graph replay at M = 20 (batch 4,
+    T = 5) and M = 32 (8 slots, T = 4): its dense layers on the GEMV route
+    (rows="decode", as ``verify_step`` runs them) and on the tensor-core
+    route (the route M picks), the cost of the choice; host issue ms of the
+    step and of a whole round (k = 4 draft steps and the verify)."""
+    from repro_torch.kernels import ops
+
+    out = {}
+    dqmm = ops.dequant_matmul
+    for B, T in ((BATCH, 5), (POOL_SLOTS, 4)):
+        caches = model.init_caches(B, POOL_MAX_LEN, device=dev)
+        toks = torch.randint(0, model.cfg.vocab, (B, T), generator=g, device=dev,
+                             dtype=torch.int32)
+        pos = torch.full((B,), PROMPT, dtype=torch.int32, device=dev)
+
+        def step():
+            model.verify_step(eng.params, caches, toks, pos)
+
+        gemv_ms = device_ms(step, 2)
+        # the route M picks, for the timing: every launch with rows="any"
+        ops.dequant_matmul = lambda *a, rows, **kw: dqmm(*a, **kw)
+        try:
+            mma_ms = device_ms(step, 2)
+        finally:
+            ops.dequant_matmul = dqmm
+        gemv_ms2 = device_ms(step, 2)
+        row = {"M": B * T, "gemv_ms": [gemv_ms, gemv_ms2], "mma_ms": mma_ms,
+               "host_ms": host_ms(step, 3)}
+        if B == BATCH:
+            last = toks[:, :1].contiguous()
+            rnd = lambda: eng._run_round(caches, last, pos, 4)   # noqa: E731
+            row["round_device_ms"] = device_ms(rnd, 1)
+            row["round_host_ms"] = host_ms(rnd, 3)
+        out[f"M={B * T}"] = row
+        log(f"[time] verify_step B={B} T={T} (M={B * T}), stage 8, one step by graph replay: "
+            f"GEMV route (rows='decode') {gemv_ms:.4f}, {gemv_ms2:.4f} ms; tensor-core route "
+            f"{mma_ms:.4f} ms; cost of the GEMV route {min(gemv_ms, gemv_ms2) - mma_ms:+.4f} ms; "
+            f"host issue {row['host_ms']:.3f} ms"
+            + (f"; a round (k = 4 drafts + verify): device {row['round_device_ms']:.4f} ms, "
+               f"host issue {row['round_host_ms']:.3f} ms" if B == BATCH else ""))
+        del caches
+    return out
 
 
 def _dqmm_bound(calls) -> tuple[float, str]:

@@ -110,6 +110,8 @@ class PlaneStore:
         for dt, (n, dtype) in sizes.items():
             self.buffers[dt] = torch.zeros((n,), dtype=dtype, device=self.device)
         self._qleaf_cache: dict[Any, QuantizedTensor] = {}
+        # truncated views by (key, bits), dropped with the key's full view
+        self._qtrunc_cache: dict[tuple, QuantizedTensor] = {}
         # per-key affine constants that no upgrade changes (lo/hi/scale on
         # the device, host float32 copies of lo and span for the offsets)
         self._qmeta_cache: dict[Any, dict] = {}
@@ -174,6 +176,7 @@ class PlaneStore:
         new.received = list(self.received)
         new.buffers = dict(self.buffers)
         new._qleaf_cache = dict(self._qleaf_cache)
+        new._qtrunc_cache = dict(self._qtrunc_cache)
         new._qmeta_cache = self._qmeta_cache
         return new
 
@@ -288,7 +291,10 @@ class PlaneStore:
             self.buffers[dt] = new
         for idx in items:
             self.received[idx] += 1
-            self._qleaf_cache.pop(self.slots[idx].key, None)
+            key = self.slots[idx].key
+            self._qleaf_cache.pop(key, None)
+            for tk in [t for t in self._qtrunc_cache if t[0] == key]:
+                del self._qtrunc_cache[tk]
 
     # -- quantized-resident views ------------------------------------------
     def _quantized_leaf(self, i: int) -> QuantizedTensor | None:
@@ -339,11 +345,14 @@ class PlaneStore:
         ``eligible`` is an optional ``key -> bool`` predicate restricting
         which leaves go quantized; every other leaf, and any leaf a
         dequant matmul cannot consume, is dequantized to float. Views of
-        tensors untouched since the last call come back from a cache."""
-        if bits is not None:
-            raise NotImplementedError(
-                "truncated-precision views (bits=) belong to self-speculation, "
-                "which is still to be ported (ROADMAP A10)")
+        tensors untouched since the last call come back from a cache.
+
+        ``bits=b`` hands out the truncated-precision views instead
+        (:meth:`QuantizedTensor.truncate` at ``min(b, leaf.bits)``: the
+        same ``q`` tensors, a deferred plane mask and a recomputed
+        offset), cached by ``(key, b)`` until an ingest touches the key;
+        ineligible leaves stay the shared float leaf. A self-speculative
+        draft built from them adds no resident weight bytes."""
         out: dict[Any, Any] = {}
         for i, s in enumerate(self.slots):
             if eligible is None or eligible(s.key):
@@ -353,6 +362,15 @@ class PlaneStore:
                     if got is not None:
                         self._qleaf_cache[s.key] = got
                 if got is not None:
+                    if bits is not None:
+                        # clamped per leaf: bits at or above the leaf's
+                        # width is its full precision in masked form
+                        b_eff = min(bits, got.bits)
+                        trunc = self._qtrunc_cache.get((s.key, b_eff))
+                        if trunc is None:
+                            trunc = got.truncate(b_eff)
+                            self._qtrunc_cache[(s.key, b_eff)] = trunc
+                        got = trunc
                     out[s.key] = got
                     continue
             out[s.key] = self._fp_leaf(i)

@@ -1,7 +1,10 @@
 """Division policies: how a model's tensors are cut into transmission
-stages. Counterpart of ``src/repro/core/policy.py``; the paper's uniform
-policy only (the priority and expert-popularity policies are still to
-be ported)."""
+stages, and the self-speculative draft's controller. Counterpart of
+``src/repro/core/policy.py``: the paper's uniform policy (the priority
+and expert-popularity policies are still to be ported) and
+:class:`SpeculationController`, which picks the draft length k and the
+draft's precision from the observed acceptance rate (pure Python, the
+reference's decisions)."""
 from __future__ import annotations
 
 import dataclasses
@@ -47,3 +50,77 @@ class UniformPolicy(DivisionPolicy):
     @property
     def n_stages(self) -> int:
         return self.schedule.n_planes
+
+
+# ---------------------------------------------------------------------------
+# Speculative-decoding control: the precision ladder as a draft-model knob
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class SpeculationController:
+    """Tunes the self-speculative draft (length k, draft bits) from the
+    observed acceptance rate, which changes as planes arrive: while the
+    received precision is at most the draft's, the draft equals the
+    target and a round degenerates to plain decode (k = 0); once the
+    received precision pulls ahead, long drafts pay off as long as the
+    coarse view keeps predicting the refined one.
+
+    k moves over a ladder (0, then powers of two up to ``k_max``) on an
+    EWMA of each round's acceptance fraction: high acceptance climbs,
+    low acceptance steps down, never to 0. When rejection persists at
+    k = 1 the draft climbs ``bits_step`` bits instead (up to
+    ``max_draft_bits``): a finer prefix of the same accumulators, whose
+    view swap changes device values only. Upgrades relax the EWMA toward
+    its prior (:meth:`on_upgrade`)."""
+
+    draft_bits: int = 4
+    k_max: int = 8
+    k_init: int = 4
+    bits_step: int = 2         # draft-precision increment on rejection
+    max_draft_bits: int = 8    # never draft finer than this
+    ewma: float = 0.6          # weight of history in the acceptance EWMA
+    raise_at: float = 0.8      # climb the ladder above this rate
+    lower_at: float = 0.4      # step down below this rate
+    rate: float = 0.5          # EWMA state (prior: an even coin)
+    k: int = dataclasses.field(default=-1)
+
+    def __post_init__(self):
+        if self.k < 0:
+            self.k = min(self.k_init, self.k_max)
+        self._ladder = [0] + [2 ** i for i in range(0, 32) if 2 ** i <= self.k_max]
+        # snap k onto the ladder (a k_max that is no power of two would
+        # leave it between rungs)
+        self.k = max(v for v in self._ladder[1:] if v <= max(self.k, 1))
+
+    def choose_k(self, received_bits: int) -> int:
+        """Draft length for the next round: 0 while the received precision
+        is no finer than the draft's."""
+        if received_bits <= self.draft_bits:
+            return 0
+        return self.k
+
+    def update(self, accepted: int, proposed: int) -> None:
+        """Fold one round's outcome (``accepted`` of ``proposed`` draft
+        tokens) into the EWMA and move k along the ladder, or, when
+        rejection persists at k = 1, move the draft's precision up."""
+        if proposed <= 0:
+            return
+        r = accepted / proposed
+        self.rate = self.ewma * self.rate + (1.0 - self.ewma) * r
+        i = self._ladder.index(self.k)
+        if self.rate >= self.raise_at and self.k < self.k_max:
+            self.k = self._ladder[min(i + 1, len(self._ladder) - 1)]
+        elif self.rate <= self.lower_at:
+            if i > 1:
+                # k = 0 belongs to the no-gap regime (choose_k), not to
+                # a streak of rejections
+                self.k = self._ladder[i - 1]
+            elif self.draft_bits < self.max_draft_bits:
+                self.draft_bits = min(self.draft_bits + self.bits_step,
+                                      self.max_draft_bits)
+                self.rate = 0.5   # evidence against the old draft is void
+
+    def on_upgrade(self) -> None:
+        """A precision stage landed: the draft/target gap changed, so past
+        acceptance evidence is stale; relax toward the prior."""
+        self.rate = 0.5 * (self.rate + 0.5)

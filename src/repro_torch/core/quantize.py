@@ -17,6 +17,8 @@ from typing import Any
 
 import torch
 
+from repro_torch.kernels.ref import mask_q
+
 # ε of eq. (2): keeps the scaled value strictly below 2^k.
 _EPS_REL = 1e-6
 _EPS_ABS = 1e-12
@@ -44,7 +46,15 @@ class QuantizedTensor:
     carry the eq.-(5) affine (:func:`dequant_affine`) as float32 tensors
     of shape ``q.shape[:-2] + (1, 1)`` on q's device, with
     ``received_bits`` (int32, same shape) beside them. An upgrade changes
-    their values; the kernels read them from device memory."""
+    their values; the kernels read them from device memory.
+
+    ``keep_bits`` (int32, same shape, on the device) is the deferred
+    plane mask of a truncated-precision view (:meth:`truncate`):
+    consumers keep only the top ``keep_bits`` bits of ``q``, inside the
+    consuming kernel, so ``q`` stays the full view's tensor and no masked
+    copy exists. None means no mask. Because the width lives in device
+    memory, switching between a draft and a target view, or moving the
+    draft's width, changes no launch argument."""
 
     q: torch.Tensor
     lo: torch.Tensor
@@ -54,6 +64,7 @@ class QuantizedTensor:
     scale: torch.Tensor | None = None
     offset: torch.Tensor | None = None
     received_bits: torch.Tensor | None = None
+    keep_bits: torch.Tensor | None = None
 
     @property
     def T(self) -> "QuantizedTensor":
@@ -64,6 +75,41 @@ class QuantizedTensor:
         if self.q.ndim != 2:
             raise ValueError(f"T needs a 2-D tensor, got shape {tuple(self.q.shape)}")
         return dataclasses.replace(self, q=self.q.T)
+
+    def truncate(self, b: int) -> "QuantizedTensor":
+        """Truncated-precision view: behave as if only the first planes
+        totalling ``b`` bits had been received, without copying ``q``.
+
+        The view shares this tensor's ``q`` (the same tensor object) and
+        carries the truncation as a deferred mask (``keep_bits``) and an
+        eq.-(5) offset recomputed at ``min(b, received)`` bits; the scale
+        (``span * 2^-bits``) does not change, since q stays in its k-bit
+        container. The floor-quantization prefix property makes the
+        masked value equal to quantizing the source at ``b`` bits. Device
+        ops only: no host sync."""
+        if not (0 <= b <= self.bits):
+            raise ValueError(f"b={b} outside [0, {self.bits}]")
+        shape = (tuple(self.scale.shape) if self.scale is not None
+                 else tuple(self.q.shape[:-2]) + (1, 1) if self.q.ndim >= 2 else ())
+        if self.received_bits is not None:
+            recv = torch.clamp(self.received_bits.to(torch.int32), max=b)
+        else:
+            recv = torch.full(shape, b, dtype=torch.int32, device=self.q.device)
+        lo32 = torch.as_tensor(self.lo, dtype=torch.float32).to(self.q.device)
+        hi32 = torch.as_tensor(self.hi, dtype=torch.float32).to(self.q.device)
+        span = affine_span(lo32, hi32)
+        # half an LSB at recv bits, 2^-(recv+1), built as an exact power of
+        # two from its exponent bits (recv <= 32 keeps it normal); the
+        # offset then takes dequant_affine's two float32 operations, and
+        # recv == 0 the centre of the range
+        half_lsb = ((126 - recv) << 23).view(torch.float32)
+        offset = torch.where(recv > 0, lo32 + span * half_lsb, lo32 + span * 0.5)
+        scale = (self.scale if self.scale is not None
+                 else torch.broadcast_to(span * (0.5 ** self.bits), shape))
+        recv = torch.broadcast_to(recv, shape).contiguous()
+        return dataclasses.replace(self, scale=scale,
+                                   offset=torch.broadcast_to(offset, shape).contiguous(),
+                                   received_bits=recv, keep_bits=recv)
 
 
 def _range_eps(lo: torch.Tensor, hi: torch.Tensor) -> torch.Tensor:
@@ -122,3 +168,12 @@ def dequantize(qt: QuantizedTensor, received_bits: int | None = None) -> torch.T
     scale, offset = dequant_affine(qt.lo, qt.hi, qt.bits, received_bits)
     val = qt.q.to(torch.float32) * scale.to(qt.q.device) + offset.to(qt.q.device)
     return val.to(qt.orig_dtype)
+
+
+def truncate(qt: QuantizedTensor, m: int) -> QuantizedTensor:
+    """Keep only the m most significant bits of q (what a receiver holds
+    after the first planes totalling m bits): the oracle the truncated
+    views are held to (``(q >> s) << s``, ``kernels.ref.mask_q``)."""
+    if not (0 <= m <= qt.bits):
+        raise ValueError(f"m={m} outside [0, {qt.bits}]")
+    return dataclasses.replace(qt, q=mask_q(qt.q, m, qt.bits))

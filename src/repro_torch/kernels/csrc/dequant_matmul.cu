@@ -50,6 +50,12 @@
 //    row of x: about 2 + M instructions a weight. At M = 8 the FMAs take
 //    about as long as the bytes, and the two do not fully overlap.
 //
+// Truncated views (self-speculation's draft): a plane mask rides as an
+// operand, `keep` (one int32 in device memory, null without a mask) and the
+// leaf's width `bits`. Each kernel reads it once a block and ANDs the words
+// of q with it before they are centred (keep_mask.cuh), so the masked q
+// never exists in device memory; a full-width keep changes no bit.
+//
 // Rounding: q - c is exact. With bfloat16 x each product x * (q - c) is exact
 // in float32 (8 + 16 significant bits), with float32 x it rounds once inside
 // the FMA; the sums over K round in float32. The order is fixed: a thread
@@ -72,6 +78,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "keep_mask.cuh"
 
 namespace {
 
@@ -100,6 +108,8 @@ struct Args {
   const void* q;
   const float* scale;
   const float* offset;
+  const int* keep;   // the plane mask's width, or null
+  int bits;
   float* out;
   long long sq;   // q's stride along its strided axis: K for (K, N) q, N for embed.T
   int M, K, N, k_chunk;
@@ -139,20 +149,21 @@ __device__ __forceinline__ typename Word<TQ>::T load_q(const TQ* p, bool ok) {
   return w;
 }
 
-// The eight values of a word minus the centre, exactly: the value's bits
-// under the exponent of 2^23 (one byte permute), less 2^23 + c (`bias`).
+// The eight values of a word, masked (`wmask`: keep_mask), minus the
+// centre, exactly: the value's bits under the exponent of 2^23 (one byte
+// permute), less 2^23 + c (`bias`).
 template <typename TQ>
 __device__ __forceinline__ void centred(const typename Word<TQ>::T& w, float bias,
-                                        float (&v)[8]) {
+                                        uint32_t wmask, float (&v)[8]) {
   if constexpr (sizeof(TQ) == 2) {
-    const uint32_t u[4] = {w.x, w.y, w.z, w.w};
+    const uint32_t u[4] = {w.x & wmask, w.y & wmask, w.z & wmask, w.w & wmask};
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       v[2 * i] = __fsub_rn(__uint_as_float(__byte_perm(u[i], 0x4B000000u, 0x7610)), bias);
       v[2 * i + 1] = __fsub_rn(__uint_as_float(__byte_perm(u[i], 0x4B000000u, 0x7632)), bias);
     }
   } else {
-    const uint32_t u[2] = {w.x, w.y};
+    const uint32_t u[2] = {w.x & wmask, w.y & wmask};
 #pragma unroll
     for (int i = 0; i < 2; ++i)
 #pragma unroll
@@ -162,9 +173,11 @@ __device__ __forceinline__ void centred(const typename Word<TQ>::T& w, float bia
   }
 }
 
-// scale, the weight d of q == c (one fused multiply-add), and 2^23 + c.
+// scale, the weight d of q == c (one fused multiply-add), 2^23 + c, and
+// the plane mask.
 struct Centre {
   float scale, d, bias;
+  uint32_t wmask;
 };
 
 template <typename TQ>
@@ -172,7 +185,7 @@ __device__ __forceinline__ Centre centre(const Args& a) {
   const float scale = *a.scale, offset = *a.offset;
   const float cf =
       fminf(fmaxf(rintf(-offset / scale), 0.f), sizeof(TQ) == 1 ? 255.f : 65535.f);
-  return {scale, fmaf(scale, cf, offset), 8388608.f + cf};
+  return {scale, fmaf(scale, cf, offset), 8388608.f + cf, keep_mask<TQ>(a.keep, a.bits)};
 }
 
 // (K, N) q: rows of x staged at a time (the whole chunk but at MT = 16 and
@@ -401,7 +414,7 @@ __global__ void __launch_bounds__(THREADS, MT <= 4 ? 2 : 1) gemv_kn(const Args a
     for (int s = s0; s < s_end; ++s) {
       cp_wait<R - 1>();   // step s has landed
       float w[8];
-      centred<TQ>(*reinterpret_cast<const W*>(slot(s)), cn.bias, w);
+      centred<TQ>(*reinterpret_cast<const W*>(slot(s)), cn.bias, cn.wmask, w);
 #pragma unroll
       for (int m = 0; m < MT; ++m) {
         const float xv = xk[m * slab + KN_STEP * s];
@@ -489,7 +502,7 @@ __global__ void __launch_bounds__(THREADS, MT <= 8 ? 2 : 1) gemv_kc(const Args a
 #pragma unroll
       for (int c = 0; c < KC_CW; ++c) {
         float w[8];
-        centred<TQ>(b[c], cn.bias, w);
+        centred<TQ>(b[c], cn.bias, cn.wmask, w);
 #pragma unroll
         for (int j = 0; j < 4; ++j)
 #pragma unroll
@@ -594,6 +607,15 @@ __device__ __forceinline__ float dq(uint32_t qv, float scale, float offset) {
   return __fadd_rn(__fmul_rn((float)qv, scale), offset);
 }
 
+// A block's operands after x and q: the affine, the plane mask and the output.
+struct GenArgs {
+  const float* scale;
+  const float* offset;
+  const int* keep;
+  int bits;
+  float* out;
+};
+
 // V elements of q loaded as one 8- or 16-byte word.
 template <typename TQ, int V>
 union Lanes {
@@ -613,15 +635,16 @@ struct ColsVec {
 // meet in shared memory in warp order.
 template <typename TX, typename TQ, bool VEC>
 __global__ void __launch_bounds__(256) general_cols(
-    const TX* __restrict__ x, const TQ* __restrict__ q, const float* __restrict__ scale_p,
-    const float* __restrict__ offset_p, float* __restrict__ out, int M, int K, int N,
+    const TX* __restrict__ x, const TQ* __restrict__ q, const GenArgs g, int M, int K, int N,
     long long sqk, long long sqn) {
   constexpr int V = ColsVec<TQ>::V;
   __shared__ float red[WARPS][MT_COLS][V][32];
   const int lane = threadIdx.x, warp = threadIdx.y;
   const int n0 = (blockIdx.x * 32 + lane) * V;
   const int m0 = blockIdx.z * MT_COLS;
-  const float scale = *scale_p, offset = *offset_p;
+  const float scale = *g.scale, offset = *g.offset;
+  const uint32_t mask = keep_mask<uint32_t>(g.keep, g.bits);
+  float* __restrict__ out = g.out;
 
   float acc[MT_COLS][V];
 #pragma unroll
@@ -643,12 +666,12 @@ __global__ void __launch_bounds__(256) general_cols(
         b.u4 = make_uint4(0, 0, 0, 0);
       }
 #pragma unroll
-      for (int j = 0; j < V; ++j) w[j] = dq((uint32_t)b.e[j], scale, offset);
+      for (int j = 0; j < V; ++j) w[j] = dq((uint32_t)b.e[j] & mask, scale, offset);
     } else {
 #pragma unroll
       for (int j = 0; j < V; ++j) {
         const int n = n0 + j;
-        w[j] = n < N ? dq((uint32_t)row[(long long)n * sqn], scale, offset) : 0.f;
+        w[j] = n < N ? dq((uint32_t)row[(long long)n * sqn] & mask, scale, offset) : 0.f;
       }
     }
 #pragma unroll
@@ -680,15 +703,16 @@ __global__ void __launch_bounds__(256) general_cols(
 // and reduces with shuffles.
 template <typename TX, typename TQ, bool VEC>
 __global__ void __launch_bounds__(256) general_rows(
-    const TX* __restrict__ x, const TQ* __restrict__ q, const float* __restrict__ scale_p,
-    const float* __restrict__ offset_p, float* __restrict__ out, int M, int K, int N,
+    const TX* __restrict__ x, const TQ* __restrict__ q, const GenArgs g, int M, int K, int N,
     long long sqn) {
   constexpr int V = 16 / sizeof(TQ);
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int n = blockIdx.x * WARPS + warp;
   const int m0 = blockIdx.y * MT_ROWS;
   if (n >= N) return;
-  const float scale = *scale_p, offset = *offset_p;
+  const float scale = *g.scale, offset = *g.offset;
+  const uint32_t mask = keep_mask<uint32_t>(g.keep, g.bits);
+  float* __restrict__ out = g.out;
   const TQ* col = q + (long long)n * sqn;
 
   float acc[MT_ROWS];
@@ -701,11 +725,11 @@ __global__ void __launch_bounds__(256) general_rows(
       Lanes<TQ, V> b;
       b.u4 = *reinterpret_cast<const uint4*>(col + k0);
 #pragma unroll
-      for (int j = 0; j < V; ++j) w[j] = dq((uint32_t)b.e[j], scale, offset);
+      for (int j = 0; j < V; ++j) w[j] = dq((uint32_t)b.e[j] & mask, scale, offset);
     } else {
 #pragma unroll
       for (int j = 0; j < V; ++j)
-        w[j] = (k0 + j < K) ? dq((uint32_t)col[k0 + j], scale, offset) : 0.f;
+        w[j] = (k0 + j < K) ? dq((uint32_t)col[k0 + j] & mask, scale, offset) : 0.f;
     }
 #pragma unroll
     for (int m = 0; m < MT_ROWS; ++m) {
@@ -728,8 +752,7 @@ __global__ void __launch_bounds__(256) general_rows(
 
 template <typename TX, typename TQ>
 int launch_general(const void* xv, const void* qv, long long sqk, long long sqn,
-                   const float* scale, const float* offset, float* out, int M, int K, int N,
-                   cudaStream_t stream) {
+                   const GenArgs& g, int M, int K, int N, cudaStream_t stream) {
   const TX* x = (const TX*)xv;
   const TQ* q = (const TQ*)qv;
   if (sqk == 1 && K > 1) {
@@ -737,9 +760,9 @@ int launch_general(const void* xv, const void* qv, long long sqk, long long sqn,
     const bool vec = (K % V == 0) && (sqn % V == 0) && ((uintptr_t)q % 16 == 0);
     dim3 grid((N + WARPS - 1) / WARPS, (M + MT_ROWS - 1) / MT_ROWS);
     if (vec)
-      general_rows<TX, TQ, true><<<grid, WARPS * 32, 0, stream>>>(x, q, scale, offset, out, M, K, N, sqn);
+      general_rows<TX, TQ, true><<<grid, WARPS * 32, 0, stream>>>(x, q, g, M, K, N, sqn);
     else
-      general_rows<TX, TQ, false><<<grid, WARPS * 32, 0, stream>>>(x, q, scale, offset, out, M, K, N, sqn);
+      general_rows<TX, TQ, false><<<grid, WARPS * 32, 0, stream>>>(x, q, g, M, K, N, sqn);
     return (int)cudaGetLastError();
   }
   constexpr int V = ColsVec<TQ>::V;
@@ -748,20 +771,19 @@ int launch_general(const void* xv, const void* qv, long long sqk, long long sqn,
   dim3 grid((N + 32 * V - 1) / (32 * V), 1, (M + MT_COLS - 1) / MT_COLS);
   dim3 block(32, WARPS);
   if (vec)
-    general_cols<TX, TQ, true><<<grid, block, 0, stream>>>(x, q, scale, offset, out, M, K, N, sqk, sqn);
+    general_cols<TX, TQ, true><<<grid, block, 0, stream>>>(x, q, g, M, K, N, sqk, sqn);
   else
-    general_cols<TX, TQ, false><<<grid, block, 0, stream>>>(x, q, scale, offset, out, M, K, N, sqk, sqn);
+    general_cols<TX, TQ, false><<<grid, block, 0, stream>>>(x, q, g, M, K, N, sqk, sqn);
   return (int)cudaGetLastError();
 }
 
 template <typename TX>
 int general_q(const void* x, const void* q, int q_bytes, long long sqk, long long sqn,
-              const float* scale, const float* offset, float* out, int M, int K, int N,
-              cudaStream_t s) {
+              const GenArgs& g, int M, int K, int N, cudaStream_t s) {
   switch (q_bytes) {
-    case 1: return launch_general<TX, uint8_t>(x, q, sqk, sqn, scale, offset, out, M, K, N, s);
-    case 2: return launch_general<TX, uint16_t>(x, q, sqk, sqn, scale, offset, out, M, K, N, s);
-    case 4: return launch_general<TX, uint32_t>(x, q, sqk, sqn, scale, offset, out, M, K, N, s);
+    case 1: return launch_general<TX, uint8_t>(x, q, sqk, sqn, g, M, K, N, s);
+    case 2: return launch_general<TX, uint16_t>(x, q, sqk, sqn, g, M, K, N, s);
+    case 4: return launch_general<TX, uint32_t>(x, q, sqk, sqn, g, M, K, N, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -770,7 +792,9 @@ int general_q(const void* x, const void* q, int q_bytes, long long sqk, long lon
 
 // Both entry points: x (M, K) row-major, float32 (x_dtype 0) or bfloat16
 // (x_dtype 1); q (K, N) with element strides (sqk, sqn); scale and offset
-// one float32 each, in device memory; out (M, N) float32, row-major.
+// one float32 each, in device memory; keep null or one int32 in device
+// memory, the top bits of `bits` (1 to q's width) that q keeps; out (M, N)
+// float32, row-major.
 
 // The one-pass kernels: uint8/16 q (q_bytes 1/2), either N contiguous
 // (sqn == 1, kc == 0) with N and sqk multiples of 8, or K contiguous
@@ -779,17 +803,18 @@ int general_q(const void* x, const void* q, int q_bytes, long long sqk, long lon
 // for K-contiguous q), at most 4 chunks.
 extern "C" int dequant_matmul_gemv(const void* x, int x_dtype, const void* q, int q_bytes,
                                    long long sqk, long long sqn, const float* scale,
-                                   const float* offset, float* out, int M, int K, int N,
-                                   int kc, int k_chunk, void* stream) {
+                                   const float* offset, const int* keep, int bits, float* out,
+                                   int M, int K, int N, int kc, int k_chunk, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   if (M <= 0 || N <= 0 || K <= 0 || k_chunk <= 0 || k_chunk % CHUNK_UNIT ||
+      bits < 1 || bits > 8 * q_bytes ||
       k_chunk > (kc ? KC_MAX_CHUNK : KN_MAX_CHUNK) || (K + k_chunk - 1) / k_chunk > MAX_CHUNKS ||
       (q_bytes != 1 && q_bytes != 2) || (uintptr_t)q % (8 * q_bytes))
     return (int)cudaErrorInvalidValue;
   const bool layout_ok = kc ? (sqk == 1 && K % 8 == 0 && sqn % 8 == 0)
                             : (sqn == 1 && N % 8 == 0 && sqk % 8 == 0);
   if (!layout_ok) return (int)cudaErrorInvalidValue;
-  const Args a{x, q, scale, offset, out, kc ? sqn : sqk, M, K, N, k_chunk};
+  const Args a{x, q, scale, offset, keep, bits, out, kc ? sqn : sqk, M, K, N, k_chunk};
   switch (x_dtype) {
     case 0: return one_pass_q<float>(a, q_bytes, kc != 0, s);
     case 1: return one_pass_q<__nv_bfloat16>(a, q_bytes, kc != 0, s);
@@ -800,13 +825,15 @@ extern "C" int dequant_matmul_gemv(const void* x, int x_dtype, const void* q, in
 // The general kernels: uint8/16/32 q (q_bytes 1/2/4), any strides.
 extern "C" int dequant_matmul_general(const void* x, int x_dtype, const void* q, int q_bytes,
                                       long long sqk, long long sqn, const float* scale,
-                                      const float* offset, float* out, int M, int K, int N,
-                                      void* stream) {
+                                      const float* offset, const int* keep, int bits,
+                                      float* out, int M, int K, int N, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  if (M <= 0 || N <= 0 || K <= 0) return (int)cudaErrorInvalidValue;
+  if (M <= 0 || N <= 0 || K <= 0 || bits < 1 || bits > 8 * q_bytes)
+    return (int)cudaErrorInvalidValue;
+  const GenArgs g{scale, offset, keep, bits, out};
   switch (x_dtype) {
-    case 0: return general_q<float>(x, q, q_bytes, sqk, sqn, scale, offset, out, M, K, N, s);
-    case 1: return general_q<__nv_bfloat16>(x, q, q_bytes, sqk, sqn, scale, offset, out, M, K, N, s);
+    case 0: return general_q<float>(x, q, q_bytes, sqk, sqn, g, M, K, N, s);
+    case 1: return general_q<__nv_bfloat16>(x, q, q_bytes, sqk, sqn, g, M, K, N, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

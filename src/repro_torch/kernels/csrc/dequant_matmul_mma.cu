@@ -48,6 +48,12 @@
 // plain version (which rounds every weight as fmul_rn(q, scale) +
 // offset).
 //
+// Truncated views: a plane mask rides as an operand (`keep`, one int32 in
+// device memory or null, and the leaf's width `bits`); the converters AND
+// each word of q with it before the byte planes are formed
+// (keep_mask.cuh), so no masked copy of q exists and a full-width keep
+// changes no bit.
+//
 // Design: a block owns BM rows of x (64; 128 above M = 64 with bfloat16
 // x) and BN = 8192/BM columns of q, and one chunk of K, and runs alone on
 // its SM with two groups of eight warps. The converters stream raw q and
@@ -78,6 +84,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "keep_mask.cuh"
 
 namespace {
 
@@ -123,6 +131,8 @@ struct Args {
   const void* q;
   const float* scale;
   const float* offset;
+  const int* keep;   // the plane mask's width, or null
+  int bits;
   float* out;
   long long sqk, sqn;
   int M, K, N, k_chunk;
@@ -258,6 +268,7 @@ __global__ void __launch_bounds__(THREADS, 1) dqmm_mma(const Args a) {
         for (int e = 0; e < 4; ++e) acc[p][i][j][e] = 0.f;
 
   if (warp < CONV_WARPS) {
+    const uint32_t wmask = keep_mask<TQ>(a.keep, a.bits);
     const float bias_hi = 8388608.f + (float)(c >> 8);
     const float bias_lo = 8388608.f + (float)(NPL == 1 ? c : c & 255);
 
@@ -296,7 +307,8 @@ __global__ void __launch_bounds__(THREADS, 1) dqmm_mma(const Args a) {
     // q of one stage into the bf16 planes: a unit is 8 values along the
     // contiguous axis of both the raw tile and the plane (8 columns of one
     // row of K for (K, N) q, 8 rows of K of one column for embed.T). Past K
-    // or N a value reads as c and contributes 0.
+    // or N a value reads as c (masked) and contributes 0: x is 0 past K, and
+    // columns past N are not written.
     constexpr int UPR = (KC ? BK : BN) / 8;   // units a row of the plane
     auto convert_q = [&](const unsigned char* rq, int k0, __nv_bfloat16* bc) {
 #pragma unroll
@@ -324,6 +336,8 @@ __global__ void __launch_bounds__(THREADS, 1) dqmm_mma(const Args a) {
             w[j * QB / 4] |= v << (8 * QB * j % 32);
           }
         }
+#pragma unroll
+        for (int j = 0; j < 2 * QB; ++j) w[j] &= wmask;
         uint4 out[NPL];
         to_planes<QB>(w, bias_hi, bias_lo, out);
 #pragma unroll
@@ -587,16 +601,18 @@ int by_q(const Args& a, int q_bytes, int sms, cudaStream_t s) {
 
 // x: (M, K) row-major, float32 (x_dtype 0) or bfloat16 (x_dtype 1).
 // q: (K, N) with element strides (sqk, sqn), uint8/16 (q_bytes 1/2).
-// scale, offset: one float32 each, in device memory.
-// sms: the card's streaming multiprocessors. out: (M, N) float32,
+// scale, offset: one float32 each, in device memory. keep: null or one
+// int32 in device memory, the top bits of `bits` (1 to q's width) that q
+// keeps. sms: the card's streaming multiprocessors. out: (M, N) float32,
 // row-major.
 extern "C" int dequant_matmul_mma(const void* x, int x_dtype, const void* q, int q_bytes,
                                   long long sqk, long long sqn, const float* scale,
-                                  const float* offset, float* out, int M, int K, int N,
-                                  int sms, void* stream) {
+                                  const float* offset, const int* keep, int bits, float* out,
+                                  int M, int K, int N, int sms, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  if (M <= 0 || N <= 0 || K <= 0 || sms <= 0) return (int)cudaErrorInvalidValue;
-  const Args a{x, q, scale, offset, out, sqk, sqn, M, K, N, 0};
+  if (M <= 0 || N <= 0 || K <= 0 || sms <= 0 || bits < 1 || bits > 8 * q_bytes)
+    return (int)cudaErrorInvalidValue;
+  const Args a{x, q, scale, offset, keep, bits, out, sqk, sqn, M, K, N, 0};
   switch (x_dtype) {
     case 0: return by_q<float>(a, q_bytes, sms, s);
     case 1: return by_q<__nv_bfloat16>(a, q_bytes, sms, s);

@@ -34,6 +34,19 @@ Both routes add their chunks of K in a fixed order, so a launch is
 deterministic. Below ``MMA_MIN_M`` a row's result does not depend on M;
 from there on it does (the route switch and the tensor-core chunking),
 so a row is not bit-equal to the same row launched at M < 16.
+``rows="decode"`` sends a launch to the GEMV route at any M, whose rows
+never depend on M: ``Model.decode_step`` and ``Model.verify_step`` use
+it, so that each verify row equals the decode step of its token bit for
+bit.
+
+A truncated-precision view (``QuantizedTensor.truncate``) passes its
+plane mask as an operand: ``keep``, a one-element int32 tensor on the
+device, with the leaf's width ``bits``. Each kernel reads it once a
+block and ANDs q with the mask ``~0 << (bits - keep)`` before it centres
+q, so ``y = x @ (scale * ((q >> s) << s) + offset)`` with ``s = bits -
+keep``, and no masked copy of q exists. Without ``keep``, or with
+``keep == bits``, the kernels' arithmetic is the unmasked one, bit for
+bit.
 
 A tensor on the CPU takes the plain version (``ref.dequant_matmul_ref``);
 a CUDA tensor launches a kernel or raises.
@@ -62,6 +75,9 @@ MMA_MIN_M = 16
 GEMV_COLS, GEMV_BLOCKS, GEMV_CLUSTER = 32, 128, 2
 GEMV_MAX_CHUNK = {False: 4096, True: 2048}
 GEMV_MAX_CHUNKS = 4
+
+# ``rows`` of :func:`dequant_matmul`: the route by M, or GEMV at every M.
+ROWS = ("any", "decode")
 
 # Launches of the CUDA kernels, in all and by route, and the GEMV route's
 # by kernel; the CPU path does not count.
@@ -115,40 +131,56 @@ def one_pass(q: torch.Tensor) -> bool:
 
 
 def dequant_matmul(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor,
-                   offset: torch.Tensor) -> torch.Tensor:
+                   offset: torch.Tensor, keep: torch.Tensor | None = None, *,
+                   bits: int | None = None, rows: str = "any") -> torch.Tensor:
     """x: (M, K) float32 or bfloat16; q: (K, N) uint8/16/32, any strides;
-    scale, offset: float32 with one element each. Returns float32 (M, N),
-    from the route :func:`route` picks by M on a CUDA tensor."""
-    _check_shapes(x, q, scale, offset)
+    scale, offset: float32 with one element each; ``keep``: None or an
+    int32 with one element, the top bits of ``bits`` (default: q's
+    container width) that q keeps. Returns float32 (M, N). On a CUDA
+    tensor ``rows="any"`` takes the route :func:`route` picks by M,
+    ``rows="decode"`` the GEMV route at every M."""
+    bits = _check_shapes(x, q, scale, offset, keep, bits)
+    if rows not in ROWS:
+        raise ValueError(f"rows must be one of {ROWS}, got {rows!r}")
     if x.device.type == "cpu":
-        return dequant_matmul_ref(x, q, scale, offset)
-    if route(x.shape[0], q.dtype) == "mma":
-        return _launch_mma(x, q, scale, offset)
-    return _launch_gemv(x, q, scale, offset)
+        return dequant_matmul_ref(x, q, scale, offset, keep, bits=bits)
+    if rows == "any" and route(x.shape[0], q.dtype) == "mma":
+        return _launch_mma(x, q, scale, offset, keep, bits=bits)
+    return _launch_gemv(x, q, scale, offset, keep, bits=bits)
 
 
-def _check_shapes(x, q, scale, offset) -> None:
+def _check_shapes(x, q, scale, offset, keep=None, bits=None) -> int:
+    """The operands' checks on every device; returns the width ``bits``."""
     if x.ndim != 2 or q.ndim != 2 or x.shape[1] != q.shape[0]:
         raise ValueError(f"shapes {tuple(x.shape)} @ {tuple(q.shape)} do not chain")
     if q.dtype not in Q_DTYPES:
         raise TypeError(f"q must be uint8/16/32, got {q.dtype}")
     if scale.numel() != 1 or offset.numel() != 1:
         raise ValueError("scale and offset must hold one element each")
+    width = 8 * q.element_size()
+    bits = width if bits is None else int(bits)
+    if not 1 <= bits <= width:
+        raise ValueError(f"bits={bits} outside [1, {width}] for {q.dtype}")
+    if keep is not None and (keep.numel() != 1 or keep.dtype != torch.int32):
+        raise ValueError("keep must be an int32 with one element")
+    return bits
 
 
 def _k_contiguous(q: torch.Tensor) -> bool:
     return q.stride(0) == 1 and q.shape[0] > 1
 
 
-def _operands(x, q, scale, offset):
+def _operands(x, q, scale, offset, keep, bits):
     """The checks and arguments both CUDA launches share: contiguous x
     (the caller holds it until the launch is queued), the float32 output,
-    the kernels' leading arguments and the SM count."""
-    _check_shapes(x, q, scale, offset)
+    the kernels' leading arguments (``keep`` as a null pointer when
+    absent) and the SM count."""
+    bits = _check_shapes(x, q, scale, offset, keep, bits)
     dev = x.device
-    if dev.type != "cuda" or any(t.device != dev for t in (q, scale, offset)):
-        raise ValueError(f"x, q, scale and offset must lie on one CUDA device, got "
-                         f"{x.device}, {q.device}, {scale.device}, {offset.device}")
+    tensors = (q, scale, offset) + (() if keep is None else (keep,))
+    if dev.type != "cuda" or any(t.device != dev for t in tensors):
+        raise ValueError(f"x, q, scale, offset and keep must lie on one CUDA device, got "
+                         f"{x.device}, {[str(t.device) for t in tensors]}")
     if x.dtype not in X_DTYPES:
         raise TypeError(f"x must be float32 or bfloat16, got {x.dtype}")
     if scale.dtype != torch.float32 or offset.dtype != torch.float32:
@@ -156,7 +188,8 @@ def _operands(x, q, scale, offset):
     x = x.contiguous()   # (M, K) activations: a no-op on the model's path
     out = torch.empty((x.shape[0], q.shape[1]), dtype=torch.float32, device=dev)
     args = (x.data_ptr(), X_DTYPES[x.dtype], q.data_ptr(), q.element_size(), q.stride(0),
-            q.stride(1), scale.data_ptr(), offset.data_ptr())
+            q.stride(1), scale.data_ptr(), offset.data_ptr(),
+            None if keep is None else keep.data_ptr(), bits)
     return x, out, args, _sm_count(dev.index or 0)
 
 
@@ -168,10 +201,10 @@ def _counted(kind: str, code: int, out: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def _launch_gemv(x, q, scale, offset) -> torch.Tensor:
+def _launch_gemv(x, q, scale, offset, keep=None, *, bits=None) -> torch.Tensor:
     """The CUDA-core kernels at any M (the tests and the card's timing
     call it directly to hold both routes at every M)."""
-    x, out, args, _ = _operands(x, q, scale, offset)
+    x, out, args, _ = _operands(x, q, scale, offset, keep, bits)
     (M, K), N = x.shape, q.shape[1]
     lib, stream = build.library("dequant_matmul"), build.stream_handle(x.device)
     if one_pass(q):
@@ -187,11 +220,11 @@ def _launch_gemv(x, q, scale, offset) -> torch.Tensor:
     return out
 
 
-def _launch_mma(x, q, scale, offset) -> torch.Tensor:
+def _launch_mma(x, q, scale, offset, keep=None, *, bits=None) -> torch.Tensor:
     """The tensor-core kernel at any M, for uint8/16 q."""
     if q.dtype == torch.uint32:
         raise ValueError("no tensor-core kernel for uint32 q")
-    x, out, args, sms = _operands(x, q, scale, offset)
+    x, out, args, sms = _operands(x, q, scale, offset, keep, bits)
     (M, K), N = x.shape, q.shape[1]
     code = build.library("dequant_matmul_mma").dequant_matmul_mma(
         *args, out.data_ptr(), M, K, N, sms, build.stream_handle(x.device))

@@ -28,11 +28,14 @@ def _count(name: str) -> None:
     LAUNCH_COUNTS[name] += 1
 
 
-def dequant_matmul(x, q, scale, offset):
+def dequant_matmul(x, q, scale, offset, keep=None, *, bits=None, rows="any"):
     """y = x @ (scale * q + offset); scale and offset are one-element
-    float32 tensors on x's device, read by the kernel where it runs."""
+    float32 tensors on x's device, read by the kernel where it runs, as
+    is ``keep``, a truncated view's plane mask (the top ``keep`` of
+    ``bits`` bits of q). ``rows="decode"`` keeps every M on the route
+    whose rows do not depend on M."""
     _count("dequant_matmul")
-    return _dqm.dequant_matmul(x, q, scale, offset)
+    return _dqm.dequant_matmul(x, q, scale, offset, keep, bits=bits, rows=rows)
 
 
 def plane_or(acc, plane, *, shift):

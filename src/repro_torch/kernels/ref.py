@@ -46,10 +46,31 @@ def plane_or_segments_ref(acc: torch.Tensor, plane: torch.Tensor,
     return plane_or_ref(acc, plane, shifts.repeat_interleave(block))
 
 
+def mask_q(q: torch.Tensor, keep, bits: int | None = None) -> torch.Tensor:
+    """A truncated view's deferred plane mask: ``(q >> s) << s`` with
+    ``s = bits - keep``, in q's container dtype; ``bits`` defaults to
+    the container's width and ``keep`` (an int or an integer tensor
+    broadcastable against q) None means no mask. The shift widens to
+    int32 (int64 for uint32), so a shift by the full width gives 0, as
+    XLA's does."""
+    if keep is None:
+        return q
+    bits = 8 * q.element_size() if bits is None else bits
+    wide = torch.int32 if q.element_size() <= 2 else torch.int64
+    if isinstance(keep, torch.Tensor):
+        keep = keep.to(device=q.device, dtype=wide)
+    shift = bits - keep
+    return ((q.to(wide) >> shift) << shift).to(q.dtype)
+
+
 def dequant_matmul_ref(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor,
-                       offset: torch.Tensor) -> torch.Tensor:
-    """y = x @ (scale * q + offset). x: (M, K) float; q: (K, N) uint;
-    scale and offset are float32 with one element each. Returns float32."""
+                       offset: torch.Tensor, keep=None, *, bits: int | None = None
+                       ) -> torch.Tensor:
+    """y = x @ (scale * mask(q) + offset). x: (M, K) float; q: (K, N) uint;
+    scale and offset are float32 with one element each; ``keep`` masks q
+    to its top ``keep`` of ``bits`` bits (:func:`mask_q`). Returns
+    float32."""
+    q = mask_q(q, None if keep is None else keep.reshape(()), bits)
     w = q.to(torch.float32) * scale.to(torch.float32).reshape(()) \
         + offset.to(torch.float32).reshape(())
     return x.to(torch.float32) @ w
@@ -95,7 +116,8 @@ def dequant_matmul_split_ref(x: torch.Tensor, q: torch.Tensor, scale: torch.Tens
 
 
 def dequant_matmul_gemv_ref(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor,
-                            offset: torch.Tensor) -> torch.Tensor:
+                            offset: torch.Tensor, keep=None, *, bits: int | None = None
+                            ) -> torch.Tensor:
     """The GEMV route's one-pass arithmetic (``csrc/dequant_matmul.cu``)
     emulated on the CPU, for the tests: q centred on c (as the tensor-core
     route), ``q - c`` exact; K cut into the kernel's chunks
@@ -105,8 +127,9 @@ def dequant_matmul_gemv_ref(x: torch.Tensor, q: torch.Tensor, scale: torch.Tenso
     warp by an xor butterfly and the 8 warps in order, K-contiguous q's 32
     lanes by a butterfly; the chunks in order; the row sums of x in the
     kernel's units and order; then
-    ``y = fma(scale, A, (offset + scale*c) * sum_k x)``. uint8/16 q only.
-    Rows are independent of M, as the kernel's."""
+    ``y = fma(scale, A, (offset + scale*c) * sum_k x)``. uint8/16 q only;
+    ``keep`` masks q first (:func:`mask_q`), as the kernel does before it
+    centres q. Rows are independent of M, as the kernel's."""
     from repro_torch.kernels.dequant_matmul import GEMV_COLS, gemv_k_chunk
 
     s = scale.to(torch.float32).reshape(())
@@ -116,6 +139,7 @@ def dequant_matmul_gemv_ref(x: torch.Tensor, q: torch.Tensor, scale: torch.Tenso
     d = (s.double() * cf.double() + o.double()).float()      # one fused multiply-add
     (M, K), N = x.shape, q.shape[1]
     kc = q.stride(0) == 1 and K > 1
+    q = mask_q(q, None if keep is None else keep.reshape(()), bits)   # kc: q's own layout
     chunk = gemv_k_chunk(K, N, kc)
     xf = torch.nn.functional.pad(x.to(torch.float32), (0, -(-K // chunk) * chunk - K))
     wq = torch.nn.functional.pad((q.to(torch.int64) - int(cf)).to(torch.float32),

@@ -15,7 +15,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import ops
-from repro_torch.models.common import ArchConfig, activation, dense
+from repro_torch.models.common import ArchConfig, activation, dense, dense_rows
 
 NEG_INF = -1e30
 
@@ -90,19 +90,21 @@ def write_kv_slot(cache: torch.Tensor, new: torch.Tensor, pos: torch.Tensor,
     return cache
 
 
-def mlp_apply(cfg: ArchConfig, p, x: torch.Tensor) -> torch.Tensor:
+def mlp_apply(cfg: ArchConfig, p, x: torch.Tensor, *, rows: str = "any") -> torch.Tensor:
     dt = cfg.dtype
-    h = activation(cfg, dense(x, p["wi_gate"], dtype=dt)) * dense(x, p["wi_up"], dtype=dt)
-    return dense(h, p["wo"], dtype=dt)
+    h = activation(cfg, dense(x, p["wi_gate"], dtype=dt, rows=rows)) \
+        * dense(x, p["wi_up"], dtype=dt, rows=rows)
+    return dense(h, p["wo"], dtype=dt, rows=rows)
 
 
-def project_qkv(cfg: ArchConfig, p, x: torch.Tensor, kv_src: torch.Tensor):
+def project_qkv(cfg: ArchConfig, p, x: torch.Tensor, kv_src: torch.Tensor, *,
+                rows: str = "any"):
     dt = cfg.dtype
     B, Tq, _ = x.shape
     Tk = kv_src.shape[1]
-    q = dense(x, p["wq"], dtype=dt).reshape(B, Tq, cfg.n_heads, cfg.hd)
-    k = dense(kv_src, p["wk"], dtype=dt).reshape(B, Tk, cfg.n_kv, cfg.hd)
-    v = dense(kv_src, p["wv"], dtype=dt).reshape(B, Tk, cfg.n_kv, cfg.hd)
+    q = dense(x, p["wq"], dtype=dt, rows=rows).reshape(B, Tq, cfg.n_heads, cfg.hd)
+    k = dense(kv_src, p["wk"], dtype=dt, rows=rows).reshape(B, Tk, cfg.n_kv, cfg.hd)
+    v = dense(kv_src, p["wv"], dtype=dt, rows=rows).reshape(B, Tk, cfg.n_kv, cfg.hd)
     return q, k, v
 
 
@@ -132,13 +134,15 @@ def self_attention(cfg: ArchConfig, p, x: torch.Tensor, *, mode: str, cache, pos
     per-row causal mask keeps rows beyond each query invisible. Masked
     rows write nothing, so their cache rows stay byte-identical.
     Sliding windows and ring caches are still to be ported (ROADMAP A8).
+    Every dense layer takes ``common.dense_rows(mode)``.
     Returns (out, cache)."""
     if cfg.window:
         raise NotImplementedError("sliding-window attention and ring caches are "
                                   "still to be ported (ROADMAP A8)")
     theta = cfg.rope_theta
     B, Tq, _ = x.shape
-    q, k, v = project_qkv(cfg, p, x, x)
+    rows = dense_rows(mode)
+    q, k, v = project_qkv(cfg, p, x, x, rows=rows)
     if mode == "prefill":
         q_pos = torch.arange(Tq, dtype=torch.int32, device=x.device)
         q = rope(q, q_pos, theta)
@@ -152,8 +156,8 @@ def self_attention(cfg: ArchConfig, p, x: torch.Tensor, *, mode: str, cache, pos
         tok_pos = decode_pos_vector(pos, B, x.device)[:, None]      # (B, 1)
     elif mode == "verify":
         base = decode_pos_vector(pos, B, x.device)[:, None]
-        rows = torch.arange(Tq, dtype=torch.int32, device=x.device)
-        tok_pos = torch.where(base >= 0, base + rows, -1)          # (B, T)
+        offs = torch.arange(Tq, dtype=torch.int32, device=x.device)
+        tok_pos = torch.where(base >= 0, base + offs, -1)          # (B, T)
     elif mode == "prefill_chunk":
         tok_pos = pos.to(device=x.device, dtype=torch.int32)       # (B, T)
     else:
@@ -183,4 +187,4 @@ def self_attention(cfg: ArchConfig, p, x: torch.Tensor, *, mode: str, cache, pos
     else:
         attend = ops.verify_attention if mode == "verify" else ops.prefill_attention
         out = attend(q, cache["k"], cache["v"], k_pos, tok_pos)    # (B, T, H, hd)
-    return dense(out.reshape(B, Tq, -1), p["wo"], dtype=cfg.dtype), cache
+    return dense(out.reshape(B, Tq, -1), p["wo"], dtype=cfg.dtype, rows=rows), cache

@@ -12,7 +12,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core.quantize import QuantizedTensor
-from repro_torch.kernels import ops
+from repro_torch.kernels import ops, ref
 
 
 @dataclasses.dataclass(frozen=True)
@@ -84,11 +84,17 @@ def norm_init(cfg: ArchConfig) -> dict:
 
 
 def apply_norm(cfg: ArchConfig, p, x: torch.Tensor) -> torch.Tensor:
+    """OLMo's non-parametric LayerNorm, statistics in float32, in one
+    ``F.layer_norm`` launch. Its CUDA kernel gives each row a block of a
+    fixed shape, so a row's mean and variance, and with them a decode row
+    and a verify row, do not depend on how many rows share the launch
+    (separate mean and variance reductions do: PyTorch picks their
+    thread layout from the number of rows). That is the kernel's design,
+    not a documented guarantee: ``tests/test_torch_gpu.py::
+    test_norm_rows_independent_of_count`` holds it on the card at the
+    widths the port runs."""
     _ported(cfg)
-    xf = x.to(torch.float32)
-    mu = torch.mean(xf, dim=-1, keepdim=True)
-    var = torch.var(xf, dim=-1, keepdim=True, correction=0)
-    return ((xf - mu) * torch.rsqrt(var + 1e-5)).to(x.dtype)
+    return F.layer_norm(x, x.shape[-1:], eps=1e-5)
 
 
 def activation(cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
@@ -136,20 +142,38 @@ def quantized_resident_eligible(key) -> bool:
     return leaf_basename(key) in QUANTIZED_RESIDENT_LEAVES
 
 
-def masked_q(w: QuantizedTensor, q: torch.Tensor | None = None) -> torch.Tensor:
-    """The accumulator a consumer reads. Truncated-precision views (a
-    deferred plane mask) belong to self-speculation, not ported yet, so
-    this is the identity."""
-    return w.q if q is None else q
+def masked_q(w: QuantizedTensor, q: torch.Tensor | None = None,
+             keep: torch.Tensor | None = None) -> torch.Tensor:
+    """A truncated view's deferred plane mask applied to ``q`` (default
+    ``w.q``): its top ``keep_bits`` of ``w.bits`` bits, widened to int32
+    (int64 for uint32) for the shifts and cast back. The identity for a
+    view without ``keep_bits``. :func:`dense` never calls it: it hands
+    the mask to the kernel as an operand; :func:`embed_lookup` masks only
+    the rows it gathers."""
+    q = w.q if q is None else q
+    keep = w.keep_bits if keep is None else keep
+    return ref.mask_q(q, keep, w.bits)
 
 
-def dense(x: torch.Tensor, w, *, dtype) -> torch.Tensor:
+def dense_rows(mode: str) -> str:
+    """The ``rows`` of every dense layer in ``mode``: decode and verify
+    keep each row's result independent of the rows beside it, so that a
+    verify row equals the decode step of its token bit for bit (see
+    ``Model.verify_step``)."""
+    return "decode" if mode in ("decode", "verify") else "any"
+
+
+def dense(x: torch.Tensor, w, *, dtype, rows: str = "any") -> torch.Tensor:
     """``x @ w`` with ``w`` either a float tensor (cast to ``dtype``,
     plain matmul) or a QuantizedTensor (fused dequant-matmul, float32
-    accumulation, output cast to ``dtype``). x: (..., K); w: (K, N)."""
+    accumulation, output cast to ``dtype``; a truncated view's plane
+    mask goes to the kernel as the ``keep`` operand). ``rows`` is the
+    kernel's (``"decode"``: a row's result does not depend on how many
+    rows share the launch). x: (..., K); w: (K, N)."""
     if isinstance(w, QuantizedTensor):
         lead = x.shape[:-1]
-        y = ops.dequant_matmul(x.reshape(-1, x.shape[-1]), masked_q(w), w.scale, w.offset)
+        y = ops.dequant_matmul(x.reshape(-1, x.shape[-1]), w.q, w.scale, w.offset,
+                               w.keep_bits, bits=w.bits, rows=rows)
         return y.reshape(*lead, w.q.shape[-1]).to(dtype)
     return x @ w.to(dtype)
 
@@ -163,10 +187,11 @@ _GATHER_VIEW = {torch.uint8: torch.uint8, torch.uint16: torch.int16,
 def embed_lookup(w, tokens: torch.Tensor) -> torch.Tensor:
     """Embedding-row gather. The quantized path gathers the *uint* rows
     and applies the eq.-(5) affine to just those rows: the float table
-    never exists. Returns float32 rows (callers cast)."""
+    never exists; a truncated view's mask applies to the gathered rows
+    only. Returns float32 rows (callers cast)."""
     if isinstance(w, QuantizedTensor):
-        q = masked_q(w)
-        rows = q.view(_GATHER_VIEW[q.dtype])[tokens].view(q.dtype).to(torch.float32)
-        return rows * w.scale.reshape(()) + w.offset.reshape(())
+        q = w.q
+        rows = masked_q(w, q.view(_GATHER_VIEW[q.dtype])[tokens].view(q.dtype))
+        return rows.to(torch.float32) * w.scale.reshape(()) + w.offset.reshape(())
     return w[tokens].to(torch.float32)
 

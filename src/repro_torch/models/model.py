@@ -23,7 +23,8 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.models import transformer as tfm
-from repro_torch.models.common import ArchConfig, apply_norm, dense, embed_lookup, norm_init
+from repro_torch.models.common import (ArchConfig, apply_norm, dense, dense_rows,
+                                      embed_lookup, norm_init)
 from repro_torch.models.attention import decode_pos_vector
 
 
@@ -49,10 +50,11 @@ class Model:
         x = embed_lookup(params["embed"], tokens).to(cfg.dtype)
         return x * torch.tensor(cfg.d_model ** 0.5, dtype=cfg.dtype)
 
-    def _unembed(self, params, x: torch.Tensor) -> torch.Tensor:
+    def _unembed(self, params, x: torch.Tensor, mode: str = "prefill") -> torch.Tensor:
         """Tied unembedding: ``x @ embed.T``, a transposed view of the
         table (no copy)."""
-        return dense(x.to(torch.float32), params["embed"].T, dtype=torch.float32)
+        return dense(x.to(torch.float32), params["embed"].T, dtype=torch.float32,
+                     rows=dense_rows(mode))
 
     def prefill(self, params, batch):
         """Logits after the last prompt token, and the prompt's caches."""
@@ -72,7 +74,7 @@ class Model:
         x, caches = tfm.run_stack(cfg, params["decoder"], x, mode="decode",
                                   caches=caches, pos=pos)
         x = apply_norm(cfg, params["final_norm"], x)
-        return self._unembed(params, x)[:, 0, :], caches
+        return self._unembed(params, x, "decode")[:, 0, :], caches
 
     def prefill_chunk(self, params, caches, tokens: torch.Tensor, tok_pos: torch.Tensor):
         """Ragged chunked prefill: consume a (B, C) block of prompt tokens
@@ -96,14 +98,24 @@ class Model:
         Returns ``(logits (B, T, V), caches)``: logits[:, t] is exactly
         what t + 1 sequential ``decode_step`` calls would give. K/V of all
         T rows are written; rejected rows stay in place, invisible to the
-        causal mask, until later rounds overwrite them."""
+        causal mask, until later rounds overwrite them.
+
+        Unlike ``prefill_chunk``, whose dense layers take the route the
+        number of rows picks (the tensor cores from 16 rows, whose rows
+        depend on M), verify runs them with ``rows="decode"``, as
+        ``decode_step`` does: on the card, every row of the (B*T)-row
+        launches is then bit-equal to the same row launched alone, so the
+        logits and the K/V rows written equal sequential decode steps' bit
+        for bit, and speculative output equals plain greedy decoding
+        exactly. The norms and ``flash_verify`` rows are row-independent
+        too (``common.apply_norm``, the attention body)."""
         cfg = self.cfg
         pos = decode_pos_vector(pos, tokens.shape[0], tokens.device)
         x = self._embed(params, tokens)
         x, caches = tfm.run_stack(cfg, params["decoder"], x, mode="verify",
                                   caches=caches, pos=pos)
         x = apply_norm(cfg, params["final_norm"], x)
-        return self._unembed(params, x), caches
+        return self._unembed(params, x, "verify"), caches
 
     def init_caches(self, batch: int, max_len: int, *, device="cuda"):
         return tfm.stack_init_caches(self.cfg, batch, max_len,

@@ -15,7 +15,7 @@ import torch
 
 from repro_torch.core.quantize import QuantizedTensor
 from repro_torch.models import attention as attn
-from repro_torch.models.common import ArchConfig, apply_norm, dense_init, norm_init
+from repro_torch.models.common import ArchConfig, apply_norm, dense_init, dense_rows, norm_init
 
 
 def _attn_only(kind: str) -> None:
@@ -50,7 +50,7 @@ def block_apply(cfg: ArchConfig, kind: str, p, x: torch.Tensor, *, mode: str, ca
                                            pos=pos)
     x = x + a_out
     h2 = apply_norm(cfg, p["norm2"], x)
-    x = x + attn.mlp_apply(cfg, p["mlp"], h2)
+    x = x + attn.mlp_apply(cfg, p["mlp"], h2, rows=dense_rows(mode))
     return x, new_cache
 
 
@@ -61,7 +61,8 @@ def layer(tree, r: int):
     if isinstance(tree, QuantizedTensor):
         return dataclasses.replace(
             tree, q=tree.q[r], lo=tree.lo[r], hi=tree.hi[r], scale=tree.scale[r],
-            offset=tree.offset[r], received_bits=tree.received_bits[r])
+            offset=tree.offset[r], received_bits=tree.received_bits[r],
+            keep_bits=None if tree.keep_bits is None else tree.keep_bits[r])
     return tree[r]
 
 

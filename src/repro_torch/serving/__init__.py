@@ -1,6 +1,10 @@
 from repro_torch.serving.engine import (GenerationResult, PoolRequest, PoolStepStats,
                                         PrecisionManagedEngine, ProgressiveServer,
                                         SlotPoolEngine, WireStoreReceiver, resident_report)
+from repro_torch.serving.speculative import (SpecConfig, SpeculativeEngine,
+                                             SpeculativeResult, SpeculativeSlotPool)
 
 __all__ = ["GenerationResult", "PoolRequest", "PoolStepStats", "PrecisionManagedEngine",
-           "ProgressiveServer", "SlotPoolEngine", "WireStoreReceiver", "resident_report"]
+           "ProgressiveServer", "SlotPoolEngine", "SpecConfig", "SpeculativeEngine",
+           "SpeculativeResult", "SpeculativeSlotPool", "WireStoreReceiver",
+           "resident_report"]

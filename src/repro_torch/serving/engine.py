@@ -198,15 +198,19 @@ class PrecisionManagedEngine:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
-    def _refresh_params(self) -> None:
+    def _materialize(self, bits: int | None = None):
+        """The live parameter tree over the engine's store; ``bits`` gives
+        the truncated-precision views (``PlaneStore.quantized_leaves``)."""
         if self._receiver is None:
-            self.params = self.state.materialize_resident(quantized_resident_eligible)
-            return
+            return self.state.materialize_resident(quantized_resident_eligible, bits=bits)
         store = self._receiver.store
         if store is not None and store.device != self.device:
             raise ValueError(f"the receiver's store lies on {store.device}, the engine "
                              f"on {self.device}")
-        self.params = self._receiver.materialize_resident()
+        return self._receiver.materialize_resident(bits=bits)
+
+    def _refresh_params(self) -> None:
+        self.params = self._materialize()
 
     def resident_report(self) -> dict:
         """Leaf-type audit of the live params (see :func:`resident_report`)."""

@@ -14,7 +14,13 @@ and every row of a GEMV launch below 16 rows ``torch.equal`` to the
 same row launched alone;
 ``flash_decode`` and ``flash_verify`` within 2e-5 (float32) or 2**-7
 (bfloat16 output rounding) of the output's largest magnitude; every ``flash_verify`` row exactly equal to a ``flash_decode``
-launch for that row.
+launch for that row. Self-speculation: ``dequant_matmul`` with the plane
+mask ``keep`` within the same 1e-4 of the plain version on the masked q,
+bit-equal to the unmasked launch at a full-width keep; with
+``rows="decode"`` every row at M = 5-72 equal to the row launched alone;
+the norms' rows independent of their count; a verify step's logits and
+caches equal to sequential decode steps, and speculative tokens equal to
+plain greedy decoding, exactly.
 """
 import numpy as np
 import pytest
@@ -593,3 +599,240 @@ def test_client_feed_and_catch_up_upgrade_never_sync(dev):
     for s in (1, 2):
         state = state.receive(prog.stage(s))
     assert client.store.fingerprint() == state.store.fingerprint()
+
+
+# ---------------------------------------------------------------------------
+# self-speculation: the plane mask as an operand, verify rows equal to
+# decode rows, speculative tokens equal to plain greedy decoding
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("kernel", ["gemv", "mma"])
+@pytest.mark.parametrize("M", [4, 20, 64])
+@pytest.mark.parametrize("qdtype", [torch.uint8, torch.uint16])
+@pytest.mark.parametrize("layout", ["kn", "transposed", "strided"])
+@pytest.mark.parametrize("xdtype", [torch.float32, torch.bfloat16])
+def test_dequant_matmul_keep_operand(dev, kernel, M, qdtype, layout, xdtype):
+    """Both routes with ``keep`` = 0, 2, 4, 8 and 16 (clamped to q's width)
+    against the plain version on the masked q, within 1e-4 of max |y|;
+    the full-width keep launch is bit-equal to the launch without keep."""
+    x, q, scale, offset = _dqmm_operands(dev, M, 2048, 512, qdtype, layout, xdtype, M + 3,
+                                         "relu3")
+    launch = {"gemv": dequant_matmul._launch_gemv, "mma": dequant_matmul._launch_mma}[kernel]
+    bits = 8 * q.element_size()
+    for keep in sorted({min(k, bits) for k in (0, 2, 4, 8, 16)}):
+        kt = torch.tensor([[keep]], dtype=torch.int32, device=dev)
+        y = launch(x, q, scale, offset, kt)
+        want = ref.dequant_matmul_ref(x, q, scale, offset, kt)
+        assert torch.equal(want, ref.dequant_matmul_ref(x, ref.mask_q(q, keep), scale, offset))
+        err = (y - want).abs().max().item()
+        assert err <= 1e-4 * want.abs().max().item() + 1e-6, keep
+    full = torch.tensor([[bits]], dtype=torch.int32, device=dev)
+    assert torch.equal(launch(x, q, scale, offset, full), launch(x, q, scale, offset))
+
+
+def test_dequant_matmul_keep_uint32_and_narrow_bits(dev):
+    """The general kernels (uint32 q, 20-bit values) and a 12-bit leaf in a
+    uint16 container mask by ``bits - keep``, as the plain version."""
+    for qdtype, bits in ((torch.uint32, 20), (torch.uint16, 12)):
+        g = torch.Generator(device=dev).manual_seed(bits)
+        x = torch.randn((5, 1024), generator=g, device=dev)
+        q = torch.randint(0, 2 ** bits, (1024, 96), generator=g, device=dev).to(qdtype)
+        scale = torch.tensor([[2.0 ** -bits]], device=dev)
+        offset = torch.tensor([[-0.5]], device=dev)
+        for keep in (0, 4, bits):
+            kt = torch.tensor([[keep]], dtype=torch.int32, device=dev)
+            for rows in ("any", "decode"):
+                y = dequant_matmul.dequant_matmul(x, q, scale, offset, kt, bits=bits, rows=rows)
+                want = ref.dequant_matmul_ref(x, q, scale, offset, kt, bits=bits)
+                assert (y - want).abs().max().item() <= 1e-4 * want.abs().max().item() + 1e-6
+
+
+@pytest.mark.parametrize("K,N,layout", [(2048, 2048, "kn"), (8192, 2048, "kn"),
+                                        (2048, 8192, "kn"), (2048, 4096, "transposed")])
+@pytest.mark.parametrize("keep", [None, 4])
+@pytest.mark.parametrize("xdtype", [torch.float32, torch.bfloat16])
+def test_decode_rows_independent_of_M(dev, K, N, layout, keep, xdtype):
+    """``rows="decode"`` keeps every M on the GEMV route: at the verify
+    shapes M = 5, 20, 32 and 72, masked or not, every row equals (torch.equal)
+    that row launched alone, and the launches count on the GEMV route."""
+    x, q, scale, offset = _dqmm_operands(dev, 72, K, N, torch.uint16, layout, xdtype, K + N,
+                                         "silu")
+    kt = None if keep is None else torch.tensor([[keep]], dtype=torch.int32, device=dev)
+    alone = torch.cat([dequant_matmul.dequant_matmul(x[i:i + 1], q, scale, offset, kt,
+                                                     rows="decode") for i in range(72)])
+    for M in (5, 20, 32, 72):
+        before = dict(dequant_matmul.launches_by_route)
+        y = dequant_matmul.dequant_matmul(x[:M], q, scale, offset, kt, rows="decode")
+        assert dequant_matmul.launches_by_route == {**before, "gemv": before["gemv"] + 1}
+        assert torch.equal(y, alone[:M]), M
+    _assert_dqmm_close(alone, x, ref.mask_q(q, keep), scale, offset)
+
+
+@pytest.mark.parametrize("d_model", [64, 128, 256, 2048])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_norm_rows_independent_of_count(dev, dtype, d_model):
+    """The norms' statistics: every row of an M-row ``apply_norm`` (M = 1-80)
+    equals (torch.equal) that row normalised alone, at each width the port
+    runs (olmo-1b's 2048 and the reduced models' of these tests)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.common import apply_norm
+
+    cfg = get_config("olmo-1b").reduced(d_model=d_model)
+    g = torch.Generator(device=dev).manual_seed(9)
+    x = (torch.randn((80, cfg.d_model), generator=g, device=dev) * 3 + 1).to(dtype)
+    alone = torch.cat([apply_norm(cfg, {}, x[i:i + 1]) for i in range(80)])
+    for M in list(range(1, 17)) + [20, 32, 64, 72, 80]:
+        assert torch.equal(apply_norm(cfg, {}, x[:M]), alone[:M]), M
+        assert torch.equal(apply_norm(cfg, {}, x[:M].reshape(1, M, -1))[0], alone[:M]), M
+
+
+def _spec_model(dev, seed=0, **over):
+    """Reduced olmo-1b in bfloat16 on the card (hd 64), divided."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.progressive import divide
+    from repro_torch.models.model import build_model
+
+    shape = dict(n_layers=2, d_model=256, n_heads=4, n_kv=4, d_ff=512, vocab=512,
+                 dtype=torch.bfloat16)
+    shape.update(over)
+    model = build_model(get_config("olmo-1b").reduced(**shape))
+    prog = divide(model.init(torch.Generator(device=dev).manual_seed(seed), device=dev))
+    return model, prog
+
+
+@pytest.mark.parametrize("pattern", ["reject_all", "alternate", "accept_all"])
+def test_verify_step_equals_decode_steps(dev, pattern):
+    """The card's form of the reference's KV-rollback test: rounds of k
+    draft decode steps (draft view, 4 bits) and a T = k + 1 verify on the
+    target view, ragged across slots, against sequential ``decode_step``s
+    of the same blocks. Each verify row's logits and the whole caches
+    equal (torch.equal) the sequential ones after every round."""
+    from repro_torch.core.progressive import ReceiverState
+    from repro_torch.models.common import quantized_resident_eligible
+    from repro_torch.serving.speculative import SpeculativeEngine
+
+    model, prog = _spec_model(dev)
+    state = ReceiverState.init(prog, device=dev)
+    for s in range(1, prog.n_stages + 1):
+        state = state.receive(prog.stage(s))
+    plain = state.materialize_resident(quantized_resident_eligible)
+    target = state.materialize_resident(quantized_resident_eligible,
+                                        bits=SpeculativeEngine._FULL_BITS)
+    draft = state.materialize_resident(quantized_resident_eligible, bits=4)
+    B, P, k_max = 3, 10, 4
+    prompt = torch.randint(0, model.cfg.vocab, (B, P), generator=torch.Generator().manual_seed(1))
+    logits, caches = model.prefill(plain, {"tokens": prompt.to(dev)})
+    spec_c = model.grow_caches(caches, 64)
+    seq_c = {"cycles": {k: {n: t.clone() for n, t in c.items()}
+                        for k, c in spec_c["cycles"].items()}, "tail": {}}
+    last = torch.argmax(logits, dim=-1).to(torch.int32)[:, None]
+    pos = torch.full((B,), P, dtype=torch.int32, device=dev)
+    for rnd in range(6):
+        k = 1 + rnd % k_max
+        toks, cur = [last], last
+        for j in range(k):
+            lg, spec_c = model.decode_step(draft, spec_c, cur, pos + j)
+            cur = torch.argmax(lg, dim=-1).to(torch.int32)[:, None]
+            toks.append(cur)
+        block = torch.cat(toks, dim=1)
+        vlog, spec_c = model.verify_step(target, spec_c, block, pos)
+        for t in range(k + 1):
+            lg, seq_c = model.decode_step(plain, seq_c, block[:, t:t + 1], pos + t)
+            assert torch.equal(vlog[:, t], lg), (rnd, t)
+        for name in ("k", "v"):
+            assert torch.equal(spec_c["cycles"]["0_attn"][name], seq_c["cycles"]["0_attn"][name])
+        acc = {"reject_all": [0] * B, "accept_all": [k] * B,
+               "alternate": [k if (rnd + b) % 2 else 0 for b in range(B)]}[pattern]
+        acc_t = torch.tensor(acc, device=dev)
+        last = torch.gather(torch.argmax(vlog, dim=-1).to(torch.int32), 1, acc_t[:, None])
+        pos = pos + acc_t.to(torch.int32) + 1
+
+
+def test_speculative_tokens_equal_plain_on_the_card(dev):
+    """``SpeculativeEngine`` (k = 4 and adaptive) against
+    ``ProgressiveServer`` at stages 2, 5 and 8 at batch 3, and
+    ``SpeculativeSlotPool`` against ``SlotPoolEngine`` per request at
+    stage 8: tokens equal (torch.equal); every verify launch of B2 on the
+    GEMV route's one-pass kernels."""
+    from repro_torch.serving import (PoolRequest, ProgressiveServer, SlotPoolEngine,
+                                     SpecConfig, SpeculativeEngine, SpeculativeSlotPool)
+
+    model, prog = _spec_model(dev)
+    prompt = torch.randint(0, model.cfg.vocab, (3, 12), generator=torch.Generator().manual_seed(2))
+    for k in (4, None):
+        spec = SpeculativeEngine(model, prog, max_len=12 + 24 + 9,
+                                 spec=SpecConfig(draft_bits=4, k=k), device=dev)
+        plain = ProgressiveServer(model, prog, max_len=12 + 24, resident="quantized", device=dev)
+        for s in range(1, prog.n_stages + 1):
+            spec.receive_stage()
+            plain.receive_stage()
+            if s not in (2, 5, 8):
+                continue
+            spec.start({"tokens": prompt})
+            plain.start({"tokens": prompt})
+            before = dict(dequant_matmul.launches_by_gemv_kernel)
+            res = spec.decode(24)
+            assert dequant_matmul.launches_by_gemv_kernel["general"] == before["general"]
+            assert torch.equal(res.tokens.to(dev), plain.decode(24).tokens), (k, s)
+            assert s == 2 or res.drafted > 0
+    rng = np.random.default_rng(3)
+    reqs = [(rid, rng.integers(0, model.cfg.vocab, int(rng.integers(4, 30))),
+             int(rng.integers(4, 20))) for rid in range(7)]
+    outs = []
+    for cls, kw in ((SpeculativeSlotPool, {"spec": SpecConfig(draft_bits=4, k=3)}),
+                    (SlotPoolEngine, {"resident": "quantized"})):
+        pool = cls(model, prog, n_slots=4, max_len=64, prefill_chunk=8, dispatch_window=4,
+                   device=dev, **kw)
+        for _ in range(prog.n_stages):
+            pool.receive_stage()
+        for rid, p, budget in reqs:
+            pool.submit(PoolRequest(rid=rid, prompt=p, max_new_tokens=budget))
+        outs.append(pool.run())
+    assert outs[0] == outs[1]
+
+
+def test_spec_round_and_upgrade_never_sync(dev):
+    """A speculative round of either engine and an upgrade of both views
+    run under ``torch.cuda.set_sync_debug_mode("error")``; only the
+    round's one host read (the single stream's, the pool's at flush)
+    waits for the device."""
+    from repro_torch import to_device
+    from repro_torch.serving import (PoolRequest, SpecConfig, SpeculativeEngine,
+                                     SpeculativeSlotPool)
+
+    model, prog = _spec_model(dev)
+    eng = SpeculativeEngine(model, prog, max_len=48, spec=SpecConfig(draft_bits=2, k=3),
+                            device=dev)
+    for _ in range(3):
+        eng.receive_stage()
+    eng.start({"tokens": torch.arange(10).reshape(1, 10)})
+    pos = to_device(np.array([10], np.int32), eng.device)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        g, acc, nxt, eng.caches = eng._run_round(eng.caches, eng._first_tok, pos, eng.choose_k())
+        eng.receive_stage()
+        eng._run_round(eng.caches, nxt, pos + acc + 1, eng.choose_k())
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert g.shape == (1, 4)
+    pool = SpeculativeSlotPool(model, prog, n_slots=3, max_len=40, dispatch_window=2,
+                               prefill_chunk=4, spec=SpecConfig(draft_bits=2, k=3), device=dev)
+    pool.receive_stage()
+    rng = np.random.default_rng(0)
+    for rid in range(5):
+        pool.submit(PoolRequest(rid=rid, prompt=rng.integers(0, 512, 3 + 2 * rid),
+                                max_new_tokens=6))
+    torch.cuda.synchronize()
+    while any(not s.free for s in pool.slots) or pool.queue:
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            for _ in range(pool.dispatch_window):
+                if any(not s.free for s in pool.slots):
+                    pool.step()
+            pool.upgrade_if_available()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        pool.flush()
+        pool._admit_from_queue()
+    assert pool.completed == set(range(5)) and all(len(v) == 6 for v in pool.outputs.values())
