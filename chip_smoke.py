@@ -42,6 +42,20 @@ with the launch counts set to 0 just before it and read just after:
    tokens equal phase 3's; a unit of stage 3 damaged on a second feed is
    quarantined and repaired to the clean fingerprint; raw v1 streams the
    2-layer full-width model the same way;
+   ``[session]``: the byte-clock ``Session`` over ``pod-coldstart``
+   (200 MB/s, 1 MB chunks) at full width: ``run_timeline`` within 1e-9 s
+   of ``progressive_timeline``; ``run_serving`` quantized, ``torch.equal``
+   to a ``ProgressiveServer(receiver=)`` replay at its per-step stages,
+   and in float residency, its logits within ``FP_LOGIT_RTOL`` of the
+   quantized run's and its tokens equal wherever the margin clears it;
+   both decode rates at stage 8 and the float upgrade against its bytes
+   bound; a faulted run (the CLI's default profile) whose store equals
+   the clean one and whose final tokens equal a clean run's;
+   ``run_serving_pool``; then the small-chunk scenarios on the 2-layer
+   full-width model (the lossy ones end in ``TransportError`` there) and
+   the lossy ones on reduced olmo-1b, recovered. ``[cli]``: ``python -m
+   repro_torch.launch.serve --arch olmo-1b --scenario pod-coldstart`` at
+   full width, as a process of its own;
 5. ``[upgrade per tensor]``: stage 8 as one ``plane_or`` a tensor on the
    live stage-7 accumulator views, byte-equal to the batched
    ``plane_or_segments`` upgrade, both timed;
@@ -140,6 +154,26 @@ ATTN_RTOL = 2.0 ** -7
 # whole path: bfloat16 activations rounded at other places by the two
 # sums orders compound over 2 layers; allow 3% of the largest logit.
 PATH_RTOL = 3e-2
+# float residency against quantized on the same byte clock: the float
+# path rounds every weight to bfloat16 (2**-9 relative) before a cuBLAS
+# product, B2 multiplies the exact dequantised weight; over 16 layers
+# allow 5% of the largest logit, and hold the greedy tokens equal only
+# where the top two logits are further apart than twice that.
+FP_LOGIT_RTOL = 5e-2
+
+# [session]: the byte-clock Session on full-width olmo-1b over this
+# scenario (200 MB/s, 1 MB chunks), SESSION_STEPS decode steps at batch
+# 4; each stage's simulated processing cost (concat, dequant, inference
+# seconds) in run_timeline; the pool's 12 requests SESSION_POOL_TOKENS
+# tokens each; the 2-layer model over the small-chunk and lossy scenarios
+SESSION_SCENARIO = "pod-coldstart"
+SESSION_STEPS = 48
+SESSION_STAGE_COST = (0.0, 0.0, 0.05)
+SESSION_POOL_TOKENS = 32
+SESSION_POOL_ROUNDS = 48
+SMALL_CHUNK_SCENARIOS = ("browser-3g", "browser-lte-handoff", "edge-stall", "flash-crowd")
+LOSSY_SCENARIOS = ("browser-3g-lossy", "edge-flaky")
+CLI_TIMEOUT_S = 400
 
 
 def check(ok: bool, what="check failed") -> None:
@@ -405,6 +439,14 @@ def main() -> int:
     wire_counts, wire_routes = _wire_phase(model, prog, dev, ops, prompt, res, clean_fps,
                                            serve_routes)
     _wire_v1_check(cfg, dev)
+
+    # -- 4b. the byte-clock Session and the CLI ------------------------------
+    t0 = time.perf_counter()
+    session = _session_phase(model, prog, dev, ops, prompt, clean_fps)
+    _session_small(cfg, dev, ops, session["counts"], session["routes"])
+    log(f"[session] launches on the path {session['counts']}, dequant_matmul by route "
+        f"{session['routes']}; {time.perf_counter() - t0:.1f} s")
+    _cli_phase()
 
     # -- 5. stage 8 one tensor at a time -------------------------------------
     # the accumulators after stage 7, stage 8's operands, and the batched
@@ -867,12 +909,14 @@ def main() -> int:
     # launches on the main paths, each path counted from 0
     paths = {"divide": divide_counts, "serve": path_counts, "pool": pool_counts,
              "spec": spec["counts"], "spec pool": spec_pool["counts"],
-             "wire": wire_counts, "upgrade per tensor": upgrade_counts}
+             "wire": wire_counts, "session": session["counts"],
+             "upgrade per tensor": upgrade_counts}
     launches = {name: sum(c.get(name, 0) for c in paths.values()) for name in sources}
     check(all(launches[name] > 0 for name in sources), launches)
     # dequant_matmul's launches by route on the paths that run it
     route_paths = {"serve": serve_routes, "pool": pool_routes, "spec": spec["routes"],
-                   "spec pool": spec_pool["routes"], "wire": wire_routes}
+                   "spec pool": spec_pool["routes"], "wire": wire_routes,
+                   "session": session["routes"]}
     by_route = {k: sum(r[k] for r in route_paths.values()) for k in dqm.launches_by_route}
     check(sum(by_route.values()) == launches["dequant_matmul"] and all(by_route.values()),
           (by_route, launches["dequant_matmul"]))
@@ -1167,6 +1211,402 @@ def _wire_v1_check(cfg, dev) -> None:
     log(f"[wire] raw v1, 2-layer full width: {len(blob)} bytes in ragged chunks; "
         f"fingerprints equal the in-memory receiver's after each of the 8 stages; "
         f"{steps} x 2 tokens equal (torch.equal) to the pull-mode server's")
+
+
+class LogitLog:
+    """Wraps a Model: keeps, on the device, the logits of the prefill and
+    of every decode step, in order."""
+
+    def __init__(self, model):
+        self.model = model
+        self.logits: list[torch.Tensor] = []
+
+    def __getattr__(self, name):
+        return getattr(self.model, name)
+
+    def prefill(self, params, batch):
+        last, caches = self.model.prefill(params, batch)
+        self.logits.append(last)
+        return last, caches
+
+    def decode_step(self, params, caches, tokens, pos):
+        logits, caches = self.model.decode_step(params, caches, tokens, pos)
+        self.logits.append(logits)
+        return logits, caches
+
+
+def _counted(ops, fn, acc: dict, routes: dict):
+    """Run ``fn()`` with the launch counts set to 0 just before and read
+    just after; add them into ``acc`` and ``routes``. Returns ``fn()``'s
+    result and this run's counts."""
+    torch.cuda.synchronize()
+    reset_counts(ops)
+    out = fn()
+    torch.cuda.synchronize()
+    got, by = counts(), route_counts()
+    if by["gemv"]:
+        check_one_pass(by, "session")
+    for k, v in got.items():
+        acc[k] = acc.get(k, 0) + v
+    for k, v in by.items():
+        routes[k] = routes.get(k, 0) + v
+    return out, got
+
+
+def _fp_against_quantized(fp_logits, q_logits, fp_tokens, q_tokens) -> tuple[float, int, int]:
+    """Hold the float-resident run to the quantized-resident one, step by
+    step and row by row while the row's tokens so far agree: logits within
+    ``FP_LOGIT_RTOL`` of the largest quantized logit, and the greedy token
+    equal wherever the quantized logits' top two are further apart than
+    twice that. Returns the worst relative error, the tokens checked and
+    the tokens whose margin did not clear the tolerance."""
+    worst, checked, near = 0.0, 0, 0
+    B = fp_tokens.shape[0]
+    live = [True] * B
+    # step i's logits choose token i (the prefill's choose token 0)
+    for i in range(fp_tokens.shape[1]):
+        fl, ql = fp_logits[i].float(), q_logits[i].float()
+        for b in range(B):
+            if not live[b]:
+                continue
+            mag = float(ql[b].abs().max())
+            err = float((fl[b] - ql[b]).abs().max())
+            check(err <= FP_LOGIT_RTOL * mag, ("fp logits", i, b, err, mag))
+            worst = max(worst, err / mag)
+            top2 = torch.topk(ql[b], 2).values
+            if float(top2[0] - top2[1]) > 2 * FP_LOGIT_RTOL * mag:
+                check(int(fp_tokens[b, i]) == int(q_tokens[b, i]), ("fp token", i, b))
+                checked += 1
+            else:
+                near += 1
+                if int(fp_tokens[b, i]) != int(q_tokens[b, i]):
+                    live[b] = False
+    return worst, checked, near
+
+
+def _replay_wire(model, prog, blob, ends, prompt, stage_at_step, dev):
+    """A quantized-resident ``ProgressiveServer(receiver=)`` over a fresh
+    client fed whole stages, upgraded to each step's stage of
+    ``stage_at_step``."""
+    from repro_torch.serving.engine import ProgressiveServer, WireStoreReceiver
+    from repro_torch.transmission import ProgressiveClient
+
+    client = ProgressiveClient(device=dev)
+    view, fed = memoryview(blob), [0]
+
+    def feed_to(s):
+        client.feed(view[fed[0]:ends[s]])
+        fed[0] = ends[s]
+
+    srv = ProgressiveServer(model, prog, max_len=prompt.shape[1] + len(stage_at_step),
+                            resident="quantized", device=dev,
+                            receiver=WireStoreReceiver(client, prog))
+    feed_to(stage_at_step[0])
+    srv.receive_stage()
+    srv.start({"tokens": prompt})
+
+    def arrive(i: int) -> bool:
+        if stage_at_step[i] <= srv.stage:
+            return False
+        feed_to(stage_at_step[i])
+        return True
+
+    res = srv.decode(len(stage_at_step), stage_arrival=arrive)
+    check(res.stage_at_step == list(stage_at_step), (res.stage_at_step, stage_at_step))
+    return res.tokens
+
+
+def _session_phase(model, prog, dev, ops, prompt, clean_fps) -> dict:
+    """``[session]``: the byte-clock ``Session`` on full-width olmo-1b over
+    ``pod-coldstart`` (200 MB/s, 1 MB chunks): ``run_timeline``;
+    ``run_serving`` in quantized and float residency; a faulted run on
+    the v3 wire (the CLI's default profile) with its recovery proved;
+    ``run_serving_pool``. Each run counted from 0; the counts of all of
+    them are the path's. Returns the path's counts and routes."""
+    from repro_torch.core import wire
+    from repro_torch.launch.serve import _verify_fault_recovery
+    from repro_torch.serving.engine import ProgressiveServer
+    from repro_torch.transmission import (FaultPolicy, FaultTrace, Link, Session, StageCost,
+                                          flash_crowd_arrivals, get_scenario,
+                                          progressive_timeline)
+
+    cfg, layers = model.cfg, model.cfg.n_layers
+    acc, routes = {}, {}
+    scenario = get_scenario(SESSION_SCENARIO)
+    t0 = time.perf_counter()
+    blob = wire.encode(prog)
+    t_encode = time.perf_counter() - t0
+    meta, ends = _stage_ends(wire, blob)
+    session = Session.from_scenario(blob, scenario, seed=0, device=dev)
+    n_pieces = len(session._pieces())
+    log(f"[session] {SESSION_SCENARIO}: v1 stream {len(blob)} bytes (encode {t_encode:.2f} "
+        f"s), {n_pieces} feeds of <= {scenario.chunk_bytes} bytes; simulated stage arrivals "
+        f"{[round(a, 4) for a in session.stage_arrival_times()]} s")
+
+    # run_timeline: the client alone on the byte clock, against the algebra
+    costs = [StageCost(*SESSION_STAGE_COST)] * prog.n_stages
+    t0 = time.perf_counter()
+    tl, c = _counted(ops, lambda: session.run_timeline(costs), acc, routes)
+    host_s = time.perf_counter() - t0
+    feeds = len(tl.events_of("chunk"))
+    check(c["plane_or_segments"] == 8 and sum(c.values()) == 8, c)
+    check(tl.client.store.fingerprint() == clean_fps[-1], "timeline store differs")
+    want = progressive_timeline(session.layout.stage_bytes,
+                                Link(bandwidth_bytes_per_s=200e6, latency_s=scenario.latency_s),
+                                costs, concurrent=True, header_bytes=session.layout.header_bytes)
+    gap = max(abs(a - b) for a, b in zip(tl.timeline.download_done + tl.timeline.result_ready,
+                                          want.download_done + want.result_ready))
+    check(gap < 1e-9, ("timeline against the algebra", gap))
+    feed_ms = host_s / feeds * 1e3
+    log(f"[session] run_timeline: {feeds} feeds, {len(tl.events)} events; host {host_s:.3f} "
+        f"s, {feed_ms:.4f} ms a feed, {len(blob) / host_s / 1e9:.3f} GB/s; simulated "
+        f"download_done {[round(t, 4) for t in tl.timeline.download_done]} s, result_ready "
+        f"(stage cost {SESSION_STAGE_COST} s, simulated) "
+        f"{[round(t, 4) for t in tl.timeline.result_ready]} s; within {gap:.1e} s of "
+        f"progressive_timeline; store fingerprint equal to the in-memory receiver's")
+    del tl
+
+    arrivals_clean = session.stage_arrival_times()
+    # run_serving, quantized then float residency, on the same byte clock
+    runs, logs = {}, {}
+    for resident in ("quantized", "fp"):
+        logs[resident] = LogitLog(model)
+        t0 = time.perf_counter()
+        r, c = _counted(ops, lambda: session.run_serving(
+            logs[resident], prog, decode_steps=SESSION_STEPS, batch={"tokens": prompt},
+            resident=resident), acc, routes)
+        r.host_s = time.perf_counter() - t0
+        runs[resident] = (r, c)
+        check(r.tokens.shape == (BATCH, SESSION_STEPS) and r.server.stage == 8, r.upgrades)
+        check(c["plane_or_segments"] == 8 and c["decode_attention"] == layers * SESSION_STEPS,
+              c)
+        check(r.client.store.fingerprint() == clean_fps[-1], f"{resident} store differs")
+        log(f"[session] run_serving {resident}: {SESSION_STEPS} steps x {BATCH}, upgrades "
+            f"(step, stage) {r.upgrades}; {len(r.events)} events; host {r.host_s:.3f} s; "
+            f"launches {c}")
+    (q, qc), (f, fc) = runs["quantized"], runs["fp"]
+    check(qc["dequant_matmul"] == (layers * 7 + 1) * (1 + SESSION_STEPS), qc)
+    check(fc["dequant_matmul"] == 0, fc)
+    check(q.stage_at_step == f.stage_at_step and q.upgrades == f.upgrades)
+    check(q.upgrades and q.stage_at_step[0] < 8 <= q.stage_at_step[-1], q.stage_at_step)
+    q_events = [(e.t_s, e.kind) for e in q.events]
+    check(q_events == [(e.t_s, e.kind) for e in f.events], "the two runs' byte clocks differ")
+    replay = _replay_wire(model, prog, blob, ends, prompt, q.stage_at_step, dev)
+    check(torch.equal(replay, q.tokens), "quantized session tokens differ from the replay")
+    worst, n_checked, n_near = _fp_against_quantized(
+        logs["fp"].logits, logs["quantized"].logits, f.tokens, q.tokens)
+    same = int((f.tokens == q.tokens).sum())
+    log(f"[session] quantized tokens equal (torch.equal) to a ProgressiveServer(receiver=) "
+        f"replay at the run's stage_at_step; float-resident logits within {worst:.3e} of "
+        f"the largest quantized logit (tolerance {FP_LOGIT_RTOL}), greedy tokens equal at "
+        f"all {n_checked} positions whose top-two margin clears twice that ({n_near} "
+        f"within it); {same}/{f.tokens.numel()} tokens equal overall")
+    del logs
+
+    # decode rate of both residencies at stage 8, and the float upgrade
+    rates = {"quantized": [], "fp": []}
+    for _ in range(2):
+        for resident, (r, _) in runs.items():
+            srv = r.server
+            srv.start({"tokens": prompt})
+            res = srv.decode(SESSION_STEPS)
+            rates[resident].append(BATCH * SESSION_STEPS / sum(s for _, s in res.window_s))
+    reports = {k: r.server.resident_report() for k, (r, _) in runs.items()}
+    store_bytes = runs["fp"][0].client.store.resident_bytes()
+    check(reports["quantized"]["fp_bytes"] == 0 and reports["fp"]["quantized_bytes"] == 0)
+    store = runs["fp"][0].client.store
+    n_w = sum(t.size for t in store.slots)
+    up_ms, up_dev = [], []
+    for _ in range(3):
+        store._dirty.update(range(store.n_tensors))
+        store._leaf_cache.clear()
+        torch.cuda.synchronize()
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        e0.record()
+        store.materialize_leaves()
+        e1.record()
+        torch.cuda.synchronize()
+        up_ms.append((time.perf_counter() - t0) * 1e3)
+        up_dev.append(e0.elapsed_time(e1))
+    up_bound = (2 * n_w + 4 * n_w) / HBM_BYTES_PER_S * 1e3
+    log(f"[session] decode at stage 8 ({BATCH} x {SESSION_STEPS}), in turns: quantized "
+        f"{[round(x, 2) for x in rates['quantized']]} tokens/s, fp "
+        f"{[round(x, 2) for x in rates['fp']]} tokens/s; resident bytes quantized "
+        f"{reports['quantized']['quantized_bytes']} uint + {reports['quantized']['fp_bytes']} "
+        f"fp, fp {reports['fp']['fp_bytes']} float leaves beside the store's {store_bytes} "
+        f"accumulator bytes")
+    log(f"[session] fp upgrade (dequantize all {store.n_tensors} tensors, {n_w} weights, "
+        f"uint16 -> float32): host ms {[round(x, 2) for x in up_ms]}, device ms (events) "
+        f"{[round(x, 3) for x in up_dev]}, bound {up_bound:.3f} ms (bytes: q read once, "
+        f"leaves written once)")
+    del runs, session, store
+    torch.cuda.empty_cache()
+
+    # a faulted run on the v3 wire: the CLI's default profile
+    blob3 = wire.encode(prog, integrity=True)
+    s3 = Session.from_scenario(blob3, scenario, seed=0, device=dev)
+    faults = FaultTrace(seed=0, p_corrupt=0.01, p_disconnect=0.002)
+    t0 = time.perf_counter()
+    fr, c = _counted(ops, lambda: s3.run_serving(
+        model, prog, decode_steps=SESSION_STEPS, batch={"tokens": prompt},
+        resident="quantized", faults=faults, fault_policy=FaultPolicy(seed=0)), acc, routes)
+    host_s = time.perf_counter() - t0
+    check(fr.client.complete and not fr.client.nacks, fr.transport)
+    check(fr.client.store.fingerprint() == clean_fps[-1], "faulted store differs")
+    check(sum(fr.transport["injected"].values()) > 0, fr.transport)
+    log(f"[session] faulted run ({SESSION_SCENARIO}, default profile {faults}): "
+        f"{fr.transport}; host {host_s:.3f} s; cold start at simulated "
+        f"{fr.events_of('cold_start')[0].t_s:.4f} s (clean {arrivals_clean[0]:.4f} s), "
+        f"stages served {fr.stage_at_step[0]}-{fr.stage_at_step[-1]}, upgrades "
+        f"{fr.upgrades}; launches {c}")
+    _verify_fault_recovery(fr, blob3, model, prog, {"tokens": prompt}, device=dev)
+    del fr, s3, blob3
+    torch.cuda.empty_cache()
+
+    # the pool over the same link: 12 requests joining within 2 s, a
+    # simulated round every 1/SESSION_POOL_ROUNDS of the download (the
+    # default, a round a token of the whole budget, would end the run
+    # before stage 3: 8 slots emit 8 tokens a round)
+    lengths, budgets, prompts = _pool_requests(cfg)
+    offs = flash_crowd_arrivals(0, POOL_REQUESTS, span_s=2.0)
+    session = Session.from_scenario(blob, scenario, seed=0, device=dev)
+    arrivals = session.stage_arrival_times()
+    step_s = (arrivals[-1] - arrivals[0]) / SESSION_POOL_ROUNDS
+    t0 = time.perf_counter()
+    pr, c = _counted(ops, lambda: session.run_serving_pool(
+        model, prog, prompts=prompts, arrival_offsets_s=offs, max_new_tokens=SESSION_POOL_TOKENS,
+        n_slots=POOL_SLOTS, resident="quantized", dispatch_window=POOL_WINDOW,
+        step_time_s=step_s), acc, routes)
+    host_s = time.perf_counter() - t0
+    pool = pr.server
+    check(sorted(pr.tokens) == list(range(POOL_REQUESTS)), sorted(pr.tokens))
+    check(all(len(v) == SESSION_POOL_TOKENS and all(0 <= t < cfg.vocab for t in v)
+              for v in pr.tokens.values()))
+    check(pool.stage == 8 and len(pr.upgrades) > 0, pr.upgrades)
+    ticks, steps = pool._tick_count, pool._step_count
+    check(c["plane_or_segments"] == 8 and c["flash_verify"] == layers * ticks
+          and c["decode_attention"] == layers * steps
+          and c["dequant_matmul"] == (layers * 7 + 1) * (ticks + steps), (c, ticks, steps))
+    log(f"[session] run_serving_pool: {POOL_REQUESTS} requests over 2 s into {POOL_SLOTS} "
+        f"slots, {SESSION_POOL_TOKENS} tokens each; admissions at simulated "
+        f"{[round(t, 3) for t, _ in pr.admissions]} s; upgrades {pr.upgrades}; {ticks} "
+        f"ticks, {steps} steps; host {host_s:.3f} s; launches {c}")
+    del pr, pool, session, blob
+    torch.cuda.empty_cache()
+    return {"counts": acc, "routes": routes, "feed_ms": feed_ms}
+
+
+def _session_small(cfg, dev, ops, acc: dict, routes: dict) -> None:
+    """``[session]`` on the 2-layer full-width model (475 MB on the v1
+    wire): ``run_timeline`` over each small-chunk scenario (16-32 KB
+    chunks: 14,489-28,969 feeds), ``run_serving`` over
+    ``browser-lte-handoff`` against a stage replay, and the lossy
+    scenarios on the v3 wire, which end in ``TransportError``; then the
+    lossy scenarios on reduced olmo-1b, recovered. Counted into ``acc``
+    and ``routes``."""
+    from repro_torch.core import wire
+    from repro_torch.core.progressive import ReceiverState, divide
+    from repro_torch.models.model import build_model
+    from repro_torch.transmission import (FaultPolicy, Session, StageCost, TransportError,
+                                          get_scenario)
+
+    model = build_model(dataclasses.replace(cfg, n_layers=2))
+    prog = divide(model.init(torch.Generator(device=dev).manual_seed(3), device=dev))
+    state = ReceiverState.init(prog, device=dev)
+    for s in range(1, prog.n_stages + 1):
+        state = state.receive(prog.stage(s))
+    clean = state.store.fingerprint()
+    del state
+    blob = wire.encode(prog)
+    _, ends = _stage_ends(wire, blob)
+    costs = [StageCost(*SESSION_STAGE_COST)] * prog.n_stages
+    for name in SMALL_CHUNK_SCENARIOS:
+        session = Session.from_scenario(blob, get_scenario(name), seed=0, device=dev)
+        t0 = time.perf_counter()
+        tl, c = _counted(ops, lambda: session.run_timeline(costs), acc, routes)
+        host_s = time.perf_counter() - t0
+        feeds = len(tl.events_of("chunk"))
+        check(c["plane_or_segments"] == 8 and tl.client.store.fingerprint() == clean, (name, c))
+        log(f"[session] 2-layer, {name} ({session.chunk_bytes} B chunks): run_timeline "
+            f"{feeds} feeds, host {host_s:.3f} s, {host_s / feeds * 1e3:.4f} ms a feed; "
+            f"simulated download_done {[round(t, 2) for t in tl.timeline.download_done]} s; "
+            f"fingerprint equal to the in-memory receiver's")
+    prompt = torch.randint(0, cfg.vocab, (2, 16), generator=torch.Generator().manual_seed(4))
+    session = Session.from_scenario(blob, get_scenario("browser-lte-handoff"), seed=1,
+                                    device=dev)
+    r, c = _counted(ops, lambda: session.run_serving(
+        model, prog, decode_steps=32, batch={"tokens": prompt}, resident="quantized"),
+        acc, routes)
+    check(r.server.stage == 8 and len(r.upgrades) > 1, r.upgrades)
+    replay = _replay_wire(model, prog, blob, ends, prompt, r.stage_at_step, dev)
+    check(torch.equal(replay, r.tokens), "2-layer session tokens differ from the replay")
+    log(f"[session] 2-layer, browser-lte-handoff: run_serving quantized, 32 steps x 2, "
+        f"upgrades {r.upgrades}, tokens equal (torch.equal) to a stage replay; launches {c}")
+    # the lossy scenarios repair whole v3 units; here a unit is a whole
+    # plane of a tensor (2-26 MB), which 1% corruption a chunk almost
+    # never lets through intact, so the transport must give up with its
+    # typed error, before serving anything
+    blob3 = wire.encode(prog, integrity=True)
+    for name in LOSSY_SCENARIOS:
+        sc = get_scenario(name)
+        session = Session.from_scenario(blob3, sc, seed=0, device=dev)
+        t0 = time.perf_counter()
+        err = None
+        try:
+            session.run_serving(model, prog, decode_steps=16, batch={"tokens": prompt},
+                                resident="quantized", faults=sc.make_faults(0),
+                                fault_policy=FaultPolicy(seed=0))
+        except TransportError as e:
+            err = e
+        check(err is not None, f"{name} on the 2-layer model: expected a TransportError")
+        log(f"[session] 2-layer, {name}: TransportError, as the unit sizes predict, after "
+            f"{time.perf_counter() - t0:.1f} s: {err}")
+    del blob3, blob, prog, model
+    torch.cuda.empty_cache()
+
+    # the lossy scenarios where a unit is small enough to cross the
+    # channel: reduced olmo-1b (d_model 128), both residencies' fault
+    # recovery proved as the CLI proves it
+    from repro_torch.launch.serve import _verify_fault_recovery
+
+    small = build_model(cfg.reduced())
+    sprog = divide(small.init(torch.Generator(device=dev).manual_seed(5), device=dev))
+    blob3 = wire.encode(sprog, integrity=True)
+    sprompt = torch.randint(0, small.cfg.vocab, (2, 16),
+                            generator=torch.Generator().manual_seed(6))
+    for name in LOSSY_SCENARIOS:
+        sc = get_scenario(name)
+        session = Session.from_scenario(blob3, sc, seed=0, device=dev)
+        t0 = time.perf_counter()
+        r, c = _counted(ops, lambda: session.run_serving(
+            small, sprog, decode_steps=16, batch={"tokens": sprompt}, resident="quantized",
+            faults=sc.make_faults(0), fault_policy=FaultPolicy(seed=0)), acc, routes)
+        host_s = time.perf_counter() - t0
+        check(sum(r.transport["injected"].values()) > 0, r.transport)
+        _verify_fault_recovery(r, blob3, small, sprog, {"tokens": sprompt}, device=dev)
+        log(f"[session] reduced olmo-1b ({len(blob3)} B v3), {name}: {r.transport}; "
+            f"upgrades {r.upgrades}; host {host_s:.3f} s; launches {c}")
+
+
+def _cli_phase() -> None:
+    """The CLI at full width as a process of its own: ``python -m
+    repro_torch.launch.serve --arch olmo-1b --scenario pod-coldstart``,
+    every other flag at its default (float residency, batch 2, prompt 32,
+    64 decode steps)."""
+    cmd = [sys.executable, "-m", "repro_torch.launch.serve", "--arch", "olmo-1b",
+           "--scenario", "pod-coldstart"]
+    env = {**os.environ, "PYTHONPATH": os.path.join(ROOT, "src")}
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=CLI_TIMEOUT_S,
+                          env=env, cwd=ROOT)
+    wall = time.perf_counter() - t0
+    check(proc.returncode == 0, ("cli", proc.returncode, proc.stderr[-3000:]))
+    out = proc.stdout.strip().splitlines()
+    check(out and out[-1].startswith("served 64 steps across 8 precision stages"), out[-3:])
+    for line in out:
+        log(f"[cli] {line[:300]}")
+    log(f"[cli] {' '.join(cmd[1:])}: exit 0 in {wall:.1f} s")
 
 
 def _upgrade_phase(prog, dev, ops):

@@ -19,6 +19,12 @@ gathers their segments into a compact buffer, ORs that, and writes the
 results into a copy of the buffer. Either way the result is a new
 buffer: a store made by :meth:`copy` before the ingest keeps its own.
 
+Float leaves (eq. 5)
+-------------------
+``materialize_leaves`` dequantizes into float leaves incrementally: only
+tensors an ingest touched since the last call are recomputed (one
+batched ``dequantize_buffers`` call), the rest come from a leaf cache.
+
 Quantized-resident views (eq. 5)
 --------------------------------
 ``quantized_leaves`` hands out each weight as a live
@@ -37,7 +43,8 @@ import torch
 from repro_torch import resolve_device, to_device
 from repro_torch.core.bitplanes import PlaneSchedule
 from repro_torch.core.quantize import (QuantizedTensor, affine_span, container_dtype,
-                                       dequant_affine, dequantize)
+                                       dequant_affine, dequant_constants,
+                                       dequantize_buffers)
 from repro_torch.kernels import ops
 
 # Elements per shift-table entry of plane_or_segments.
@@ -109,6 +116,13 @@ class PlaneStore:
             sizes[dt] = (max(sizes.get(dt, (0,))[0], t.offset + t.padded), t.container)
         for dt, (n, dtype) in sizes.items():
             self.buffers[dt] = torch.zeros((n,), dtype=dtype, device=self.device)
+        # float leaves: slots touched since the last materialization, and
+        # the leaves of the untouched ones
+        self._dirty: set[int] = set(range(len(slots)))
+        self._leaf_cache: dict[Any, torch.Tensor] = {}
+        # stacked eq.-(5) constants per batch of slots; lo/hi/bits never
+        # change after the header, so never invalidated
+        self._consts_cache: dict[tuple, tuple] = {}
         self._qleaf_cache: dict[Any, QuantizedTensor] = {}
         # truncated views by (key, bits), dropped with the key's full view
         self._qtrunc_cache: dict[tuple, QuantizedTensor] = {}
@@ -175,6 +189,9 @@ class PlaneStore:
         new.device = self.device
         new.received = list(self.received)
         new.buffers = dict(self.buffers)
+        new._dirty = set(self._dirty)
+        new._leaf_cache = dict(self._leaf_cache)
+        new._consts_cache = dict(self._consts_cache)
         new._qleaf_cache = dict(self._qleaf_cache)
         new._qtrunc_cache = dict(self._qtrunc_cache)
         new._qmeta_cache = self._qmeta_cache
@@ -291,10 +308,56 @@ class PlaneStore:
             self.buffers[dt] = new
         for idx in items:
             self.received[idx] += 1
+            self._dirty.add(idx)
             key = self.slots[idx].key
+            self._leaf_cache.pop(key, None)
             self._qleaf_cache.pop(key, None)
             for tk in [t for t in self._qtrunc_cache if t[0] == key]:
                 del self._qtrunc_cache[tk]
+
+    # -- eq. (5): incremental float leaves -----------------------------------
+    def _refresh_fp_leaves(self, jobs: list[int]) -> None:
+        """Dequantize the given slots in one :func:`dequantize_buffers`
+        call and refill the leaf cache. Each leaf is ``(q * scale) +
+        offset`` in float32, cast to its dtype: byte-equal to the
+        reference's leaf on the CPU."""
+        if not jobs:
+            return
+        consts = self._consts_cache.get(tuple(jobs))
+        if consts is None:
+            consts = dequant_constants([self.slots[i].lo for i in jobs],
+                                       [self.slots[i].hi for i in jobs],
+                                       [self.slots[i].bits for i in jobs])
+            self._consts_cache[tuple(jobs)] = consts
+        vals = dequantize_buffers(
+            self.buffers,
+            [(dtype_name(self.slots[i].container), self.slots[i].offset,
+              self.slots[i].size, self.slots[i].shape) for i in jobs],
+            [self.slots[i].bits for i in jobs],
+            [self.effective_bits(i) for i in jobs],
+            [self.slots[i].orig_dtype for i in jobs], constants=consts)
+        for i, leaf in zip(jobs, vals):
+            self._leaf_cache[self.slots[i].key] = leaf
+
+    def _fp_leaf(self, i: int) -> torch.Tensor:
+        """Slot i dequantized at its received precision, from the leaf
+        cache when no ingest touched it since (an ingest drops the key)."""
+        key = self.slots[i].key
+        if key not in self._leaf_cache or i in self._dirty:
+            self._refresh_fp_leaves([i])
+        return self._leaf_cache[key]
+
+    def materialize_leaves(self) -> dict[Any, torch.Tensor]:
+        """Every tensor dequantized, ``{key: float tensor}``. Only slots
+        touched since the last call are recomputed, in one batched call;
+        the rest come from the leaf cache as the same tensors."""
+        self._refresh_fp_leaves([i for i, s in enumerate(self.slots)
+                                 if s.key not in self._leaf_cache or i in self._dirty])
+        self._dirty.clear()
+        return {s.key: self._leaf_cache[s.key] for s in self.slots}
+
+    def dirty_keys(self) -> set:
+        return {self.slots[i].key for i in self._dirty}
 
     # -- quantized-resident views ------------------------------------------
     def _quantized_leaf(self, i: int) -> QuantizedTensor | None:
@@ -334,10 +397,6 @@ class PlaneStore:
                                offset=place(off, np.float32),
                                received_bits=place(m, np.int32))
 
-    def _fp_leaf(self, i: int) -> torch.Tensor:
-        """Slot i dequantized at its received precision (eq. 5)."""
-        return dequantize(self.quantized(i), received_bits=self.effective_bits(i))
-
     def quantized_leaves(self, eligible=None, *, bits: int | None = None
                          ) -> dict[Any, Any]:
         """The param pytree's leaves with weight tensors as live
@@ -374,4 +433,5 @@ class PlaneStore:
                     out[s.key] = got
                     continue
             out[s.key] = self._fp_leaf(i)
+        self._dirty.clear()
         return out

@@ -6,9 +6,10 @@ Server side, once: ``divide(params, policy)`` quantizes every float leaf
 (eq. 2), bit-divides it (eq. 3) and organizes the planes into stages.
 
 Client side, per stage: ``ReceiverState.receive(stage)`` ORs the planes
-into the device-resident accumulators (eq. 4), and
-``materialize_resident()`` hands out the quantized-resident parameter
-tree the model decodes from.
+into the device-resident accumulators (eq. 4); ``materialize()``
+dequantizes them into the float parameter tree (eq. 5, incremental) and
+``materialize_resident()`` hands out the quantized-resident tree, whose
+weights stay views of the accumulators.
 
 A parameter tree is a nested dict of tensors. Leaves are visited in the
 order of ``jax.tree_util.tree_flatten_with_path`` (sorted keys, empty
@@ -141,6 +142,11 @@ class ReceiverState:
     def effective_bits(self, tensor_idx: int) -> int:
         return self.store.effective_bits(tensor_idx)
 
+    def materialize(self):
+        """The float parameter tree at the current precision (eq. 5):
+        only tensors touched since the last call are dequantized again."""
+        return rebuild_params(self.model_meta, self.store.materialize_leaves())
+
     def materialize_resident(self, eligible=None, *, bits=None):
         """The quantized-resident parameter tree: eligible weight leaves
         stay :class:`~repro_torch.core.quantize.QuantizedTensor` views of
@@ -164,3 +170,16 @@ def rebuild_params(model: ProgressiveModel, tensor_leaves: Mapping,
     for t in model.tensors:
         leaves[t.path] = tensor_leaves[key_fn(t.path)]
     return tree_unflatten(model.treedef, leaves)
+
+
+def transmit_reconstruct(params, policy: DivisionPolicy | None = None,
+                         upto_stage: int | None = None, *, device="cuda"):
+    """Divide, receive stages 1..``upto_stage`` (default: all) into a
+    receiver on ``device``, and materialize: the float parameters a
+    client holds after that many stages."""
+    model = divide(params, policy)
+    upto = model.n_stages if upto_stage is None else upto_stage
+    st = ReceiverState.init(model, device=device)
+    for s in range(1, upto + 1):
+        st = st.receive(model.stage(s))
+    return st.materialize()

@@ -13,7 +13,7 @@ same input on the CPU.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any
+from typing import Any, Mapping, Sequence
 
 import torch
 
@@ -168,6 +168,99 @@ def dequantize(qt: QuantizedTensor, received_bits: int | None = None) -> torch.T
     scale, offset = dequant_affine(qt.lo, qt.hi, qt.bits, received_bits)
     val = qt.q.to(torch.float32) * scale.to(qt.q.device) + offset.to(qt.q.device)
     return val.to(qt.orig_dtype)
+
+
+# -- batched eq. (5): the resident="fp" upgrade ---------------------------
+#
+# An upgrade of a float-resident engine re-dequantizes every tensor the
+# stage touched. The reference batches that into O(1) dispatches and, so
+# that its bytes equal the eager :func:`dequantize`, keeps the multiply
+# and the add in separate executables (XLA:CPU would contract them into
+# an FMA). Here each is its own eager operation, so nothing can fuse
+# them: the product rounds to float32 before the add, as in
+# :func:`dequantize`, on the CPU and on the card.
+
+
+def dequant_constants(los: Sequence, his: Sequence, bits_seq: Sequence[int]
+                      ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Stacked per-tensor eq.-(5) constants ``(lo, span, scale)``, which
+    do not depend on the bits received: computed once per store and
+    reused at every upgrade. The expressions and their order are
+    :func:`dequant_affine`'s. They live on the host (one read of each
+    range from the card, once)."""
+    def host(xs):
+        return torch.stack([torch.as_tensor(x).detach().cpu().to(torch.float32).reshape(())
+                            for x in xs])
+
+    lo, hi = host(los), host(his)
+    span = hi - lo + _range_eps(lo, hi)
+    c = torch.tensor([0.5 ** k for k in bits_seq], dtype=torch.float32)
+    return lo, span, span * c
+
+
+def dequant_offsets(constants: tuple[torch.Tensor, torch.Tensor, torch.Tensor],
+                    bits_seq: Sequence[int], received_seq: Sequence[int | None]
+                    ) -> torch.Tensor:
+    """Stacked per-tensor eq.-(5) offsets at the given received
+    precisions: the only affine term an upgrade changes."""
+    lo, span, _ = constants
+    cs = []
+    for k, m in zip(bits_seq, received_seq):
+        m = k if m is None else m
+        if not (0 <= m <= k):
+            raise ValueError(f"received_bits={m} outside [0, {k}]")
+        cs.append(0.5 ** (m + 1) if m > 0 else 0.5)
+    return lo + span * torch.tensor(cs, dtype=torch.float32)
+
+
+def _affine(q: torch.Tensor, scale: torch.Tensor, offset: torch.Tensor,
+            dtype) -> torch.Tensor:
+    """``(q * scale) + offset`` in float32 as two operations, cast to
+    ``dtype``. ``scale`` and ``offset`` are 0-d float32 tensors on the
+    host; they enter as Python floats (exact: float32 values), so no
+    copy to the card waits for the work queued there."""
+    val = q.to(torch.float32)
+    val.mul_(float(scale))
+    val.add_(float(offset))
+    return val.to(dtype)
+
+
+def dequantize_batch(qts: Sequence[QuantizedTensor],
+                     received: Sequence[int | None] | None = None, *,
+                     constants: tuple | None = None) -> list[torch.Tensor]:
+    """Eq. (5) for many tensors, byte-identical per tensor to
+    :func:`dequantize`. ``constants`` takes a cached
+    :func:`dequant_constants` result (lo, hi and bits never change after
+    quantization)."""
+    if not qts:
+        return []
+    if received is None:
+        received = [None] * len(qts)
+    bits_seq = [qt.bits for qt in qts]
+    if constants is None:
+        constants = dequant_constants([qt.lo for qt in qts], [qt.hi for qt in qts],
+                                      bits_seq)
+    offs = dequant_offsets(constants, bits_seq, received)
+    return [_affine(qt.q, constants[2][i], offs[i], qt.orig_dtype)
+            for i, qt in enumerate(qts)]
+
+
+def dequantize_buffers(buffers: Mapping[str, torch.Tensor],
+                       specs: Sequence[tuple[str, int, int, tuple]],
+                       bits_seq: Sequence[int], received: Sequence[int | None],
+                       dtypes: Sequence, *, constants: tuple) -> list[torch.Tensor]:
+    """:func:`dequantize_batch` over flat spans of shared container
+    buffers (the PlaneStore layout): each ``specs`` entry is
+    ``(container_dtype_name, offset, size, shape)``; the spans are views,
+    so nothing waits for a plane OR still in flight on the card."""
+    if not specs:
+        return []
+    offs = dequant_offsets(constants, bits_seq, received)
+    out = []
+    for i, (dt, off, size, shape) in enumerate(specs):
+        q = buffers[dt][off:off + size].reshape(shape)
+        out.append(_affine(q, constants[2][i], offs[i], dtypes[i]))
+    return out
 
 
 def truncate(qt: QuantizedTensor, m: int) -> QuantizedTensor:

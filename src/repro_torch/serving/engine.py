@@ -2,22 +2,26 @@
 weights, serves at once, and upgrades precision in place between decode
 steps as later planes arrive. The KV cache survives every upgrade.
 
-Counterpart of ``src/repro/serving/engine.py`` with
-``resident="quantized"``, for two engines over the same precision
-machinery:
+Counterpart of ``src/repro/serving/engine.py``, for two engines over
+the same precision machinery, each in pull mode or fed from wire bytes
+through a :class:`WireStoreReceiver`:
 
-* :class:`ProgressiveServer`: one lock-stepped request stream, in pull
-  mode or fed from wire bytes through a :class:`WireStoreReceiver`;
+* :class:`ProgressiveServer`: one lock-stepped request stream;
 * :class:`SlotPoolEngine`: continuous batching over a fixed pool of
-  decode slots, with chunked prefill admitting requests mid-flight (pull
-  mode).
+  decode slots, with chunked prefill admitting requests mid-flight.
 
-The live parameter tree holds
-:class:`~repro_torch.core.quantize.QuantizedTensor` views of the
-PlaneStore accumulators, eq. (5) runs inside every matmul
-(``kernels/dequant_matmul``) and no float weight buffer exists. An
-upgrade is one ``plane_or_segments`` launch per container dtype plus new
-scale/offset values.
+The accumulators live in a PlaneStore; an upgrade ORs a stage into them
+with one ``plane_or_segments`` launch per container dtype. What a
+decode step sees is set by ``resident``:
+
+* ``"fp"`` (the paper's client, the default): each upgrade dequantizes
+  the touched tensors into float leaves (eq. 5, incremental), and the
+  dense layers are plain matmuls on them;
+* ``"quantized"``: the live parameter tree holds
+  :class:`~repro_torch.core.quantize.QuantizedTensor` views of the
+  accumulators, eq. (5) runs inside every matmul
+  (``kernels/dequant_matmul``) and no float weight buffer exists; an
+  upgrade changes scale/offset values only.
 """
 from __future__ import annotations
 
@@ -134,10 +138,12 @@ class WireStoreReceiver:
         }
 
     def materialize(self):
-        """Float parameters: still to be ported (ROADMAP A6)."""
-        raise NotImplementedError(
-            "WireStoreReceiver.materialize() (float leaves through "
-            "PlaneStore.materialize_leaves) is still to be ported (ROADMAP A6)")
+        """Float parameters of the completed stages: read from the store
+        without flushing the client's partial-stage planes."""
+        if self.client.store is None:
+            raise RuntimeError("wire header not received yet")
+        leaves = self.client.store.materialize_leaves()
+        return rebuild_params(self.prog, leaves, key_fn=wire.path_str)
 
     def materialize_resident(self, eligible=quantized_resident_eligible, *, bits=None):
         """Quantized-resident view over the client's store: weight leaves
@@ -152,21 +158,13 @@ class WireStoreReceiver:
 class PrecisionManagedEngine:
     """Shared precision machinery: the plane accumulators (its own
     ReceiverState in pull mode, or a receiver's store) and the
-    residency-aware parameter refresh.
-
-    ``resident="fp"`` (a float copy of the model refreshed at each
-    upgrade) is still to be ported (ROADMAP A6); only
-    ``resident="quantized"`` runs."""
+    residency-aware parameter refresh."""
 
     def __init__(self, model: Model, prog: ProgressiveModel, max_len: int,
                  receiver: WireStoreReceiver | None = None,
                  resident: str = "fp", *, device="cuda"):
         if resident not in RESIDENT_MODES:
             raise ValueError(f"resident must be one of {RESIDENT_MODES}, got {resident!r}")
-        if resident == "fp":
-            raise NotImplementedError(
-                "resident='fp' is still to be ported (ROADMAP A6: resident='fp' "
-                "with batched dequant); pass resident='quantized'")
         self.model = model
         self.prog = prog
         self.max_len = max_len
@@ -198,19 +196,32 @@ class PrecisionManagedEngine:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
-    def _materialize(self, bits: int | None = None):
-        """The live parameter tree over the engine's store; ``bits`` gives
-        the truncated-precision views (``PlaneStore.quantized_leaves``)."""
-        if self._receiver is None:
-            return self.state.materialize_resident(quantized_resident_eligible, bits=bits)
+    def _check_receiver_device(self) -> None:
         store = self._receiver.store
         if store is not None and store.device != self.device:
             raise ValueError(f"the receiver's store lies on {store.device}, the engine "
                              f"on {self.device}")
+
+    def _materialize(self, bits: int | None = None):
+        """The quantized-resident parameter tree over the engine's store;
+        ``bits`` gives the truncated-precision views
+        (``PlaneStore.quantized_leaves``)."""
+        if self._receiver is None:
+            return self.state.materialize_resident(quantized_resident_eligible, bits=bits)
+        self._check_receiver_device()
         return self._receiver.materialize_resident(bits=bits)
 
     def _refresh_params(self) -> None:
-        self.params = self._materialize()
+        """The live parameter tree at the engine's residency: views of the
+        accumulators, or float leaves of which only the tensors an ingest
+        touched are dequantized again."""
+        if self.resident == "quantized":
+            self.params = self._materialize()
+        elif self._receiver is None:
+            self.params = self.state.materialize()
+        else:
+            self._check_receiver_device()
+            self.params = self._receiver.materialize()
 
     def resident_report(self) -> dict:
         """Leaf-type audit of the live params (see :func:`resident_report`)."""
@@ -223,9 +234,10 @@ class PrecisionManagedEngine:
         the accumulators (one ``plane_or_segments`` launch per container
         dtype), or, with a receiver, catch up to every stage it has
         completed (its client ORed them already); then refresh the
-        parameter views: new accumulator views and new scale/offset
-        values, no weight dequantization. The host time of each half
-        lands in ``_last_upgrade_split``."""
+        parameters: with ``resident="quantized"`` new accumulator views
+        and new scale/offset values, no weight dequantization; with
+        ``"fp"`` the touched tensors dequantized into new float leaves.
+        The host time of each half lands in ``_last_upgrade_split``."""
         t0 = time.perf_counter()
         if self._receiver is not None:
             avail = self._receiver.stages_complete
@@ -391,10 +403,13 @@ class SlotPoolEngine(PrecisionManagedEngine):
     ``double_buffer`` they are only enqueued, since the store ORs into
     new buffers while queued steps read the old ones.
 
+    With ``receiver=`` the pool serves from a wire client's store, and
+    :meth:`upgrade_if_available` catches up to every stage the client has
+    completed (``Session.run_serving_pool``).
+
     Left for later, each raising ``NotImplementedError``: batch-1
     admission (``chunked_prefill=False``) and its prompt buckets, which
-    need ``Model.prefill(n_valid)`` (ROADMAP A9); ``receiver=`` (A9, with
-    ``Session.run_serving_pool`` of A7); ``resident="fp"`` (A6); ``mesh=`` (A13); sliding-window rings and
+    need ``Model.prefill(n_valid)`` (ROADMAP A9); ``mesh=`` (A13); sliding-window rings and
     recurrent-slot resets (A8, which brings the reference's
     ``ring_margin`` too); telemetry, which the reference turns on with
     ``REPRO_TELEMETRY`` (A11). ``PoolRequest.extras`` are refused
@@ -410,9 +425,6 @@ class SlotPoolEngine(PrecisionManagedEngine):
                  chunked_prefill: bool | None = None,
                  prefill_chunk: int = 8, double_buffer: bool = True, mesh=None,
                  device="cuda"):
-        if receiver is not None:
-            raise _later("the pool's wire-fed receiver (receiver=, with "
-                         "Session.run_serving_pool of A7)", "A9")
         if mesh is not None:
             raise _later("sharded serving (mesh=)", "A13")
         if chunked_prefill is False:
@@ -424,7 +436,9 @@ class SlotPoolEngine(PrecisionManagedEngine):
             raise _later("serving telemetry (REPRO_TELEMETRY)", "A11")
         if n_slots < 1:
             raise ValueError("n_slots must be >= 1")
-        super().__init__(model, prog, max_len, resident=resident, device=device)
+        super().__init__(model, prog, max_len, receiver=receiver, resident=resident,
+                         device=device)
+        self.chunked_prefill = True
         self.prefill_chunk = max(1, int(prefill_chunk))
         self.double_buffer = bool(double_buffer)
         self.n_slots = n_slots
@@ -671,8 +685,9 @@ class SlotPoolEngine(PrecisionManagedEngine):
         return stats
 
     def upgrade_if_available(self) -> bool:
-        """Advance one stage (pull mode: the caller models the arrival
-        cadence). With ``double_buffer`` (default) this only enqueues the
+        """Apply newly arrived precision: with a receiver, catch up to
+        every stage its client has completed; in pull mode advance one
+        stage (the caller models the arrival cadence). With ``double_buffer`` (default) this only enqueues the
         OR and the view refresh: the store writes new accumulators while
         queued decode steps read the old ones, and the next dispatched
         step reads the new ones in stream order. ``double_buffer=False``

@@ -355,10 +355,13 @@ class ProgressiveClient:
 
     # -- inference-side view -------------------------------------------------
     def materialize(self):
-        """Float leaves of the current precision: still to be ported with
-        ``PlaneStore.materialize_leaves`` (ROADMAP A6). Serve from the
-        store's quantized views instead
-        (:class:`~repro_torch.serving.engine.WireStoreReceiver`)."""
-        raise NotImplementedError(
-            "ProgressiveClient.materialize() (float leaves through "
-            "PlaneStore.materialize_leaves) is still to be ported (ROADMAP A6)")
+        """The current float parameters as a flat ``{path: tensor}`` dict
+        (eq. 5). Planes of a partly received stage are ORed first; on a v3
+        stream only the verified contiguous prefix is, so no unit behind a
+        quarantined gap reaches the accumulators early."""
+        if self.store is None:
+            raise RuntimeError("header not received yet")
+        if self.integrity:
+            self._ingest_ready_below(self._contig)
+        self._flush()
+        return dict(self.store.materialize_leaves())

@@ -226,11 +226,14 @@ def test_v3_fuzzed_streams_match_the_reference():
 
 
 def test_parts_left_for_later_raise():
+    """A sharded store is still to be ported; materializing before the
+    header arrives raises the reference's error (float leaves are ported:
+    ``tests/test_torch_resident_fp.py``)."""
     with pytest.raises(NotImplementedError, match="ROADMAP A13"):
         ProgressiveClient(mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP A6"):
+    with pytest.raises(RuntimeError, match="header not received"):
         ProgressiveClient(device="cpu").materialize()
-    with pytest.raises(NotImplementedError, match="ROADMAP A6"):
+    with pytest.raises(RuntimeError, match="header not received"):
         WireStoreReceiver(ProgressiveClient(device="cpu"), None).materialize()
 
 

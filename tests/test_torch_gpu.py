@@ -836,3 +836,80 @@ def test_spec_round_and_upgrade_never_sync(dev):
         pool.flush()
         pool._admit_from_queue()
     assert pool.completed == set(range(5)) and all(len(v) == 6 for v in pool.outputs.values())
+
+
+def _pool_model(dev, seed=0):
+    from repro_torch.configs import get_config
+    from repro_torch.core.progressive import divide
+    from repro_torch.models.model import build_model
+
+    cfg = get_config("olmo-1b").reduced(n_layers=2, d_model=256, d_ff=1024, vocab=512,
+                                        n_heads=4, n_kv=4)
+    model = build_model(cfg)
+    return cfg, model, divide(model.init(torch.Generator(device=dev).manual_seed(seed),
+                                         device=dev))
+
+
+def test_pool_slot_alone_equals_busy_pool(dev):
+    """The reference's per-slot contract (``tests/test_slot_pool.py``): a
+    request's tokens do not depend on the requests beside it. Each of 12
+    requests alone in a 1-slot pool (its prefill ticks at M = 8 rows, on
+    the GEMV route) against the same request in a busy 8-slot pool (ticks
+    at M = 64, the tensor-core route; decode at M = 8 on the GEMV route,
+    whose rows do not depend on M)."""
+    from repro_torch.serving.engine import PoolRequest, SlotPoolEngine
+
+    cfg, model, prog = _pool_model(dev)
+    settings = dict(max_len=96, resident="quantized", dispatch_window=8, prefill_chunk=8,
+                    device=dev)
+    rng = np.random.default_rng(3)
+    requests = [(rid, rng.integers(0, cfg.vocab, int(rng.integers(5, 60))),
+                 int(rng.integers(12, 33))) for rid in range(12)]
+
+    def serve(n_slots, reqs):
+        pool = SlotPoolEngine(model, prog, n_slots=n_slots, **settings)
+        for _ in range(prog.n_stages):
+            pool.receive_stage()
+        for rid, prompt, budget in reqs:
+            pool.submit(PoolRequest(rid=rid, prompt=prompt, max_new_tokens=budget))
+        return pool.run()
+
+    busy = serve(8, requests)
+    for req in requests:
+        alone = serve(1, [req])
+        assert alone[req[0]] == busy[req[0]], f"request {req[0]}"
+
+
+def test_fp_pool_step_and_upgrade_never_sync(dev):
+    """Float residency on the card: after the first stage (which reads
+    each tensor's range to the host once), ``step()`` and an upgrade that
+    dequantizes every tensor run under ``set_sync_debug_mode("error")``,
+    as they do under quantized residency."""
+    from repro_torch.serving.engine import PoolRequest, SlotPoolEngine
+
+    cfg, model, prog = _pool_model(dev, seed=1)
+    rng = np.random.default_rng(0)
+    requests = [(rid, rng.integers(0, cfg.vocab, 3 + 2 * rid)) for rid in range(5)]
+    for resident in ("fp", "quantized"):
+        pool = SlotPoolEngine(model, prog, n_slots=3, max_len=32, resident=resident,
+                              dispatch_window=2, prefill_chunk=4, device=dev)
+        pool.receive_stage()
+        for rid, prompt in requests:
+            pool.submit(PoolRequest(rid=rid, prompt=prompt, max_new_tokens=6))
+        torch.cuda.synchronize()
+        while any(not s.free for s in pool.slots) or pool.queue:
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                for _ in range(pool.dispatch_window):
+                    if any(not s.free for s in pool.slots):
+                        pool.step()
+                pool.upgrade_if_available()
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            pool.flush()
+            pool._admit_from_queue()
+        assert pool.stage == prog.n_stages and pool.completed == set(range(5))
+        assert all(len(v) == 6 for v in pool.outputs.values())
+        if resident == "fp":
+            rep = pool.resident_report()
+            assert rep["quantized_bytes"] == 0 and rep["fp_leaves"] == len(prog.tensors)

@@ -253,9 +253,8 @@ def test_malformed_requests_raise_reference_errors_before_device_work(models):
 
 
 @pytest.mark.parametrize("kw", [
-    dict(receiver=object()), dict(mesh=object()), dict(chunked_prefill=False),
-    dict(resident="fp"), dict(window=8), dict(telemetry="1")],
-    ids=["receiver", "mesh", "batch1", "resident_fp", "window", "telemetry"])
+    dict(mesh=object()), dict(chunked_prefill=False), dict(window=8), dict(telemetry="1")],
+    ids=["mesh", "batch1", "window", "telemetry"])
 def test_parts_left_for_later_raise(models, monkeypatch, kw):
     model = models[1]
     _, prog = _progs(models, "uint8")

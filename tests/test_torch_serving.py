@@ -112,15 +112,19 @@ def test_greedy_tokens_identical_with_midstream_upgrades(container):
 
 
 def test_resident_fp_and_missing_card_raise():
-    """``resident='fp'`` names the roadmap item that brings it; the
-    default device is the card, never a silent move to the CPU."""
+    """``resident`` takes the reference's two modes, ``"fp"`` the default;
+    the default device is the card, never a silent move to the CPU, so
+    the default server raises without one."""
     cfg = get_config("olmo-1b").reduced(**REDUCED)
     model = build_model(cfg)
     prog = divide(model.init(torch.Generator().manual_seed(0), device="cpu"))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ProgressiveServer(model, prog, max_len=8, resident="fp", device="cpu")
+    assert ProgressiveServer(model, prog, max_len=8, device="cpu").resident == "fp"
+    with pytest.raises(ValueError, match="resident"):
+        ProgressiveServer(model, prog, max_len=8, resident="float", device="cpu")
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default device is usable")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ProgressiveServer(model, prog, max_len=8)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         ProgressiveServer(model, prog, max_len=8, resident="quantized")
     with pytest.raises(RuntimeError, match="device='cpu'"):
