@@ -34,6 +34,17 @@ with the launch counts set to 0 just before it and read just after:
    ``[reject]``: both engines again, on the same seed-0 weights with the
    decoder's scaled by 2, where the 4-bit draft is rejected in part,
    tokens ``torch.equal`` to the plain engines' (stages 4-8; the pool);
+   ``[quantized view]``: ``QuantizedLinearState`` over ``embed`` as a
+   (50304, 2048) weight, upgraded plane by plane on a private store, its
+   ``matmul`` (B2 at K = 50,304) at M = 1, 4, 64 against ``dequantize``
+   and ``torch.matmul`` at every stage, within
+   ``quantization_error_bound`` at stage 8; one upgrade through a view of
+   a server's store is the server's. ``[pool batch-1]``: both pools
+   admitting at batch 1 (a bucket-padded prefill a request), upgrades a
+   window apart, each request alone in a 1-slot pool at the run's stages
+   ``torch.equal`` to the busy pool (so speculative tokens equal plain
+   batch-1 tokens); the tokens batch-1 shares with chunked admission at
+   stage 8;
 4. ``[wire]``: the same model from wire bytes: ``wire.encode`` (v3),
    ``ProgressiveClient.feed`` in seeded ragged chunks of 1 B to 64 MB,
    one stage at each arrival of phase 3's schedule, and
@@ -56,6 +67,17 @@ with the launch counts set to 0 just before it and read just after:
    the lossy ones on reduced olmo-1b, recovered. ``[cli]``: ``python -m
    repro_torch.launch.serve --arch olmo-1b --scenario pod-coldstart`` at
    full width, as a process of its own;
+   ``[calibrate]``: ``weight_sse_schedule`` (float64 on the card),
+   ``calibrate_schedule(method="marginal")`` and ``greedy_schedule`` at
+   full width under a float-leaf cross-entropy loss, each valid and
+   MSB-first per tensor, with seconds, loss evaluations and peak device
+   memory; the card's SSE sweep ordered as numpy's on the 2-layer model;
+   v2's host entropy codec timed; the greedy schedule on the v3 wire
+   through ``Session`` (``run_timeline``, ``run_serving`` quantized), a
+   client's store after every checkpoint equal to an in-memory store fed
+   the same unit prefix, the final store and a fresh decode equal to the
+   uniform stream's. ``[cli]``: also ``--pool-clients 4
+   --no-chunked-prefill``;
 5. ``[upgrade per tensor]``: stage 8 as one ``plane_or`` a tensor on the
    live stage-7 accumulator views, byte-equal to the batched
    ``plane_or_segments`` upgrade, both timed;
@@ -88,7 +110,8 @@ with the launch counts set to 0 just before it and read just after:
 ``dequant_matmul``'s launches are also counted by route on every path:
 the prefill and the chunk ticks run the tensor-core kernel, decode and
 verify the GEMV route, every launch of it on its one-pass kernels
-(checked on each path).
+(checked on each serving path; ``[quantized view]``'s (50304, 2048)
+weight at M = 1 and 4 takes the general GEMV kernel).
 
 The second-to-last line is a JSON object with one entry per kernel, the
 last ``{"ok": true, "device": {...}}``.
@@ -174,6 +197,16 @@ SESSION_POOL_ROUNDS = 48
 SMALL_CHUNK_SCENARIOS = ("browser-3g", "browser-lte-handoff", "edge-stall", "flash-crowd")
 LOSSY_SCENARIOS = ("browser-3g-lossy", "edge-flaky")
 CLI_TIMEOUT_S = 400
+# [quantized view]: QuantizedLinearState over embed as a (50304, 2048)
+# weight, its matmul checked at these rows at every stage
+VIEW_M = (1, 4, 64)
+# [calibrate]: the calibration batch (numpy-free torch seed 7), and the
+# host seconds the greedy ladder may take at full width (about 8*9/2*8 + 1
+# evaluations); past it, greedy runs on the 2-layer full-width model
+CAL_BATCH, CAL_LEN = 4, 64
+CAL_GREEDY_BUDGET_S = 60.0
+# v2 entropy coding is host numpy (core/entropy.py): its encode and decode
+# are timed on the 2-layer full-width model's attn.wq units (8 planes)
 
 
 def check(ok: bool, what="check failed") -> None:
@@ -423,12 +456,19 @@ def main() -> int:
         f"{[round(u, 2) for u in upgrade_ms]}")
     del state
 
+    # the single-tensor quantized view of embed, private and shared
+    view = _view_phase(model, prog, dev, ops, prompt)
+
     # the slot pool on the same planes
     pool, pool_counts, pool_routes = _pool_phase(model, prog, dev, ops)
 
     # self-speculation on the same planes: the single stream and the pool
     spec = _spec_phase(model, prog, dev, ops, prompt, report["quantized_bytes"])
     spec_pool = _spec_pool_phase(model, prog, dev, ops)
+    # both pools admitting at batch 1
+    t0 = time.perf_counter()
+    batch1 = _pool_batch1_phase(model, prog, dev, ops, spec_pool["plain_stage8"])
+    log(f"[pool batch-1] {time.perf_counter() - t0:.1f} s")
     # both speculative engines on a model whose draft the target rejects
     prog_scaled = _scaled_model(model, dev)
     _spec_rejections(model, prog_scaled, prompt, dev)
@@ -446,6 +486,10 @@ def main() -> int:
     _session_small(cfg, dev, ops, session["counts"], session["routes"])
     log(f"[session] launches on the path {session['counts']}, dequant_matmul by route "
         f"{session['routes']}; {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    calib = _calibrate_phase(model, prog, dev, ops, prompt, clean_fps, session["arrivals_v3"])
+    log(f"[calibrate] launches on the path {calib['counts']}, dequant_matmul by route "
+        f"{calib['routes']}; {time.perf_counter() - t0:.1f} s")
     _cli_phase()
 
     # -- 5. stage 8 one tensor at a time -------------------------------------
@@ -910,13 +954,15 @@ def main() -> int:
     paths = {"divide": divide_counts, "serve": path_counts, "pool": pool_counts,
              "spec": spec["counts"], "spec pool": spec_pool["counts"],
              "wire": wire_counts, "session": session["counts"],
-             "upgrade per tensor": upgrade_counts}
+             "upgrade per tensor": upgrade_counts, "quantized view": view["counts"],
+             "pool batch-1": batch1["counts"], "calibrate": calib["counts"]}
     launches = {name: sum(c.get(name, 0) for c in paths.values()) for name in sources}
     check(all(launches[name] > 0 for name in sources), launches)
     # dequant_matmul's launches by route on the paths that run it
     route_paths = {"serve": serve_routes, "pool": pool_routes, "spec": spec["routes"],
                    "spec pool": spec_pool["routes"], "wire": wire_routes,
-                   "session": session["routes"]}
+                   "session": session["routes"], "quantized view": view["routes"],
+                   "pool batch-1": batch1["routes"], "calibrate": calib["routes"]}
     by_route = {k: sum(r[k] for r in route_paths.values()) for k in dqm.launches_by_route}
     check(sum(by_route.values()) == launches["dequant_matmul"] and all(by_route.values()),
           (by_route, launches["dequant_matmul"]))
@@ -1446,6 +1492,7 @@ def _session_phase(model, prog, dev, ops, prompt, clean_fps) -> dict:
     # a faulted run on the v3 wire: the CLI's default profile
     blob3 = wire.encode(prog, integrity=True)
     s3 = Session.from_scenario(blob3, scenario, seed=0, device=dev)
+    arrivals_v3 = s3.stage_arrival_times()
     faults = FaultTrace(seed=0, p_corrupt=0.01, p_disconnect=0.002)
     t0 = time.perf_counter()
     fr, c = _counted(ops, lambda: s3.run_serving(
@@ -1494,7 +1541,7 @@ def _session_phase(model, prog, dev, ops, prompt, clean_fps) -> dict:
         f"ticks, {steps} steps; host {host_s:.3f} s; launches {c}")
     del pr, pool, session, blob
     torch.cuda.empty_cache()
-    return {"counts": acc, "routes": routes, "feed_ms": feed_ms}
+    return {"counts": acc, "routes": routes, "feed_ms": feed_ms, "arrivals_v3": arrivals_v3}
 
 
 def _session_small(cfg, dev, ops, acc: dict, routes: dict) -> None:
@@ -1590,23 +1637,28 @@ def _session_small(cfg, dev, ops, acc: dict, routes: dict) -> None:
 
 
 def _cli_phase() -> None:
-    """The CLI at full width as a process of its own: ``python -m
+    """The CLI at full width, each run a process of its own: ``python -m
     repro_torch.launch.serve --arch olmo-1b --scenario pod-coldstart``,
     every other flag at its default (float residency, batch 2, prompt 32,
-    64 decode steps)."""
-    cmd = [sys.executable, "-m", "repro_torch.launch.serve", "--arch", "olmo-1b",
-           "--scenario", "pod-coldstart"]
+    64 decode steps); then the slot pool of 4 clients admitting at batch 1
+    (``--pool-clients 4 --no-chunked-prefill``)."""
+    base = [sys.executable, "-m", "repro_torch.launch.serve", "--arch", "olmo-1b",
+            "--scenario", "pod-coldstart"]
     env = {**os.environ, "PYTHONPATH": os.path.join(ROOT, "src")}
-    t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=CLI_TIMEOUT_S,
-                          env=env, cwd=ROOT)
-    wall = time.perf_counter() - t0
-    check(proc.returncode == 0, ("cli", proc.returncode, proc.stderr[-3000:]))
-    out = proc.stdout.strip().splitlines()
-    check(out and out[-1].startswith("served 64 steps across 8 precision stages"), out[-3:])
-    for line in out:
-        log(f"[cli] {line[:300]}")
-    log(f"[cli] {' '.join(cmd[1:])}: exit 0 in {wall:.1f} s")
+    runs = ((base, "served 64 steps across 8 precision stages"),
+            (base + ["--pool-clients", "4", "--no-chunked-prefill"],
+             "served 256 tokens across"))
+    for cmd, last in runs:
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, capture_output=True, text=True, timeout=CLI_TIMEOUT_S,
+                              env=env, cwd=ROOT)
+        wall = time.perf_counter() - t0
+        check(proc.returncode == 0, ("cli", cmd[3:], proc.returncode, proc.stderr[-3000:]))
+        out = proc.stdout.strip().splitlines()
+        check(out and out[-1].startswith(last), out[-3:])
+        for line in out:
+            log(f"[cli] {line[:300]}")
+        log(f"[cli] {' '.join(cmd[1:])}: exit 0 in {wall:.1f} s")
 
 
 def _upgrade_phase(prog, dev, ops):
@@ -2055,7 +2107,474 @@ def _spec_pool_phase(model, prog, dev, ops) -> dict:
         f"{len(spec.accept_log)} rounds, {ticks} chunk ticks; acceptance "
         f"{accepted}/{drafted} = {accepted / max(drafted, 1):.3f}; launches {run_counts}; "
         f"dequant_matmul by route {routes}, GEMV route by kernel {gemv_by}")
-    return {"counts": run_counts, "routes": routes, "tok_s": n_tok / wall}
+    return {"counts": run_counts, "routes": routes, "tok_s": n_tok / wall,
+            "plain_stage8": want}
+
+
+def _view_phase(model, prog, dev, ops, prompt) -> dict:
+    """``[quantized view]``: ``QuantizedLinearState`` over ``embed`` as a
+    (50304, 2048) weight (K = 50,304 on B2's (K, N) layout, which no
+    serving path launches). On a private store (``from_model(indices=)``),
+    upgraded plane by plane, counted from 0: at every stage ``matmul`` at M
+    = 1, 4 and 64 against ``dequantize`` and ``torch.matmul`` within
+    ``DQMM_RTOL``, ``resident_bytes`` constant, at stage 8 the weight
+    within ``quantization_error_bound`` of the float it came from. Then on
+    a server's shared store at stage 7: one ``upgrade`` through the view is
+    the server's, whose next step reads the upgraded accumulators."""
+    from repro_torch.core.progressive import ReceiverState
+    from repro_torch.core.quantize import dequantize, quantization_error_bound, quantize
+    from repro_torch.kernels import dequant_matmul as dqm
+    from repro_torch.serving import ProgressiveServer, from_progressive
+
+    cfg = model.cfg
+    i = next(k for k, t in enumerate(prog.tensors) if t.path == ("embed",))
+    t = prog.tensors[i]
+    K, N = t.shape
+    xg = torch.Generator(device=dev).manual_seed(11)
+    xs = {M: torch.randn((M, K), generator=xg, device=dev) for M in VIEW_M}
+    torch.cuda.synchronize()
+    reset_counts(ops)
+    t0 = time.perf_counter()
+    view = from_progressive(prog, i)
+    check(view.store.n_tensors == 1 and view.store.resident_bytes() == view.resident_bytes,
+          "the private store holds more than embed")
+    sizes, worst = set(), {M: 0.0 for M in VIEW_M}
+    for s in range(1, prog.n_stages + 1):
+        view.upgrade(t.planes[s - 1])
+        sizes.add(view.resident_bytes)
+        w = dequantize(view.store.quantized(0), view.received_bits)
+        for M, x in xs.items():
+            y = view.matmul(x)
+            want = x @ w
+            err = float((y - want).abs().max()) / float(want.abs().max())
+            check(err <= DQMM_RTOL, ("[quantized view]", s, M, err))
+            worst[M] = max(worst[M], err)
+        del w
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    run_counts, routes = counts(), route_counts()
+    check(len(sizes) == 1 and sizes == {K * N * 2}, sizes)
+    check(run_counts["plane_or_segments"] == prog.n_stages, run_counts)
+    check(routes == expect_routes([(prog.n_stages, M) for M in VIEW_M]), routes)
+    # the float it came from: model.init's first draw from seed 0
+    w0 = 0.02 * torch.randn((cfg.vocab, cfg.d_model),
+                            generator=torch.Generator(device=dev).manual_seed(0), device=dev)
+    qt = quantize(w0, 16)
+    check(torch.equal(view.acc, qt.q), "the view's accumulator is not quantize(embed).q")
+    bound = float(quantization_error_bound(qt))
+    q_err = float((dequantize(view.store.quantized(0)) - w0).abs().max())
+    check(q_err <= bound, (q_err, bound))
+    log(f"[quantized view] embed as a ({K}, {N}) weight on a private store, 8 upgrades: "
+        f"matmul at M = {list(VIEW_M)} against dequantize + torch.matmul at every stage, "
+        f"max |err| / max |y| by M {', '.join(f'{M}: {e:.2e}' for M, e in worst.items())} "
+        f"(tolerance {DQMM_RTOL}); resident {sizes.pop()} B at every stage; stage 8 within "
+        f"{q_err:.3e} of the float weight (quantization_error_bound {bound:.3e}); launches "
+        f"{run_counts}, dequant_matmul by route {routes}, GEMV by kernel "
+        f"{dict(dqm.launches_by_gemv_kernel)}; {wall:.2f} s")
+    del view, w0, qt, xs
+    view_counts, view_routes = run_counts, routes
+
+    # the shared store: a pull-mode server at stage 7, embed's plane 8
+    # through the view
+    srv = ProgressiveServer(model, prog, max_len=PROMPT + 4, resident="quantized", device=dev)
+    for _ in range(prog.n_stages - 1):
+        srv.receive_stage()
+    srv.start({"tokens": prompt})
+    store = srv.state.store
+    shared = from_progressive(prog, i, store=store)
+    check(shared.idx == i and shared.received == prog.n_stages - 1, shared.received)
+    reset_counts(ops)
+    shared.upgrade(t.planes[prog.n_stages - 1])
+    check(counts()["plane_or_segments"] == 1 and store.received[i] == prog.n_stages
+          and srv.state.store is store, store.received)
+    srv._refresh_params()
+    res = srv.decode(4)
+    torch.cuda.synchronize()
+    check(int(srv.params["embed"].received_bits.max()) == 16
+          and srv.params["embed"].q.data_ptr() == store.acc(i).data_ptr(),
+          "the server does not read the upgraded embed")
+    check(bool(torch.isfinite(srv.last_logits).all()) and res.tokens.shape == (BATCH, 4))
+    want = ReceiverState.init(prog, device=dev)
+    for s in range(1, prog.n_stages):
+        want = want.receive(prog.stage(s))
+    want.store.ingest([(i, t.planes[prog.n_stages - 1])])
+    fp = store.fingerprint()
+    check(fp == want.store.fingerprint(), "the shared store is not stage 7 plus embed's plane 8")
+    log(f"[quantized view] on the shared store of a server at stage 7: one upgrade through "
+        f"the view (1 plane_or_segments launch) is the server's; its next 4 steps read "
+        f"embed at 16 bits from the upgraded buffer; fingerprint {fp} equals stage 7 plus "
+        f"embed's plane 8")
+    del srv, store, shared, want
+    torch.cuda.empty_cache()
+    return {"counts": view_counts, "routes": view_routes}
+
+
+def _alone(model, prog, prompt, budget, admit_stage, step_stages, dev) -> list:
+    """One request alone in a 1-slot batch-1 pool: admitted at
+    ``admit_stage``, each step j run at ``step_stages[j]``."""
+    from repro_torch.serving import PoolRequest, SlotPoolEngine
+
+    pool = SlotPoolEngine(model, prog, n_slots=1, max_len=POOL_MAX_LEN, resident="quantized",
+                          chunked_prefill=False, device=dev)
+    while pool.stage < admit_stage:
+        pool.receive_stage()
+    pool.submit(PoolRequest(rid=0, prompt=prompt, max_new_tokens=budget))
+    for st in step_stages[:budget]:
+        while pool.stage < st:
+            pool.receive_stage()
+        pool.step()
+    pool.flush()
+    return pool.outputs[0]
+
+
+def _pool_batch1_phase(model, prog, dev, ops, chunked_stage8: dict) -> dict:
+    """``[pool batch-1]``: both pools admitting at batch 1
+    (``chunked_prefill=False``: a bucket-padded prefill a request) on the
+    pool phase's 12 requests, from stage 1 with an upgrade a window, each
+    counted from 0. Each request alone in a 1-slot batch-1 pool, replayed
+    at the busy run's stages, emits its tokens (``torch.equal``): the
+    plain pool's, and the speculative pool's (k = 3), which are therefore
+    the plain batch-1 pool's. Each admission's prefill is 112 tensor-core
+    launches and one GEMV launch (the unembedding of row n_valid - 1).
+    Then both admissions at stage 8: the tokens batch-1 shares with
+    chunked admission."""
+    from repro_torch.serving import PoolRequest, SlotPoolEngine, SpecConfig
+    from repro_torch.serving import SpeculativeSlotPool
+
+    cfg, layers = model.cfg, model.cfg.n_layers
+    lengths, budgets, prompts = _pool_requests(cfg)
+    buckets = [min(1 << (int(n) - 1).bit_length(), POOL_MAX_LEN) for n in lengths]
+    prefill_calls = [(layers * 7, b) for b in buckets] + [(1, 1)] * POOL_REQUESTS
+    acc, acc_routes, out = {}, {}, {}
+    for kind in ("plain", "spec"):
+        if kind == "plain":
+            pool = SlotPoolEngine(FiniteLogits(model), prog, n_slots=POOL_SLOTS,
+                                  max_len=POOL_MAX_LEN, resident="quantized",
+                                  dispatch_window=POOL_WINDOW, chunked_prefill=False,
+                                  device=dev)
+        else:
+            # a round emits up to k + 1 tokens a slot: a window of one round,
+            # so that the upgrades reach stage 8 within the budgets
+            pool = SpeculativeSlotPool(model, prog, n_slots=POOL_SLOTS, max_len=POOL_MAX_LEN,
+                                       spec=SpecConfig(draft_bits=4, k=3), dispatch_window=1,
+                                       chunked_prefill=False, device=dev)
+        torch.cuda.synchronize()
+        reset_counts(ops)
+        t0 = time.perf_counter()
+        pool.receive_stage()
+        for rid in range(POOL_REQUESTS):
+            pool.submit(PoolRequest(rid=rid, prompt=prompts[rid],
+                                    max_new_tokens=int(budgets[rid])))
+        res = pool.run(on_window=lambda _, p=pool: p.upgrade_if_available())
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        run_counts, routes = counts(), route_counts()
+        gemv_by = check_one_pass(routes, f"pool batch-1 {kind}")
+        for k, v in run_counts.items():
+            acc[k] = acc.get(k, 0) + v
+        for k, v in routes.items():
+            acc_routes[k] = acc_routes.get(k, 0) + v
+        check(pool._tick_count == 0 and not pool.chunked_prefill)
+        check(pool.stage == prog.n_stages and pool.completed == set(range(POOL_REQUESTS)),
+              (pool.stage, pool.completed))
+        for rid in range(POOL_REQUESTS):
+            check(len(res[rid]) == budgets[rid] and all(0 <= x < cfg.vocab for x in res[rid]),
+                  (kind, rid, len(res[rid])))
+        check(run_counts["plane_or_segments"] == prog.n_stages, run_counts)
+        if kind == "plain":
+            steps = pool._step_count
+            check(bool(torch.stack(pool.model.flags).all()), "non-finite batch-1 pool logits")
+            check(routes == expect_routes(prefill_calls
+                                          + pass_calls(layers, steps, POOL_SLOTS)), routes)
+            check(run_counts["decode_attention"] == layers * steps
+                  and run_counts["flash_verify"] == 0, run_counts)
+        else:
+            steps, verifies = _b2_steps(pool.accept_log)
+            check(routes == expect_routes(prefill_calls
+                                          + pass_calls(layers, steps + verifies, POOL_SLOTS)),
+                  (routes, steps, verifies))
+            check(run_counts["decode_attention"] == layers * steps
+                  and run_counts["flash_verify"] == layers * verifies, run_counts)
+        # each request alone, replayed at the busy run's stages
+        t1 = time.perf_counter()
+        for rid in range(POOL_REQUESTS):
+            log_ = pool.stage_log[rid]
+            if kind == "plain":
+                # the plain pool logs each token at the step that emits it
+                admit, stages = pool.admit_stage[rid], log_
+            else:
+                # the speculative pool logs the stage a token's value came
+                # from; a plain step j computes token j + 1
+                admit, stages = log_[0], log_[1:] + log_[-1:]
+            got = _alone(model, prog, prompts[rid], int(budgets[rid]), admit, stages, dev)
+            check(got == res[rid], f"[pool batch-1] {kind} request {rid}: alone differs from "
+                  f"the busy pool")
+        t_alone = time.perf_counter() - t1
+        n_tok = sum(len(v) for v in res.values())
+        ttft = [pool.ttft_s[rid] for rid in range(POOL_REQUESTS)]
+        extra = ""
+        if kind == "spec":
+            drafted = sum(r["k"] * len(r["accepted"]) for r in pool.accept_log)
+            accepted = sum(sum(r["accepted"]) for r in pool.accept_log)
+            extra = (f"; {len(pool.accept_log)} rounds, acceptance {accepted}/{drafted}; "
+                     f"{verifies} verify passes")
+        log(f"[pool batch-1] {kind}: {POOL_REQUESTS} requests (prompts "
+            f"{int(lengths.min())}-{int(lengths.max())}, buckets {sorted(set(buckets))}), "
+            f"{POOL_SLOTS} slots, stages 1->{pool.stage}, upgrades at steps "
+            f"{[s for s, _ in pool.upgrades]}; {steps} decode steps{extra}; launches "
+            f"{run_counts}, dequant_matmul by route {routes} (each admission 112 tensor-core "
+            f"+ 1 GEMV), GEMV by kernel {gemv_by}")
+        log(f"[pool batch-1] {kind}: {n_tok} tokens in {wall:.3f} s: {n_tok / wall:.1f} "
+            f"tokens/s; TTFT mean {sum(ttft) / len(ttft) * 1e3:.1f} ms, largest "
+            f"{max(ttft) * 1e3:.1f} ms; each request alone in a 1-slot batch-1 pool at the "
+            f"run's stages equal (torch.equal) ({t_alone:.1f} s)")
+        out[kind] = res
+        del pool
+    # both admissions at stage 8: batch-1 against the [spec pool] phase's
+    # plain chunked pool
+    b1 = SlotPoolEngine(model, prog, n_slots=POOL_SLOTS, max_len=POOL_MAX_LEN,
+                        resident="quantized", dispatch_window=POOL_WINDOW,
+                        chunked_prefill=False, device=dev)
+    for _ in range(prog.n_stages):
+        b1.receive_stage()
+    for rid in range(POOL_REQUESTS):
+        b1.submit(PoolRequest(rid=rid, prompt=prompts[rid], max_new_tokens=int(budgets[rid])))
+    b8 = b1.run()
+    same = sum(int(a == b) for rid in range(POOL_REQUESTS)
+               for a, b in zip(b8[rid], chunked_stage8[rid]))
+    prefix = [next((j for j, (a, b) in enumerate(zip(b8[rid], chunked_stage8[rid])) if a != b),
+                   len(b8[rid])) for rid in range(POOL_REQUESTS)]
+    n_tok = sum(len(v) for v in b8.values())
+    log(f"[pool batch-1] at stage 8, batch-1 against chunked admission (prefill at M = "
+        f"bucket against 8-row chunks at M = 64): {same}/{n_tok} tokens equal, "
+        f"{sum(p == len(b8[r]) for r, p in enumerate(prefix))}/{POOL_REQUESTS} requests "
+        f"whole; tokens equal before the first difference, by request {prefix}")
+    return {"counts": acc, "routes": acc_routes, "shared": (same, n_tok)}
+
+
+def _calibration_loss(model, prog, dev):
+    """The calibration loss: a seeded (CAL_BATCH, CAL_LEN) batch prefilled
+    with the leaves as float parameters (``rebuild_params``, the float
+    residency's path), cross-entropy of every position's logits against
+    the full model's greedy next tokens. Returns the loss, its call
+    count, the seconds of one call and the full model's loss."""
+    import torch.nn.functional as F
+
+    from repro_torch.core import calibrate as cal
+    from repro_torch.core.progressive import rebuild_params
+    from repro_torch.models import transformer as tfm
+    from repro_torch.models.common import apply_norm
+
+    cfg = model.cfg
+    tokens = torch.randint(0, cfg.vocab, (CAL_BATCH, CAL_LEN),
+                           generator=torch.Generator().manual_seed(7)).to(dev)
+
+    def logits(leaves):
+        params = rebuild_params(prog, leaves)
+        x = model._embed(params, tokens)
+        x, _ = tfm.run_stack(cfg, params["decoder"], x, mode="prefill")
+        x = apply_norm(cfg, params["final_norm"], x)
+        return model._unembed(params, x).reshape(-1, cfg.vocab)
+
+    store = cal._full_store(prog)
+    full = store.materialize_leaves()
+    target = logits(full).argmax(-1)
+    calls = [0]
+
+    def loss(leaves) -> float:
+        calls[0] += 1
+        return float(F.cross_entropy(logits(leaves), target))
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    full_loss = loss(full)
+    t_eval = time.perf_counter() - t0
+    calls[0] = 0
+    del store, full
+    return loss, calls, t_eval, full_loss
+
+
+def _timed(fn, dev):
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0, torch.cuda.max_memory_allocated(dev) - base
+
+
+def _calibrate_phase(model, prog, dev, ops, prompt, clean_fps, arr_uni) -> dict:
+    """``[calibrate]``: ``weight_sse_schedule``,
+    ``calibrate_schedule(method="marginal")`` and ``greedy_schedule`` on
+    full-width olmo-1b under :func:`_calibration_loss` (greedy on the
+    2-layer full-width model instead if one evaluation says the ladder
+    would pass ``CAL_GREEDY_BUDGET_S``): seconds, evaluations, peak device
+    memory; each schedule valid and MSB-first per tensor; the SSE sweep on
+    the card ordered as the numpy sweep on the 2-layer model. The greedy
+    schedule goes on the v3 wire (raw) through ``Session`` over
+    ``pod-coldstart``: ``run_timeline``, then ``run_serving`` quantized
+    (batch 4, 48 steps), counted from 0; after every checkpoint a client's
+    store equals an in-memory store fed the same unit prefix, the final
+    store is the uniform stream's, and a fresh decode after the last
+    checkpoint equals the uniform stream's stage-8 server's. v2 entropy
+    coding is timed on the 2-layer model's ``attn.wq`` units."""
+    from repro_torch.core import calibrate as cal
+    from repro_torch.core import entropy, wire
+    from repro_torch.core.plane_store import PlaneStore
+    from repro_torch.core.progressive import divide
+    from repro_torch.models.model import build_model
+    from repro_torch.serving import ProgressiveServer
+    from repro_torch.transmission import (ProgressiveClient, Session, StageCost,
+                                          get_scenario)
+
+    cfg, layers = model.cfg, model.cfg.n_layers
+    plane_counts = [t.plan.schedule.n_planes for t in prog.tensors]
+    uniform = cal.uniform_schedule(prog)
+    acc, routes = {}, {}
+    scheds, info = {}, {}
+
+    def record(name, sched, sec, peak, calls=None):
+        sched.validate(plane_counts)           # complete and MSB-first per tensor
+        check(sched.n_stages == prog.n_stages, (name, sched.checkpoints))
+        scheds[name] = sched
+        moved = sum(a != b for a, b in zip(sched.units, uniform.units))
+        first_cp: dict = {}
+        for t, _ in sched.units[:sched.checkpoints[0]]:
+            name_t = ".".join(prog.tensors[t].path[-2:])
+            first_cp[name_t] = first_cp.get(name_t, 0) + 1
+        info[name] = {"s": sec, "peak_GB": peak / 1e9, "evals": calls}
+        log(f"[calibrate] {name}: {sec:.2f} s, "
+            + (f"{calls} eval_loss calls, " if calls is not None else "")
+            + f"peak device memory {peak / 1e9:.2f} GB above the "
+            f"{torch.cuda.memory_allocated(dev) / 1e9:.2f} GB held; valid, MSB-first per "
+            f"tensor; {moved} of {len(sched.units)} units away from the uniform ladder's "
+            f"place; checkpoints {list(sched.checkpoints)}; planes in the first checkpoint "
+            f"{first_cp}")
+
+    sse, sec, peak = _timed(lambda: cal.weight_sse_schedule(prog), dev)
+    record("weight_sse_schedule (float64 on the card)", sse, sec, peak)
+    loss, calls, t_eval, l0 = _calibration_loss(model, prog, dev)
+    log(f"[calibrate] one eval_loss call at full width ({CAL_BATCH} x {CAL_LEN} tokens, float "
+        f"leaves): {t_eval * 1e3:.1f} ms, loss of the full model {l0:.4f}")
+    marg, sec, peak = _timed(lambda: cal.calibrate_schedule(prog, loss, method="marginal"),
+                             dev)
+    record("calibrate_schedule(method='marginal')", marg, sec, peak, calls[0])
+    n_greedy = sum(range(1, len(prog.tensors) + 1)) * prog.n_stages + 1
+    greedy_prog = prog
+    if t_eval * n_greedy > CAL_GREEDY_BUDGET_S:
+        # the cut line: greedy on the 2-layer full-width model
+        m2 = build_model(dataclasses.replace(cfg, n_layers=2))
+        greedy_prog = divide(m2.init(torch.Generator(device=dev).manual_seed(3), device=dev))
+        loss, calls, _, _ = _calibration_loss(m2, greedy_prog, dev)
+        log(f"[calibrate] greedy at full width would take ~{t_eval * n_greedy:.0f} s "
+            f"({n_greedy} calls): run on the 2-layer full-width model")
+    calls[0] = 0
+    greedy, sec, peak = _timed(lambda: cal.greedy_schedule(greedy_prog, loss), dev)
+    if greedy_prog is prog:
+        record("greedy_schedule", greedy, sec, peak, calls[0])
+    else:
+        greedy.validate([t.plan.schedule.n_planes for t in greedy_prog.tensors])
+        log(f"[calibrate] greedy_schedule (2-layer): {sec:.2f} s, {calls[0]} calls, peak "
+            f"{peak / 1e9:.2f} GB; valid, MSB-first")
+        greedy = marg
+    del loss
+
+    # the SSE sweep on the card against numpy's, on the 2-layer model
+    m2 = build_model(dataclasses.replace(cfg, n_layers=2))
+    prog2 = divide(m2.init(torch.Generator(device=dev).manual_seed(3), device=dev))
+    t0 = time.perf_counter()
+    host = cal.weight_sse_schedule(prog2, host=True)
+    t_host = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    card = cal.weight_sse_schedule(prog2)
+    t_card = time.perf_counter() - t0
+    check(card.units == host.units and card.checkpoints == host.checkpoints,
+          "the SSE sweep on the card orders the units otherwise than numpy's")
+    log(f"[calibrate] weight_sse_schedule on the 2-layer full-width model: numpy sweep "
+        f"{t_host:.2f} s, card sweep {t_card:.2f} s; identical units and checkpoints")
+    # v2's host codec on the 2-layer model's attn.wq units
+    wq = next(i for i, t in enumerate(prog2.tensors) if t.path[-2:] == ("attn", "wq"))
+    raw = [wire.encode_unit(prog2, wq, p, entropy_coded=False) for p in range(8)]
+    t0 = time.perf_counter()
+    coded = [wire.encode_unit(prog2, wq, p, entropy_coded=True) for p in range(8)]
+    t_enc = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for r, c in zip(raw, coded):
+        check(entropy.decode(c[0], c[2:], len(r) - 2) == r[2:], "entropy round trip")
+    t_dec = time.perf_counter() - t0
+    n_raw, n_coded = sum(len(r) for r in raw), sum(len(c) for c in coded)
+    log(f"[calibrate] v2 entropy coding (host numpy) of {prog2.tensors[wq].path} "
+        f"{tuple(prog2.tensors[wq].shape)}, 8 units: {n_raw} -> {n_coded} bytes "
+        f"({n_coded / n_raw:.3f}), encode {t_enc:.2f} s ({n_raw / t_enc / 1e6:.2f} MB/s), "
+        f"decode {t_dec:.2f} s ({n_raw / t_dec / 1e6:.2f} MB/s), modes "
+        f"{[c[0] for c in coded]}")
+    del m2, prog2, raw, coded
+
+    # the greedy schedule on the wire, through the session and a client
+    t0 = time.perf_counter()
+    blob = wire.encode(prog, schedule=greedy, integrity=True)
+    t_encode = time.perf_counter() - t0
+    scenario = get_scenario(SESSION_SCENARIO)
+    session = Session.from_scenario(blob, scenario, seed=0, device=dev)
+    arr = session.stage_arrival_times()
+    costs = [StageCost(*SESSION_STAGE_COST)] * prog.n_stages
+    tl, c = _counted(ops, lambda: session.run_timeline(costs), acc, routes)
+    check(c["plane_or_segments"] >= prog.n_stages and sum(c.values()) == c["plane_or_segments"],
+          c)
+    check(tl.client.store.fingerprint() == clean_fps[-1],
+          "the calibrated stream's final store differs from the uniform stream's")
+    del tl
+    t0 = time.perf_counter()
+    r, c = _counted(ops, lambda: session.run_serving(
+        model, prog, decode_steps=SESSION_STEPS, batch={"tokens": prompt},
+        resident="quantized"), acc, routes)
+    host_s = time.perf_counter() - t0
+    check(r.tokens.shape == (BATCH, SESSION_STEPS) and r.server.stage == prog.n_stages,
+          r.upgrades)
+    check(c["decode_attention"] == layers * SESSION_STEPS
+          and c["dequant_matmul"] == (layers * 7 + 1) * (1 + SESSION_STEPS), c)
+    # a fresh decode after the last checkpoint against the uniform ladder's
+    # stage-8 server
+    r.server.start({"tokens": prompt})
+    got = r.server.decode(8).tokens
+    ref = ProgressiveServer(model, prog, max_len=PROMPT + 8, resident="quantized", device=dev)
+    for _ in range(prog.n_stages):
+        ref.receive_stage()
+    ref.start({"tokens": prompt})
+    check(torch.equal(got, ref.decode(8).tokens),
+          "tokens after the last checkpoint differ from the uniform stream's at stage 8")
+    del ref
+    log(f"[calibrate] greedy schedule on the v3 wire: {len(blob)} bytes (encode "
+        f"{t_encode:.2f} s); simulated checkpoint arrivals over {SESSION_SCENARIO} "
+        f"{[round(a, 4) for a in arr]} s against the uniform ladder's "
+        f"{[round(a, 4) for a in arr_uni]} s")
+    log(f"[calibrate] run_timeline: final store equal to the uniform stream's; run_serving "
+        f"quantized {SESSION_STEPS} steps x {BATCH}: upgrades {r.upgrades}, host "
+        f"{host_s:.3f} s; 8 tokens decoded after the last checkpoint equal (torch.equal) to "
+        f"the uniform stream's stage-8 server's; launches {c}")
+    del r, session
+    torch.cuda.empty_cache()
+    # after every checkpoint: a client's store against the unit prefix
+    meta, ends = _stage_ends(wire, blob)
+    client = ProgressiveClient(device=dev)
+    want = PlaneStore.from_model(prog, device=dev)
+    view, pos, prev = memoryview(blob), 0, 0
+    for k, cp in enumerate(greedy.checkpoints):
+        client.feed(view[pos:ends[k + 1]])
+        pos = ends[k + 1]
+        want.ingest([(t, prog.tensors[t].planes[p]) for t, p in greedy.units[prev:cp]])
+        prev = cp
+        check(client.stages_complete == k + 1 and client.store.received == want.received,
+              k)
+        check(all(torch.equal(client.store.buffers[dt], want.buffers[dt])
+                  for dt in want.buffers), f"checkpoint {k + 1}: store differs")
+    del client, want, view, blob
+    torch.cuda.empty_cache()
+    log(f"[calibrate] a client fed the calibrated stream: after each of the "
+        f"{greedy.n_stages} checkpoints its accumulators and received counts equal "
+        f"(torch.equal) an in-memory store fed the same unit prefix")
+    return {"counts": acc, "routes": routes, "info": info}
 
 
 def _verify_patterns(model, params, target, draft, dev, g) -> int:

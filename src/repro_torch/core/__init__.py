@@ -2,14 +2,15 @@
 division/concatenation, and the progressive model container."""
 from repro_torch.core.bitplanes import PAPER_DEFAULT, PlaneSchedule, concat, split
 from repro_torch.core.plane_store import PlaneStore, TensorSlot
-from repro_torch.core.policy import DivisionPolicy, UniformPolicy
-from repro_torch.core.progressive import ProgressiveModel, ReceiverState, divide
+from repro_torch.core.policy import DivisionPolicy, UniformPolicy, schedule_from_stages
+from repro_torch.core.progressive import (ProgressiveModel, ReceiverState, divide,
+                                          transmit_reconstruct)
 from repro_torch.core.quantize import (QuantizedTensor, container_dtype, dequantize,
-                                       quantize)
+                                       quantization_error_bound, quantize, truncate)
 
 __all__ = [
-    "QuantizedTensor", "quantize", "dequantize", "container_dtype",
-    "PlaneSchedule", "PAPER_DEFAULT", "split", "concat",
-    "DivisionPolicy", "UniformPolicy", "PlaneStore", "TensorSlot",
-    "ProgressiveModel", "ReceiverState", "divide",
+    "QuantizedTensor", "quantize", "dequantize", "truncate", "quantization_error_bound",
+    "container_dtype", "PlaneSchedule", "PAPER_DEFAULT", "split", "concat",
+    "DivisionPolicy", "UniformPolicy", "schedule_from_stages", "PlaneStore", "TensorSlot",
+    "ProgressiveModel", "ReceiverState", "divide", "transmit_reconstruct",
 ]

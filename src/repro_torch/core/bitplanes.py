@@ -98,6 +98,11 @@ class PlaneSchedule:
     def cumulative_bits(self) -> tuple[int, ...]:
         return cumulative(self.widths)
 
+    def payload_bytes(self, n_elements: int, upto: int | None = None) -> int:
+        """Dense-packed payload size of planes [1..upto]."""
+        upto = self.n_planes if upto is None else upto
+        return sum(math.ceil(n_elements * w / 8) for w in self.widths[:upto])
+
 
 # The paper's default: a 16-bit model sent as eight 2-bit planes.
 PAPER_DEFAULT = PlaneSchedule(bits=16, widths=(2,) * 8)

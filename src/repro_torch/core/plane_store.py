@@ -30,6 +30,9 @@ Quantized-resident views (eq. 5)
 ``quantized_leaves`` hands out each weight as a live
 :class:`QuantizedTensor` whose ``q`` is a view of the flat buffer and
 whose affine is a few float32 scalars on the device: no float weight.
+``acc(i)`` is one tensor's accumulator view (the single-tensor view of
+``serving/quantized.py`` reads it), cached until an ingest replaces the
+buffer it lies in.
 """
 from __future__ import annotations
 
@@ -76,6 +79,16 @@ def received_bits(schedule: PlaneSchedule, received: int) -> int:
     return schedule.cumulative_bits[received - 1] if received > 0 else 0
 
 
+def _entries_from_model(model, indices: Sequence[int] | None = None) -> list[dict]:
+    """Per-tensor descriptor dicts from a server-side ProgressiveModel
+    (keys are leaf paths), optionally restricted to ``indices``."""
+    tensors = (model.tensors if indices is None
+               else [model.tensors[i] for i in indices])
+    return [{"key": t.path, "schedule": t.plan.schedule, "lo": t.lo, "hi": t.hi,
+             "shape": tuple(t.shape), "orig_dtype": t.orig_dtype,
+             "slice_axis": t.slice_axis, "slice_idx": t.slice_idx} for t in tensors]
+
+
 @dataclasses.dataclass(frozen=True)
 class TensorSlot:
     """Static per-tensor metadata: a view descriptor into a flat buffer."""
@@ -89,6 +102,8 @@ class TensorSlot:
     offset: int               # element offset within the dtype's buffer
     size: int                 # n elements
     padded: int               # block-aligned span (size rounded up)
+    slice_axis: int | None = None
+    slice_idx: int = 0
 
     @property
     def bits(self) -> int:
@@ -126,6 +141,8 @@ class PlaneStore:
         self._qleaf_cache: dict[Any, QuantizedTensor] = {}
         # truncated views by (key, bits), dropped with the key's full view
         self._qtrunc_cache: dict[tuple, QuantizedTensor] = {}
+        # slot -> accumulator view, filled by acc() only, dropped by ingest
+        self._acc_cache: dict[int, torch.Tensor] = {}
         # per-key affine constants that no upgrade changes (lo/hi/scale on
         # the device, host float32 copies of lo and span for the offsets)
         self._qmeta_cache: dict[Any, dict] = {}
@@ -154,14 +171,14 @@ class PlaneStore:
         return cls(slots, block=block, device=device)
 
     @classmethod
-    def from_model(cls, model, *, block: int = DEFAULT_BLOCK, device="cuda"
-                   ) -> "PlaneStore":
+    def from_model(cls, model, *, block: int = DEFAULT_BLOCK,
+                   indices: Sequence[int] | None = None, device="cuda") -> "PlaneStore":
         """Build from a server-side :class:`ProgressiveModel` (keys are
-        leaf paths)."""
-        return cls._from_entries(
-            [{"key": t.path, "schedule": t.plan.schedule, "lo": t.lo, "hi": t.hi,
-              "shape": tuple(t.shape), "orig_dtype": t.orig_dtype} for t in model.tensors],
-            block=block, device=device)
+        leaf paths). ``indices`` restricts the store to those tensors:
+        slot i is then ``model.tensors[indices[i]]``, and only their
+        buffers are allocated."""
+        return cls._from_entries(_entries_from_model(model, indices), block=block,
+                                 device=device)
 
     @classmethod
     def from_wire_meta(cls, meta, *, block: int = DEFAULT_BLOCK, device="cuda"
@@ -194,6 +211,7 @@ class PlaneStore:
         new._consts_cache = dict(self._consts_cache)
         new._qleaf_cache = dict(self._qleaf_cache)
         new._qtrunc_cache = dict(self._qtrunc_cache)
+        new._acc_cache = dict(self._acc_cache)
         new._qmeta_cache = self._qmeta_cache
         return new
 
@@ -202,6 +220,17 @@ class PlaneStore:
         t = self.slots[i]
         buf = self.buffers[dtype_name(t.container)]
         return buf[t.offset:t.offset + t.size].reshape(t.shape)
+
+    def acc(self, i: int) -> torch.Tensor:
+        """Tensor i's accumulator: a view into the flat buffer, cached
+        until an ingest replaces that buffer (a view kept across the
+        tensor's own ingest would read the old bits). One-shot readers
+        slice without caching."""
+        got = self._acc_cache.get(i)
+        if got is None:
+            got = self._slice_acc(i)
+            self._acc_cache[i] = got
+        return got
 
     def quantized(self, i: int) -> QuantizedTensor:
         t = self.slots[i]
@@ -285,7 +314,13 @@ class PlaneStore:
         return out
 
     def _ingest_round(self, items: dict[int, torch.Tensor]) -> None:
-        for dt, (idxs, plane, shifts_t) in self.round_operands(items).items():
+        operands = self.round_operands(items)
+        # every cached accumulator view of a replaced buffer goes (the
+        # reference drops only the touched tensors'; an untouched view
+        # would still read equal bits, but would pin the old buffer)
+        self._acc_cache = {i: v for i, v in self._acc_cache.items()
+                           if dtype_name(self.slots[i].container) not in operands}
+        for dt, (idxs, plane, shifts_t) in operands.items():
             buf = self.buffers[dt]
             total = plane.shape[0]
             if total == buf.shape[0]:

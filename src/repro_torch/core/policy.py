@@ -4,10 +4,11 @@ stages, and the self-speculative draft's controller. Counterpart of
 and expert-popularity policies are still to be ported) and
 :class:`SpeculationController`, which picks the draft length k and the
 draft's precision from the observed acceptance rate (pure Python, the
-reference's decisions)."""
+reference's decisions), and :func:`schedule_from_stages`."""
 from __future__ import annotations
 
 import dataclasses
+from typing import Sequence
 
 from repro_torch.core.bitplanes import PAPER_DEFAULT, PlaneSchedule
 
@@ -124,3 +125,13 @@ class SpeculationController:
         """A precision stage landed: the draft/target gap changed, so past
         acceptance evidence is stale; relax toward the prior."""
         self.rate = 0.5 * (self.rate + 0.5)
+
+
+def schedule_from_stages(bits: int, stage_bits: Sequence[int]) -> PlaneSchedule:
+    """The paper's '2 -> 4 -> 6 -> ... -> 16' notation (cumulative bits)
+    as a :class:`PlaneSchedule` of widths."""
+    widths, prev = [], 0
+    for c in stage_bits:
+        widths.append(c - prev)
+        prev = c
+    return PlaneSchedule(bits=bits, widths=tuple(widths))

@@ -19,6 +19,7 @@ divides into the same tensors, in the same order, with the same bytes.
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any, Callable, Mapping, Sequence
 
 import torch
@@ -94,6 +95,29 @@ class ProgressiveModel:
                if s <= t.plan.schedule.n_planes]
         out.sort(key=lambda it: (self.tensors[it[0]].plan.priority, it[0]))
         return out
+
+    def stage_payload_bytes(self, s: int) -> int:
+        """Packed bytes of stage s's planes (each ceil(n * width / 8))."""
+        total = 0
+        for i, _ in self.stage(s):
+            t = self.tensors[i]
+            total += -(-math.prod(t.shape) * t.plan.schedule.widths[s - 1] // 8)
+        return total
+
+    def total_payload_bytes(self) -> int:
+        return sum(self.stage_payload_bytes(s) for s in range(1, self.n_stages + 1))
+
+    def singleton_payload_bytes(self) -> int:
+        """Bytes of the non-progressive k-bit quantized model (the paper's
+        baseline). :meth:`total_payload_bytes` equals this up to each
+        plane's rounding to a byte (:meth:`padding_overhead_bound`): the
+        paper's 'no size increase'."""
+        return sum(-(-math.prod(t.shape) * t.bits // 8) for t in self.tensors)
+
+    def padding_overhead_bound(self) -> int:
+        """Most extra wire bytes over the singleton from rounding each
+        plane up to a byte boundary."""
+        return sum(t.plan.schedule.n_planes for t in self.tensors)
 
 
 def divide(params, policy: DivisionPolicy | None = None) -> ProgressiveModel:

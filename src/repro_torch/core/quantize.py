@@ -13,6 +13,7 @@ same input on the CPU.
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any, Mapping, Sequence
 
 import torch
@@ -75,6 +76,11 @@ class QuantizedTensor:
         if self.q.ndim != 2:
             raise ValueError(f"T needs a 2-D tensor, got shape {tuple(self.q.shape)}")
         return dataclasses.replace(self, q=self.q.T)
+
+    @property
+    def nbytes_payload(self) -> int:
+        """Payload bytes if packed densely at ``bits`` bits per element."""
+        return math.ceil(self.q.numel() * self.bits / 8)
 
     def truncate(self, b: int) -> "QuantizedTensor":
         """Truncated-precision view: behave as if only the first planes
@@ -261,6 +267,21 @@ def dequantize_buffers(buffers: Mapping[str, torch.Tensor],
         q = buffers[dt][off:off + size].reshape(shape)
         out.append(_affine(q, constants[2][i], offs[i], dtypes[i]))
     return out
+
+
+def quantization_error_bound(qt: QuantizedTensor, received_bits: int | None = None
+                             ) -> torch.Tensor:
+    """Worst-case |x - dequantize(quantize(x))|: half an LSB at m bits,
+    plus slack for the float32 rounding of eq. (2)'s ``(x - lo) / span``
+    (which can move a value across one grid boundary near the top of the
+    range)."""
+    m = qt.bits if received_bits is None else received_bits
+    lo = torch.as_tensor(qt.lo, dtype=torch.float32)
+    hi = torch.as_tensor(qt.hi, dtype=torch.float32)
+    span = hi - lo + _range_eps(lo, hi)
+    fp32_slack = span * (0.5 ** m) * 2.0 ** -7 \
+        + torch.maximum(lo.abs(), hi.abs()) * 2.0 ** -22
+    return span * (0.5 ** m) * 0.5 + fp32_slack + _EPS_ABS
 
 
 def truncate(qt: QuantizedTensor, m: int) -> QuantizedTensor:

@@ -156,8 +156,8 @@ def main(argv: list[str] | None = None) -> None:
                          "pool instead of a single lock-stepped stream")
     ap.add_argument("--chunked-prefill", default=None,
                     action=argparse.BooleanOptionalAction,
-                    help="force chunked admission on/off for the pool (default: on; "
-                         "off is still to be ported, ROADMAP A9)")
+                    help="force chunked admission on/off for the pool (default: auto "
+                         "— on for every arch without cross-attention)")
     ap.add_argument("--pool-slots", type=int, default=4,
                     help="slot-pool size for --pool-clients")
     ap.add_argument("--crowd-span-s", type=float, default=1.0,

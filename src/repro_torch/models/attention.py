@@ -119,7 +119,9 @@ def decode_pos_vector(pos, batch: int, device) -> torch.Tensor:
 def self_attention(cfg: ArchConfig, p, x: torch.Tensor, *, mode: str, cache, pos):
     """Full causal self-attention. ``mode`` is one of:
 
-    * ``prefill``: returns the prompt's native caches;
+    * ``prefill``: returns the prompt's native caches; ``pos`` None, or
+      the (B,) valid lengths of a bucket-padded prompt (one shared
+      length), whose padded keys are masked;
     * ``decode``: writes one token per slot into ``cache`` in place
       (``pos`` (B,), negative = the slot writes nothing) and attends
       through ``ops.decode_attention``;
@@ -145,6 +147,13 @@ def self_attention(cfg: ArchConfig, p, x: torch.Tensor, *, mode: str, cache, pos
     q, k, v = project_qkv(cfg, p, x, x, rows=rows)
     if mode == "prefill":
         q_pos = torch.arange(Tq, dtype=torch.int32, device=x.device)
+        if pos is not None:
+            # a bucket-padded prompt: positions at or after the valid
+            # length become -1, keys no query sees; their cache rows lie
+            # past the prompt, and decode overwrites each before any query
+            # reaches it
+            nv = pos.to(device=x.device, dtype=torch.int32).reshape(-1)[0]
+            q_pos = torch.where(q_pos < nv, q_pos, -1)
         q = rope(q, q_pos, theta)
         k = rope(k, q_pos, theta)
         out = chunked_attention(q, k, v, q_pos, q_pos, chunk=cfg.attn_chunk)

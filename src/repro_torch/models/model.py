@@ -3,7 +3,7 @@
 Counterpart of ``src/repro/models/model.py`` for the dense decoder:
 
     init(generator, device=)           -> params
-    prefill(params, batch)             -> (last_logits, caches)
+    prefill(params, batch, n_valid=)   -> (last_logits, caches)
     decode_step(params, caches, tokens, pos) -> (logits, caches)
     prefill_chunk(params, caches, tokens, tok_pos) -> (logits, caches)
     verify_step(params, caches, tokens, pos) -> (logits, caches)
@@ -19,9 +19,10 @@ from __future__ import annotations
 import dataclasses
 from typing import Any
 
+import numpy as np
 import torch
 
-from repro_torch import resolve_device
+from repro_torch import resolve_device, to_device
 from repro_torch.models import transformer as tfm
 from repro_torch.models.common import (ArchConfig, apply_norm, dense, dense_rows,
                                       embed_lookup, norm_init)
@@ -56,12 +57,27 @@ class Model:
         return dense(x.to(torch.float32), params["embed"].T, dtype=torch.float32,
                      rows=dense_rows(mode))
 
-    def prefill(self, params, batch):
-        """Logits after the last prompt token, and the prompt's caches."""
+    def prefill(self, params, batch, n_valid=None):
+        """Logits after the last prompt token, and the prompt's caches.
+
+        ``n_valid`` (B,) int32 (a tensor on the tokens' device, or a host
+        array): the prompt is padded to a bucket and only its first
+        ``n_valid[b]`` positions are real. Every row must share one valid
+        length (the slot pool prefills at batch 1). Padded positions are
+        masked out of attention (their keys sit at position -1) and the
+        logits are gathered at row ``n_valid - 1``, on the device."""
         cfg = self.cfg
-        x = self._embed(params, batch["tokens"])
-        x, caches = tfm.run_stack(cfg, params["decoder"], x, mode="prefill")
-        xl = apply_norm(cfg, params["final_norm"], x[:, -1:, :])
+        tokens = batch["tokens"]
+        if n_valid is not None and not isinstance(n_valid, torch.Tensor):
+            n_valid = to_device(np.asarray(n_valid, np.int32), tokens.device)
+        x = self._embed(params, tokens)
+        x, caches = tfm.run_stack(cfg, params["decoder"], x, mode="prefill", pos=n_valid)
+        if n_valid is None:
+            xl = x[:, -1:, :]
+        else:
+            idx = torch.clamp(n_valid.to(torch.long) - 1, 0, x.shape[1] - 1)
+            xl = x[torch.arange(x.shape[0], device=x.device), idx][:, None, :]
+        xl = apply_norm(cfg, params["final_norm"], xl)
         return self._unembed(params, xl)[:, 0, :], caches
 
     def decode_step(self, params, caches, tokens: torch.Tensor, pos):

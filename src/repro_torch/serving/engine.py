@@ -407,14 +407,21 @@ class SlotPoolEngine(PrecisionManagedEngine):
     :meth:`upgrade_if_available` catches up to every stage the client has
     completed (``Session.run_serving_pool``).
 
-    Left for later, each raising ``NotImplementedError``: batch-1
-    admission (``chunked_prefill=False``) and its prompt buckets, which
-    need ``Model.prefill(n_valid)`` (ROADMAP A9); ``mesh=`` (A13); sliding-window rings and
-    recurrent-slot resets (A8, which brings the reference's
-    ``ring_margin`` too); telemetry, which the reference turns on with
-    ``REPRO_TELEMETRY`` (A11). ``PoolRequest.extras`` are refused
-    as the reference refuses them for a text-only arch; vision and
-    encoder side inputs come with A8. The reference's
+    ``chunked_prefill=False`` admits at batch 1 instead
+    (:meth:`_admit_batch1`): one prefill of the prompt at admission, its
+    caches grown to ``max_len`` and written into the slot's rows, the
+    slot decoding from the next step. With ``prefill_buckets`` (default)
+    the prompt is padded to a power-of-two bucket with its padded keys
+    masked (``Model.prefill(n_valid)``), so a prefill runs at one of
+    O(log max_len) shapes. Nothing in it waits for the device.
+
+    Left for later, each raising ``NotImplementedError``: ``mesh=``
+    (A13); sliding-window rings and recurrent-slot resets (A8, which
+    brings the reference's ``ring_margin`` too, and the fall-back to
+    batch-1 admission of cross-attention archs); telemetry, which the
+    reference turns on with ``REPRO_TELEMETRY`` (A11).
+    ``PoolRequest.extras`` are refused as the reference refuses them for
+    a text-only arch; vision and encoder side inputs come with A8. The reference's
     ``decode_cache_size``/``prefill_cache_size`` count JAX executables
     and have no counterpart: nothing is compiled here.
     """
@@ -423,13 +430,10 @@ class SlotPoolEngine(PrecisionManagedEngine):
                  max_len: int, receiver=None, resident: str = "fp",
                  dispatch_window: int = 8, eos_id: int | None = None,
                  chunked_prefill: bool | None = None,
-                 prefill_chunk: int = 8, double_buffer: bool = True, mesh=None,
-                 device="cuda"):
+                 prefill_chunk: int = 8, prefill_buckets: bool = True,
+                 double_buffer: bool = True, mesh=None, device="cuda"):
         if mesh is not None:
             raise _later("sharded serving (mesh=)", "A13")
-        if chunked_prefill is False:
-            raise _later("batch-1 admission (chunked_prefill=False) with prompt "
-                         "buckets, which needs Model.prefill(n_valid),", "A9")
         if model.cfg.window:
             raise _later("sliding-window ring caches", "A8")
         if os.environ.get("REPRO_TELEMETRY", "") not in ("", "0"):
@@ -438,8 +442,10 @@ class SlotPoolEngine(PrecisionManagedEngine):
             raise ValueError("n_slots must be >= 1")
         super().__init__(model, prog, max_len, receiver=receiver, resident=resident,
                          device=device)
-        self.chunked_prefill = True
+        # None: chunked, which every ported arch supports
+        self.chunked_prefill = chunked_prefill is not False
         self.prefill_chunk = max(1, int(prefill_chunk))
+        self.prefill_buckets = bool(prefill_buckets)
         self.double_buffer = bool(double_buffer)
         self.n_slots = n_slots
         self.dispatch_window = max(1, dispatch_window)
@@ -537,11 +543,47 @@ class SlotPoolEngine(PrecisionManagedEngine):
         self.admit_stage[req.rid] = self.stage
         self.admitted_order.append(req.rid)
         self._post_admit(slot, req, int(prompt.shape[0]))
-        self._begin_chunked_prefill(slot, req, prompt)
+        if self.chunked_prefill:
+            self._begin_chunked_prefill(slot, req, prompt)
+        else:
+            self._admit_batch1(slot, req, prompt)
 
     def _post_admit(self, slot: int, req: PoolRequest, prompt_len: int) -> None:
         """Subclass hook, called once per admission before the prompt is
         consumed."""
+
+    def _admit_batch1(self, slot: int, req: PoolRequest, prompt: np.ndarray) -> None:
+        """Batch-1 admission: prefill the prompt alone (padded to its
+        bucket with ``prefill_buckets``), grow its caches to ``max_len``
+        and write them into the slot's rows; the slot's end position and
+        last-row logits go in on the device. The prompt goes up through
+        pinned memory and every write is a device copy, so nothing
+        waits."""
+        L = int(prompt.shape[0])
+        tokens = prompt[None, :]
+        n_valid = None
+        if self.prefill_buckets:
+            bucket = min(max(1 << (L - 1).bit_length(), 1), self.max_len)
+            if bucket > L:
+                tokens = np.pad(tokens, ((0, 0), (0, bucket - L)))
+            n_valid = np.asarray([L], np.int32)
+        batch = {"tokens": to_device(tokens.astype(np.int32), self.device)}
+        if n_valid is not None:
+            n_valid = to_device(n_valid, self.device)
+        last_logits, caches = self.model.prefill(self.params, batch, n_valid)
+        caches = self._grow_admitted(caches, L)
+        self.caches = _write_slot_tree(self.caches, caches, slot, self.n_slots)
+        self.pos[slot:slot + 1].fill_(L)
+        self.last_logits[slot:slot + 1].copy_(last_logits)
+        self._post_admit_batch1(slot, req, last_logits, L)
+
+    def _grow_admitted(self, caches, prompt_len: int):
+        """A batch-1 prefill's caches grown to the pool's length."""
+        return self.model.grow_caches(caches, self.max_len)
+
+    def _post_admit_batch1(self, slot: int, req: PoolRequest, last_logits,
+                           prompt_len: int) -> None:
+        """Subclass hook after a batch-1 admission's device writes."""
 
     def _begin_chunked_prefill(self, slot: int, req: PoolRequest,
                                prompt: np.ndarray) -> None:
@@ -757,3 +799,21 @@ def _chunk_step(model: Model, params, caches, tokens, tok_pos, final_row, pos,
     last_tok = torch.where(done[:, None], first[:, None], last_tok)
     first_cap = torch.where(done, first, first_cap)
     return caches, pos, last_logits, last_tok, first_cap
+
+
+def _write_slot_tree(pool, one, slot: int, n_slots: int):
+    """Write a batch-1 cache tree into batch row ``slot`` of the pool's
+    cache tree, in place; returns ``pool``. Each leaf's batch axis is the
+    one axis where the pool leaf is ``n_slots`` wide and the request's
+    leaf 1 wide (leaves of equal shapes, ``n_slots == 1``, are copied
+    whole)."""
+    if isinstance(pool, dict):
+        return {k: _write_slot_tree(pool[k], one[k], slot, n_slots) for k in pool}
+    if pool.shape == one.shape:
+        return pool.copy_(one)
+    cand = [d for d, (a, b) in enumerate(zip(pool.shape, one.shape)) if a != b]
+    if len(cand) != 1 or one.shape[cand[0]] != 1 or pool.shape[cand[0]] != n_slots:
+        raise ValueError(f"cannot locate batch axis: pool {tuple(pool.shape)} vs one "
+                         f"{tuple(one.shape)}")
+    pool.narrow(cand[0], slot, 1).copy_(one)
+    return pool

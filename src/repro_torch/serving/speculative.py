@@ -45,11 +45,9 @@ stream whose slots go ragged after the prompt, and
 evictions and upgrades interleave with rounds.
 
 Left for later, each raising ``NotImplementedError`` naming its ROADMAP
-item: batch-1 admission into the pool (A9's rest; the base pool refuses
-``chunked_prefill=False``), ring caches and ``ring_margin`` for
-sliding-window models (A8), ``Session.run_speculative*`` (A7: the port
-has no ``Session`` yet), and the reference's telemetry counters of each
-accept round (A11; ``accept_log`` is kept). The reference's
+item: ring caches and ``ring_margin`` for sliding-window models (A8), and
+the reference's telemetry counters of each accept round (A11;
+``accept_log`` is kept). The reference's
 ``decode_cache_size`` counts JAX executables and has no counterpart
 until the port captures CUDA graphs, as for the plain engines.
 """
@@ -372,22 +370,24 @@ class SpeculativeEngine(_SpeculativeMixin, ProgressiveServer):
 class SpeculativeSlotPool(_SpeculativeMixin, SlotPoolEngine):
     """Continuous-batching speculation: one draft chain and one verify
     pass serve every decoding slot a round, ragged positions and all.
-    Admission is the base pool's chunked prefill: a slot joins the rounds
-    once its last chunk lands, and its first greedy token, captured on
-    the device, is emitted at the next flush. Budget and eos eviction
-    happen at flush, where the rounds' acceptance counts become
-    host-visible."""
+    Admission follows the base pool. Chunked (the default): a slot joins
+    the rounds once its last chunk lands, and its first greedy token,
+    captured on the device, is emitted at the next flush. Batch-1
+    (``chunked_prefill=False``): the prefill's argmax is the request's
+    first token, emitted at admission (one host read of that token, as
+    the reference does). Budget and eos eviction happen at flush, where
+    the rounds' acceptance counts become host-visible."""
 
     def __init__(self, model, prog, *, n_slots: int, max_len: int, receiver=None,
                  spec: SpecConfig | None = None, dispatch_window: int = 4,
                  eos_id: int | None = None, chunked_prefill: bool | None = None,
-                 prefill_chunk: int = 8, double_buffer: bool = True, mesh=None,
-                 device="cuda"):
+                 prefill_chunk: int = 8, prefill_buckets: bool = True,
+                 double_buffer: bool = True, mesh=None, device="cuda"):
         super().__init__(model, prog, n_slots=n_slots, max_len=max_len, receiver=receiver,
                          resident="quantized", dispatch_window=dispatch_window,
                          eos_id=eos_id, chunked_prefill=chunked_prefill,
-                         prefill_chunk=prefill_chunk, double_buffer=double_buffer,
-                         mesh=mesh, device=device)
+                         prefill_chunk=prefill_chunk, prefill_buckets=prefill_buckets,
+                         double_buffer=double_buffer, mesh=mesh, device=device)
         self._init_spec(spec)
         # per-slot position ceiling (prompt + budget - 1): a slot whose
         # budget is met rides rounds until flush evicts it, but its
@@ -412,7 +412,17 @@ class SpeculativeSlotPool(_SpeculativeMixin, SlotPoolEngine):
         self._pos_bound[slot:slot + 1].fill_(prompt_len + req.max_new_tokens - 1)
 
     def _post_admit_batch1(self, slot: int, req, last_logits, prompt_len: int) -> None:
-        raise _later("batch-1 admission into the speculative pool", "A9")
+        first = torch.argmax(last_logits, dim=-1).to(torch.int32)      # (1,)
+        self._last_tok[slot:slot + 1].copy_(first[:, None])
+        # the prefill's argmax is the request's first greedy token, emitted
+        # at admission (the plain pool emits the same token on the
+        # request's first step)
+        self._note_first_token(req.rid)
+        self.outputs[req.rid].append(int(first[0]))
+        self.stage_log[req.rid].append(self.stage)
+        self.slots[slot].dispatched = 1
+        if req.max_new_tokens == 1:
+            self._evict(slot)
 
     def _on_prefill_complete(self, slot: int) -> None:
         # the chunk step captured the first greedy token in _first_cap on

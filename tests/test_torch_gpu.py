@@ -913,3 +913,122 @@ def test_fp_pool_step_and_upgrade_never_sync(dev):
         if resident == "fp":
             rep = pool.resident_report()
             assert rep["quantized_bytes"] == 0 and rep["fp_leaves"] == len(prog.tensors)
+
+
+def test_quantized_view_matmul_at_vocab_rows(dev):
+    """``QuantizedLinearState.matmul`` on a (50304, 2048) weight (the
+    full-width embedding as a (K, N) weight: K = 50,304, no multiple of
+    512) at M = 1, 4 and 64, at stages 1, 4 and 8, within 1e-4 of the
+    largest |y| of ``dequantize`` followed by ``torch.matmul``."""
+    from repro_torch.core.progressive import divide
+    from repro_torch.core.quantize import dequantize
+    from repro_torch.serving import from_progressive
+
+    g = torch.Generator(device=dev).manual_seed(0)
+    w = 0.02 * torch.randn((50304, 2048), generator=g, device=dev)
+    prog = divide({"embed": w})
+    view = from_progressive(prog, 0)
+    xs = {M: torch.randn((M, 50304), generator=g, device=dev) for M in (1, 4, 64)}
+    for s in range(1, prog.n_stages + 1):
+        view.upgrade(prog.tensors[0].planes[s - 1])
+        if s not in (1, 4, 8):
+            continue
+        wq = dequantize(view.store.quantized(0), view.received_bits)
+        for M, x in xs.items():
+            y = view.matmul(x)
+            want = x @ wq
+            err = float((y - want).abs().max())
+            assert err <= 1e-4 * float(want.abs().max()), (s, M, err)
+    assert view.resident_bytes == 50304 * 2048 * 2
+
+
+def test_acc_view_fresh_across_ingests_on_the_card(dev):
+    """``PlaneStore.acc(i)`` on the card: cached between ingests, fresh
+    after every full and sparse ingest (each replaces the buffer), and a
+    ``copy()`` keeps the views of its own buffers; equal to the same store
+    on the CPU."""
+    from repro_torch.core.plane_store import PlaneStore
+    from repro_torch.core.progressive import divide
+
+    g = torch.Generator(device=dev).manual_seed(1)
+    params = {"a": torch.randn((300, 70), generator=g, device=dev),
+              "b": torch.randn((9, 1030), generator=g, device=dev)}
+    prog = divide(params)
+    store = PlaneStore.from_model(prog, device=dev)
+    host = PlaneStore.from_model(prog, device="cpu")
+    for s in range(1, prog.n_stages + 1):
+        before = [store.acc(i) for i in range(2)]
+        assert store.acc(1) is before[1]
+        snap = store.copy()
+        items = prog.stage(s)
+        if s % 2:
+            store.ingest(items)
+        else:
+            for it in items:
+                store.ingest([it])
+        host.ingest([(i, p.cpu()) for i, p in items])
+        for i in range(2):
+            assert store.acc(i) is not before[i]
+            assert torch.equal(store.acc(i).cpu(), host.acc(i))
+            assert torch.equal(snap.acc(i), before[i])
+    assert store.fingerprint() == host.fingerprint()
+
+
+def test_batch1_admission_and_upgrade_never_sync(dev):
+    """Batch-1 admission on the card (a bucket-padded prefill, its caches
+    written into the slot's rows, the slot's position and logits set),
+    the pool's steps and double-buffered upgrades all run under
+    ``torch.cuda.set_sync_debug_mode("error")``, with prompt buckets and
+    without; each request alone in a 1-slot pool emits the busy pool's
+    tokens (its prefill is a batch of one either way, and decode rows do
+    not depend on M), at stage 8."""
+    from repro_torch.serving.engine import PoolRequest, SlotPoolEngine
+
+    cfg, model, prog = _pool_model(dev, seed=2)
+    rng = np.random.default_rng(1)
+    requests = [PoolRequest(rid=rid, prompt=rng.integers(0, cfg.vocab, 3 + 5 * rid),
+                            max_new_tokens=6) for rid in range(5)]
+    for buckets in (True, False):
+        pool = SlotPoolEngine(model, prog, n_slots=3, max_len=40, resident="quantized",
+                              dispatch_window=1, chunked_prefill=False,
+                              prefill_buckets=buckets, device=dev)
+        pool.receive_stage()
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            for req in requests:
+                pool.submit(req)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        while any(not s.free for s in pool.slots) or pool.queue:
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                for _ in range(pool.dispatch_window):
+                    if any(not s.free for s in pool.slots):
+                        pool.step()
+                pool.upgrade_if_available()
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            pool.flush()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                pool._admit_from_queue()
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        assert pool.completed == set(range(5)) and pool._tick_count == 0
+        assert pool.stage == prog.n_stages
+        assert all(len(v) == 6 for v in pool.outputs.values())
+
+    def serve(n_slots, reqs):           # at stage 8 throughout
+        pool = SlotPoolEngine(model, prog, n_slots=n_slots, max_len=40,
+                              resident="quantized", dispatch_window=2,
+                              chunked_prefill=False, device=dev)
+        for _ in range(prog.n_stages):
+            pool.receive_stage()
+        for req in reqs:
+            pool.submit(req)
+        return pool.run()
+
+    busy = serve(3, requests)
+    for req in requests:
+        assert serve(1, [req])[req.rid] == busy[req.rid], req.rid

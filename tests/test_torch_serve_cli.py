@@ -64,8 +64,6 @@ def test_cli_parts_still_to_port_raise():
         serve.main(BASE + ["--mesh-shards", "2"])
     with pytest.raises(NotImplementedError, match="A8"):
         serve.main(["--arch", "dbrx-132b", "--reduced", "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="A9"):
-        serve.main(BASE + ["--pool-clients", "2", "--no-chunked-prefill"])
 
 
 def test_cli_defaults_to_the_card():

@@ -434,11 +434,18 @@ def test_headroom_and_recurrent_checks_raise(models, monkeypatch):
                           max_len=24, spec=spec, device="cpu")
     with pytest.raises(NotImplementedError, match="A13"):
         SpeculativeEngine(model, prog, max_len=24, spec=spec, mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="A9"):
-        SpeculativeSlotPool(model, prog, n_slots=2, max_len=24, spec=spec,
-                            chunked_prefill=False, device="cpu")
-    with pytest.raises(NotImplementedError, match="A9"):
-        pool._post_admit_batch1(0, None, None, 8)
+    # batch-1 admission (A9's rest) admits: the prefill's argmax is the
+    # first token, emitted at admission; a budget of 1 ends there
+    bpool = SpeculativeSlotPool(model, prog, n_slots=2, max_len=24, spec=spec,
+                                chunked_prefill=False, device="cpu")
+    bpool.receive_stage()
+    bpool.submit(PoolRequest(rid=0, prompt=np.zeros(8, np.int32), max_new_tokens=5))
+    bpool.submit(PoolRequest(rid=1, prompt=np.ones(3, np.int32), max_new_tokens=1))
+    assert not bpool.chunked_prefill and bpool._tick_count == 0
+    assert len(bpool.outputs[0]) == len(bpool.outputs[1]) == 1
+    assert bpool.slots[1].free and bpool.slots[0].dispatched == 1
+    out = bpool.run()
+    assert len(out[0]) == 5 and len(out[1]) == 1 and bpool.completed == {0, 1}
     monkeypatch.setenv("REPRO_TELEMETRY", "1")
     with pytest.raises(NotImplementedError, match="A11"):
         SpeculativeEngine(model, prog, max_len=24, spec=spec, device="cpu")
