@@ -71,13 +71,16 @@ with the launch counts set to 0 just before it and read just after:
    ``calibrate_schedule(method="marginal")`` and ``greedy_schedule`` at
    full width under a float-leaf cross-entropy loss, each valid and
    MSB-first per tensor, with seconds, loss evaluations and peak device
-   memory; the card's SSE sweep ordered as numpy's on the 2-layer model;
-   v2's host entropy codec timed; the greedy schedule on the v3 wire
-   through ``Session`` (``run_timeline``, ``run_serving`` quantized), a
-   client's store after every checkpoint equal to an in-memory store fed
-   the same unit prefix, the final store and a fresh decode equal to the
-   uniform stream's. ``[cli]``: also ``--pool-clients 4
-   --no-chunked-prefill``;
+   memory; the card's SSE sweep ordered as the same sweep on CPU copies
+   of the 2-layer model's planes; v2's host entropy codec timed; the
+   greedy schedule on the v3 wire through ``Session`` (``run_timeline``,
+   ``run_serving`` quantized), a client's store after every checkpoint
+   equal to an in-memory store fed the same unit prefix, the final store
+   and a fresh decode equal to the uniform stream's; the marginal
+   schedule (checkpoints off the uniform ladder's) through
+   ``run_serving`` quantized, ``torch.equal`` to a server fed the same
+   unit prefixes at its per-step stages. ``[cli]``: also
+   ``--pool-clients 4 --no-chunked-prefill``;
 5. ``[upgrade per tensor]``: stage 8 as one ``plane_or`` a tensor on the
    live stage-7 accumulator views, byte-equal to the batched
    ``plane_or_segments`` upgrade, both timed;
@@ -200,11 +203,8 @@ CLI_TIMEOUT_S = 400
 # [quantized view]: QuantizedLinearState over embed as a (50304, 2048)
 # weight, its matmul checked at these rows at every stage
 VIEW_M = (1, 4, 64)
-# [calibrate]: the calibration batch (numpy-free torch seed 7), and the
-# host seconds the greedy ladder may take at full width (about 8*9/2*8 + 1
-# evaluations); past it, greedy runs on the 2-layer full-width model
+# [calibrate]: the calibration batch (numpy-free torch seed 7)
 CAL_BATCH, CAL_LEN = 4, 64
-CAL_GREEDY_BUDGET_S = 60.0
 # v2 entropy coding is host numpy (core/entropy.py): its encode and decode
 # are timed on the 2-layer full-width model's attn.wq units (8 planes)
 
@@ -2404,21 +2404,79 @@ def _timed(fn, dev):
     return out, time.perf_counter() - t0, torch.cuda.max_memory_allocated(dev) - base
 
 
+def _prefix_server(model, prog, sched, meta, prompt, steps: int, dev):
+    """A quantized-resident ``ProgressiveServer(receiver=)`` over an
+    in-memory store (laid out from the wire header ``meta``, so keyed as a
+    client's) that ingests ``sched``'s unit prefix up to each checkpoint:
+    the calibrated stream's state with no wire payload and no client.
+    Returns the server, ``arrive(k)``, which ingests checkpoint k's units,
+    and the store's holder."""
+    from types import SimpleNamespace
+
+    from repro_torch.core.plane_store import PlaneStore
+    from repro_torch.serving.engine import ProgressiveServer, WireStoreReceiver
+
+    src = SimpleNamespace(store=PlaneStore.from_wire_meta(meta, device=dev), stages_complete=0)
+    cps = (0,) + tuple(sched.checkpoints)
+
+    def arrive(k: int) -> None:
+        units = sched.units[cps[k - 1]:cps[k]]
+        src.store.ingest([(t, prog.tensors[t].planes[p]) for t, p in units])
+        src.stages_complete = k
+
+    srv = ProgressiveServer(model, prog, max_len=prompt.shape[1] + steps, resident="quantized",
+                            device=dev, receiver=WireStoreReceiver(src, prog))
+    return srv, arrive, src
+
+
+def _replay_prefix(model, prog, sched, meta, prompt, stage_at_step, dev):
+    """Tokens and final store fingerprint of :func:`_prefix_server`
+    upgraded to each step's checkpoint of ``stage_at_step``."""
+    srv, arrive, src = _prefix_server(model, prog, sched, meta, prompt, len(stage_at_step),
+                                      dev)
+    for k in range(1, stage_at_step[0] + 1):
+        arrive(k)
+    srv.receive_stage()
+    srv.start({"tokens": prompt})
+
+    def step(i: int) -> bool:
+        if stage_at_step[i] <= srv.stage:
+            return False
+        for k in range(src.stages_complete + 1, stage_at_step[i] + 1):
+            arrive(k)
+        return True
+
+    res = srv.decode(len(stage_at_step), stage_arrival=step)
+    check(res.stage_at_step == list(stage_at_step), (res.stage_at_step, stage_at_step))
+    return res.tokens, src.store.fingerprint()
+
+
+def _cpu_copy(prog):
+    """``prog`` with every plane and range copied to the host."""
+    return dataclasses.replace(prog, tensors=[
+        dataclasses.replace(t, planes=[p.cpu() for p in t.planes],
+                            lo=torch.as_tensor(t.lo).cpu(), hi=torch.as_tensor(t.hi).cpu())
+        for t in prog.tensors])
+
+
 def _calibrate_phase(model, prog, dev, ops, prompt, clean_fps, arr_uni) -> dict:
     """``[calibrate]``: ``weight_sse_schedule``,
     ``calibrate_schedule(method="marginal")`` and ``greedy_schedule`` on
-    full-width olmo-1b under :func:`_calibration_loss` (greedy on the
-    2-layer full-width model instead if one evaluation says the ladder
-    would pass ``CAL_GREEDY_BUDGET_S``): seconds, evaluations, peak device
-    memory; each schedule valid and MSB-first per tensor; the SSE sweep on
-    the card ordered as the numpy sweep on the 2-layer model. The greedy
-    schedule goes on the v3 wire (raw) through ``Session`` over
-    ``pod-coldstart``: ``run_timeline``, then ``run_serving`` quantized
-    (batch 4, 48 steps), counted from 0; after every checkpoint a client's
-    store equals an in-memory store fed the same unit prefix, the final
-    store is the uniform stream's, and a fresh decode after the last
-    checkpoint equals the uniform stream's stage-8 server's. v2 entropy
-    coding is timed on the 2-layer model's ``attn.wq`` units."""
+    full-width olmo-1b under :func:`_calibration_loss`: seconds,
+    evaluations, peak device memory, and the builders' ingests counted
+    on the path; each schedule valid and MSB-first per tensor; the SSE
+    sweep on the card ordered as the same sweep on CPU copies of the
+    2-layer model's planes. The greedy schedule goes on the v3 wire (raw)
+    through ``Session`` over ``pod-coldstart``: ``run_timeline``, then
+    ``run_serving`` quantized (batch 4, 48 steps); after every checkpoint
+    a client's store equals an in-memory store fed the same unit prefix,
+    the final store is the uniform stream's, and a fresh decode after the
+    last checkpoint equals the uniform stream's stage-8 server's. The
+    marginal schedule, whose checkpoints hold tensors at different bit
+    levels, goes through ``run_serving`` quantized too, its tokens
+    ``torch.equal`` to a server fed the same unit prefixes at the run's
+    per-step checkpoints. v2 entropy coding is timed on the 2-layer
+    model's ``attn.wq`` units. Every run counted from 0."""
     from repro_torch.core import calibrate as cal
     from repro_torch.core import entropy, wire
     from repro_torch.core.plane_store import PlaneStore
@@ -2433,6 +2491,14 @@ def _calibrate_phase(model, prog, dev, ops, prompt, clean_fps, arr_uni) -> dict:
     uniform = cal.uniform_schedule(prog)
     acc, routes = {}, {}
     scheds, info = {}, {}
+    ingests = {"plane_or_segments": prog.n_stages}
+
+    def built(fn, store: bool):
+        """``fn()`` timed and counted; a builder that holds a full store
+        makes its 8 ingests and nothing else."""
+        (out, sec, peak), c = _counted(ops, lambda: _timed(fn, dev), acc, routes)
+        check({k: v for k, v in c.items() if v} == (ingests if store else {}), c)
+        return out, sec, peak
 
     def record(name, sched, sec, peak, calls=None):
         sched.validate(plane_counts)           # complete and MSB-first per tensor
@@ -2452,47 +2518,37 @@ def _calibrate_phase(model, prog, dev, ops, prompt, clean_fps, arr_uni) -> dict:
             f"place; checkpoints {list(sched.checkpoints)}; planes in the first checkpoint "
             f"{first_cp}")
 
-    sse, sec, peak = _timed(lambda: cal.weight_sse_schedule(prog), dev)
+    sse, sec, peak = built(lambda: cal.weight_sse_schedule(prog), store=False)
     record("weight_sse_schedule (float64 on the card)", sse, sec, peak)
-    loss, calls, t_eval, l0 = _calibration_loss(model, prog, dev)
+    (loss, calls, t_eval, l0), _, _ = built(lambda: _calibration_loss(model, prog, dev),
+                                            store=True)
     log(f"[calibrate] one eval_loss call at full width ({CAL_BATCH} x {CAL_LEN} tokens, float "
         f"leaves): {t_eval * 1e3:.1f} ms, loss of the full model {l0:.4f}")
-    marg, sec, peak = _timed(lambda: cal.calibrate_schedule(prog, loss, method="marginal"),
-                             dev)
+    marg, sec, peak = built(lambda: cal.calibrate_schedule(prog, loss, method="marginal"),
+                            store=True)
     record("calibrate_schedule(method='marginal')", marg, sec, peak, calls[0])
-    n_greedy = sum(range(1, len(prog.tensors) + 1)) * prog.n_stages + 1
-    greedy_prog = prog
-    if t_eval * n_greedy > CAL_GREEDY_BUDGET_S:
-        # the cut line: greedy on the 2-layer full-width model
-        m2 = build_model(dataclasses.replace(cfg, n_layers=2))
-        greedy_prog = divide(m2.init(torch.Generator(device=dev).manual_seed(3), device=dev))
-        loss, calls, _, _ = _calibration_loss(m2, greedy_prog, dev)
-        log(f"[calibrate] greedy at full width would take ~{t_eval * n_greedy:.0f} s "
-            f"({n_greedy} calls): run on the 2-layer full-width model")
     calls[0] = 0
-    greedy, sec, peak = _timed(lambda: cal.greedy_schedule(greedy_prog, loss), dev)
-    if greedy_prog is prog:
-        record("greedy_schedule", greedy, sec, peak, calls[0])
-    else:
-        greedy.validate([t.plan.schedule.n_planes for t in greedy_prog.tensors])
-        log(f"[calibrate] greedy_schedule (2-layer): {sec:.2f} s, {calls[0]} calls, peak "
-            f"{peak / 1e9:.2f} GB; valid, MSB-first")
-        greedy = marg
+    greedy, sec, peak = built(lambda: cal.greedy_schedule(prog, loss), store=True)
+    record("greedy_schedule", greedy, sec, peak, calls[0])
     del loss
 
-    # the SSE sweep on the card against numpy's, on the 2-layer model
+    # the SSE sweep on the card against the same sweep on the host, on
+    # the 2-layer model
     m2 = build_model(dataclasses.replace(cfg, n_layers=2))
     prog2 = divide(m2.init(torch.Generator(device=dev).manual_seed(3), device=dev))
     t0 = time.perf_counter()
-    host = cal.weight_sse_schedule(prog2, host=True)
-    t_host = time.perf_counter() - t0
-    t0 = time.perf_counter()
     card = cal.weight_sse_schedule(prog2)
     t_card = time.perf_counter() - t0
+    prog2_cpu = _cpu_copy(prog2)
+    t0 = time.perf_counter()
+    host = cal.weight_sse_schedule(prog2_cpu)
+    t_host = time.perf_counter() - t0
     check(card.units == host.units and card.checkpoints == host.checkpoints,
-          "the SSE sweep on the card orders the units otherwise than numpy's")
-    log(f"[calibrate] weight_sse_schedule on the 2-layer full-width model: numpy sweep "
-        f"{t_host:.2f} s, card sweep {t_card:.2f} s; identical units and checkpoints")
+          "the SSE sweep on the card orders the units otherwise than on the host")
+    del prog2_cpu
+    log(f"[calibrate] weight_sse_schedule on the 2-layer full-width model: card sweep "
+        f"{t_card:.2f} s, the same sweep on CPU copies of the planes {t_host:.2f} s; identical "
+        f"units and checkpoints")
     # v2's host codec on the 2-layer model's attn.wq units
     wq = next(i for i, t in enumerate(prog2.tensors) if t.path[-2:] == ("attn", "wq"))
     raw = [wire.encode_unit(prog2, wq, p, entropy_coded=False) for p in range(8)]
@@ -2574,6 +2630,46 @@ def _calibrate_phase(model, prog, dev, ops, prompt, clean_fps, arr_uni) -> dict:
     log(f"[calibrate] a client fed the calibrated stream: after each of the "
         f"{greedy.n_stages} checkpoints its accumulators and received counts equal "
         f"(torch.equal) an in-memory store fed the same unit prefix")
+
+    # the marginal schedule: checkpoints off the uniform ladder's, so a
+    # step decodes with tensors at different bit levels
+    blob = wire.encode(prog, schedule=marg, integrity=True)
+    meta, _ = wire.decode_header(blob)
+    session = Session.from_scenario(blob, scenario, seed=0, device=dev)
+    arr_m = session.stage_arrival_times()
+    t0 = time.perf_counter()
+    r, c = _counted(ops, lambda: session.run_serving(
+        model, prog, decode_steps=SESSION_STEPS, batch={"tokens": prompt},
+        resident="quantized"), acc, routes)
+    host_s = time.perf_counter() - t0
+    check(r.tokens.shape == (BATCH, SESSION_STEPS) and r.server.stage == prog.n_stages,
+          r.upgrades)
+    check(c["decode_attention"] == layers * SESSION_STEPS
+          and c["dequant_matmul"] == (layers * 7 + 1) * (1 + SESSION_STEPS), c)
+    check(r.client.store.fingerprint() == clean_fps[-1],
+          "the marginal stream's final store differs from the uniform stream's")
+    levels = {}
+    for k in sorted(set(r.stage_at_step)):
+        rec = [0] * len(prog.tensors)
+        for t, _ in marg.units[:marg.checkpoints[k - 1]]:
+            rec[t] += 1
+        levels[k] = sorted(set(rec))
+    check(any(len(v) > 1 for v in levels.values()),
+          ("no served checkpoint holds tensors at different bit levels", levels))
+    del session, blob
+    torch.cuda.empty_cache()
+    replay, fp = _replay_prefix(model, prog, marg, meta, prompt, r.stage_at_step, dev)
+    check(fp == clean_fps[-1], "the unit-prefix store's final fingerprint differs")
+    check(torch.equal(replay, r.tokens),
+          "the marginal stream's tokens differ from a server fed the same unit prefixes")
+    log(f"[calibrate] marginal schedule through run_serving quantized {SESSION_STEPS} steps "
+        f"x {BATCH}: simulated checkpoint arrivals {[round(a, 4) for a in arr_m]} s; "
+        f"upgrades {r.upgrades}; planes received a tensor at each served checkpoint "
+        f"(distinct levels) {levels}; host {host_s:.3f} s; tokens equal (torch.equal) to a "
+        f"ProgressiveServer fed the same unit prefixes in memory at the run's per-step "
+        f"checkpoints; final store equal to the uniform stream's; launches {c}")
+    del r, replay
+    torch.cuda.empty_cache()
     return {"counts": acc, "routes": routes, "info": info}
 
 

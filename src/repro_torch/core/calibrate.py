@@ -322,50 +322,34 @@ def greedy_schedule(model, eval_loss: Callable[[dict], float], *,
     return _finalize(model, units, n_checkpoints)
 
 
-def _plane_sse(t, host: bool) -> list[float]:
+def _plane_sse(t) -> list[float]:
     """``SSE(p) = sum (scale * sum_{j >= p} plane_j << shift_j)^2`` for
-    p = 0..P (SSE(P) = 0), in float64, which holds the plane sums of
-    bits <= 16 exactly. ``host``: numpy, as the reference sweeps;
-    otherwise torch on the planes' device (its float64 sums may round
-    in another order)."""
+    p = 0..P (SSE(P) = 0), in float64 on the planes' device, which holds
+    the plane sums of bits <= 16 exactly (the reference sweeps in numpy;
+    the float64 sums may round in another order)."""
     sched = t.plan.schedule
     bits, cum = sched.bits, list(sched.cumulative_bits)
     span = affine_span(torch.as_tensor(t.lo).detach().cpu(),
                        torch.as_tensor(t.hi).detach().cpu())
-    scale = np.asarray(span.numpy(), np.float64) * 0.5 ** bits
-    sse = [0.0] * (sched.n_planes + 1)
-    if host:
-        resid = np.zeros(t.shape if t.shape else (), np.float64)
-        for p in range(sched.n_planes - 1, -1, -1):
-            resid = resid + (t.planes[p].cpu().numpy().astype(np.float64)
-                             * 2.0 ** (bits - cum[p]))
-            sse[p] = float(np.sum((scale * resid) ** 2))
-        return sse
     dev = t.planes[0].device
-    sc = torch.tensor(float(scale), dtype=torch.float64, device=dev)
+    sc = torch.tensor(float(span) * 0.5 ** bits, dtype=torch.float64, device=dev)
     resid = torch.zeros(t.shape, dtype=torch.float64, device=dev)
     sums = []
     for p in range(sched.n_planes - 1, -1, -1):
         resid.add_(t.planes[p].to(torch.float64) * 2.0 ** (bits - cum[p]))
         sums.append(torch.sum(torch.square(sc * resid)))
-    for p, v in zip(range(sched.n_planes - 1, -1, -1), torch.stack(sums).tolist()):
-        sse[p] = v
-    return sse
+    return torch.stack(sums).flip(0).tolist() + [0.0]
 
 
-def weight_sse_schedule(model, *, n_checkpoints: int | None = None,
-                        host: bool | None = None) -> TransmissionSchedule:
+def weight_sse_schedule(model, *, n_checkpoints: int | None = None) -> TransmissionSchedule:
     """Proxy calibration without data: price each plane by the summed
     squared weight error it removes against the fully received model.
     Truncating at plane boundary p drops exactly the value of planes
     p..P-1, and the affine intercept cancels in the difference, so the
-    SSE has a closed form over the server's planes: no store, no ingest.
-    ``host`` (default: whether the planes lie on the CPU) sweeps in
-    numpy, as the reference; otherwise on the planes' device."""
+    SSE has a closed form over the server's planes: no store, no ingest."""
     gains: dict[int, list[float]] = {}
     for i, t in enumerate(model.tensors):
-        on_host = t.planes[0].device.type == "cpu" if host is None else host
-        sse = _plane_sse(t, on_host)
+        sse = _plane_sse(t)
         gains[i] = [max(sse[p] - sse[p + 1], 0.0) for p in range(t.plan.schedule.n_planes)]
     return build_schedule(model, gains, n_checkpoints=n_checkpoints)
 
