@@ -53,6 +53,20 @@ with the launch counts set to 0 just before it and read just after:
    tokens equal phase 3's; a unit of stage 3 damaged on a second feed is
    quarantined and repaired to the clean fingerprint; raw v1 streams the
    2-layer full-width model the same way;
+   ``[mesh]``: sharded serving on logical shards of the one card
+   (``make_serving_mesh(n, devices=[card] * n)``; a run on 2+ cards is
+   still owed): at 2 shards, counted from 0, ``ProgressiveServer``
+   quantized (phase 3's stream) and the pool (phase 3's requests), every
+   logit and token ``torch.equal`` to one device's at every stage,
+   ``SpeculativeEngine`` at stage 8 equal to plain, and float residency
+   within ``FP_LOGIT_RTOL``; the v3 bytes through
+   ``ProgressiveClient(mesh=)`` at 4 shards, one ``plane_or_segments`` a
+   sub-store a stage, every leaf gathered equal to one device's store;
+   ``sharded_dequant_matmul`` (B7) at 2 and 4 shards on ``attn.wq``,
+   ``mlp.wi_up``, ``mlp.wo`` and ``embed.T`` split on its vocab columns,
+   M = 1-256, with and without a mask: ``torch.equal`` to one B2 launch
+   on either route, and within ``DQMM_RTOL`` of its plain version; its
+   times beside single-device B2;
    ``[session]``: the byte-clock ``Session`` over ``pod-coldstart``
    (200 MB/s, 1 MB chunks) at full width: ``run_timeline`` within 1e-9 s
    of ``progressive_timeline``; ``run_serving`` quantized, ``torch.equal``
@@ -203,6 +217,12 @@ CLI_TIMEOUT_S = 400
 # [quantized view]: QuantizedLinearState over embed as a (50304, 2048)
 # weight, its matmul checked at these rows at every stage
 VIEW_M = (1, 4, 64)
+# [mesh]: sharded serving on logical shards of the one card: the servers,
+# the pool and speculation at MESH_SERVE_SHARDS, the wire-fed store at
+# MESH_STORE_SHARDS, B7 against B2 at both and at these rows (20 on the
+# forced GEMV route, verify's)
+MESH_SERVE_SHARDS, MESH_STORE_SHARDS = 2, 4
+MESH_B7_M = (1, 4, 8, 20, 64, 256)
 # [calibrate]: the calibration batch (numpy-free torch seed 7)
 CAL_BATCH, CAL_LEN = 4, 64
 # v2 entropy coding is host numpy (core/entropy.py): its encode and decode
@@ -267,7 +287,7 @@ def bound_ms(n_bytes: float, n_ops: float, peak_ops: float) -> tuple[float, str]
 def kernel_counters() -> dict:
     """Each kernel's launch counter (its wrapper module and the counter's
     name there), by its name in the kernels line."""
-    from repro_torch.kernels import bitplane, decode_attention, dequant_matmul
+    from repro_torch.kernels import bitplane, decode_attention, dequant_matmul, ops
     from repro_torch.kernels import verify_attention
 
     return {"plane_or_segments": (bitplane, "launches"),
@@ -275,7 +295,8 @@ def kernel_counters() -> dict:
             "decode_attention": (decode_attention, "launches"),
             "flash_verify": (verify_attention, "launches"),
             "plane_or": (bitplane, "plane_or_launches"),
-            "plane_extract": (bitplane, "plane_extract_launches")}
+            "plane_extract": (bitplane, "plane_extract_launches"),
+            "sharded_dequant_matmul": (ops, "sharded_launches")}
 
 
 def reset_counts(ops) -> None:
@@ -476,9 +497,13 @@ def main() -> int:
     del prog_scaled
 
     # -- 4. the same model from wire bytes -----------------------------------
-    wire_counts, wire_routes = _wire_phase(model, prog, dev, ops, prompt, res, clean_fps,
-                                           serve_routes)
+    wire_counts, wire_routes, blob = _wire_phase(model, prog, dev, ops, prompt, res,
+                                                 clean_fps, serve_routes)
     _wire_v1_check(cfg, dev)
+
+    # -- 4a. sharded serving on logical shards of the card -------------------
+    mesh = _mesh_phase(model, prog, dev, ops, prompt, blob)
+    del blob
 
     # -- 4b. the byte-clock Session and the CLI ------------------------------
     t0 = time.perf_counter()
@@ -500,7 +525,8 @@ def main() -> int:
 
     # -- 6. each kernel against its plain version on the path's operands ----
     kern: dict[str, dict] = {"plane_or": {"max_abs_err": 0},
-                             "plane_extract": {"max_abs_err": 0}}
+                             "plane_extract": {"max_abs_err": 0},
+                             "sharded_dequant_matmul": mesh["kern"]}
     # plane_or_segments: the accumulators after stage 7 and stage 8's plane
     exact = True
     chunk = 1 << 26
@@ -949,20 +975,25 @@ def main() -> int:
                "flash_verify": ("verify_attention.cu",
                                 "src/repro/kernels/verify_attention.py:91"),
                "plane_or": ("plane_or.cu", "src/repro/kernels/bitplane.py:53"),
-               "plane_extract": ("plane_extract.cu", "src/repro/kernels/bitplane.py:149")}
+               "plane_extract": ("plane_extract.cu", "src/repro/kernels/bitplane.py:149"),
+               # B7: a B2 launch a shard with n_split = N, over the two B2 sources
+               "sharded_dequant_matmul": ("src/repro_torch/kernels/ops.py",
+                                          "src/repro/kernels/ops.py:76")}
     # launches on the main paths, each path counted from 0
     paths = {"divide": divide_counts, "serve": path_counts, "pool": pool_counts,
              "spec": spec["counts"], "spec pool": spec_pool["counts"],
              "wire": wire_counts, "session": session["counts"],
              "upgrade per tensor": upgrade_counts, "quantized view": view["counts"],
-             "pool batch-1": batch1["counts"], "calibrate": calib["counts"]}
+             "pool batch-1": batch1["counts"], "calibrate": calib["counts"],
+             "mesh": mesh["counts"]}
     launches = {name: sum(c.get(name, 0) for c in paths.values()) for name in sources}
     check(all(launches[name] > 0 for name in sources), launches)
     # dequant_matmul's launches by route on the paths that run it
     route_paths = {"serve": serve_routes, "pool": pool_routes, "spec": spec["routes"],
                    "spec pool": spec_pool["routes"], "wire": wire_routes,
                    "session": session["routes"], "quantized view": view["routes"],
-                   "pool batch-1": batch1["routes"], "calibrate": calib["routes"]}
+                   "pool batch-1": batch1["routes"], "calibrate": calib["routes"],
+                   "mesh": mesh["routes"]}
     by_route = {k: sum(r[k] for r in route_paths.values()) for k in dqm.launches_by_route}
     check(sum(by_route.values()) == launches["dequant_matmul"] and all(by_route.values()),
           (by_route, launches["dequant_matmul"]))
@@ -990,7 +1021,8 @@ def main() -> int:
             f"launches on the paths {launches[name]} ("
             + ", ".join(f"{p} {n}" for p, n in per_path.items()) + ")")
         entry = {"name": name, "route": "cuda",
-                 "source": f"src/repro_torch/kernels/csrc/{src}", "replaces": replaces,
+                 "source": src if src.startswith("src/") else f"src/repro_torch/kernels/csrc/{src}",
+                 "replaces": replaces,
                  "launches": launches[name], "max_abs_err": k["max_abs_err"],
                  "ms": k["ms"], "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
                  "bound_by": k["bound_by"], "library_ms": k["library_ms"]}
@@ -1001,6 +1033,8 @@ def main() -> int:
                                                    "mask_ms", "verify_step")})
         if "by_S" in k:
             entry["by_S"] = k["by_S"]
+        if name == "sharded_dequant_matmul":
+            entry.update(b2_ms=k["b2_ms"], by_shards=k["by_shards"])
         line.append(entry)
     log(f"[done] {time.perf_counter() - t_script:.1f} s")
     print(json.dumps({"kernels": line}))
@@ -1208,7 +1242,316 @@ def _wire_phase(model, prog, dev, ops, prompt, res, clean_fps, serve_routes) -> 
         f"clean stage-2 fingerprint; after feed_repair all 8 stages, fingerprint equal to "
         f"the clean one; ingest ms a stage (synchronised) "
         f"{[round(t, 2) for t in ingest_ms]}")
-    return run_counts, routes
+    return run_counts, routes, blob
+
+
+class LogitLog:
+    """Wraps a Model: keeps a copy of the logits of every prefill, decode
+    step and prefill chunk, on the device, in call order."""
+
+    def __init__(self, model):
+        self.model = model
+        self.logits: list[torch.Tensor] = []
+
+    def __getattr__(self, name):
+        return getattr(self.model, name)
+
+    def prefill(self, params, batch, n_valid=None):
+        logits, caches = self.model.prefill(params, batch, n_valid)
+        self.logits.append(logits.clone())
+        return logits, caches
+
+    def decode_step(self, params, caches, tokens, pos):
+        logits, caches = self.model.decode_step(params, caches, tokens, pos)
+        self.logits.append(logits.clone())
+        return logits, caches
+
+    def prefill_chunk(self, params, caches, tokens, tok_pos):
+        logits, caches = self.model.prefill_chunk(params, caches, tokens, tok_pos)
+        self.logits.append(logits.clone())
+        return logits, caches
+
+
+def _mesh_phase(model, prog, dev, ops, prompt, blob) -> dict:
+    """``[mesh]``: sharded serving on logical shards of the one card,
+    ``make_serving_mesh(n, devices=[card] * n)``. The single-device runs
+    come first; then, counted from 0, the same runs at
+    ``MESH_SERVE_SHARDS`` shards: ``ProgressiveServer`` quantized (every
+    logit and token ``torch.equal``), the slot pool on the pool phase's
+    requests (the same), ``SpeculativeEngine`` at stage 8 (tokens equal
+    to plain) and the float-resident server (logits within
+    ``FP_LOGIT_RTOL``, tokens equal where the margin clears it). Then the
+    v3 bytes through ``ProgressiveClient(mesh=)`` at ``MESH_STORE_SHARDS``
+    shards, a stage at a time, every leaf gathered equal to the
+    single-device store's; then B7 against B2 on both routes and layouts
+    at every M of ``MESH_B7_M``, with and without a mask, bit for bit, and
+    against its plain version; then its times. Returns the path's launch
+    counts and routes and the kernels line's B7 entry."""
+    from repro_torch.core.plane_store import ShardedLeaf
+    from repro_torch.core.progressive import ReceiverState
+    from repro_torch.core import wire
+    from repro_torch.kernels import dequant_matmul as dqm
+    from repro_torch.kernels import ref
+    from repro_torch.launch.mesh import make_serving_mesh
+    from repro_torch.models.transformer import layer
+    from repro_torch.serving.engine import (PoolRequest, ProgressiveServer, SlotPoolEngine,
+                                            WireStoreReceiver)
+    from repro_torch.serving.speculative import SpecConfig, SpeculativeEngine
+    from repro_torch.transmission import ProgressiveClient
+
+    t_phase = time.perf_counter()
+    cfg, layers = model.cfg, model.cfg.n_layers
+    meshes = {n: make_serving_mesh(n, devices=[dev] * n)
+              for n in (MESH_SERVE_SHARDS, MESH_STORE_SHARDS)}
+    for n, mesh in meshes.items():
+        log(f"[mesh] {n} logical shards on 1 card: {mesh.describe()}; this checks "
+            f"placement, ingest and arithmetic, not the time of copies between cards")
+    lengths, budgets, prompts = _pool_requests(cfg)
+
+    def serve(mesh, resident):
+        rec = LogitLog(model)
+        srv = ProgressiveServer(rec, prog, max_len=PROMPT + STEPS, resident=resident,
+                                mesh=mesh, device=dev)
+        srv.receive_stage()
+        srv.start({"tokens": prompt})
+        res = srv.decode(STEPS, stage_arrival=lambda i: i in ARRIVALS)
+        torch.cuda.synchronize()
+        return srv, res, rec.logits
+
+    def pool_run(mesh):
+        rec = LogitLog(model)
+        pool = SlotPoolEngine(rec, prog, n_slots=POOL_SLOTS, max_len=POOL_MAX_LEN,
+                              resident="quantized", dispatch_window=POOL_WINDOW,
+                              prefill_chunk=POOL_CHUNK, mesh=mesh, device=dev)
+        t0 = time.perf_counter()
+        pool.receive_stage()
+        for rid in range(POOL_REQUESTS):
+            pool.submit(PoolRequest(rid=rid, prompt=prompts[rid],
+                                    max_new_tokens=int(budgets[rid])))
+        out = pool.run(on_window=lambda _: pool.upgrade_if_available())
+        torch.cuda.synchronize()
+        return pool, out, rec.logits, time.perf_counter() - t0
+
+    # single device, not counted
+    srv1, res1, logits1 = serve(None, "quantized")
+    logits1 = list(logits1)      # srv1 decodes again below, for the speculation
+    pool1, out1, plog1, pool1_s = pool_run(None)
+    slog1 = pool1.stage_log
+    del pool1
+    fsrv1, fres1, flog1 = serve(None, "fp")
+    del fsrv1
+    srv1.start({"tokens": prompt})                  # stage 8, the speculation's plain run
+    plain8 = srv1.decode(SPEC_TOKENS).tokens
+    torch.cuda.synchronize()
+
+    # sharded, counted from 0
+    n = MESH_SERVE_SHARDS
+    mesh = meshes[n]
+    reset_counts(ops)
+    srv2, res2, logits2 = serve(mesh, "quantized")
+    pool2, out2, plog2, pool2_s = pool_run(mesh)
+    spec = SpeculativeEngine(model, prog, max_len=PROMPT + SPEC_TOKENS + 9,
+                             spec=SpecConfig(draft_bits=4, k=4), mesh=mesh, device=dev)
+    for _ in range(prog.n_stages):
+        spec.receive_stage()
+    spec.start({"tokens": prompt})
+    sres = spec.decode(SPEC_TOKENS)
+    fsrv2, fres2, flog2 = serve(mesh, "fp")
+    torch.cuda.synchronize()
+    run_counts, op_counts, routes = counts(), dict(ops.LAUNCH_COUNTS), route_counts()
+    gemv_by = check_one_pass(routes, "mesh")
+
+    # every logit and token of the quantized runs equal to one device's
+    check(len(logits1) == len(logits2) == 1 + STEPS, (len(logits1), len(logits2)))
+    check(all(torch.equal(a, b) for a, b in zip(logits1, logits2)),
+          "[mesh] sharded server logits differ from one device's")
+    check(torch.equal(res1.tokens, res2.tokens) and res1.upgrades == res2.upgrades,
+          "[mesh] sharded server tokens differ from one device's")
+    check(res2.stage_at_step == res1.stage_at_step and srv2.stage == 8, res2.stage_at_step)
+    check(out1 == out2 and pool2.stage_log == slog1,
+          "[mesh] sharded pool tokens differ from one device's")
+    check(len(plog1) == len(plog2) and all(torch.equal(a, b) for a, b in zip(plog1, plog2)),
+          "[mesh] sharded pool logits differ from one device's")
+    check(pool2.stage == 8 and all(u["sharded"] for u in pool2.upgrade_log), pool2.stage)
+    check(torch.equal(sres.tokens, plain8.cpu()), "[mesh] speculative tokens differ from plain")
+    check(sres.drafted > 0 and spec.resident_report()["extra_draft_bytes"] == 0,
+          (sres.drafted, spec.resident_report()["extra_draft_bytes"]))
+    # float residency: cuBLAS may sum a shard's N/n columns in another
+    # order than the whole N, so the sharded logits are held to the float
+    # path's tolerance (FP_LOGIT_RTOL) and tokens wherever the margin clears
+    fp_err, fp_checked, fp_near = _fp_against_quantized(flog2, flog1, fres2.tokens,
+                                                        fres1.tokens)
+    fp_equal = int((fres2.tokens == fres1.tokens).sum())
+    rep1, rep2 = srv1.resident_report(), srv2.resident_report()
+    check(rep2["quantized_bytes"] == rep1["quantized_bytes"] and rep2["fp_bytes"] == 0, rep2)
+    # launches: every layer weight through B7 (n B2 launches each), the
+    # unembedding on the gathered embed through B2; one plane OR a shard a stage
+    n_b7 = op_counts.get("sharded_dequant_matmul", 0)
+    check(run_counts["sharded_dequant_matmul"] == n_b7 > 0, (run_counts, op_counts))
+    check(run_counts["dequant_matmul"] == n * n_b7 + op_counts["dequant_matmul"],
+          (run_counts, op_counts))
+    check(n_b7 == layers * 7 * (1 + STEPS + pool2._tick_count + pool2._step_count
+                                + 1 + _b2_steps(sres.accept_rounds)[0]
+                                + _b2_steps(sres.accept_rounds)[1]), (n_b7, op_counts))
+    check(run_counts["plane_or_segments"] == n * 8 * 4 and run_counts["plane_or"] == 0,
+          run_counts)
+    q_tok_s = {"1 card": BATCH * STEPS / sum(s for _, s in res1.window_s),
+               f"{n} shards": BATCH * STEPS / sum(s for _, s in res2.window_s)}
+    n_pool = sum(len(t) for t in out1.values())
+    pool_tok_s = {"1 card": n_pool / pool1_s, f"{n} shards": n_pool / pool2_s}
+    log(f"[mesh] {n} shards, counted from 0: ProgressiveServer quantized ({BATCH} x "
+        f"{STEPS} steps, 8 stages): {len(logits2)} logits and every token equal "
+        f"(torch.equal) to one device's; the pool ({POOL_REQUESTS} requests, "
+        f"{pool2._tick_count} ticks, {pool2._step_count} steps): {len(plog2)} logits and "
+        f"every token equal; SpeculativeEngine at stage 8 (k = 4, draft 4 bits, "
+        f"{sres.accepted}/{sres.drafted} drafts accepted): tokens equal to plain; float "
+        f"residency: logits within {fp_err:.3e} of one device's largest (tolerance "
+        f"{FP_LOGIT_RTOL}), {fp_checked} tokens checked equal, {fp_near} near ties, "
+        f"{fp_equal}/{fres1.tokens.numel()} tokens equal")
+    log(f"[mesh] launches in the run {run_counts}; B7 calls {n_b7} ({n} B2 launches each), "
+        f"B2 by route {routes}, GEMV route by kernel {gemv_by}")
+    log(f"[mesh] tokens/s, in the same phase: ProgressiveServer {q_tok_s}; pool "
+        f"{pool_tok_s}; the gathered embed (a copy at each upgrade that touches it): "
+        f"{cfg.vocab * cfg.d_model * 2} bytes quantized, {cfg.vocab * cfg.d_model * 4} "
+        f"bytes float")
+    del pool2, fsrv2, plog1, plog2, flog1, flog2, spec
+
+    # the store from wire bytes at MESH_STORE_SHARDS shards, a stage at a time
+    n4 = MESH_STORE_SHARDS
+    meta, ends = _stage_ends(wire, blob)
+    client = ProgressiveClient(mesh=meshes[n4], device=dev)
+    state = ReceiverState.init(prog, device=dev)
+    client.feed(memoryview(blob)[:ends[0]])
+    reset_counts(ops)
+    ingest = []
+    for s in range(1, prog.n_stages + 1):
+        before = ops.LAUNCH_COUNTS["plane_or_segments"]
+        client.feed(memoryview(blob)[ends[s - 1]:ends[s]])
+        ingest.append(ops.LAUNCH_COUNTS["plane_or_segments"] - before)
+        state = state.receive(prog.stage(s))
+        mine, want = client.store.quantized_leaves(), state.store.quantized_leaves()
+        for key, leaf in mine.items():
+            whole = leaf.gather() if isinstance(leaf, ShardedLeaf) else leaf
+            w = want[tuple(key.split("/"))]
+            check(torch.equal(whole.q, w.q) and torch.equal(whole.offset, w.offset),
+                  f"[mesh] store leaf {key} differs from one device's at stage {s}")
+    check(client.complete and ingest == [n4] * 8 and ops.LAUNCH_COUNTS["plane_or"] == 0,
+          (ingest, dict(ops.LAUNCH_COUNTS)))
+    log(f"[mesh] v3 bytes through ProgressiveClient(mesh=) at {n4} shards, a stage at a "
+        f"time: plane_or_segments launches a stage {ingest} (one a sub-store), plane_or 0; "
+        f"every leaf gathered equal (torch.equal, q and offset) to the single-device "
+        f"store's after each of the 8 stages; fingerprint keys {sorted(client.store.fingerprint())}")
+    del state
+
+    # B7 against B2, bit for bit, at both shard counts
+    leaves = {n: srv2.params, n4: WireStoreReceiver(client, prog).materialize_resident()}
+    full = srv1.params
+    xg = torch.Generator(device=dev).manual_seed(9)
+    four = torch.full((1, 1), 4, dtype=torch.int32, device=dev)
+    forced = {"gemv": dqm._launch_gemv, "mma": dqm._launch_mma}
+    b7_err, b7_mag, checks = 0.0, 0.0, 0
+    for nn, P in leaves.items():
+        mesh_n = meshes[nn]
+        l0 = layer(P["decoder"]["cycles"]["0_attn"], 0)
+        f0 = layer(full["decoder"]["cycles"]["0_attn"], 0)
+        emb = full["embed"]
+        V = emb.q.shape[0]
+        emb_parts = [dataclasses.replace(emb, q=emb.q[j * V // nn:(j + 1) * V // nn])
+                     for j in range(nn)]
+        tensors = {"attn.wq": (l0["attn"]["wq"].parts, f0["attn"]["wq"]),
+                   "mlp.wi_up": (l0["mlp"]["wi_up"].parts, f0["mlp"]["wi_up"]),
+                   "mlp.wo": (l0["mlp"]["wo"].parts, f0["mlp"]["wo"]),
+                   "embed.T": ([p.T for p in emb_parts], emb.T)}
+        for name, (parts, w) in tensors.items():
+            K, N = w.q.shape
+            xd = torch.float32 if name == "embed.T" else cfg.dtype
+            qs = [p.q for p in parts]
+            for M in MESH_B7_M:
+                rows = "decode" if M == 20 else "any"
+                x = torch.randn((M, K), generator=xg, device=dev).to(xd)
+                for kt in (None, four):
+                    keeps = None if kt is None else [kt] * nn
+                    scales, offsets = [p.scale for p in parts], [p.offset for p in parts]
+                    y = ops.sharded_dequant_matmul(x, qs, scales, offsets, keeps=keeps,
+                                                   bits=16, rows=rows, mesh=mesh_n, n_split=N)
+                    y1 = dqm.dequant_matmul(x, w.q, w.scale, w.offset, kt, bits=16, rows=rows)
+                    check(torch.equal(y, y1), f"[mesh] B7 {name} n={nn} M={M} keep="
+                          f"{kt is not None}: differs from one B2 launch")
+                    for route, launch in forced.items():
+                        ys = torch.cat([launch(x, p.q, p.scale, p.offset, kt, bits=16,
+                                               n_split=N) for p in parts], dim=1)
+                        check(torch.equal(ys, launch(x, w.q, w.scale, w.offset, kt, bits=16)),
+                              f"[mesh] B7 {name} n={nn} M={M} on {route}: shards differ")
+                    yr = ref.sharded_dequant_matmul_ref(x, qs, scales, offsets, keeps, bits=16)
+                    mag = float(yr.abs().max())
+                    err = float((y - yr).abs().max())
+                    check(err <= DQMM_RTOL * mag, (name, nn, M, err, mag))
+                    b7_err, b7_mag = max(b7_err, err), max(b7_mag, mag)
+                    checks += 1
+    log(f"[mesh] B7 against B2 at {sorted(leaves)} shards on attn.wq (2048, 2048), "
+        f"mlp.wi_up (2048, 8192), mlp.wo (8192, 2048) and embed.T split on its vocab "
+        f"columns (K contiguous), M = {list(MESH_B7_M)} (20 on rows='decode'), without and "
+        f"with keep = 4: in all {checks} cases torch.equal to one B2 launch, and on both forced "
+        f"routes the shards' columns equal to the unsharded launch; against the plain "
+        f"version max |err| {b7_err:.3e} (largest max |y| {b7_mag:.1f}, tolerance "
+        f"{DQMM_RTOL} of it)")
+
+    # times: one decode step's and one tick's layer weights through B7
+    # against single-device B2 on the same card, at both shard counts
+    stack_full = full["decoder"]["cycles"]["0_attn"]
+    full_ws = [w for r in range(layers) for w in _layer_weights(layer(stack_full, r))]
+    by_n = {}
+    for nn, P in leaves.items():
+        stack = P["decoder"]["cycles"]["0_attn"]
+        sh_ws = [w for r in range(layers) for w in _layer_weights(layer(stack, r))]
+        mesh_n = meshes[nn]
+        for label, M in (("decode step", BATCH), ("tick", POOL_SLOTS * POOL_CHUNK)):
+            xs = {k: torch.randn((M, k), generator=xg, device=dev).to(cfg.dtype)
+                  for k in (cfg.d_model, cfg.d_ff)}
+            calls = [(xs[w.q.shape[0]], w, sw) for w, sw in zip(full_ws, sh_ws)]
+
+            def b7(calls=calls, mesh_n=mesh_n):
+                for x, w, sw in calls:
+                    ops.sharded_dequant_matmul(
+                        x, [p.q for p in sw.parts], [p.scale for p in sw.parts],
+                        [p.offset for p in sw.parts], bits=16, mesh=mesh_n,
+                        n_split=w.q.shape[1])
+
+            def b2(calls=calls):
+                for x, w, _ in calls:
+                    dqm.dequant_matmul(x, w.q, w.scale, w.offset)
+
+            t = {"b7": [], "b2": []}
+            for _ in range(2):        # in turns: B2, B7, B2, B7
+                t["b2"].append(device_ms(b2, 3))
+                t["b7"].append(device_ms(b7, 3))
+            by_n[(nn, label)] = t
+            if nn == MESH_SERVE_SHARDS and label == "decode step":
+                bound, by = _dqmm_bound([(x, w) for x, w, _ in calls])
+                dense_sh = [[p.q.to(torch.float32) * p.scale.reshape(()) + p.offset.reshape(())
+                             for p in sw.parts] for _, _, sw in calls]
+                xf = [x.float() for x, _, _ in calls]
+                row = {"ms": min(t["b7"]),
+                       "plain_ms": device_ms(lambda: [ref.sharded_dequant_matmul_ref(
+                           x, [p.q for p in sw.parts], [p.scale for p in sw.parts],
+                           [p.offset for p in sw.parts], bits=16) for x, _, sw in calls], 1),
+                       "library_ms": device_ms(lambda: [torch.cat([torch.matmul(x, d)
+                                                                   for d in ds], dim=1)
+                                                        for x, ds in zip(xf, dense_sh)], 3),
+                       "host_ms": host_ms(b7, 3), "b2_ms": min(t["b2"]),
+                       "bound_ms": bound, "bound_by": by,
+                       "per": f"one decode step's layer weights at {nn} shards "
+                              f"({len(calls)} calls at M={M}, {nn * len(calls)} B2 launches)"}
+                del dense_sh, xf
+            log(f"[time] B7 {label} (M={M}, {len(calls)} layer weights) at {nn} shards: "
+                f"B7 {', '.join(f'{v:.4f}' for v in t['b7'])} ms, single-device B2 "
+                f"{', '.join(f'{v:.4f}' for v in t['b2'])} ms on the device")
+    row["by_shards"] = {f"{nn} {label}": t for (nn, label), t in by_n.items()}
+    row["max_abs_err"] = b7_err
+    del srv1, srv2, client, leaves, full
+    log(f"[mesh] {time.perf_counter() - t_phase:.1f} s")
+    return {"counts": run_counts, "routes": routes, "kern": row,
+            "tok_s": q_tok_s, "pool_tok_s": pool_tok_s}
 
 
 def _wire_v1_check(cfg, dev) -> None:

@@ -1,7 +1,8 @@
 """PlaneStore: the device-resident receiver runtime (eqs. 4 and 5).
 
-Counterpart of ``src/repro/core/plane_store.py`` ``PlaneStore``, on one
-device. The multi-device store is still to be ported.
+Counterpart of ``src/repro/core/plane_store.py``: ``PlaneStore`` on one
+device, and :class:`ShardedPlaneStore`, one sub-store a model shard of a
+serving mesh (at the end of this module).
 
 Layout
 ------
@@ -36,7 +37,9 @@ buffer it lies in.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import math
 import zlib
 from typing import Any, Sequence
 
@@ -87,6 +90,19 @@ def _entries_from_model(model, indices: Sequence[int] | None = None) -> list[dic
     return [{"key": t.path, "schedule": t.plan.schedule, "lo": t.lo, "hi": t.hi,
              "shape": tuple(t.shape), "orig_dtype": t.orig_dtype,
              "slice_axis": t.slice_axis, "slice_idx": t.slice_idx} for t in tensors]
+
+
+def _entries_from_wire_meta(meta) -> list[dict]:
+    """Per-tensor descriptor dicts from a decoded wire header."""
+    if any(t.get("slice_axis") is not None for t in meta["tensors"]):
+        raise NotImplementedError("sliced tensors (per-expert ranges) are still to "
+                                  "be ported (ROADMAP A8)")
+    return [{"key": t["path"],
+             "schedule": PlaneSchedule(bits=t["bits"], widths=tuple(t["widths"])),
+             "lo": torch.tensor(t["lo"], dtype=torch.float32),
+             "hi": torch.tensor(t["hi"], dtype=torch.float32),
+             "shape": tuple(t["shape"]), "orig_dtype": FLOAT_DTYPES[t["dtype"]]}
+            for t in meta["tensors"]]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -185,17 +201,7 @@ class PlaneStore:
                        ) -> "PlaneStore":
         """Build from a decoded wire header (keys are path strings; lo and
         hi stay on the host, where the quantized views read them)."""
-        if any(t.get("slice_axis") is not None for t in meta["tensors"]):
-            raise NotImplementedError("sliced tensors (per-expert ranges) are still to "
-                                      "be ported (ROADMAP A8)")
-        return cls._from_entries(
-            [{"key": t["path"],
-              "schedule": PlaneSchedule(bits=t["bits"], widths=tuple(t["widths"])),
-              "lo": torch.tensor(t["lo"], dtype=torch.float32),
-              "hi": torch.tensor(t["hi"], dtype=torch.float32),
-              "shape": tuple(t["shape"]), "orig_dtype": FLOAT_DTYPES[t["dtype"]]}
-             for t in meta["tensors"]],
-            block=block, device=device)
+        return cls._from_entries(_entries_from_wire_meta(meta), block=block, device=device)
 
     def copy(self) -> "PlaneStore":
         """Cheap snapshot: ingest never writes into a buffer, it replaces
@@ -468,5 +474,351 @@ class PlaneStore:
                     out[s.key] = got
                     continue
             out[s.key] = self._fp_leaf(i)
+        self._dirty.clear()
+        return out
+
+
+# ---------------------------------------------------------------------------
+# The sharded store
+# ---------------------------------------------------------------------------
+
+def _path(key) -> str:
+    """A leaf key as the 'a/b/c' string of ``wire.path_str`` (wire keys
+    already are)."""
+    return key if isinstance(key, str) else "/".join(str(k) for k in key)
+
+
+def _on(device: torch.device):
+    """Make ``device`` current while kernels launch on it: the C launchers
+    launch on the current card."""
+    return torch.cuda.device(device) if device.type == "cuda" else contextlib.nullcontext()
+
+
+def _to(qt: QuantizedTensor, device: torch.device) -> QuantizedTensor:
+    """A quantized view with every tensor on ``device`` (no copy where
+    they lie there already)."""
+    def move(t):
+        return t if t is None or t.device == device else t.to(device, non_blocking=True)
+    return dataclasses.replace(qt, q=move(qt.q), lo=move(qt.lo), hi=move(qt.hi),
+                               scale=move(qt.scale), offset=move(qt.offset),
+                               received_bits=move(qt.received_bits),
+                               keep_bits=move(qt.keep_bits))
+
+
+@dataclasses.dataclass(frozen=True)
+class ShardedLeaf:
+    """A parameter leaf split on one dim over a mesh's model shards:
+    ``parts[j]`` lies on ``mesh.model_devices[j]``, a live
+    :class:`QuantizedTensor` view of that shard's accumulator (its
+    eq.-(5) constants shard-local, equal on every shard) or a float
+    tensor. ``axis`` counts from the end (-1: the output dim), so it
+    survives taking one layer of a stacked leaf. The model's
+    ``dense`` runs it through ``ops.sharded_dequant_matmul`` (quantized)
+    or a matmul a shard (float), and gathers the outputs."""
+
+    parts: tuple
+    axis: int
+    mesh: Any
+
+    @property
+    def quantized(self) -> bool:
+        return isinstance(self.parts[0], QuantizedTensor)
+
+    @property
+    def shape(self) -> tuple:
+        shape = list(self._t(self.parts[0]).shape)
+        shape[self.axis] = sum(self._t(p).shape[self.axis] for p in self.parts)
+        return tuple(shape)
+
+    def _t(self, part) -> torch.Tensor:
+        return part.q if isinstance(part, QuantizedTensor) else part
+
+    def truncate(self, b: int) -> "ShardedLeaf":
+        """The truncated-precision view of every part (``QuantizedTensor.truncate``)."""
+        return dataclasses.replace(self, parts=tuple(p.truncate(b) for p in self.parts))
+
+    def gather(self, device=None):
+        """The whole leaf on ``device`` (default: the mesh's home device):
+        the parts concatenated along ``axis``, a quantized view carrying
+        part 0's affine (the whole tensor's)."""
+        device = self.mesh.home if device is None else torch.device(device)
+        ts = [self._t(p) for p in self.parts]
+        whole = torch.cat([t if t.device == device else t.to(device, non_blocking=True)
+                           for t in ts], dim=self.axis)
+        if not self.quantized:
+            return whole
+        return dataclasses.replace(_to(self.parts[0], device), q=whole)
+
+
+class ShardedPlaneStore:
+    """Per-model-shard sub-stores, shard-local ingest, sharded leaves.
+
+    Counterpart of the reference's ``ShardedPlaneStore``
+    (``src/repro/core/plane_store.py:658``). Model shard ``j`` owns an
+    ordinary :class:`PlaneStore` on ``mesh.model_devices[j]``: the same
+    flat accumulators and batched ``plane_or_segments`` upgrade. A
+    tensor routes along the axis ``launch.sharding.serving_spec_for_param``
+    shards the parameter it backs:
+
+    * **split** (>= 2-D, the spec shards a dim): each arriving plane is
+      cut along that dim and each piece is ORed on its owning shard only
+      (one ``plane_or_segments`` launch a sub-store a container dtype a
+      stage);
+    * **whole** (1-D, indivisible): round-robin to one sub-store; its leaf
+      is moved to the home device.
+
+    Every plane element is ORed exactly once, on one device. Leaves come
+    back as :class:`ShardedLeaf` objects, except the ones sharded
+    serving gathers (``launch.sharding.GATHERED_LEAVES``: the tied
+    embedding, whose split dim the unembedding contracts), which are
+    concatenated into one tensor on the home device when an ingest
+    touched them, on the device, without a host sync. The eq.-(5)
+    constants stay shard-local: each sub-store computes its own.
+
+    Left for later, each raising ``NotImplementedError``: replica rows
+    (a mesh with ``data`` > 1, ROADMAP A13) and expert-sliced tensors
+    (the expert route, ROADMAP A8(c))."""
+
+    def __init__(self, entries: list[dict], mesh, *, block: int = DEFAULT_BLOCK):
+        from repro_torch.launch.mesh import check_serving_mesh
+        from repro_torch.launch.sharding import gathered_for_serving, serving_spec_for_param
+
+        if tuple(mesh.axis_names) != ("data", "model"):
+            raise ValueError(f"ShardedPlaneStore wants a ('data', 'model') mesh, got axes "
+                             f"{mesh.axis_names}")
+        check_serving_mesh(mesh)
+        if any(e.get("slice_axis") is not None for e in entries):
+            raise NotImplementedError("the expert route of sliced tensors is still to be "
+                                      "ported (ROADMAP A8(c))")
+        self.mesh = mesh
+        self.block = block
+        self.device = mesh.home
+        self._n_model = mesh.shape["model"]
+        self.keys = [e["key"] for e in entries]
+        self.schedules = [e["schedule"] for e in entries]
+        self.shapes = [tuple(e["shape"]) for e in entries]
+        self.received = [0] * len(entries)
+        # idx -> ("split", axis) | ("whole", owner shard)
+        self._route: list[tuple[str, int]] = []
+        # idx -> [(shard, local slot)] in shard order
+        self._placement: list[list[tuple[int, int]]] = []
+        self._gathered = [gathered_for_serving(_path(k)) for k in self.keys]
+        per_shard: list[list[dict]] = [[] for _ in range(self._n_model)]
+        rr = 0   # round-robin cursor of whole-routed tensors
+        for e in entries:
+            spec = (serving_spec_for_param(_path(e["key"]), tuple(e["shape"]), mesh)
+                    if len(e["shape"]) >= 2 else ())
+            ax = next((d for d, name in enumerate(spec) if name == "model"), None)
+            if ax is not None:
+                shape = list(e["shape"])
+                shape[ax] //= self._n_model
+                local = dict(e, shape=tuple(shape))
+                place = list(range(self._n_model))
+                self._route.append(("split", ax))
+            else:
+                local, place = e, [rr % self._n_model]
+                self._route.append(("whole", place[0]))
+                rr += 1
+            self._placement.append([(j, len(per_shard[j])) for j in place])
+            for j in place:
+                per_shard[j].append(local)
+        self.substores = [PlaneStore._from_entries(per_shard[j], block=block,
+                                                   device=mesh.model_devices[j])
+                          for j in range(self._n_model)]
+        self._dirty: set[int] = set(range(len(entries)))
+        self._leaf_cache: dict[Any, Any] = {}
+        self._qleaf_cache: dict[Any, Any] = {}
+        self._qtrunc_cache: dict[tuple, Any] = {}
+
+    # -- construction ------------------------------------------------------
+    @classmethod
+    def from_model(cls, model, mesh, *, block: int = DEFAULT_BLOCK) -> "ShardedPlaneStore":
+        return cls(_entries_from_model(model), mesh, block=block)
+
+    @classmethod
+    def from_wire_meta(cls, meta, mesh, *, block: int = DEFAULT_BLOCK
+                       ) -> "ShardedPlaneStore":
+        return cls(_entries_from_wire_meta(meta), mesh, block=block)
+
+    def copy(self) -> "ShardedPlaneStore":
+        """Cheap snapshot: each sub-store's :meth:`PlaneStore.copy`."""
+        new = object.__new__(ShardedPlaneStore)
+        for attr in ("mesh", "block", "device", "_n_model", "keys", "schedules", "shapes",
+                     "_route", "_placement", "_gathered"):
+            setattr(new, attr, getattr(self, attr))
+        new.received = list(self.received)
+        new.substores = [s.copy() for s in self.substores]
+        new._dirty = set(self._dirty)
+        new._leaf_cache = dict(self._leaf_cache)
+        new._qleaf_cache = dict(self._qleaf_cache)
+        new._qtrunc_cache = dict(self._qtrunc_cache)
+        return new
+
+    # -- views -------------------------------------------------------------
+    @property
+    def n_tensors(self) -> int:
+        return len(self.keys)
+
+    def effective_bits(self, i: int) -> int:
+        return received_bits(self.schedules[i], self.received[i])
+
+    def resident_bytes(self) -> int:
+        return sum(s.resident_bytes() for s in self.substores)
+
+    def fingerprint(self) -> dict[str, int]:
+        """Per-shard accumulator CRCs, keyed ``shard<j>/<dtype>``: the
+        sharded counterpart of :meth:`PlaneStore.fingerprint`."""
+        return {f"shard{j}/{dt}": crc for j, s in enumerate(self.substores)
+                for dt, crc in s.fingerprint().items()}
+
+    def dirty_keys(self) -> set:
+        return {self.keys[i] for i in self._dirty}
+
+    def placement(self, i: int) -> list[tuple[int, int]]:
+        """Tensor i's ``[(shard, local slot)]``, in shard order."""
+        return list(self._placement[i])
+
+    def acc(self, i: int) -> torch.Tensor:
+        """Tensor i's accumulator: a whole-routed tensor's sub-store view,
+        a split one's pieces joined on the home device (an audit and
+        test surface: serving reads the sharded leaves)."""
+        kind, ax = self._route[i]
+        if kind == "whole":
+            j, lidx = self._placement[i][0]
+            return self.substores[j].acc(lidx)
+        return torch.cat([self.substores[j].acc(lidx).to(self.device, non_blocking=True)
+                          for j, lidx in self._placement[i]], dim=ax)
+
+    def quantized(self, i: int) -> QuantizedTensor:
+        j, lidx = self._placement[i][0]
+        t = self.substores[j].slots[lidx]
+        return QuantizedTensor(q=self.acc(i), lo=t.lo, hi=t.hi, bits=t.bits,
+                               orig_dtype=t.orig_dtype)
+
+    # -- eq. (4): shard-local batched upgrade --------------------------------
+    def ingest(self, items: Sequence[tuple[int, torch.Tensor]]) -> None:
+        """Route a shipment to the owning shards and OR it there. The
+        shipment is validated whole up front (a bad item leaves every
+        sub-store untouched); each sub-store then runs its own batched
+        rounds on its own device. A split tensor's plane is cut on the
+        device it lies on and each piece copied to its shard (no copy
+        for logical shards of that device)."""
+        pending = list(items)
+        counts: dict[int, int] = {}
+        for idx, plane in pending:
+            size = math.prod(self.shapes[idx])
+            if plane.numel() != size:
+                raise ValueError(f"plane for tensor {idx} has {plane.numel()} elements, "
+                                 f"expected {size}")
+            counts[idx] = counts.get(idx, 0) + 1
+        for idx, c in counts.items():
+            have, total = self.received[idx], self.schedules[idx].n_planes
+            if have + c > total:
+                raise ValueError(f"tensor {idx}: {have} planes received + {c} arriving "
+                                 f"exceeds schedule of {total}")
+        sub_items: list[list[tuple[int, torch.Tensor]]] = [[] for _ in self.substores]
+        for idx, plane in pending:
+            kind, ax = self._route[idx]
+            if kind == "split":
+                pieces = torch.chunk(plane.reshape(self.shapes[idx]), self._n_model, dim=ax)
+            else:
+                pieces = (plane,)
+            for (j, lidx), piece in zip(self._placement[idx], pieces):
+                dev = self.substores[j].device
+                sub_items[j].append((lidx, piece if piece.device == dev
+                                     else piece.to(dev, non_blocking=True)))
+        for sub, its in zip(self.substores, sub_items):
+            if its:
+                with _on(sub.device):
+                    sub.ingest(its)
+        for idx, _ in pending:
+            self.received[idx] += 1
+            self._dirty.add(idx)
+            key = self.keys[idx]
+            self._leaf_cache.pop(key, None)
+            self._qleaf_cache.pop(key, None)
+            for tk in [t for t in self._qtrunc_cache if t[0] == key]:
+                del self._qtrunc_cache[tk]
+
+    # -- eq. (5): float leaves -------------------------------------------------
+    def _refresh_fp(self, idxs: list[int]) -> None:
+        """Dequantize the given tensors, one batched call a sub-store
+        (shard-local constants), and assemble their leaves."""
+        if not idxs:
+            return
+        for j, sub in enumerate(self.substores):
+            stale = [lidx for i in idxs for jj, lidx in self._placement[i] if jj == j]
+            if stale:
+                with _on(sub.device):
+                    sub._refresh_fp_leaves(stale)
+                sub._dirty.difference_update(stale)
+        for i in idxs:
+            key = self.keys[i]
+            parts = tuple(self.substores[j]._leaf_cache[key] for j, _ in self._placement[i])
+            self._leaf_cache[key] = self._assemble(i, parts)
+
+    def _assemble(self, i: int, parts: tuple):
+        """A tensor's leaf from its parts: moved home (whole), gathered
+        home (:data:`GATHERED_LEAVES`), or a :class:`ShardedLeaf`."""
+        kind, ax = self._route[i]
+        if kind == "whole":
+            p = parts[0]
+            if isinstance(p, QuantizedTensor):
+                return _to(p, self.device)
+            return p if p.device == self.device else p.to(self.device, non_blocking=True)
+        leaf = ShardedLeaf(parts=parts, axis=ax - len(self.shapes[i]), mesh=self.mesh)
+        return leaf.gather() if self._gathered[i] else leaf
+
+    def _fp_leaf(self, i: int):
+        key = self.keys[i]
+        if key not in self._leaf_cache or i in self._dirty:
+            self._refresh_fp([i])
+        return self._leaf_cache[key]
+
+    def materialize_leaves(self) -> dict[Any, Any]:
+        """Every tensor dequantized, ``{key: leaf}``; only tensors touched
+        since the last call are recomputed, the rest come back as the same
+        objects."""
+        self._refresh_fp([i for i, k in enumerate(self.keys)
+                          if k not in self._leaf_cache or i in self._dirty])
+        self._dirty.clear()
+        return {k: self._leaf_cache[k] for k in self.keys}
+
+    # -- quantized-resident views ------------------------------------------
+    def _quantized_leaf(self, i: int):
+        parts = []
+        for j, lidx in self._placement[i]:
+            got = self.substores[j]._quantized_leaf(lidx)
+            if got is None:
+                return None
+            parts.append(got)
+        return self._assemble(i, tuple(parts))
+
+    def quantized_leaves(self, eligible=None, *, bits: int | None = None) -> dict[Any, Any]:
+        """The sharded mirror of :meth:`PlaneStore.quantized_leaves`:
+        eligible weight leaves are live views over the sub-stores'
+        accumulators (:class:`ShardedLeaf`, or one tensor on the home
+        device for a gathered or whole-routed leaf); ``bits=b`` gives the
+        truncated views, sharing the same accumulators (a gathered
+        leaf's view shares the gathered tensor)."""
+        out: dict[Any, Any] = {}
+        for i, key in enumerate(self.keys):
+            if eligible is None or eligible(key):
+                got = self._qleaf_cache.get(key)
+                if got is None:
+                    got = self._quantized_leaf(i)
+                    if got is not None:
+                        self._qleaf_cache[key] = got
+                if got is not None:
+                    if bits is not None:
+                        b_eff = min(bits, self.schedules[i].bits)
+                        trunc = self._qtrunc_cache.get((key, b_eff))
+                        if trunc is None:
+                            trunc = got.truncate(b_eff)
+                            self._qtrunc_cache[(key, b_eff)] = trunc
+                        got = trunc
+                    out[key] = got
+                    continue
+            out[key] = self._fp_leaf(i)
         self._dirty.clear()
         return out

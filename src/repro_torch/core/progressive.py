@@ -154,7 +154,18 @@ class ReceiverState:
     received_stages: int = 0
 
     @classmethod
-    def init(cls, model: ProgressiveModel, *, device="cuda") -> "ReceiverState":
+    def init(cls, model: ProgressiveModel, *, mesh=None, device="cuda") -> "ReceiverState":
+        """``mesh=None``: one store on ``device``. With a serving mesh
+        (``launch.mesh``), a :class:`~repro_torch.core.plane_store.
+        ShardedPlaneStore` split over its model shards along the axes
+        ``launch.sharding.serving_spec_for_param`` gives the parameters;
+        ``device`` must then be the mesh's home device."""
+        if mesh is not None:
+            from repro_torch.core.plane_store import ShardedPlaneStore
+            from repro_torch.launch.mesh import home_device
+
+            home_device(mesh, device)
+            return cls(model_meta=model, store=ShardedPlaneStore.from_model(model, mesh))
         return cls(model_meta=model, store=PlaneStore.from_model(model, device=device))
 
     def receive(self, stage_planes: Sequence[tuple[int, torch.Tensor]]) -> "ReceiverState":

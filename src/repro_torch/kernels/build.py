@@ -39,7 +39,7 @@ SIGNATURES = {
                        "dequant_matmul_general": [P, I32, P, I32, I64, I64, P, P, P, I32, P,
                                                   I32, I32, I32, P]},
     "dequant_matmul_mma": {"dequant_matmul_mma": [P, I32, P, I32, I64, I64, P, P, P, I32, P,
-                                                  I32, I32, I32, I32, P]},
+                                                  I32, I32, I32, I32, I32, P]},
     "decode_attention": {"flash_decode": [P, P, P, P, I64, I64, P, P, I32, I32, I32, I32,
                                           I32, I32, F32, F32, I32, P]},
     "verify_attention": {"flash_verify": [P, I64, I64, P, P, P, I64, I64, P, I64, I64, P,

@@ -136,6 +136,7 @@ struct Args {
   float* out;
   long long sqk, sqn;
   int M, K, N, k_chunk;
+  int n_split;   // the N the chunks of K are chosen for (a shard's launch: the whole N)
 };
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -537,11 +538,15 @@ __global__ void __launch_bounds__(THREADS, 1) dqmm_mma(const Args a) {
 // K is cut into chunks of a multiple of BK rows so that the (column tile,
 // chunk, row tile) grid fills the SMs once, one block a SM, with at least
 // 256 rows of K a chunk and at most 4 chunks (one thread block cluster);
-// one chunk when the tiles alone fill the card.
+// one chunk when the tiles alone fill the card. The column tiles are
+// counted over n_split columns, not the launch's N: a shard of a weight
+// split on N (sharded_dequant_matmul) passes the whole N, so its chunks
+// of K, and with them every output's order of sums, are the unsharded
+// launch's. The default n_split = N is the rule as it was.
 template <typename TX, typename TQ, int BM, bool KC, bool VEC>
 int launch(Args a, int sms, cudaStream_t stream) {
   using S = Shape<TX, TQ, BM, KC, VEC>;
-  const int tiles = ((a.N + S::BN - 1) / S::BN) * ((a.M + BM - 1) / BM);
+  const int tiles = ((a.n_split + S::BN - 1) / S::BN) * ((a.M + BM - 1) / BM);
   const int want = max(1, min(min(sms / tiles, a.K / 256), 4));
   a.k_chunk = ((a.K + want - 1) / want + BK - 1) / BK * BK;
   const int splits = (a.K + a.k_chunk - 1) / a.k_chunk;
@@ -603,16 +608,18 @@ int by_q(const Args& a, int q_bytes, int sms, cudaStream_t s) {
 // q: (K, N) with element strides (sqk, sqn), uint8/16 (q_bytes 1/2).
 // scale, offset: one float32 each, in device memory. keep: null or one
 // int32 in device memory, the top bits of `bits` (1 to q's width) that q
-// keeps. sms: the card's streaming multiprocessors. out: (M, N) float32,
-// row-major.
+// keeps. n_split: the N the chunks of K are chosen for (N itself, or the
+// whole weight's N for a shard of it). sms: the card's streaming
+// multiprocessors. out: (M, N) float32, row-major.
 extern "C" int dequant_matmul_mma(const void* x, int x_dtype, const void* q, int q_bytes,
                                   long long sqk, long long sqn, const float* scale,
                                   const float* offset, const int* keep, int bits, float* out,
-                                  int M, int K, int N, int sms, void* stream) {
+                                  int M, int K, int N, int n_split, int sms, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  if (M <= 0 || N <= 0 || K <= 0 || sms <= 0 || bits < 1 || bits > 8 * q_bytes)
+  if (M <= 0 || N <= 0 || K <= 0 || n_split < N || sms <= 0 || bits < 1 ||
+      bits > 8 * q_bytes)
     return (int)cudaErrorInvalidValue;
-  const Args a{x, q, scale, offset, keep, bits, out, sqk, sqn, M, K, N, 0};
+  const Args a{x, q, scale, offset, keep, bits, out, sqk, sqn, M, K, N, 0, n_split};
   switch (x_dtype) {
     case 0: return by_q<float>(a, q_bytes, sms, s);
     case 1: return by_q<__nv_bfloat16>(a, q_bytes, sms, s);

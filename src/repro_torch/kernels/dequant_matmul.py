@@ -39,6 +39,13 @@ never depend on M: ``Model.decode_step`` and ``Model.verify_step`` use
 it, so that each verify row equals the decode step of its token bit for
 bit.
 
+Both routes also choose their chunks of K by N. ``n_split`` (default:
+q's own N) is the N that rule reads: a shard of a weight split on N
+(``ops.sharded_dequant_matmul``, the reference's ``kernels/ops.py:76``)
+passes the whole weight's N, so its columns are summed over K in the
+unsharded launch's order and come out bit-equal to it. With the default
+every launch's arithmetic is what it was without the argument.
+
 A truncated-precision view (``QuantizedTensor.truncate``) passes its
 plane mask as an operand: ``keep``, a one-element int32 tensor on the
 device, with the leaf's width ``bits``. Each kernel reads it once a
@@ -114,12 +121,12 @@ def gemv_k_chunk(K: int, N: int, k_contiguous: bool) -> int | None:
     return -(-rows // 512) * 512
 
 
-def one_pass(q: torch.Tensor) -> bool:
+def one_pass(q: torch.Tensor, n_split: int | None = None) -> bool:
     """Whether the GEMV route runs q through its one-pass kernels: uint8/16
     q read with 8-value vector loads (N contiguous with N and the row
     stride multiples of 8, or K contiguous with K and the column stride
-    multiples of 8; aligned to 8 values) and K within its chunks. Not a
-    function of M."""
+    multiples of 8; aligned to 8 values) and K within its chunks (chosen
+    for ``n_split`` columns, default N). Not a function of M."""
     if q.dtype not in (torch.uint8, torch.uint16) or q.data_ptr() % (8 * q.element_size()):
         return False
     (K, N), kc = q.shape, _k_contiguous(q)
@@ -127,32 +134,36 @@ def one_pass(q: torch.Tensor) -> bool:
         vec = K % 8 == 0 and q.stride(1) % 8 == 0
     else:
         vec = q.stride(1) == 1 and N % 8 == 0 and q.stride(0) % 8 == 0
-    return vec and gemv_k_chunk(K, N, kc) is not None
+    return vec and gemv_k_chunk(K, N if n_split is None else n_split, kc) is not None
 
 
 def dequant_matmul(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor,
                    offset: torch.Tensor, keep: torch.Tensor | None = None, *,
-                   bits: int | None = None, rows: str = "any") -> torch.Tensor:
+                   bits: int | None = None, rows: str = "any",
+                   n_split: int | None = None) -> torch.Tensor:
     """x: (M, K) float32 or bfloat16; q: (K, N) uint8/16/32, any strides;
     scale, offset: float32 with one element each; ``keep``: None or an
     int32 with one element, the top bits of ``bits`` (default: q's
     container width) that q keeps. Returns float32 (M, N). On a CUDA
     tensor ``rows="any"`` takes the route :func:`route` picks by M,
-    ``rows="decode"`` the GEMV route at every M."""
-    bits = _check_shapes(x, q, scale, offset, keep, bits)
+    ``rows="decode"`` the GEMV route at every M; ``n_split`` (>= N,
+    default N) is the N both routes cut K for."""
+    bits = _check_shapes(x, q, scale, offset, keep, bits, n_split)
     if rows not in ROWS:
         raise ValueError(f"rows must be one of {ROWS}, got {rows!r}")
     if x.device.type == "cpu":
         return dequant_matmul_ref(x, q, scale, offset, keep, bits=bits)
     if rows == "any" and route(x.shape[0], q.dtype) == "mma":
-        return _launch_mma(x, q, scale, offset, keep, bits=bits)
-    return _launch_gemv(x, q, scale, offset, keep, bits=bits)
+        return _launch_mma(x, q, scale, offset, keep, bits=bits, n_split=n_split)
+    return _launch_gemv(x, q, scale, offset, keep, bits=bits, n_split=n_split)
 
 
-def _check_shapes(x, q, scale, offset, keep=None, bits=None) -> int:
+def _check_shapes(x, q, scale, offset, keep=None, bits=None, n_split=None) -> int:
     """The operands' checks on every device; returns the width ``bits``."""
     if x.ndim != 2 or q.ndim != 2 or x.shape[1] != q.shape[0]:
         raise ValueError(f"shapes {tuple(x.shape)} @ {tuple(q.shape)} do not chain")
+    if n_split is not None and n_split < q.shape[1]:
+        raise ValueError(f"n_split={n_split} is below q's {q.shape[1]} columns")
     if q.dtype not in Q_DTYPES:
         raise TypeError(f"q must be uint8/16/32, got {q.dtype}")
     if scale.numel() != 1 or offset.numel() != 1:
@@ -170,12 +181,12 @@ def _k_contiguous(q: torch.Tensor) -> bool:
     return q.stride(0) == 1 and q.shape[0] > 1
 
 
-def _operands(x, q, scale, offset, keep, bits):
+def _operands(x, q, scale, offset, keep, bits, n_split):
     """The checks and arguments both CUDA launches share: contiguous x
     (the caller holds it until the launch is queued), the float32 output,
     the kernels' leading arguments (``keep`` as a null pointer when
     absent) and the SM count."""
-    bits = _check_shapes(x, q, scale, offset, keep, bits)
+    bits = _check_shapes(x, q, scale, offset, keep, bits, n_split)
     dev = x.device
     tensors = (q, scale, offset) + (() if keep is None else (keep,))
     if dev.type != "cuda" or any(t.device != dev for t in tensors):
@@ -201,16 +212,18 @@ def _counted(kind: str, code: int, out: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def _launch_gemv(x, q, scale, offset, keep=None, *, bits=None) -> torch.Tensor:
+def _launch_gemv(x, q, scale, offset, keep=None, *, bits=None,
+                 n_split: int | None = None) -> torch.Tensor:
     """The CUDA-core kernels at any M (the tests and the card's timing
     call it directly to hold both routes at every M)."""
-    x, out, args, _ = _operands(x, q, scale, offset, keep, bits)
+    x, out, args, _ = _operands(x, q, scale, offset, keep, bits, n_split)
     (M, K), N = x.shape, q.shape[1]
+    n_split = N if n_split is None else n_split
     lib, stream = build.library("dequant_matmul"), build.stream_handle(x.device)
-    if one_pass(q):
+    if one_pass(q, n_split):
         kc = _k_contiguous(q)
         code = lib.dequant_matmul_gemv(*args, out.data_ptr(), M, K, N, int(kc),
-                                       gemv_k_chunk(K, N, kc), stream)
+                                       gemv_k_chunk(K, n_split, kc), stream)
         kernel = "one_pass"
     else:
         code = lib.dequant_matmul_general(*args, out.data_ptr(), M, K, N, stream)
@@ -220,12 +233,14 @@ def _launch_gemv(x, q, scale, offset, keep=None, *, bits=None) -> torch.Tensor:
     return out
 
 
-def _launch_mma(x, q, scale, offset, keep=None, *, bits=None) -> torch.Tensor:
+def _launch_mma(x, q, scale, offset, keep=None, *, bits=None,
+                n_split: int | None = None) -> torch.Tensor:
     """The tensor-core kernel at any M, for uint8/16 q."""
     if q.dtype == torch.uint32:
         raise ValueError("no tensor-core kernel for uint32 q")
-    x, out, args, sms = _operands(x, q, scale, offset, keep, bits)
+    x, out, args, sms = _operands(x, q, scale, offset, keep, bits, n_split)
     (M, K), N = x.shape, q.shape[1]
     code = build.library("dequant_matmul_mma").dequant_matmul_mma(
-        *args, out.data_ptr(), M, K, N, sms, build.stream_handle(x.device))
+        *args, out.data_ptr(), M, K, N, N if n_split is None else n_split, sms,
+        build.stream_handle(x.device))
     return _counted("mma", code, out)

@@ -10,14 +10,21 @@ from __future__ import annotations
 
 import collections
 
+import torch
+
 from repro_torch.kernels import bitplane as _bp
 from repro_torch.kernels import decode_attention as _da
 from repro_torch.kernels import dequant_matmul as _dqm
+from repro_torch.kernels import ref as _ref
 from repro_torch.kernels import verify_attention as _va
 
 # Calls per entry point. Diagnostic only: reset freely, never read on a
 # hot path.
 LAUNCH_COUNTS: collections.Counter = collections.Counter()
+# Calls of sharded_dequant_matmul that launched the CUDA kernels (one
+# B2 launch a shard each, counted by B2's own counters); the CPU path
+# does not count.
+sharded_launches = 0
 
 
 def reset_launch_counts() -> None:
@@ -36,6 +43,53 @@ def dequant_matmul(x, q, scale, offset, keep=None, *, bits=None, rows="any"):
     whose rows do not depend on M."""
     _count("dequant_matmul")
     return _dqm.dequant_matmul(x, q, scale, offset, keep, bits=bits, rows=rows)
+
+
+def sharded_dequant_matmul(x, shards, scales, offsets, *, mesh, n_split=None, keeps=None,
+                           bits=None, rows="any"):
+    """Tensor-parallel ``y = x @ (scale * q + offset)`` with q (K, N) split
+    on N over ``mesh``'s model axis: ``shards[j]`` is shard j's (K, N_j)
+    accumulator columns on ``mesh.model_devices[j]``, x (M, K) lies on the
+    home device. Replaces ``src/repro/kernels/ops.py:76``
+    ``sharded_dequant_matmul`` (B2 under ``shard_map``).
+
+    x goes to each shard's device (no copy where it lies there already),
+    one B2 launch (``kernels/dequant_matmul``, CUDA) runs on each
+    shard's columns with ``n_split = N``, so that every column sums K in
+    the order of the unsharded launch, and the outputs are gathered on
+    x's device along N: the result is ``torch.equal`` to one B2 launch
+    on the whole q. K is never split, so no partial sums are added.
+    ``scales``, ``offsets`` and ``keeps`` (None: no mask) hold one
+    tensor a shard, on the shard's device: the store's shard-local
+    constants. Tensors on the CPU take the plain version
+    (``ref.sharded_dequant_matmul_ref``); a CUDA shard launches the
+    kernel or raises."""
+    global sharded_launches
+    _count("sharded_dequant_matmul")
+    devs = mesh.model_devices
+    if len(shards) != len(devs):
+        raise ValueError(f"{len(shards)} shards for a mesh of {len(devs)} model shards")
+    n_total = sum(q.shape[1] for q in shards)
+    n_split = n_total if n_split is None else n_split
+    if n_split < n_total:
+        raise ValueError(f"n_split={n_split} below the shards' {n_total} columns")
+    for j, q in enumerate(shards):
+        if q.device != devs[j]:
+            raise ValueError(f"shard {j} lies on {q.device}, the mesh puts it on {devs[j]}")
+    if x.device.type == "cpu" and all(d.type == "cpu" for d in devs):
+        return _ref.sharded_dequant_matmul_ref(x, shards, scales, offsets, keeps, bits=bits)
+    if x.device.type != "cuda" or any(d.type != "cuda" for d in devs):
+        raise ValueError(f"x on {x.device} and shards on {[str(d) for d in devs]}: the "
+                         f"CUDA path wants every tensor on a card")
+    outs = []
+    for q, s, o, k, dev in zip(shards, scales, offsets,
+                               [None] * len(shards) if keeps is None else keeps, devs):
+        xj = x if x.device == dev else x.to(dev, non_blocking=True)
+        with torch.cuda.device(dev):   # the C launchers launch on the current card
+            y = _dqm.dequant_matmul(xj, q, s, o, k, bits=bits, rows=rows, n_split=n_split)
+        outs.append(y if dev == x.device else y.to(x.device, non_blocking=True))
+    sharded_launches += 1
+    return torch.cat(outs, dim=1)
 
 
 def plane_or(acc, plane, *, shift):

@@ -76,6 +76,18 @@ def dequant_matmul_ref(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor,
     return x.to(torch.float32) @ w
 
 
+def sharded_dequant_matmul_ref(x: torch.Tensor, shards, scales, offsets, keeps=None, *,
+                               bits: int | None = None) -> torch.Tensor:
+    """The plain version of ``ops.sharded_dequant_matmul``: q split on N
+    into ``shards`` ((K, N_j) each), one :func:`dequant_matmul_ref` a
+    shard on x with that shard's scale, offset and keep (equal values on
+    every shard: the whole weight's affine and mask), and the outputs
+    concatenated along N on x's device."""
+    keeps = [None] * len(shards) if keeps is None else keeps
+    return torch.cat([dequant_matmul_ref(x.to(q.device), q, s, o, k, bits=bits).to(x.device)
+                      for q, s, o, k in zip(shards, scales, offsets, keeps)], dim=1)
+
+
 def dequant_matmul_split_ref(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor,
                              offset: torch.Tensor, *, depth: int = 16) -> torch.Tensor:
     """The tensor-core route's arithmetic (``csrc/dequant_matmul_mma.cu``)
@@ -116,8 +128,8 @@ def dequant_matmul_split_ref(x: torch.Tensor, q: torch.Tensor, scale: torch.Tens
 
 
 def dequant_matmul_gemv_ref(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor,
-                            offset: torch.Tensor, keep=None, *, bits: int | None = None
-                            ) -> torch.Tensor:
+                            offset: torch.Tensor, keep=None, *, bits: int | None = None,
+                            n_split: int | None = None) -> torch.Tensor:
     """The GEMV route's one-pass arithmetic (``csrc/dequant_matmul.cu``)
     emulated on the CPU, for the tests: q centred on c (as the tensor-core
     route), ``q - c`` exact; K cut into the kernel's chunks
@@ -129,7 +141,8 @@ def dequant_matmul_gemv_ref(x: torch.Tensor, q: torch.Tensor, scale: torch.Tenso
     kernel's units and order; then
     ``y = fma(scale, A, (offset + scale*c) * sum_k x)``. uint8/16 q only;
     ``keep`` masks q first (:func:`mask_q`), as the kernel does before it
-    centres q. Rows are independent of M, as the kernel's."""
+    centres q. Rows are independent of M, as the kernel's; the chunks are
+    chosen for ``n_split`` columns (default N), as the kernel's."""
     from repro_torch.kernels.dequant_matmul import GEMV_COLS, gemv_k_chunk
 
     s = scale.to(torch.float32).reshape(())
@@ -140,7 +153,7 @@ def dequant_matmul_gemv_ref(x: torch.Tensor, q: torch.Tensor, scale: torch.Tenso
     (M, K), N = x.shape, q.shape[1]
     kc = q.stride(0) == 1 and K > 1
     q = mask_q(q, None if keep is None else keep.reshape(()), bits)   # kc: q's own layout
-    chunk = gemv_k_chunk(K, N, kc)
+    chunk = gemv_k_chunk(K, N if n_split is None else n_split, kc)
     xf = torch.nn.functional.pad(x.to(torch.float32), (0, -(-K // chunk) * chunk - K))
     wq = torch.nn.functional.pad((q.to(torch.int64) - int(cf)).to(torch.float32),
                                  (0, 0, 0, xf.shape[1] - K))

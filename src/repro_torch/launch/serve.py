@@ -18,8 +18,11 @@ when the link delivered each stage.
 Weights come from ``Model.init`` with a seeded ``torch.Generator``, the
 prompts from another, so a run is the same for the same seed on one
 device. The engines run eagerly: no graph is captured yet (ROADMAP Next
-2). Sharded serving (``--mesh-shards`` > 1) is still to be ported
-(ROADMAP A13), and so are the other architectures (A8).
+2). ``--mesh-shards N`` serves from a store split over N devices
+(``launch/mesh.py``): N cards with ``--device cuda``, N logical shards
+of the host with ``--device cpu`` (the counterpart of XLA's forced host
+devices); tokens equal the unsharded run's. The other architectures are
+still to be ported (ROADMAP A8).
 """
 from __future__ import annotations
 
@@ -34,8 +37,8 @@ from repro_torch import resolve_device
 from repro_torch.configs import get_config
 from repro_torch.core import wire
 from repro_torch.core.progressive import divide
+from repro_torch.launch.mesh import make_serving_mesh
 from repro_torch.models.model import build_model
-from repro_torch.serving.engine import _later
 from repro_torch.transmission import Session, get_scenario, list_scenarios
 from repro_torch.transmission.simulator import BandwidthTrace
 
@@ -68,7 +71,7 @@ def _write_metrics(metrics: str | None) -> None:
     print(f"metrics -> {path} (+ {summary_path.name})")
 
 
-def _verify_fault_recovery(result, blob, model, prog, batch, *, device,
+def _verify_fault_recovery(result, blob, model, prog, batch, *, device, mesh=None,
                            decode_steps: int = 8) -> None:
     """The lossy run's acceptance check: after the transport converged,
     the client's store must be bit-identical to a clean stream's, and a
@@ -85,7 +88,7 @@ def _verify_fault_recovery(result, blob, model, prog, batch, *, device,
         raise SystemExit(
             f"FAIL: transport did not converge (stages "
             f"{result.client.stages_complete}, nacks {result.client.nacks})")
-    clean = ProgressiveClient(device=device)
+    clean = ProgressiveClient(mesh=mesh, device=device)
     clean.feed(blob)
     clean.materialize()
     result.client.materialize()
@@ -98,7 +101,7 @@ def _verify_fault_recovery(result, blob, model, prog, batch, *, device,
     def final_tokens(client):
         srv = ProgressiveServer(
             model, prog, max_len=int(batch["tokens"].shape[1]) + decode_steps,
-            receiver=WireStoreReceiver(client, prog), device=device)
+            receiver=WireStoreReceiver(client, prog), mesh=mesh, device=device)
         while srv.stage < client.stages_complete:
             srv.receive_stage()
         srv.start(batch)
@@ -163,8 +166,13 @@ def main(argv: list[str] | None = None) -> None:
     ap.add_argument("--crowd-span-s", type=float, default=1.0,
                     help="window after cold start over which the crowd arrives")
     ap.add_argument("--mesh-shards", type=int, default=0,
-                    help="> 1: shard the serving stack over this many devices "
-                         "(still to be ported, ROADMAP A13)")
+                    help="> 1: shard the serving stack over this many devices on "
+                         "the mesh's model axis: the plane accumulators shard with "
+                         "the weights they back (shard-local ingest) and decode runs "
+                         "a shard at a time, token-identical to one device at every "
+                         "stage. Needs that many cards with --device cuda; with "
+                         "--device cpu the shards are logical shards of the host "
+                         "(the counterpart of XLA's forced host devices)")
     ap.add_argument("--event-log", default=None,
                     help="write the session's audit log (JSONL) here")
     ap.add_argument("--metrics", default=None,
@@ -187,10 +195,15 @@ def main(argv: list[str] | None = None) -> None:
         from repro_torch import obs
 
         obs.configure(True)
-    if args.mesh_shards > 1:
-        raise _later("sharded serving (--mesh-shards)", "A13")
 
     device = resolve_device(args.device)
+    mesh = None
+    if args.mesh_shards > 1:
+        # N cards (raising with fewer), or N logical shards of the host
+        mesh = make_serving_mesh(args.mesh_shards, devices=[device] * args.mesh_shards
+                                 if device.type == "cpu" else None)
+        device = mesh.home
+        print(f"serving mesh: {mesh.describe()}")
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
@@ -247,7 +260,8 @@ def main(argv: list[str] | None = None) -> None:
             model, prog, prompts=prompts, arrival_offsets_s=offs,
             max_new_tokens=args.decode_steps, n_slots=args.pool_slots,
             resident=None if pool_spec else args.resident, speculative=pool_spec,
-            chunked_prefill=args.chunked_prefill, faults=faults, fault_policy=fault_policy)
+            chunked_prefill=args.chunked_prefill, mesh=mesh, faults=faults,
+            fault_policy=fault_policy)
         pool = result.server
         print(f"flash crowd: {args.pool_clients} clients over {args.crowd_span_s}s into "
               f"{args.pool_slots} slots; admissions at "
@@ -266,7 +280,7 @@ def main(argv: list[str] | None = None) -> None:
         if args.faults:
             from repro_torch.transmission import ProgressiveClient
 
-            clean = ProgressiveClient(device=device)
+            clean = ProgressiveClient(mesh=mesh, device=device)
             clean.feed(blob)
             clean.materialize()
             result.client.materialize()
@@ -292,10 +306,10 @@ def main(argv: list[str] | None = None) -> None:
     result = session.run_serving(
         model, prog, decode_steps=args.decode_steps, batch=batch, max_len=max_len,
         resident=None if speculative else args.resident, speculative=speculative,
-        faults=faults, fault_policy=fault_policy)
+        mesh=mesh, faults=faults, fault_policy=fault_policy)
     server = result.server
     if args.faults:
-        _verify_fault_recovery(result, blob, model, prog, batch, device=device)
+        _verify_fault_recovery(result, blob, model, prog, batch, device=device, mesh=mesh)
     rep = server.resident_report()
     if args.speculative:
         s = result.speculation_summary()

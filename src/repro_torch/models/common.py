@@ -11,6 +11,7 @@ from typing import Any
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core.plane_store import ShardedLeaf
 from repro_torch.core.quantize import QuantizedTensor
 from repro_torch.kernels import ops, ref
 
@@ -116,6 +117,14 @@ def dense_init(generator: torch.Generator, d_in: int, d_out: int, lead: tuple = 
 # (plain matmul) or a live QuantizedTensor over the PlaneStore
 # accumulators, whose product runs through ops.dequant_matmul: the float
 # weight never exists in device memory.
+#
+# Under a serving mesh a weight split on its output dim is a ShardedLeaf
+# (core/plane_store.py): its product runs a shard at a time
+# (ops.sharded_dequant_matmul, or a matmul a shard for float leaves) and
+# the outputs are gathered on x's device, the mesh's home device, where
+# attention, norms, caches and sampling run once: the counterpart of the
+# reference pinning every activation replicated. No contraction is ever
+# split, so no partial sums are added.
 # ---------------------------------------------------------------------------
 
 # Leaf basenames consumed only through the dispatch helpers, which may
@@ -169,13 +178,37 @@ def dense(x: torch.Tensor, w, *, dtype, rows: str = "any") -> torch.Tensor:
     accumulation, output cast to ``dtype``; a truncated view's plane
     mask goes to the kernel as the ``keep`` operand). ``rows`` is the
     kernel's (``"decode"``: a row's result does not depend on how many
-    rows share the launch). x: (..., K); w: (K, N)."""
+    rows share the launch). x: (..., K); w: (K, N), or a
+    :class:`ShardedLeaf` split on N (``ops.sharded_dequant_matmul``, or a
+    matmul a shard, gathered on x's device)."""
+    if isinstance(w, ShardedLeaf):
+        return _dense_sharded(x, w, dtype=dtype, rows=rows)
     if isinstance(w, QuantizedTensor):
         lead = x.shape[:-1]
         y = ops.dequant_matmul(x.reshape(-1, x.shape[-1]), w.q, w.scale, w.offset,
                                w.keep_bits, bits=w.bits, rows=rows)
         return y.reshape(*lead, w.q.shape[-1]).to(dtype)
     return x @ w.to(dtype)
+
+
+def _dense_sharded(x: torch.Tensor, w: ShardedLeaf, *, dtype, rows: str) -> torch.Tensor:
+    if w.axis != -1:
+        raise ValueError(f"a dense weight split on axis {w.axis} would shard a contraction")
+    lead, N = x.shape[:-1], w.shape[-1]
+    x2 = x.reshape(-1, x.shape[-1])
+    if w.quantized:
+        p0 = w.parts[0]
+        y = ops.sharded_dequant_matmul(
+            x2, [p.q for p in w.parts], [p.scale for p in w.parts],
+            [p.offset for p in w.parts],
+            keeps=None if p0.keep_bits is None else [p.keep_bits for p in w.parts],
+            bits=p0.bits, rows=rows, mesh=w.mesh, n_split=N)
+        return y.reshape(*lead, N).to(dtype)
+    outs = [(x2 if p.device == x.device else x2.to(p.device, non_blocking=True))
+            @ p.to(dtype) for p in w.parts]
+    y = torch.cat([o if o.device == x.device else o.to(x.device, non_blocking=True)
+                   for o in outs], dim=-1)
+    return y.reshape(*lead, N)
 
 
 # PyTorch's CUDA indexing has no uint16/uint32 kernels; rows are gathered
@@ -188,7 +221,9 @@ def embed_lookup(w, tokens: torch.Tensor) -> torch.Tensor:
     """Embedding-row gather. The quantized path gathers the *uint* rows
     and applies the eq.-(5) affine to just those rows: the float table
     never exists; a truncated view's mask applies to the gathered rows
-    only. Returns float32 rows (callers cast)."""
+    only. Returns float32 rows (callers cast). Under a serving mesh the
+    table is gathered whole on the home device
+    (``launch.sharding.GATHERED_LEAVES``)."""
     if isinstance(w, QuantizedTensor):
         q = w.q
         rows = masked_q(w, q.view(_GATHER_VIEW[q.dtype])[tokens].view(q.dtype))

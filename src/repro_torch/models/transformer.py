@@ -13,6 +13,7 @@ from __future__ import annotations
 import dataclasses
 import torch
 
+from repro_torch.core.plane_store import ShardedLeaf
 from repro_torch.core.quantize import QuantizedTensor
 from repro_torch.models import attention as attn
 from repro_torch.models.common import ArchConfig, apply_norm, dense_init, dense_rows, norm_init
@@ -58,6 +59,8 @@ def layer(tree, r: int):
     """Layer ``r`` of a stacked tree: views, no copies."""
     if isinstance(tree, dict):
         return {k: layer(v, r) for k, v in tree.items()}
+    if isinstance(tree, ShardedLeaf):
+        return dataclasses.replace(tree, parts=tuple(layer(p, r) for p in tree.parts))
     if isinstance(tree, QuantizedTensor):
         return dataclasses.replace(
             tree, q=tree.q[r], lo=tree.lo[r], hi=tree.hi[r], scale=tree.scale[r],

@@ -22,6 +22,13 @@ decode step sees is set by ``resident``:
   accumulators, eq. (5) runs inside every matmul
   (``kernels/dequant_matmul``) and no float weight buffer exists; an
   upgrade changes scale/offset values only.
+
+With ``mesh=`` (a ``launch.mesh`` serving mesh) the accumulators are a
+:class:`~repro_torch.core.plane_store.ShardedPlaneStore` split over the
+mesh's model shards, weights split on their output dim run a shard at a
+time (``ops.sharded_dequant_matmul``, or a float matmul a shard) and are
+gathered on the home device, where everything else runs: token-identical
+to one device at every stage (see ``launch/sharding.py``).
 """
 from __future__ import annotations
 
@@ -37,7 +44,9 @@ from repro_torch import resolve_device, to_device
 from repro_torch.core import wire
 from repro_torch.core.progressive import (ProgressiveModel, ReceiverState, rebuild_params,
                                           tree_flatten_with_path)
+from repro_torch.core.plane_store import ShardedLeaf
 from repro_torch.core.quantize import QuantizedTensor
+from repro_torch.launch.mesh import home_device
 from repro_torch.models.common import quantized_resident_eligible
 from repro_torch.models.model import Model
 
@@ -68,32 +77,36 @@ def resident_report(params) -> dict:
     ``quantized_bytes`` counts the uint accumulator views, ``fp_bytes``
     the float leaves; buffers are counted once per distinct tensor.
     ``effective_bits`` maps each quantized leaf's path to its served
-    precision."""
+    precision. A :class:`~repro_torch.core.plane_store.ShardedLeaf` counts
+    as one leaf with the bytes of all its shards."""
     n_q = n_fp = q_bytes = fp_bytes = meta_bytes = aliased = 0
     eff_bits: dict[str, int] = {}
     seen: set[int] = set()
     for path, leaf in tree_flatten_with_path(params):
-        if isinstance(leaf, QuantizedTensor):
+        parts = leaf.parts if isinstance(leaf, ShardedLeaf) else (leaf,)
+        if isinstance(parts[0], QuantizedTensor):
             n_q += 1
-            if id(leaf.q) in seen:
+            if id(parts[0].q) in seen:
                 aliased += 1
-            else:
-                seen.add(id(leaf.q))
-                q_bytes += leaf.q.numel() * leaf.q.element_size()
-            for m in (leaf.lo, leaf.hi, leaf.scale, leaf.offset, leaf.received_bits):
-                if m is not None:
-                    meta_bytes += m.numel() * m.element_size()
-            eff = leaf.bits
-            if leaf.received_bits is not None:
-                eff = int(leaf.received_bits.max())
+            for part in parts:
+                if id(part.q) not in seen:
+                    seen.add(id(part.q))
+                    q_bytes += part.q.numel() * part.q.element_size()
+                for m in (part.lo, part.hi, part.scale, part.offset, part.received_bits):
+                    if m is not None:
+                        meta_bytes += m.numel() * m.element_size()
+            eff = parts[0].bits
+            if parts[0].received_bits is not None:
+                eff = int(parts[0].received_bits.max())
             eff_bits[keystr(path)] = eff
         else:
             n_fp += 1
-            if id(leaf) in seen:
+            if id(parts[0]) in seen:
                 aliased += 1
-            else:
-                seen.add(id(leaf))
-                fp_bytes += leaf.numel() * leaf.element_size()
+            for part in parts:
+                if id(part) not in seen:
+                    seen.add(id(part))
+                    fp_bytes += part.numel() * part.element_size()
     return {"quantized_leaves": n_q, "fp_leaves": n_fp,
             "quantized_bytes": q_bytes, "fp_bytes": fp_bytes,
             "metadata_bytes": meta_bytes, "aliased_leaves": aliased,
@@ -162,17 +175,18 @@ class PrecisionManagedEngine:
 
     def __init__(self, model: Model, prog: ProgressiveModel, max_len: int,
                  receiver: WireStoreReceiver | None = None,
-                 resident: str = "fp", *, device="cuda"):
+                 resident: str = "fp", *, mesh=None, device="cuda"):
         if resident not in RESIDENT_MODES:
             raise ValueError(f"resident must be one of {RESIDENT_MODES}, got {resident!r}")
         self.model = model
         self.prog = prog
         self.max_len = max_len
         self.resident = resident
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.device = resolve_device(device) if mesh is None else home_device(mesh, device)
         self._receiver = receiver
         self.state = (None if receiver is not None
-                      else ReceiverState.init(prog, device=self.device))
+                      else ReceiverState.init(prog, mesh=mesh, device=self.device))
         self._consumed = 0  # receiver mode: stages reflected in params
         self.params = None  # live parameter tree at the current precision
         self._last_upgrade_split: dict[str, float] = {}
@@ -201,6 +215,8 @@ class PrecisionManagedEngine:
         if store is not None and store.device != self.device:
             raise ValueError(f"the receiver's store lies on {store.device}, the engine "
                              f"on {self.device}")
+        if store is not None and getattr(store, "mesh", None) != self.mesh:
+            raise ValueError("the receiver's store and the engine are on different meshes")
 
     def _materialize(self, bits: int | None = None):
         """The quantized-resident parameter tree over the engine's store;
@@ -266,9 +282,9 @@ class ProgressiveServer(PrecisionManagedEngine):
 
     def __init__(self, model: Model, prog: ProgressiveModel, max_len: int,
                  receiver: WireStoreReceiver | None = None, resident: str = "fp", *,
-                 device="cuda"):
+                 mesh=None, device="cuda"):
         super().__init__(model, prog, max_len, receiver=receiver, resident=resident,
-                         device=device)
+                         mesh=mesh, device=device)
         self.caches = None
         self.pos = 0
         self.last_logits = None
@@ -415,8 +431,8 @@ class SlotPoolEngine(PrecisionManagedEngine):
     masked (``Model.prefill(n_valid)``), so a prefill runs at one of
     O(log max_len) shapes. Nothing in it waits for the device.
 
-    Left for later, each raising ``NotImplementedError``: ``mesh=``
-    (A13); sliding-window rings and recurrent-slot resets (A8, which
+    Left for later, each raising ``NotImplementedError``: sliding-window
+    rings and recurrent-slot resets (A8, which
     brings the reference's ``ring_margin`` too, and the fall-back to
     batch-1 admission of cross-attention archs); telemetry, which the
     reference turns on with ``REPRO_TELEMETRY`` (A11).
@@ -432,8 +448,6 @@ class SlotPoolEngine(PrecisionManagedEngine):
                  chunked_prefill: bool | None = None,
                  prefill_chunk: int = 8, prefill_buckets: bool = True,
                  double_buffer: bool = True, mesh=None, device="cuda"):
-        if mesh is not None:
-            raise _later("sharded serving (mesh=)", "A13")
         if model.cfg.window:
             raise _later("sliding-window ring caches", "A8")
         if os.environ.get("REPRO_TELEMETRY", "") not in ("", "0"):
@@ -441,7 +455,7 @@ class SlotPoolEngine(PrecisionManagedEngine):
         if n_slots < 1:
             raise ValueError("n_slots must be >= 1")
         super().__init__(model, prog, max_len, receiver=receiver, resident=resident,
-                         device=device)
+                         mesh=mesh, device=device)
         # None: chunked, which every ported arch supports
         self.chunked_prefill = chunked_prefill is not False
         self.prefill_chunk = max(1, int(prefill_chunk))
@@ -754,7 +768,7 @@ class SlotPoolEngine(PrecisionManagedEngine):
             "ingest_s": split.get("ingest_s", 0.0),
             "refresh_s": split.get("refresh_s", 0.0),
             "fence_s": stall_s - enqueue_s,
-            "sharded": False, "double_buffer": self.double_buffer})
+            "sharded": self.mesh is not None, "double_buffer": self.double_buffer})
         self.upgrades.append((self._step_count, self.stage))
         return True
 

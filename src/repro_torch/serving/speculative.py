@@ -264,10 +264,8 @@ class SpeculativeEngine(_SpeculativeMixin, ProgressiveServer):
 
     def __init__(self, model, prog, max_len: int, receiver=None,
                  spec: SpecConfig | None = None, mesh=None, *, device="cuda"):
-        if mesh is not None:
-            raise _later("sharded serving (mesh=)", "A13")
         super().__init__(model, prog, max_len, receiver=receiver, resident="quantized",
-                         device=device)
+                         mesh=mesh, device=device)
         self._init_spec(spec)
 
     def start(self, batch: dict) -> None:

@@ -37,25 +37,28 @@ from typing import Callable
 
 from repro_torch import resolve_device
 from repro_torch.core import wire
-from repro_torch.core.plane_store import PlaneStore
+from repro_torch.core.plane_store import PlaneStore, ShardedPlaneStore
 from repro_torch.core.quantize import container_dtype
+from repro_torch.launch.mesh import home_device
 
 
 class ProgressiveClient:
     """Incremental decoder of the progressive wire format. The store
-    lives on ``device`` (the card unless the caller asks for the CPU)."""
+    lives on ``device`` (the card unless the caller asks for the CPU).
+    With a serving mesh (``launch.mesh``) the store is a
+    :class:`~repro_torch.core.plane_store.ShardedPlaneStore`: planes are
+    decoded on the mesh's home device (``device`` must name it) and each
+    model shard ORs only its own piece of a plane."""
 
     def __init__(self, on_stage_complete: Callable[[int], None] | None = None,
                  *, mesh=None, device="cuda"):
-        if mesh is not None:
-            raise NotImplementedError(
-                "a sharded client store (mesh=) is still to be ported (ROADMAP A13)")
-        self.device = resolve_device(device)
+        self._mesh = mesh
+        self.device = resolve_device(device) if mesh is None else home_device(mesh, device)
         self._buf = bytearray()
         self._base = 0            # absolute offset of self._buf[0]
         self._meta = None
         self._layout: wire.StageLayout | None = None
-        self.store: PlaneStore | None = None
+        self.store: PlaneStore | ShardedPlaneStore | None = None
         self._pending: list = []  # (tensor_idx, plane) decoded, not ORed yet
         self._cursor = 0          # absolute offset of next undecoded byte
         self._stage = 0           # completed stages
@@ -224,7 +227,10 @@ class ProgressiveClient:
             raise
         self._layout = wire.layout_from_header(self._meta, hdr)
         self._cursor = hdr
-        self.store = PlaneStore.from_wire_meta(self._meta, device=self.device)
+        if self._mesh is not None:
+            self.store = ShardedPlaneStore.from_wire_meta(self._meta, self._mesh)
+        else:
+            self.store = PlaneStore.from_wire_meta(self._meta, device=self.device)
         if self._layout.integrity:
             self._units = [e for st in self._layout.stages for e in st]
             self._unit_offsets = self._layout.unit_offsets()

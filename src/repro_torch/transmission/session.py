@@ -4,8 +4,10 @@ Counterpart of ``src/repro/transmission/session.py``: the same byte
 clock, feed plan, fault runner and event log (``to_jsonl`` is
 byte-identical to the reference's for the same blob, trace and seed),
 driving the port's client and engines on ``device`` (the card unless the
-caller passes ``device="cpu"``). Sharded serving (``mesh=``) is still to
-be ported (ROADMAP A13).
+caller passes ``device="cpu"``). ``run_serving`` and ``run_serving_pool``
+take a serving mesh (``mesh=``, whose home device is ``device``): the
+client's store is then sharded and the engines decode through sharded
+dispatch, token-identical to one device.
 
 A :class:`Session` couples the byte clock of a
 :class:`~repro_torch.transmission.simulator.BandwidthTrace` to the *real*
@@ -462,13 +464,13 @@ class Session:
         together with ``speculative`` is a contradiction and raises
         ``ValueError`` instead of being silently ignored.
         """
-        from repro_torch.serving.engine import (ProgressiveServer, WireStoreReceiver,
-                                                _later)
+        from repro_torch.serving.engine import ProgressiveServer, WireStoreReceiver
         from repro_torch.serving.speculative import SpecConfig, SpeculativeEngine
 
-        if mesh is not None:
-            raise _later("sharded serving (mesh=)", "A13")
-        client = ProgressiveClient(device=self.device)
+        # with a serving mesh the client's store shards over its model
+        # axis (shard-local ingest) and the engine decodes through sharded
+        # dispatch: token-identical to the single-device session
+        client = ProgressiveClient(mesh=mesh, device=self.device)
         receiver = WireStoreReceiver(client, prog)
         if speculative:
             if resident is not None:
@@ -485,7 +487,7 @@ class Session:
                 max_len = (batch["tokens"].shape[1] + decode_steps
                            + spec.k_max + 1)
             server = SpeculativeEngine(model, prog, max_len=max_len,
-                                       receiver=receiver, spec=spec,
+                                       receiver=receiver, spec=spec, mesh=mesh,
                                        device=self.device)
         else:
             if max_len is None:
@@ -493,7 +495,7 @@ class Session:
             server = ProgressiveServer(model, prog, max_len=max_len,
                                        receiver=receiver,
                                        resident=resident or "fp",
-                                       device=self.device)
+                                       mesh=mesh, device=self.device)
         events: list[SessionEvent] = _EventRecorder()
         arrivals = self.stage_arrival_times()
         feed_until, runner = self._make_transport(client, events,
@@ -612,17 +614,15 @@ class Session:
         this session knows — keep the two loops' flush/evict
         bookkeeping in sync when changing either."""
         from repro_torch.serving.engine import (PoolRequest, SlotPoolEngine,
-                                                WireStoreReceiver, _later)
+                                                WireStoreReceiver)
 
         n_req = len(prompts)
         if arrival_offsets_s is None:
             arrival_offsets_s = [0.0] * n_req
         if len(arrival_offsets_s) != n_req:
             raise ValueError("one arrival offset per prompt")
-        if mesh is not None:
-            raise _later("sharded serving (mesh=)", "A13")
 
-        client = ProgressiveClient(device=self.device)
+        client = ProgressiveClient(mesh=mesh, device=self.device)
         receiver = WireStoreReceiver(client, prog)
         if speculative:
             from repro_torch.serving.speculative import (SpecConfig,
@@ -646,7 +646,7 @@ class Session:
                                          spec=spec,
                                          dispatch_window=dispatch_window,
                                          chunked_prefill=chunked_prefill,
-                                         device=self.device)
+                                         mesh=mesh, device=self.device)
         else:
             if max_len is None:
                 max_len = max(len(p) for p in prompts) + max_new_tokens
@@ -655,7 +655,7 @@ class Session:
                                     resident=resident or "fp",
                                     dispatch_window=dispatch_window,
                                     chunked_prefill=chunked_prefill,
-                                    device=self.device)
+                                    mesh=mesh, device=self.device)
         events: list[SessionEvent] = _EventRecorder()
         arrivals = self.stage_arrival_times()
         feed_until, runner = self._make_transport(client, events,

@@ -32,6 +32,7 @@ from repro_torch.core.policy import UniformPolicy
 from repro_torch.core.progressive import ReceiverState, divide
 from repro_torch.interop import params_from_numpy
 from repro_torch.kernels import ops
+from repro_torch.launch.mesh import make_serving_mesh
 from repro_torch.models.model import build_model
 from repro_torch.serving.engine import ProgressiveServer, WireStoreReceiver
 from repro_torch.transmission import ProgressiveClient
@@ -226,11 +227,13 @@ def test_v3_fuzzed_streams_match_the_reference():
 
 
 def test_parts_left_for_later_raise():
-    """A sharded store is still to be ported; materializing before the
-    header arrives raises the reference's error (float leaves are ported:
-    ``tests/test_torch_resident_fp.py``)."""
+    """A sharded store over a mesh with replica rows is still to be ported
+    (a mesh of model shards alone is: ``tests/test_torch_sharded.py``);
+    materializing before the header arrives raises the reference's error
+    (float leaves are ported: ``tests/test_torch_resident_fp.py``)."""
     with pytest.raises(NotImplementedError, match="ROADMAP A13"):
-        ProgressiveClient(mesh=object(), device="cpu")
+        ProgressiveClient(mesh=make_serving_mesh(2, n_data=2, devices=["cpu"] * 4),
+                          device="cpu")
     with pytest.raises(RuntimeError, match="header not received"):
         ProgressiveClient(device="cpu").materialize()
     with pytest.raises(RuntimeError, match="header not received"):

@@ -1032,3 +1032,109 @@ def test_batch1_admission_and_upgrade_never_sync(dev):
     busy = serve(3, requests)
     for req in requests:
         assert serve(1, [req])[req.rid] == busy[req.rid], req.rid
+
+
+# ---------------------------------------------------------------------------
+# B7: sharded_dequant_matmul on logical shards of the card
+# ---------------------------------------------------------------------------
+
+def _mesh(dev, n):
+    from repro_torch.launch.mesh import make_serving_mesh
+
+    return make_serving_mesh(n, devices=[dev] * n)
+
+
+@pytest.mark.parametrize("n", [2, 4])
+@pytest.mark.parametrize("K,N,layout", [(2048, 2048, "kn"), (2048, 8192, "kn"),
+                                        (8192, 2048, "kn"), (2048, 4096, "transposed")])
+@pytest.mark.parametrize("keep", [None, 4])
+def test_sharded_dequant_matmul_equals_one_launch(dev, n, K, N, layout, keep):
+    """B7 on n contiguous shards of q's columns (sub-store layout; the
+    K-contiguous layout as row blocks of a table, transposed) at every M
+    and route: ``torch.equal`` to one B2 launch on the whole q, through
+    ``ops`` and on each forced route with ``n_split = N``."""
+    from repro_torch.kernels import ops
+
+    x_all, q, scale, offset = _dqmm_operands(dev, 256, K, N, torch.uint16, layout,
+                                             torch.bfloat16, K + N + n)
+    w = N // n
+    if layout == "transposed":
+        table = q.T
+        shards = [table[j * w:(j + 1) * w].T for j in range(n)]
+    else:
+        shards = [q[:, j * w:(j + 1) * w].contiguous() for j in range(n)]
+    kt = None if keep is None else torch.full((1, 1), keep, dtype=torch.int32, device=dev)
+    mesh = _mesh(dev, n)
+    scales, offsets, keeps = [scale] * n, [offset] * n, None if kt is None else [kt] * n
+    for M in (1, 4, 8, 20, 64, 256):
+        x = x_all[:M]
+        for rows in ("any", "decode"):
+            before = ops.sharded_launches
+            y = ops.sharded_dequant_matmul(x, shards, scales, offsets, keeps=keeps, bits=16,
+                                           rows=rows, mesh=mesh)
+            assert ops.sharded_launches == before + 1
+            assert torch.equal(y, dequant_matmul.dequant_matmul(x, q, scale, offset, kt,
+                                                                bits=16, rows=rows)), (M, rows)
+        for launch in (dequant_matmul._launch_gemv, dequant_matmul._launch_mma):
+            ys = torch.cat([launch(x, s, scale, offset, kt, bits=16, n_split=N)
+                            for s in shards], dim=1)
+            assert torch.equal(ys, launch(x, q, scale, offset, kt, bits=16)), (M, launch)
+        want = ref.sharded_dequant_matmul_ref(x, shards, scales, offsets, keeps, bits=16)
+        assert (y - want).abs().max().item() <= 1e-4 * want.abs().max().item() + 1e-6
+
+
+@pytest.mark.parametrize("M,K,N,layout", [(4, 2048, 2048, "kn"), (8, 2048, 8192, "kn"),
+                                          (64, 8192, 2048, "kn"), (256, 2048, 2048, "kn"),
+                                          (4, 2048, 4096, "transposed"),
+                                          (64, 2048, 4096, "transposed")])
+def test_n_split_default_leaves_b2_unchanged(dev, M, K, N, layout):
+    """``n_split`` defaults to N: passing N changes no bit on either route."""
+    x, q, scale, offset = _dqmm_operands(dev, M, K, N, torch.uint16, layout, torch.bfloat16, M)
+    for launch in (dequant_matmul._launch_gemv, dequant_matmul._launch_mma,
+                   dequant_matmul.dequant_matmul):
+        assert torch.equal(launch(x, q, scale, offset),
+                           launch(x, q, scale, offset, n_split=N)), launch
+    with pytest.raises(ValueError, match="n_split"):
+        dequant_matmul.dequant_matmul(x, q, scale, offset, n_split=N - 8)
+
+
+def test_sharded_server_equals_one_device_at_every_stage(dev):
+    """A 2-layer server on 2 and 4 logical shards, an upgrade every other
+    step: quantized, every logit and token ``torch.equal`` to one
+    device's; float residency (cuBLAS on N/n columns may sum in another
+    order), logits within 1e-2 of the largest."""
+    from repro_torch.serving import ProgressiveServer
+
+    model, prog = _spec_model(dev)
+    prompt = torch.randint(0, model.cfg.vocab, (3, 12), generator=torch.Generator().manual_seed(4))
+    for resident in ("quantized", "fp"):
+        runs = []
+        for n in (None, 2, 4):
+            srv = ProgressiveServer(model, prog, max_len=12 + 20, resident=resident,
+                                    mesh=None if n is None else _mesh(dev, n), device=dev)
+            srv.receive_stage()
+            srv.start({"tokens": prompt})
+            steps = [(None, srv.last_logits.clone())]
+            for i in range(20):
+                if srv.stage < prog.n_stages and i % 2 == 0:
+                    srv.receive_stage()
+                tokens = srv.decode(1).tokens
+                steps.append((tokens, srv.last_logits.clone()))
+            assert srv.stage == 8
+            runs.append(steps)
+        for steps in runs[1:]:
+            for (t0, l0), (t1, l1) in zip(runs[0], steps):
+                if resident == "quantized":
+                    assert torch.equal(l0, l1) and (t0 is None or torch.equal(t0, t1))
+                else:
+                    assert (l0 - l1).abs().max().item() <= 1e-2 * l0.abs().max().item()
+
+
+def test_serving_mesh_needs_cards_unless_told(dev):
+    from repro_torch.launch.mesh import make_serving_mesh
+
+    n = torch.cuda.device_count() + 1
+    with pytest.raises(RuntimeError, match="CUDA devices"):
+        make_serving_mesh(n)
+    mesh = make_serving_mesh(n, devices=[dev] * n)
+    assert mesh.shape["model"] == n and mesh.home == torch.device("cuda", 0)

@@ -40,6 +40,7 @@ from repro_torch.core.policy import UniformPolicy
 from repro_torch.core.progressive import divide
 from repro_torch.interop import params_from_numpy
 from repro_torch.kernels import ops
+from repro_torch.launch.mesh import make_serving_mesh
 from repro_torch.models.model import build_model
 from repro_torch.serving.engine import PoolRequest, SlotPoolEngine
 
@@ -253,7 +254,10 @@ def test_malformed_requests_raise_reference_errors_before_device_work(models):
 
 
 @pytest.mark.parametrize("kw", [
-    dict(mesh=object()), dict(window=8), dict(telemetry="1")],
+    # a mesh of model shards alone is ported (tests/test_torch_sharded.py);
+    # replica rows are not
+    dict(mesh=make_serving_mesh(2, n_data=2, devices=["cpu"] * 4)), dict(window=8),
+    dict(telemetry="1")],
     ids=["mesh", "window", "telemetry"])
 def test_parts_left_for_later_raise(models, monkeypatch, kw):
     model = models[1]

@@ -41,6 +41,7 @@ from repro_torch.configs import get_config
 from repro_torch.core import wire
 from repro_torch.core.progressive import divide
 from repro_torch.interop import params_from_numpy
+from repro_torch.launch.mesh import make_serving_mesh
 from repro_torch.models.model import build_model
 from repro_torch.obs.exporters import to_prometheus
 from repro_torch.serving.speculative import SpecConfig
@@ -234,12 +235,15 @@ def test_telemetry_mirror_identical(pair):
 def test_session_defaults_to_the_card_and_refuses_a_mesh(pair):
     blob = pair["blobs"][False]
     s = Session.from_scenario(blob, get_scenario("pod-coldstart"), device="cpu")
+    # a mesh with replica rows (a mesh of model shards alone is ported:
+    # tests/test_torch_sharded.py)
+    replicas = make_serving_mesh(2, n_data=2, devices=["cpu"] * 4)
     with pytest.raises(NotImplementedError, match="A13"):
         s.run_serving(pair["model"], pair["prog"], decode_steps=2,
-                      batch={"tokens": pair["tokens"]}, mesh=object())
+                      batch={"tokens": pair["tokens"]}, mesh=replicas)
     with pytest.raises(NotImplementedError, match="A13"):
         s.run_serving_pool(pair["model"], pair["prog"], prompts=[pair["tokens"][0]],
-                           mesh=object())
+                           mesh=replicas)
     with pytest.raises(ValueError, match="conflicts"):
         s.run_serving(pair["model"], pair["prog"], decode_steps=2,
                       batch={"tokens": pair["tokens"]}, resident="fp",

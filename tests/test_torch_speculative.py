@@ -64,6 +64,7 @@ from repro_torch.core.progressive import divide
 from repro_torch.core.quantize import quantize, truncate
 from repro_torch.interop import params_from_numpy
 from repro_torch.kernels import ops, ref
+from repro_torch.launch.mesh import make_serving_mesh
 from repro_torch.models import common
 from repro_torch.models.model import build_model
 from repro_torch.serving import (PoolRequest, ProgressiveServer, SpecConfig,
@@ -432,8 +433,9 @@ def test_headroom_and_recurrent_checks_raise(models, monkeypatch):
     with pytest.raises(NotImplementedError, match="A8"):
         SpeculativeEngine(build_model(dataclasses.replace(model.cfg, window=8)), prog,
                           max_len=24, spec=spec, device="cpu")
-    with pytest.raises(NotImplementedError, match="A13"):
-        SpeculativeEngine(model, prog, max_len=24, spec=spec, mesh=object(), device="cpu")
+    with pytest.raises(NotImplementedError, match="A13"):   # replica rows
+        SpeculativeEngine(model, prog, max_len=24, spec=spec, device="cpu",
+                          mesh=make_serving_mesh(2, n_data=2, devices=["cpu"] * 4))
     # batch-1 admission (A9's rest) admits: the prefill's argmax is the
     # first token, emitted at admission; a budget of 1 ends there
     bpool = SpeculativeSlotPool(model, prog, n_slots=2, max_len=24, spec=spec,
