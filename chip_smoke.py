@@ -1384,6 +1384,13 @@ def _mesh_phase(model, prog, dev, ops, prompt, blob) -> dict:
     fp_equal = int((fres2.tokens == fres1.tokens).sum())
     rep1, rep2 = srv1.resident_report(), srv2.resident_report()
     check(rep2["quantized_bytes"] == rep1["quantized_bytes"] and rep2["fp_bytes"] == 0, rep2)
+    # what the stores hold: the sharded one keeps the gathered embed on the
+    # home device beside its split accumulators
+    acc1, acc2 = srv1.state.store.resident_bytes(), srv2.state.store.resident_bytes()
+    fgath = fsrv2.resident_report()["gathered_bytes"]
+    eq = srv1.params["embed"].q
+    check(rep2["gathered_bytes"] == eq.numel() * eq.element_size()
+          and fgath == eq.numel() * 4, (rep2["gathered_bytes"], fgath))
     # launches: every layer weight through B7 (n B2 launches each), the
     # unembedding on the gathered embed through B2; one plane OR a shard a stage
     n_b7 = op_counts.get("sharded_dequant_matmul", 0)
@@ -1412,8 +1419,11 @@ def _mesh_phase(model, prog, dev, ops, prompt, blob) -> dict:
         f"B2 by route {routes}, GEMV route by kernel {gemv_by}")
     log(f"[mesh] tokens/s, in the same phase: ProgressiveServer {q_tok_s}; pool "
         f"{pool_tok_s}; the gathered embed (a copy at each upgrade that touches it): "
-        f"{cfg.vocab * cfg.d_model * 2} bytes quantized, {cfg.vocab * cfg.d_model * 4} "
-        f"bytes float")
+        f"{rep2['gathered_bytes']} bytes quantized, {fgath} bytes float")
+    log(f"[mesh] store bytes at stage 8, quantized: one device {acc1} accumulator bytes; "
+        f"{n} shards {acc2} accumulator bytes + {rep2['gathered_bytes']} gathered = "
+        f"{acc2 + rep2['gathered_bytes']} ({(acc2 + rep2['gathered_bytes']) / acc1 - 1:+.4%}); "
+        f"float residency holds {fgath} gathered bytes beside its float leaves")
     del pool2, fsrv2, plog1, plog2, flog1, flog2, spec
 
     # the store from wire bytes at MESH_STORE_SHARDS shards, a stage at a time
@@ -1473,7 +1483,7 @@ def _mesh_phase(model, prog, dev, ops, prompt, blob) -> dict:
                     keeps = None if kt is None else [kt] * nn
                     scales, offsets = [p.scale for p in parts], [p.offset for p in parts]
                     y = ops.sharded_dequant_matmul(x, qs, scales, offsets, keeps=keeps,
-                                                   bits=16, rows=rows, mesh=mesh_n, n_split=N)
+                                                   bits=16, rows=rows, mesh=mesh_n)
                     y1 = dqm.dequant_matmul(x, w.q, w.scale, w.offset, kt, bits=16, rows=rows)
                     check(torch.equal(y, y1), f"[mesh] B7 {name} n={nn} M={M} keep="
                           f"{kt is not None}: differs from one B2 launch")
@@ -1514,8 +1524,7 @@ def _mesh_phase(model, prog, dev, ops, prompt, blob) -> dict:
                 for x, w, sw in calls:
                     ops.sharded_dequant_matmul(
                         x, [p.q for p in sw.parts], [p.scale for p in sw.parts],
-                        [p.offset for p in sw.parts], bits=16, mesh=mesh_n,
-                        n_split=w.q.shape[1])
+                        [p.offset for p in sw.parts], bits=16, mesh=mesh_n)
 
             def b2(calls=calls):
                 for x, w, _ in calls:

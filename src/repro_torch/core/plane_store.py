@@ -583,9 +583,6 @@ class ShardedPlaneStore:
         from repro_torch.launch.mesh import check_serving_mesh
         from repro_torch.launch.sharding import gathered_for_serving, serving_spec_for_param
 
-        if tuple(mesh.axis_names) != ("data", "model"):
-            raise ValueError(f"ShardedPlaneStore wants a ('data', 'model') mesh, got axes "
-                             f"{mesh.axis_names}")
         check_serving_mesh(mesh)
         if any(e.get("slice_axis") is not None for e in entries):
             raise NotImplementedError("the expert route of sliced tensors is still to be "
@@ -663,7 +660,34 @@ class ShardedPlaneStore:
         return received_bits(self.schedules[i], self.received[i])
 
     def resident_bytes(self) -> int:
+        """The sub-stores' accumulator bytes (see :meth:`gathered_bytes`
+        for the copies the store holds beside them)."""
         return sum(s.resident_bytes() for s in self.substores)
+
+    def gathered_bytes(self) -> int:
+        """Device bytes of the leaves the store holds as copies on the home
+        device beside its sub-stores: the gathered leaves
+        (``launch.sharding.GATHERED_LEAVES``, the tied embedding: a whole (vocab,
+        d_model) tensor on top of its split accumulators) and whole-routed
+        leaves owned by another device. Each tensor counts once; a
+        truncated view shares its tensor. ``resident_bytes() +
+        gathered_bytes()`` is what the store holds on all its devices,
+        against one device's ``resident_bytes()`` alone in quantized
+        residency."""
+        seen: set[tuple] = set()
+        total = 0
+        for i, key in enumerate(self.keys):
+            kind, _ = self._route[i]
+            if not (self._gathered[i] or (kind == "whole" and
+                                          self.substores[self._placement[i][0][0]].device
+                                          != self.device)):
+                continue
+            for leaf in (self._leaf_cache.get(key), self._qleaf_cache.get(key)):
+                t = leaf.q if isinstance(leaf, QuantizedTensor) else leaf
+                if t is not None and (t.device, t.data_ptr()) not in seen:
+                    seen.add((t.device, t.data_ptr()))
+                    total += t.numel() * t.element_size()
+        return total
 
     def fingerprint(self) -> dict[str, int]:
         """Per-shard accumulator CRCs, keyed ``shard<j>/<dtype>``: the

@@ -45,8 +45,8 @@ def dequant_matmul(x, q, scale, offset, keep=None, *, bits=None, rows="any"):
     return _dqm.dequant_matmul(x, q, scale, offset, keep, bits=bits, rows=rows)
 
 
-def sharded_dequant_matmul(x, shards, scales, offsets, *, mesh, n_split=None, keeps=None,
-                           bits=None, rows="any"):
+def sharded_dequant_matmul(x, shards, scales, offsets, *, mesh, keeps=None, bits=None,
+                           rows="any"):
     """Tensor-parallel ``y = x @ (scale * q + offset)`` with q (K, N) split
     on N over ``mesh``'s model axis: ``shards[j]`` is shard j's (K, N_j)
     accumulator columns on ``mesh.model_devices[j]``, x (M, K) lies on the
@@ -69,10 +69,7 @@ def sharded_dequant_matmul(x, shards, scales, offsets, *, mesh, n_split=None, ke
     devs = mesh.model_devices
     if len(shards) != len(devs):
         raise ValueError(f"{len(shards)} shards for a mesh of {len(devs)} model shards")
-    n_total = sum(q.shape[1] for q in shards)
-    n_split = n_total if n_split is None else n_split
-    if n_split < n_total:
-        raise ValueError(f"n_split={n_split} below the shards' {n_total} columns")
+    n_split = sum(q.shape[1] for q in shards)
     for j, q in enumerate(shards):
         if q.device != devs[j]:
             raise ValueError(f"shard {j} lies on {q.device}, the mesh puts it on {devs[j]}")

@@ -38,7 +38,6 @@ class Mesh:
     activations, caches and sampling live."""
 
     devices: tuple[tuple[torch.device, ...], ...]
-    axis_names: tuple[str, ...] = AXES
 
     @property
     def shape(self) -> dict[str, int]:
@@ -106,8 +105,8 @@ def home_device(mesh: Mesh, device) -> torch.device:
 
 
 def data_axes(mesh: Mesh) -> tuple[str, ...]:
-    """Axes that shard the batch (``pod`` joins ``data`` in the reference)."""
-    return tuple(a for a in ("pod", "data") if a in mesh.axis_names)
+    """Axes that shard the batch."""
+    return ("data",)
 
 
 def model_axis(mesh: Mesh) -> str:

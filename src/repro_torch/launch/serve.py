@@ -19,9 +19,10 @@ Weights come from ``Model.init`` with a seeded ``torch.Generator``, the
 prompts from another, so a run is the same for the same seed on one
 device. The engines run eagerly: no graph is captured yet (ROADMAP Next
 2). ``--mesh-shards N`` serves from a store split over N devices
-(``launch/mesh.py``): N cards with ``--device cuda``, N logical shards
-of the host with ``--device cpu`` (the counterpart of XLA's forced host
-devices); tokens equal the unsharded run's. The other architectures are
+(``launch/mesh.py``): N cards with ``--device cuda`` (``cuda:0`` the
+home), N logical shards of the host with ``--device cpu`` (the
+counterpart of XLA's forced host devices); on logical shards tokens
+equal the unsharded run's, and a run across cards is not yet checked. The other architectures are
 still to be ported (ROADMAP A8).
 """
 from __future__ import annotations
@@ -37,7 +38,7 @@ from repro_torch import resolve_device
 from repro_torch.configs import get_config
 from repro_torch.core import wire
 from repro_torch.core.progressive import divide
-from repro_torch.launch.mesh import make_serving_mesh
+from repro_torch.launch.mesh import home_device, make_serving_mesh
 from repro_torch.models.model import build_model
 from repro_torch.transmission import Session, get_scenario, list_scenarios
 from repro_torch.transmission.simulator import BandwidthTrace
@@ -169,10 +170,12 @@ def main(argv: list[str] | None = None) -> None:
                     help="> 1: shard the serving stack over this many devices on "
                          "the mesh's model axis: the plane accumulators shard with "
                          "the weights they back (shard-local ingest) and decode runs "
-                         "a shard at a time, token-identical to one device at every "
-                         "stage. Needs that many cards with --device cuda; with "
-                         "--device cpu the shards are logical shards of the host "
-                         "(the counterpart of XLA's forced host devices)")
+                         "a shard at a time. Needs that many cards with --device cuda "
+                         "(cuda:0 .. cuda:N-1; --device must name cuda:0, the mesh's "
+                         "home); with --device cpu the shards are logical shards of "
+                         "the host (the counterpart of XLA's forced host devices). "
+                         "Token-identical to one device at every stage on logical "
+                         "shards; a run across cards is not yet checked")
     ap.add_argument("--event-log", default=None,
                     help="write the session's audit log (JSONL) here")
     ap.add_argument("--metrics", default=None,
@@ -202,7 +205,7 @@ def main(argv: list[str] | None = None) -> None:
         # N cards (raising with fewer), or N logical shards of the host
         mesh = make_serving_mesh(args.mesh_shards, devices=[device] * args.mesh_shards
                                  if device.type == "cpu" else None)
-        device = mesh.home
+        device = home_device(mesh, device)
         print(f"serving mesh: {mesh.describe()}")
     cfg = get_config(args.arch)
     if args.reduced:

@@ -202,7 +202,7 @@ def _dense_sharded(x: torch.Tensor, w: ShardedLeaf, *, dtype, rows: str) -> torc
             x2, [p.q for p in w.parts], [p.scale for p in w.parts],
             [p.offset for p in w.parts],
             keeps=None if p0.keep_bits is None else [p.keep_bits for p in w.parts],
-            bits=p0.bits, rows=rows, mesh=w.mesh, n_split=N)
+            bits=p0.bits, rows=rows, mesh=w.mesh)
         return y.reshape(*lead, N).to(dtype)
     outs = [(x2 if p.device == x.device else x2.to(p.device, non_blocking=True))
             @ p.to(dtype) for p in w.parts]

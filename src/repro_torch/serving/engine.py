@@ -240,10 +240,17 @@ class PrecisionManagedEngine:
             self.params = self._receiver.materialize()
 
     def resident_report(self) -> dict:
-        """Leaf-type audit of the live params (see :func:`resident_report`)."""
+        """Leaf-type audit of the live params (see :func:`resident_report`).
+        On a mesh it adds ``gathered_bytes``: the store's copies on the
+        home device beside its accumulators
+        (``ShardedPlaneStore.gathered_bytes``)."""
         if self.params is None:
             raise RuntimeError("no planes received yet")
-        return resident_report(self.params)
+        report = resident_report(self.params)
+        if self.mesh is not None:
+            store = self.state.store if self._receiver is None else self._receiver.store
+            report["gathered_bytes"] = store.gathered_bytes()
+        return report
 
     def receive_stage(self) -> None:
         """Pull the next stage's planes from ``self.prog`` and OR them into

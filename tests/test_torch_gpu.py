@@ -1131,10 +1131,14 @@ def test_sharded_server_equals_one_device_at_every_stage(dev):
 
 
 def test_serving_mesh_needs_cards_unless_told(dev):
-    from repro_torch.launch.mesh import make_serving_mesh
+    from repro_torch.launch.mesh import home_device, make_serving_mesh
 
     n = torch.cuda.device_count() + 1
     with pytest.raises(RuntimeError, match="CUDA devices"):
         make_serving_mesh(n)
     mesh = make_serving_mesh(n, devices=[dev] * n)
     assert mesh.shape["model"] == n and mesh.home == torch.device("cuda", 0)
+    # an entry point on the mesh runs on its home device, and says so
+    assert home_device(mesh, "cuda") == mesh.home
+    with pytest.raises(ValueError, match="home device"):
+        home_device(mesh, torch.device("cuda", 1))

@@ -42,13 +42,13 @@ import torch
 
 from repro_torch.configs import get_config
 from repro_torch.core import wire
-from repro_torch.core.plane_store import ShardedLeaf, ShardedPlaneStore
+from repro_torch.core.plane_store import ShardedLeaf, ShardedPlaneStore, _path
 from repro_torch.core.progressive import ReceiverState, divide, tree_flatten_with_path
 from repro_torch.interop import params_from_numpy
 from repro_torch.kernels import dequant_matmul, ops, ref
 from repro_torch.launch import serve
 from repro_torch.launch.mesh import make_serving_mesh
-from repro_torch.launch.sharding import serving_spec_for_param
+from repro_torch.launch.sharding import gathered_for_serving, serving_spec_for_param
 from repro_torch.models.model import build_model
 from repro_torch.serving.engine import ProgressiveServer
 from repro_torch.serving.speculative import SpecConfig
@@ -401,13 +401,18 @@ def test_pull_mode_server_upgrades_shard_local(world):
         srv.receive_stage()
         srv.start({"tokens": tokens})
         res = srv.decode(12, stage_arrival=lambda i: i % 2 == 1)
-        runs[n] = (res, dict(ops.LAUNCH_COUNTS), srv.resident_report())
-    (plain, pc, prep), (sharded, sc, srep) = runs[None], runs[4]
+        runs[n] = (res, dict(ops.LAUNCH_COUNTS), srv.resident_report(), srv.state.store)
+    (plain, pc, prep, pstore), (sharded, sc, srep, sstore) = runs[None], runs[4]
     assert torch.equal(plain.tokens, sharded.tokens)
     assert plain.stage_at_step == sharded.stage_at_step
     assert sc["plane_or_segments"] == 4 * pc["plane_or_segments"] == 4 * 7
     # the served leaves: every weight's shards plus the gathered embed
     assert srep["quantized_bytes"] == prep["quantized_bytes"]
+    assert "gathered_bytes" not in prep
+    # the store holds the gathered embed on top of its split accumulators
+    embed = pstore.acc(next(i for i, k in enumerate(sstore.keys)
+                            if gathered_for_serving(_path(k))))
+    assert srep["gathered_bytes"] == sstore.gathered_bytes() == embed.numel() * embed.element_size()
 
 
 def test_cli_mesh_shards_on_the_cpu(capsys):
