@@ -9,6 +9,20 @@ with the launch counts set to 0 just before it and read just after:
 
 1. build every CUDA kernel from ``src/repro_torch/kernels/csrc``, one
    ``nvcc`` per source, all at once;
+1a. ``[arch minitron-4b]`` and ``[arch starcoder2-15b x4]``: the dense
+   variants (RMSNorm, affine LayerNorm, tanh GELU, ``head_dim``, an
+   untied ``lm_head``; GQA at G = 3 and 12) at their published widths,
+   minitron-4b at its 32 layers and starcoder2-15b at 4 of its 40, from
+   seeded weights: ``divide`` on the card; the single stream (phase 3's
+   shape) from in-memory planes, then from v3 wire bytes through
+   ``ProgressiveClient`` (the store ``torch.equal`` to an in-memory store
+   at every stage, fingerprints equal at stage 8, tokens equal); float
+   residency on that store against quantized; the pool's 12 requests;
+   ``SpeculativeEngine`` at stage 8, tokens equal to plain; B2 on every
+   distinct weight shape at M = 1-64 with and without a mask, B3 and B4 at
+   the arch's heads, against their plain versions (verify rows equal to
+   decode rows); 2 layers at full width on the card against the CPU's
+   plain versions; the CLI for minitron-4b at full width;
 2. ``[divide]``: split full-width olmo-1b into eight 2-bit planes on the
    card (``plane_extract``, 8 launches a tensor); the in-memory receiver
    after all 8 stages holds ``quantize(leaf).q`` of every tensor, bit for
@@ -136,11 +150,13 @@ last ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import os
 import subprocess
 import sys
 import time
+import types
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
@@ -225,6 +241,14 @@ MESH_SERVE_SHARDS, MESH_STORE_SHARDS = 2, 4
 MESH_B7_M = (1, 4, 8, 20, 64, 256)
 # [calibrate]: the calibration batch (numpy-free torch seed 7)
 CAL_BATCH, CAL_LEN = 4, 64
+# [arch]: the dense variants of ROADMAP A8(a) at their published widths,
+# minitron-4b at its full 32 layers and starcoder2-15b at 4 of its 40
+# (its float32 weights, 88 GB at full depth by the reference's GLU MLP,
+# do not fit the card that divides them); B2 checked at these rows on
+# every distinct weight shape, a float-resident run of FP_STEPS steps
+ARCHS = (("minitron-4b", None), ("starcoder2-15b", 4))
+ARCH_DQMM_M = (1, 4, 8, 20, 64)
+ARCH_FP_STEPS = 16
 # v2 entropy coding is host numpy (core/entropy.py): its encode and decode
 # are timed on the 2-layer full-width model's attn.wq units (8 planes)
 
@@ -400,6 +424,13 @@ def main() -> int:
     print(gpu_line(), flush=True)
     log(f"[env] python {sys.version.split()[0]} torch {torch.__version__} "
         f"cuda {torch.version.cuda}")
+
+    # -- 1a. the dense variants (ROADMAP A8(a)) at their published widths ----
+    arch_runs = {}
+    for name, n_layers in ARCHS:
+        arch_runs[f"arch {name}" + ("" if n_layers is None else f" x{n_layers}")] = \
+            _arch_phase(name, n_layers, dev, ops)
+        torch.cuda.empty_cache()
 
     # -- 2. divide on the card -----------------------------------------------
     cfg = get_config("olmo-1b")
@@ -985,7 +1016,7 @@ def main() -> int:
              "wire": wire_counts, "session": session["counts"],
              "upgrade per tensor": upgrade_counts, "quantized view": view["counts"],
              "pool batch-1": batch1["counts"], "calibrate": calib["counts"],
-             "mesh": mesh["counts"]}
+             "mesh": mesh["counts"], **{k: r["counts"] for k, r in arch_runs.items()}}
     launches = {name: sum(c.get(name, 0) for c in paths.values()) for name in sources}
     check(all(launches[name] > 0 for name in sources), launches)
     # dequant_matmul's launches by route on the paths that run it
@@ -993,7 +1024,7 @@ def main() -> int:
                    "spec pool": spec_pool["routes"], "wire": wire_routes,
                    "session": session["routes"], "quantized view": view["routes"],
                    "pool batch-1": batch1["routes"], "calibrate": calib["routes"],
-                   "mesh": mesh["routes"]}
+                   "mesh": mesh["routes"], **{k: r["routes"] for k, r in arch_runs.items()}}
     by_route = {k: sum(r[k] for r in route_paths.values()) for k in dqm.launches_by_route}
     check(sum(by_route.values()) == launches["dequant_matmul"] and all(by_route.values()),
           (by_route, launches["dequant_matmul"]))
@@ -1035,6 +1066,9 @@ def main() -> int:
             entry["by_S"] = k["by_S"]
         if name == "sharded_dequant_matmul":
             entry.update(b2_ms=k["b2_ms"], by_shards=k["by_shards"])
+        by_arch = {a: r["kern"][name] for a, r in arch_runs.items() if name in r["kern"]}
+        if by_arch:
+            entry["by_arch"] = by_arch
         line.append(entry)
     log(f"[done] {time.perf_counter() - t_script:.1f} s")
     print(json.dumps({"kernels": line}))
@@ -1640,15 +1674,23 @@ def _counted(ops, fn, acc: dict, routes: dict):
     torch.cuda.synchronize()
     reset_counts(ops)
     out = fn()
+    got, _ = _tally(acc, routes, "session")
+    return out, got
+
+
+def _tally(acc: dict, routes: dict, what: str) -> tuple[dict, dict]:
+    """The launch counts and B2's launches by route since the last reset,
+    every GEMV launch on the one-pass kernels; added into ``acc`` and
+    ``routes``."""
     torch.cuda.synchronize()
     got, by = counts(), route_counts()
     if by["gemv"]:
-        check_one_pass(by, "session")
+        check_one_pass(by, what)
     for k, v in got.items():
         acc[k] = acc.get(k, 0) + v
     for k, v in by.items():
         routes[k] = routes.get(k, 0) + v
-    return out, got
+    return got, by
 
 
 def _fp_against_quantized(fp_logits, q_logits, fp_tokens, q_tokens) -> tuple[float, int, int]:
@@ -1988,18 +2030,19 @@ def _session_small(cfg, dev, ops, acc: dict, routes: dict) -> None:
             f"upgrades {r.upgrades}; host {host_s:.3f} s; launches {c}")
 
 
-def _cli_phase() -> None:
+def _cli_phase(arch: str = "olmo-1b", pool: bool = True) -> None:
     """The CLI at full width, each run a process of its own: ``python -m
-    repro_torch.launch.serve --arch olmo-1b --scenario pod-coldstart``,
+    repro_torch.launch.serve --arch <arch> --scenario pod-coldstart``,
     every other flag at its default (float residency, batch 2, prompt 32,
-    64 decode steps); then the slot pool of 4 clients admitting at batch 1
-    (``--pool-clients 4 --no-chunked-prefill``)."""
-    base = [sys.executable, "-m", "repro_torch.launch.serve", "--arch", "olmo-1b",
+    64 decode steps); then, with ``pool``, the slot pool of 4 clients
+    admitting at batch 1 (``--pool-clients 4 --no-chunked-prefill``)."""
+    base = [sys.executable, "-m", "repro_torch.launch.serve", "--arch", arch,
             "--scenario", "pod-coldstart"]
     env = {**os.environ, "PYTHONPATH": os.path.join(ROOT, "src")}
-    runs = ((base, "served 64 steps across 8 precision stages"),
-            (base + ["--pool-clients", "4", "--no-chunked-prefill"],
-             "served 256 tokens across"))
+    runs = [(base, "served 64 steps across 8 precision stages")]
+    if pool:
+        runs.append((base + ["--pool-clients", "4", "--no-chunked-prefill"],
+                     "served 256 tokens across"))
     for cmd, last in runs:
         t0 = time.perf_counter()
         proc = subprocess.run(cmd, capture_output=True, text=True, timeout=CLI_TIMEOUT_S,
@@ -3111,6 +3154,584 @@ def _verify_timings(model, eng, dev, g) -> dict:
     return out
 
 
+def _arch_phase(name: str, n_layers, dev, ops) -> dict:
+    """``[arch <name>]``: a dense variant of ROADMAP A8(a) at its published
+    widths (``n_layers`` cuts the depth), seeded random weights. Each path
+    counted from 0: divide on the card (``plane_extract``); the single
+    stream (batch 4, prompt 64, 48 steps, a stage every 6) in quantized
+    residency from in-memory planes, then from v3 wire bytes fed in seeded
+    ragged chunks through ``ProgressiveClient`` (its store ``torch.equal``
+    to an in-memory store at every stage, ``fingerprint()`` equal at stage
+    8, tokens equal); the slot pool's 12 requests with chunked admission;
+    ``SpeculativeEngine`` at stage 8 (k = 4), tokens equal to plain greedy
+    tokens; float residency on the wire-fed store at stage 8 against
+    quantized. Between the paths, B2 on every distinct weight shape, B3 and
+    B4 at the arch's
+    heads against their plain versions, and the decode step's B2, B3 and
+    a verify pass's B4 timed. Then 2 layers at full width on the card
+    against the CPU's plain versions, and (at full depth) the CLI. Returns
+    the launch counts and B2's launches by route over the paths, and the
+    kernels' rows."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import build_model
+
+    t_phase = time.perf_counter()
+    cfg = get_config(name)
+    if n_layers:
+        cfg = dataclasses.replace(cfg, n_layers=n_layers)
+    run = types.SimpleNamespace(
+        tag=f"[arch {name}{'' if n_layers is None else f' x{n_layers}'}]", cfg=cfg,
+        model=build_model(cfg), dev=dev, ops=ops, counts={}, routes={}, kern={},
+        prompt=torch.randint(0, cfg.vocab, (BATCH, PROMPT),
+                             generator=torch.Generator().manual_seed(1)))
+    prog = _arch_divide(run)
+    tokens = _arch_single(run, prog)
+    # each path's engines and stores go before the next path builds its
+    # own (a client and its stage callback hold each other: collect them)
+    for path in (lambda: _arch_wire(run, prog, tokens), lambda: _arch_pool(run, prog),
+                 lambda: _arch_spec(run, prog)):
+        gc.collect()
+        torch.cuda.empty_cache()
+        path()
+    del prog
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    path_err = _arch_path(cfg, dev)
+    log(f"{run.tag} [path] 2 layers at full width, cuda kernels vs cpu plain versions on the "
+        f"same accumulators: prefill and teacher-forced decode logits at stages 1 and 8, "
+        f"prefill chunk and verify logits at stage 8, max |err| / max |logit| = "
+        f"{path_err:.3e} (tolerance {PATH_RTOL}); "
+        f"{time.perf_counter() - t0:.1f} s")
+    gc.collect()
+    torch.cuda.empty_cache()
+    if n_layers is None:
+        _cli_phase(name, pool=False)
+    log(f"{run.tag} launches on the paths {run.counts}, dequant_matmul by route {run.routes}; "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    return {"counts": run.counts, "routes": run.routes, "kern": run.kern, "path_err": path_err}
+
+
+def _arch_divide(run):
+    """Seeded weights divided on the card (B6, 8 launches a tensor); the
+    largest tensor's planes against the plain version. Sets the counts of
+    weights and of float norm weights, and returns the divided model."""
+    from repro_torch.core.progressive import divide, tree_flatten_with_path
+    from repro_torch.core.quantize import quantize
+    from repro_torch.kernels import ref
+    from repro_torch.models.common import quantized_resident_eligible
+
+    cfg = run.cfg
+    params = run.model.init(torch.Generator(device=run.dev).manual_seed(0), device=run.dev)
+    leaves = dict(tree_flatten_with_path(params))
+    run.n_params = sum(t.numel() for t in leaves.values())
+    run.n_fp = sum(t.numel() for k, t in leaves.items() if not quantized_resident_eligible(k))
+    torch.cuda.synchronize()
+    reset_counts(run.ops)
+    t0 = time.perf_counter()
+    prog = divide(params)
+    torch.cuda.synchronize()
+    t_divide = time.perf_counter() - t0
+    got, _ = _tally(run.counts, run.routes, f"{run.tag} divide")
+    n_t = len(prog.tensors)
+    check(got["plane_extract"] == 8 * n_t and sum(got.values()) == 8 * n_t, got)
+    big = max(prog.tensors, key=lambda t: int(np.prod(t.shape)))
+    q = quantize(leaves[big.path], 16).q
+    before = 0
+    for w, plane in zip(big.plan.schedule.widths, big.planes):
+        check(torch.equal(plane, ref.plane_extract_ref(q, 16, before, w, torch.uint8)),
+              f"{run.tag} plane at {before} of {big.path}")
+        before += w
+    log(f"{run.tag} {cfg.n_layers} layers, d_model {cfg.d_model}, {cfg.n_heads} heads on "
+        f"{cfg.n_kv} KV heads (G = {cfg.n_heads // cfg.n_kv}), hd {cfg.hd}, d_ff {cfg.d_ff}, "
+        f"vocab {cfg.vocab}, {cfg.norm_type}, {cfg.act} (tanh), tied embeddings "
+        f"{cfg.tie_embeddings}: {run.n_params} parameters ({run.n_fp} in float norm leaves), "
+        f"{n_t} tensors; divide on the card {t_divide:.2f} s, launches {got}; the 8 planes of "
+        f"{'/'.join(big.path)} {tuple(big.shape)} equal the plain version")
+    return prog
+
+
+def _arch_single(run, prog) -> torch.Tensor:
+    """The single stream from in-memory planes in quantized residency,
+    counted from 0; then a decode step's B2 and B3 launches timed, B2 on
+    every distinct weight shape and B3 on layer 0's cache against their
+    plain versions. Returns the tokens."""
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import dequant_matmul as dqm
+    from repro_torch.kernels import ref
+    from repro_torch.models.transformer import layer
+    from repro_torch.serving import ProgressiveServer
+
+    cfg, L, dev = run.cfg, run.cfg.n_layers, run.dev
+    checked = FiniteLogits(run.model)
+    srv = ProgressiveServer(checked, prog, max_len=PROMPT + STEPS, resident="quantized",
+                            device=dev)
+    torch.cuda.synchronize()
+    reset_counts(run.ops)
+    t0 = time.perf_counter()
+    srv.receive_stage()
+    srv.start({"tokens": run.prompt})
+    torch.cuda.synchronize()
+    t_prefill = time.perf_counter() - t0
+    after_prefill = counts()
+    res = srv.decode(STEPS, stage_arrival=lambda i: i in ARRIVALS)
+    got, by = _tally(run.counts, run.routes, f"{run.tag} serve")
+    per_step = {k: (got[k] - after_prefill[k]) / STEPS for k in got}
+    rep = srv.resident_report()
+    decode_s = sum(s for _, s in res.window_s)
+    check(srv.stage == 8 and [s for _, s in res.upgrades] == list(range(2, 9)), res.upgrades)
+    check(bool(torch.stack(checked.flags).all()) and bool(torch.isfinite(srv.last_logits).all()),
+          f"{run.tag} non-finite logits")
+    check(res.tokens.shape == (BATCH, STEPS) and int(res.tokens.max()) < cfg.vocab)
+    check(rep["quantized_bytes"] == 2 * (run.n_params - run.n_fp)
+          and rep["fp_bytes"] == 4 * run.n_fp and rep["fp_leaves"] > 0, rep)
+    check(per_step["dequant_matmul"] == L * 7 + 1 and per_step["decode_attention"] == L, per_step)
+    check(got["plane_or_segments"] == 8 and got["flash_verify"] == 0, got)
+    check(by == expect_routes([(L * 7, BATCH * PROMPT), (1, BATCH)]
+                              + pass_calls(L, STEPS, BATCH)), by)
+    log(f"{run.tag} single stream (in-memory planes, quantized): stages "
+        f"{res.stage_at_step[0]}->{res.stage_at_step[-1]}, upgrades {res.upgrades}; resident "
+        f"{rep['quantized_bytes']} B quantized + {rep['fp_bytes']} B in {rep['fp_leaves']} "
+        f"float leaves (the norms)")
+    log(f"{run.tag} receive_stage + prefill {t_prefill * 1e3:.1f} ms; decode {STEPS} steps x "
+        f"{BATCH} with 7 upgrades: {decode_s:.3f} s, {BATCH * STEPS / decode_s:.1f} tokens/s, "
+        f"{decode_s / STEPS * 1e3:.2f} ms/step; per step dequant_matmul "
+        f"{per_step['dequant_matmul']:.0f}, decode_attention {per_step['decode_attention']:.0f}; "
+        f"launches {got}; dequant_matmul by route {by}, GEMV route by kernel "
+        f"{dict(dqm.launches_by_gemv_kernel)}")
+
+    # a decode step's B2 launches (M = BATCH: bfloat16 x for the layers,
+    # float32 for the unembedding) and B3 launches on the device
+    xg = torch.Generator(device=dev).manual_seed(2)
+    P = srv.params
+    stack = P["decoder"]["cycles"]["0_attn"]
+    unembed = P["embed"].T if cfg.tie_embeddings else P["lm_head"]
+    ws = [w for r in range(L) for w in _layer_weights(layer(stack, r))]
+    xs = {k: torch.randn((BATCH, k), generator=xg, device=dev).to(cfg.dtype)
+          for k in {w.q.shape[0] for w in ws}}
+    calls = [(xs[w.q.shape[0]], w) for w in ws] + [
+        (torch.randn((BATCH, cfg.d_model), generator=xg, device=dev), unembed)]
+
+    def b2(sub):
+        for x, w in sub:
+            dqm.dequant_matmul(x, w.q, w.scale, w.offset)
+
+    b, bb = _dqmm_bound(calls)
+    row = {"ms": device_ms(lambda: b2(calls), 2), "host_ms": host_ms(lambda: b2(calls), 2),
+           "bound_ms": b, "bound_by": bb,
+           "per": f"one decode step ({len(calls)} launches at M={BATCH})"}
+    by_shape = []
+    for shape in sorted({tuple(w.q.shape) for _, w in calls}):
+        sub = [(x, w) for x, w in calls if tuple(w.q.shape) == shape]
+        by_shape.append(f"K={shape[0]} N={shape[1]} x{len(sub)} "
+                        f"{device_ms(lambda: b2(sub), 2) * 1e3:.1f} us (bound "
+                        f"{_dqmm_bound(sub)[0] * 1e3:.1f})")
+    # the deepest layer weight also on the general GEMV kernel, which takes
+    # what the one-pass kernels cannot: a copy whose row stride (N + 1)
+    # rules out their vector loads
+    x, w = max(calls[:-1], key=lambda c: c[1].q.shape[0])
+    K, N = w.q.shape
+    strided = torch.empty((K, N + 1), dtype=w.q.dtype, device=dev)[:, :N]
+    strided.copy_(w.q)
+    check(not dqm.one_pass(strided), "the strided copy takes the one-pass kernels")
+    row["general_ms"] = {f"K={K} N={N}": (
+        device_ms(lambda: dqm.dequant_matmul(x, w.q, w.scale, w.offset), 5),
+        device_ms(lambda: dqm.dequant_matmul(x, strided, w.scale, w.offset), 5))}
+    del strided
+    log(f"{run.tag} [time] dequant_matmul per {row['per']}: {row['ms']:.4f} ms on the device, "
+        f"bound {b:.4f} ms ({bb}), host issue {row['host_ms']:.4f} ms; by weight shape: "
+        + "; ".join(by_shape) + f"; one launch at K={K} N={N}, one-pass and general kernel "
+        f"(a copy of row stride N + 1): {row['general_ms']} ms")
+    row["max_rel_err"] = _arch_dqmm_check(run.tag, stack, unembed, cfg, dev, xg)
+    run.kern["dequant_matmul"] = row
+
+    caches = [layer(srv.caches["cycles"]["0_attn"], r) for r in range(L)]
+    S = caches[0]["k"].shape[2]
+    k_pos = torch.arange(S, dtype=torch.int32, device=dev).repeat(BATCH, 1)
+    k_pos[1, 41:] = -1
+    q_pos = torch.tensor([S - 1, S - 1, 70, -1], dtype=torch.int32, device=dev)
+    q = torch.randn((BATCH, cfg.n_heads, cfg.hd), generator=xg, device=dev).to(cfg.dtype)
+    n_b = 2 * caches[0]["k"].numel() * caches[0]["k"].element_size() \
+        + 2 * q.numel() * q.element_size() + k_pos.numel() * 4 + BATCH * 4
+    b, bb = bound_ms(L * n_b, L * 4 * BATCH * cfg.n_heads * S * cfg.hd, FP32_FLOPS)
+    o = da.flash_decode(q, caches[0]["k"], caches[0]["v"], k_pos, q_pos)
+    want = ref.flash_decode_ref(q, caches[0]["k"], caches[0]["v"], k_pos, q_pos)
+    err = float((o.float() - want).abs().max())
+    check(bool(torch.isfinite(o).all()) and err <= ATTN_RTOL * float(want.abs().max()),
+          (run.tag, "decode_attention", err))
+    mask = torch.where((k_pos >= 0) & (k_pos <= q_pos[:, None]), 0.0, -1e30).to(cfg.dtype)
+    row = _attention_times(
+        lambda: [da.flash_decode(q, c["k"], c["v"], k_pos, q_pos) for c in caches],
+        lambda: [ref.flash_decode_ref(q, c["k"], c["v"], k_pos, q_pos) for c in caches],
+        lambda: [_sdpa(q[:, None], c, mask[:, None, None]) for c in caches])
+    ms = row["ms"]
+    run.kern["decode_attention"] = {**row, "bound_ms": b, "bound_by": bb, "max_abs_err": err,
+                                    "per": f"one decode step ({L} launches)"}
+    log(f"{run.tag} [check] decode_attention B={BATCH} H={cfg.n_heads} Kh={cfg.n_kv} S={S} "
+        f"hd={cfg.hd} (ragged slot, free slot): max |err| {err:.3e} (tolerance {ATTN_RTOL} of "
+        f"max |out|); [time] a decode step's {L} launches {ms:.4f} ms on the device, bound "
+        f"{b:.4f} ms ({bb}), plain {row['plain_ms']:.4f} ms, library {row['library_ms']:.4f} "
+        f"ms (scaled_dot_product_attention, GQA, additive mask)")
+    return res.tokens.cpu()
+
+
+def _arch_wire(run, prog, tokens) -> None:
+    """The single stream from v3 wire bytes through a CUDA client, counted
+    from 0 (encode, feed, ingest, serve), an in-memory store fed in
+    lockstep: ``torch.equal`` after every stage (a store's fingerprint is
+    the CRC32 of these bytes, minutes of host work at this width), and
+    ``fingerprint()`` equal at stage 8; the tokens equal the in-memory
+    stream's. Then float residency on the client's store
+    (:func:`_arch_fp`)."""
+    from repro_torch.core import wire
+    from repro_torch.core.progressive import ReceiverState
+    from repro_torch.serving import ProgressiveServer, WireStoreReceiver
+    from repro_torch.transmission import ProgressiveClient
+
+    dev = run.dev
+    reset_counts(run.ops)
+    t0 = time.perf_counter()
+    blob = wire.encode(prog, integrity=True)
+    t_encode = time.perf_counter() - t0
+    meta, ends = _stage_ends(wire, blob)
+    n_el = sum(t.planes[0].numel() for t in prog.tensors)
+    check(len(blob) - ends[0] == 2 * n_el + len(meta["units"]) * wire.FRAME_BYTES_V3,
+          (len(blob), ends[0], n_el))
+    mem = [ReceiverState.init(prog, device=dev)]
+    ingest_ms = []
+
+    def lockstep(s: int) -> None:
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        mem[0] = mem[0].receive(prog.stage(s))
+        torch.cuda.synchronize()
+        ingest_ms.append((time.perf_counter() - t) * 1e3)
+        check(all(torch.equal(client.store.buffers[k], v)
+                  for k, v in mem[0].store.buffers.items()),
+              f"{run.tag} wire-fed store differs from the in-memory one at stage {s}")
+
+    client = ProgressiveClient(on_stage_complete=lockstep, device=dev)
+    feed_to = _feeder(client, blob, 5)
+    feed_s = [feed_to(ends[1])]
+    srv = ProgressiveServer(run.model, prog, max_len=PROMPT + STEPS, resident="quantized",
+                            device=dev, receiver=WireStoreReceiver(client, prog))
+
+    def arrive(i: int) -> bool:
+        if i not in ARRIVALS:
+            return False
+        feed_s.append(feed_to(ends[client.stages_complete + 1]))
+        return True
+
+    srv.receive_stage()
+    srv.start({"tokens": run.prompt})
+    res = srv.decode(STEPS, stage_arrival=arrive)
+    got, _ = _tally(run.counts, run.routes, f"{run.tag} wire")
+    check(client.complete and len(ingest_ms) == 8 and srv.stage == 8, ingest_ms)
+    check(torch.equal(res.tokens.cpu(), tokens), f"{run.tag} wire-fed tokens differ")
+    t0 = time.perf_counter()
+    fps = client.store.fingerprint(), mem[0].store.fingerprint()
+    t_fp = time.perf_counter() - t0
+    check(fps[0] == fps[1], fps)
+    decode_s = sum(s for _, s in res.window_s)
+    del mem, srv
+    gc.collect()
+    _arch_fp(run, prog, client)
+    log(f"{run.tag} wire: encode v3 {t_encode:.2f} s, {len(blob)} bytes, {len(meta['units'])} "
+        f"units; fed in seeded ragged chunks of 1 B to {CHUNK_MAX >> 20} MB, a stage at each "
+        f"arrival: host feed s a stage {[round(f, 3) for f in feed_s]}, "
+        f"{len(blob) / sum(feed_s) / 1e9:.3f} GB/s; the store equal (torch.equal) to an "
+        f"in-memory store fed in lockstep after each of the 8 stages (ingest ms, "
+        f"synchronised, {[round(t, 2) for t in ingest_ms]}); fingerprint() at stage 8 equal "
+        f"{fps[0]} ({t_fp:.1f} s for both); served {STEPS} x {BATCH} with the feeding in "
+        f"{decode_s:.3f} s, {BATCH * STEPS / decode_s:.1f} tokens/s, tokens equal "
+        f"(torch.equal) to the in-memory stream's; launches {got}; host peak resident "
+        f"memory {_peak_rss_gb():.1f} GB")
+
+
+def _peak_rss_gb() -> float:
+    """The host's peak resident memory of this process, GB."""
+    import resource
+
+    return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 1e6
+
+
+def _arch_pool(run, prog) -> None:
+    """The slot pool's 12 requests, chunked admission from stage 1 and an
+    upgrade a window, counted from 0; then B4 on its live caches."""
+    from repro_torch.serving import PoolRequest, SlotPoolEngine
+
+    cfg, L = run.cfg, run.cfg.n_layers
+    lengths, budgets, prompts = _pool_requests(cfg)
+    checked = FiniteLogits(run.model)
+    pool = SlotPoolEngine(checked, prog, n_slots=POOL_SLOTS, max_len=POOL_MAX_LEN,
+                          resident="quantized", dispatch_window=POOL_WINDOW,
+                          prefill_chunk=POOL_CHUNK, device=run.dev)
+    torch.cuda.synchronize()
+    reset_counts(run.ops)
+    t0 = time.perf_counter()
+    pool.receive_stage()
+    for rid in range(POOL_REQUESTS):
+        pool.submit(PoolRequest(rid=rid, prompt=prompts[rid], max_new_tokens=int(budgets[rid])))
+    out = pool.run(on_window=lambda _: pool.upgrade_if_available())
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    ticks, steps = pool._tick_count, pool._step_count
+    got, by = _tally(run.counts, run.routes, f"{run.tag} pool")
+    check(pool.completed == set(range(POOL_REQUESTS)) and pool.stage == 8, pool.completed)
+    check(all(len(out[r]) == budgets[r] and max(out[r]) < cfg.vocab for r in out), "budgets")
+    check(bool(torch.stack(checked.flags).all()), f"{run.tag} non-finite pool logits")
+    check(got["flash_verify"] == L * ticks > 0 and got["decode_attention"] == L * steps, got)
+    check(by == expect_routes(pass_calls(L, ticks, POOL_SLOTS * POOL_CHUNK)
+                              + pass_calls(L, steps, POOL_SLOTS)), by)
+    n_tok = sum(len(t) for t in out.values())
+    ttft = [pool.ttft_s[r] for r in range(POOL_REQUESTS)]
+    log(f"{run.tag} pool: {POOL_REQUESTS} requests, {POOL_SLOTS} slots, chunk {POOL_CHUNK}; "
+        f"stages 1->8; {steps} decode steps, {ticks} chunk ticks; {n_tok} tokens in "
+        f"{wall:.3f} s: {n_tok / wall:.1f} tokens/s, TTFT mean "
+        f"{sum(ttft) / len(ttft) * 1e3:.1f} ms; launches {got}, dequant_matmul by route {by}")
+    run.kern["flash_verify"] = _arch_verify_check(run, pool)
+
+
+def _arch_spec(run, prog) -> None:
+    """``SpeculativeEngine`` at stage 8 (k = 4, draft 4 bits), counted from
+    0, against the plain server's greedy tokens (run first)."""
+    from repro_torch.serving import ProgressiveServer, SpecConfig, SpeculativeEngine
+
+    L = run.cfg.n_layers
+    plain = ProgressiveServer(run.model, prog, max_len=PROMPT + SPEC_TOKENS,
+                              resident="quantized", device=run.dev)
+    for _ in range(8):
+        plain.receive_stage()
+    plain.start({"tokens": run.prompt})
+    want = plain.decode(SPEC_TOKENS).tokens.cpu()
+    del plain
+    eng = SpeculativeEngine(run.model, prog, max_len=PROMPT + SPEC_TOKENS + 9,
+                            spec=SpecConfig(draft_bits=4, k=4), device=run.dev)
+    torch.cuda.synchronize()
+    reset_counts(run.ops)
+    for _ in range(8):
+        eng.receive_stage()
+    eng.start({"tokens": run.prompt})
+    res = eng.decode(SPEC_TOKENS)
+    steps, verifies = _b2_steps(res.accept_rounds)
+    got, by = _tally(run.counts, run.routes, f"{run.tag} spec")
+    check(torch.equal(res.tokens.cpu(), want), f"{run.tag} speculative tokens differ from plain")
+    check(got["flash_verify"] == L * verifies and verifies > 0, (got, verifies))
+    check(by == {"mma": L * 7, "gemv": (L * 7 + 1) * (steps + verifies) + 1}, by)
+    rep = eng.resident_report()
+    check(rep["extra_draft_bytes"] == 0 and rep["fp_bytes"] == 4 * run.n_fp, rep["fp_bytes"])
+    log(f"{run.tag} spec: SpeculativeEngine at stage 8, k = 4, draft 4 bits, batch {BATCH}, "
+        f"{SPEC_TOKENS} tokens: equal (torch.equal) to plain greedy tokens; {res.rounds} "
+        f"rounds, {res.accepted}/{res.drafted} drafts accepted, {verifies} verify passes "
+        f"(flash_verify at T = 5, B2 at M = {BATCH * 5} on the GEMV route); extra draft bytes "
+        f"0, the norms' float leaves shared; launches {got}, dequant_matmul by route {by}")
+
+
+def _arch_fp(run, prog, client) -> None:
+    """Float residency against quantized on the wire-fed store at stage 8,
+    the same prompt, each a fresh server over the client (one float
+    materialization, no second store); the float run counted from 0."""
+    from repro_torch.serving import ProgressiveServer, WireStoreReceiver
+
+    L, logs = run.cfg.n_layers, {}
+    for resident in ("quantized", "fp"):
+        lm = LogitLog(run.model)
+        srv = ProgressiveServer(lm, prog, max_len=PROMPT + ARCH_FP_STEPS, resident=resident,
+                                device=run.dev, receiver=WireStoreReceiver(client, prog))
+        torch.cuda.synchronize()
+        reset_counts(run.ops)
+        srv.receive_stage()
+        srv.start({"tokens": run.prompt})
+        res = srv.decode(ARCH_FP_STEPS)
+        if resident == "fp":
+            got, by = _tally(run.counts, run.routes, f"{run.tag} fp")
+            check(by == {"gemv": 0, "mma": 0} and got["decode_attention"] == L * ARCH_FP_STEPS,
+                  (got, by))
+            rep = srv.resident_report()
+        logs[resident] = (lm.logits, res.tokens)
+        del srv, lm
+        gc.collect()
+    worst, n_checked, near = _fp_against_quantized(logs["fp"][0], logs["quantized"][0],
+                                                   logs["fp"][1], logs["quantized"][1])
+    check(rep["quantized_bytes"] == 0 and rep["fp_bytes"] == 4 * run.n_params, rep)
+    log(f"{run.tag} float residency on the wire-fed store at stage 8 ({ARCH_FP_STEPS} steps x "
+        f"{BATCH}): logits within {worst:.3e} of the largest quantized logit (tolerance "
+        f"{FP_LOGIT_RTOL}), greedy tokens equal at all {n_checked} positions whose top-two "
+        f"margin clears twice that ({near} within it); {rep['fp_bytes']} float bytes beside the "
+        f"client's accumulators")
+
+
+def _arch_dqmm_check(tag, stack, unembed, cfg, dev, g) -> float:
+    """B2 on each distinct weight shape of the arch (layer 0's live stage-8
+    views and the unembedding) at ARCH_DQMM_M rows, with and without the
+    plane mask keep = 4, within ``DQMM_RTOL`` of the plain version on the
+    wrapper's route and on the forced GEMV route (verify's rows="decode");
+    every row of a forced-GEMV launch at M = 20 equal to the row alone.
+    Returns the worst error over the largest output."""
+    from repro_torch.kernels import dequant_matmul as dqm
+    from repro_torch.kernels import ref
+    from repro_torch.models.transformer import layer
+
+    names = ("attn.wq", "attn.wk", "attn.wv", "attn.wo", "mlp.wi_gate", "mlp.wi_up", "mlp.wo")
+    weights = {}
+    for nm, w in zip(names, _layer_weights(layer(stack, 0))):
+        weights.setdefault(tuple(w.q.shape), (nm, w, cfg.dtype))
+    weights["unembed"] = ("embed.T" if cfg.tie_embeddings else "lm_head", unembed, torch.float32)
+    four = torch.full((1, 1), 4, dtype=torch.int32, device=dev)
+    worst, lines = 0.0, []
+    for nm, w, xd in weights.values():
+        K = w.q.shape[0]
+        x = torch.nn.functional.silu(2 * torch.randn((max(ARCH_DQMM_M), K), generator=g,
+                                                     device=dev)).to(xd)
+        rel = 0.0
+        for kt in (None, four):
+            for M in ARCH_DQMM_M:
+                yr = ref.dequant_matmul_ref(x[:M], w.q, w.scale, w.offset, kt)
+                mag = float(yr.abs().max())
+                for rows in ("any", "decode"):
+                    y = dqm.dequant_matmul(x[:M], w.q, w.scale, w.offset, kt, rows=rows)
+                    err = float((y - yr).abs().max())
+                    check(err <= DQMM_RTOL * mag, (tag, nm, M, kt is None, rows, err, mag))
+                    rel = max(rel, err / mag)
+            alone = torch.cat([dqm.dequant_matmul(x[i:i + 1], w.q, w.scale, w.offset, kt,
+                                                  rows="decode") for i in range(20)])
+            check(torch.equal(dqm.dequant_matmul(x[:20], w.q, w.scale, w.offset, kt,
+                                                 rows="decode"), alone),
+                  f"{tag} {nm}: a row of an M = 20 decode-rows launch differs alone")
+        worst = max(worst, rel)
+        lines.append(f"{nm} K={K} N={w.q.shape[1]} "
+                     f"{'one-pass' if dqm.one_pass(w.q) else 'general'} {rel:.2e}")
+    log(f"{tag} [check] dequant_matmul on each distinct weight shape at M = "
+        f"{list(ARCH_DQMM_M)}, keep none and 4, the wrapper's route and rows='decode': max "
+        f"|err| / max |y| " + "; ".join(lines) + f" (tolerance {DQMM_RTOL}); every row of an "
+        f"M = 20 rows='decode' launch equal (torch.equal) to the row alone")
+    return worst
+
+
+def _arch_verify_check(run, pool) -> dict:
+    """B4 on layer 0 of the pool's live caches at the arch's heads: a chunk
+    (T = 8) and verify's T = 5, slots ragged, masked and free, within
+    ``ATTN_RTOL`` of the plain version, every row ``torch.equal`` to a
+    ``flash_decode`` launch; then a verify pass's L launches timed."""
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import verify_attention as va
+    from repro_torch.models.transformer import layer
+
+    cfg, L, dev = run.cfg, run.cfg.n_layers, run.dev
+    g = torch.Generator(device=dev).manual_seed(8)
+    caches = [layer(pool.caches["cycles"]["0_attn"], r) for r in range(L)]
+    pc = caches[0]
+    PS = pc["k"].shape[2]
+    k_pos = torch.arange(PS, dtype=torch.int32, device=dev).repeat(POOL_SLOTS, 1)
+    k_pos[1, 46:] = -1
+    worst = 0.0
+    for T in (POOL_CHUNK, 5):
+        base = torch.tensor([PS - T, 40, -1, -1] + [16 * i for i in range(4, POOL_SLOTS)],
+                            dtype=torch.int32, device=dev)
+        q_pos = torch.where(base[:, None] >= 0,
+                            base[:, None] + torch.arange(T, dtype=torch.int32, device=dev), -1)
+        q = torch.randn((POOL_SLOTS, T, cfg.n_heads, cfg.hd), generator=g,
+                        device=dev).to(cfg.dtype)
+        out = va.flash_verify(q, pc["k"], pc["v"], k_pos, q_pos)
+        want = ref.flash_verify_ref(q, pc["k"], pc["v"], k_pos, q_pos)
+        err = float((out.float() - want).abs().max())
+        check(bool(torch.isfinite(out).all()) and err <= ATTN_RTOL * float(want.abs().max()),
+              (run.tag, "flash_verify", T, err))
+        worst = max(worst, err)
+        for t in range(T):
+            row = da.flash_decode(q[:, t].contiguous(), pc["k"], pc["v"], k_pos,
+                                  q_pos[:, t].contiguous())
+            check(torch.equal(out[:, t], row), f"{run.tag} flash_verify T={T} row {t} differs")
+    n_b = 2 * pc["k"].numel() * pc["k"].element_size() + 2 * q.numel() * q.element_size() \
+        + k_pos.numel() * 4 + q_pos.numel() * 4
+    b, by = bound_ms(L * n_b, L * 4 * POOL_SLOTS * 5 * cfg.n_heads * PS * cfg.hd, FP32_FLOPS)
+    valid = (k_pos[:, None, :] >= 0) & (k_pos[:, None, :] <= q_pos[:, :, None]) \
+        & (q_pos[:, :, None] >= 0)
+    mask = torch.where(valid, 0.0, -1e30).to(cfg.dtype)[:, None]   # (B, 1, T, S)
+    row = _attention_times(
+        lambda: [va.flash_verify(q, c["k"], c["v"], k_pos, q_pos) for c in caches],
+        lambda: [ref.flash_verify_ref(q, c["k"], c["v"], k_pos, q_pos) for c in caches],
+        lambda: [_sdpa(q, c, mask) for c in caches])
+    log(f"{run.tag} [check] flash_verify B={POOL_SLOTS} H={cfg.n_heads} Kh={cfg.n_kv} S={PS} "
+        f"at T = {POOL_CHUNK} and 5 (ragged, masked and free slots): max |err| {worst:.3e}; "
+        f"every row equal (torch.equal) to a flash_decode launch; [time] {L} launches at T = 5 "
+        f"{row['ms']:.4f} ms on the device, bound {b:.4f} ms ({by}), plain "
+        f"{row['plain_ms']:.4f} ms, library {row['library_ms']:.4f} ms "
+        f"(scaled_dot_product_attention, GQA, (B, 1, T, S) mask)")
+    return {**row, "max_abs_err": worst, "bound_ms": b, "bound_by": by,
+            "per": f"one verify pass ({L} launches, T = 5)"}
+
+
+def _attention_times(kernel, plain, library) -> dict:
+    """Device ms of one call of each: the kernel, its plain version and
+    ``scaled_dot_product_attention``."""
+    return {"ms": device_ms(kernel, 3), "plain_ms": device_ms(plain, 1),
+            "library_ms": device_ms(library, 3)}
+
+
+def _sdpa(q, cache, mask):
+    """``scaled_dot_product_attention`` of (B, T, H, hd) rows against one
+    layer's native (B, Kh, S, hd) cache, GQA, with an additive mask."""
+    return torch.nn.functional.scaled_dot_product_attention(
+        q.transpose(1, 2), cache["k"], cache["v"], attn_mask=mask,
+        enable_gqa=q.shape[2] != cache["k"].shape[1])
+
+
+def _arch_path(cfg, dev) -> float:
+    """2 layers at the arch's full widths: the card's accumulators after
+    stages 1 and 8, and the same bytes copied to a CPU store; the prefill
+    and a teacher-forced decode step's logits at both stages, a prefill
+    chunk and a verify block at stage 8, each on the card (kernels) and on
+    the CPU (plain versions, minutes of host work at all 8 stages). Returns
+    the worst max |err| / max |logit|."""
+    from repro_torch.core.plane_store import PlaneStore
+    from repro_torch.core.progressive import ReceiverState, divide, rebuild_params
+    from repro_torch.models.common import quantized_resident_eligible
+    from repro_torch.models.model import build_model
+
+    cfg2 = dataclasses.replace(cfg, n_layers=2)
+    model = build_model(cfg2)
+    prog = divide(model.init(torch.Generator(device=dev).manual_seed(3), device=dev))
+    meta = dataclasses.replace(prog, tensors=[
+        dataclasses.replace(t, lo=t.lo.cpu(), hi=t.hi.cpu(), planes=[]) for t in prog.tensors])
+    g = torch.Generator().manual_seed(4)
+    prompt = torch.randint(0, cfg2.vocab, (2, 16), generator=g)
+    forced = torch.randint(0, cfg2.vocab, (2, 1), generator=g)
+    state = ReceiverState.init(prog, device=dev)
+    worst = 0.0
+    for s in range(1, 9):
+        state = state.receive(prog.stage(s))
+        if s not in (1, 8):
+            continue
+        store = PlaneStore.from_model(meta, device="cpu")
+        store.buffers = {k: v.cpu() for k, v in state.store.buffers.items()}
+        store.received = list(state.store.received)
+        sides = {"gpu": (state.materialize_resident(), dev),
+                 "cpu": (rebuild_params(meta, store.quantized_leaves(
+                     eligible=quantized_resident_eligible)), torch.device("cpu"))}
+        logits = {}
+        for side, (params, d) in sides.items():
+            last, caches = model.prefill(params, {"tokens": prompt.to(d)})
+            caches = model.grow_caches(caches, 16 + forced.shape[1])
+            out = [last]
+            for t in range(forced.shape[1]):
+                lg, caches = model.decode_step(params, caches, forced[:, t:t + 1].to(d), 16 + t)
+                out.append(lg)
+            logits[side] = out
+        for lg, lc in zip(logits["gpu"], logits["cpu"]):
+            check(bool(torch.isfinite(lg).all()))
+            err = float((lg.cpu() - lc).abs().max()) / float(lc.abs().max())
+            check(err <= PATH_RTOL, f"[path {cfg.name}] stage {s}: relative logit error {err:.3e}")
+            worst = max(worst, err)
+        if s == 8:
+            ns = types.SimpleNamespace
+            worst = max(worst, _chunk_and_verify(model, ns(params=sides["gpu"][0]),
+                                                 ns(params=sides["cpu"][0]), g, dev, s))
+        del sides, store
+    return worst
+
+
 def _dqmm_bound(calls) -> tuple[float, str]:
     """The least time for ``dequant_matmul`` over ``calls`` ((x, weight)
     pairs), whichever route runs it: each x, q and output crossing device
@@ -3153,7 +3774,7 @@ def _whole_path(cfg, dev) -> tuple[float, float]:
     del params, params_cpu
     g = torch.Generator().manual_seed(4)
     prompt = torch.randint(0, cfg2.vocab, (2, 16), generator=g)
-    forced = torch.randint(0, cfg2.vocab, (2, 2), generator=g)
+    forced = torch.randint(0, cfg2.vocab, (2, 1), generator=g)
     worst = worst_chunk = 0.0
     for s in range(1, gpu.prog.n_stages + 1):
         gpu.receive_stage()

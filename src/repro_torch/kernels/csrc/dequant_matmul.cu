@@ -30,7 +30,9 @@
 //    K; the wrapper's rule (kernels/dequant_matmul.py `gemv_k_chunk`) cuts K
 //    into 2 chunks where the column tiles alone would leave the card half
 //    empty, and into as many as chunks of at most 4096 rows need (2048 for
-//    embed.T): a function of K, N and the layout only. The chunks of a
+//    embed.T), at most 8 (the largest portable cluster; starcoder2-15b's
+//    mlp.wo at K = 24,576 takes 6): a function of K, N and the layout
+//    only. The chunks of a
 //    column tile run as one thread block cluster, and the cluster adds their
 //    partial sums in chunk order through distributed shared memory. Clusters
 //    of 2: at one block an SM the H100 holds enough of them at once, but
@@ -71,7 +73,7 @@
 //
 // The general kernels, PR 12's (`general_cols`, `general_rows`), take what
 // the vector loads cannot: uint32 q, q whose strides or alignment are not
-// multiples of 8 values, and K beyond 4 chunks. They form each weight as two
+// multiples of 8 values, and K beyond 8 chunks. They form each weight as two
 // rounded operations, as the plain version does, and sum K in one block
 // (each row independent of M as well).
 #include <cooperative_groups.h>
@@ -98,7 +100,7 @@ constexpr int KC_COLS = WARPS * KC_CW;    // K-contiguous q: columns a block
 constexpr int CHUNK_UNIT = 512;           // a chunk of K is a multiple of this
 constexpr int KN_MAX_CHUNK = 4096;        // rows of K a block at most, (K, N) q
 constexpr int KC_MAX_CHUNK = 2048;        // rows of K a block at most, K-contiguous q
-constexpr int MAX_CHUNKS = 4;             // chunks a cluster at most
+constexpr int MAX_CHUNKS = 8;             // chunks a cluster at most (portable limit)
 
 __device__ __forceinline__ float to_f(float v) { return v; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
@@ -800,7 +802,7 @@ int general_q(const void* x, const void* q, int q_bytes, long long sqk, long lon
 // (sqn == 1, kc == 0) with N and sqk multiples of 8, or K contiguous
 // (sqk == 1, kc == 1) with K and sqn multiples of 8; q aligned to 8
 // values; k_chunk rows of K a block, a multiple of 512 up to 4096 (2048
-// for K-contiguous q), at most 4 chunks.
+// for K-contiguous q), at most 8 chunks.
 extern "C" int dequant_matmul_gemv(const void* x, int x_dtype, const void* q, int q_bytes,
                                    long long sqk, long long sqn, const float* scale,
                                    const float* offset, const int* keep, int bits, float* out,

@@ -78,10 +78,11 @@ MMA_MIN_M = 16
 # GEMV_CLUSTER chunks (one thread block cluster: the H100 holds enough
 # clusters of 2 at once, too few of 4) unless K needs more, chunks of a
 # multiple of 512 rows up to 4096 ((K, N) q) or 2048 (K-contiguous q), at
-# most GEMV_MAX_CHUNKS.
+# most GEMV_MAX_CHUNKS (the largest portable cluster: K up to 32,768, or
+# 16,384 K-contiguous; every K up to 16,384 needs at most 4 chunks).
 GEMV_COLS, GEMV_BLOCKS, GEMV_CLUSTER = 32, 128, 2
 GEMV_MAX_CHUNK = {False: 4096, True: 2048}
-GEMV_MAX_CHUNKS = 4
+GEMV_MAX_CHUNKS = 8
 
 # ``rows`` of :func:`dequant_matmul`: the route by M, or GEMV at every M.
 ROWS = ("any", "decode")

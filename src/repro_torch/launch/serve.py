@@ -22,12 +22,15 @@ device. The engines run eagerly: no graph is captured yet (ROADMAP Next
 (``launch/mesh.py``): N cards with ``--device cuda`` (``cuda:0`` the
 home), N logical shards of the host with ``--device cpu`` (the
 counterpart of XLA's forced host devices); on logical shards tokens
-equal the unsharded run's, and a run across cards is not yet checked. The other architectures are
-still to be ported (ROADMAP A8).
+equal the unsharded run's, and a run across cards is not yet checked.
+``--arch`` takes the dense decoders (olmo-1b, minitron-4b,
+starcoder2-15b); the other architectures are still to be ported (ROADMAP
+A8).
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 from pathlib import Path
 
@@ -217,6 +220,12 @@ def main(argv: list[str] | None = None) -> None:
     del params
     # lossy mode needs the v3 integrity wire so damage is detectable
     blob = wire.encode(prog, integrity=args.faults)
+    # from here on the stream carries the planes: the servers read the
+    # divided model's metadata only, so its planes (a byte a weight a
+    # stage) leave the device before the client's store and float leaves
+    # fill it
+    prog = dataclasses.replace(prog, tensors=[dataclasses.replace(t, planes=[])
+                                              for t in prog.tensors])
 
     scenario = get_scenario(args.scenario) if args.scenario else None
     if scenario is not None:

@@ -18,11 +18,12 @@ from repro_torch.kernels import ops, ref
 
 @dataclasses.dataclass(frozen=True)
 class ArchConfig:
-    """One architecture: the fields the dense decoder (olmo-1b) needs.
+    """One architecture: the fields the dense decoders (olmo-1b,
+    minitron-4b, starcoder2-15b) need, with the reference's defaults.
     ``cycle`` names the block kind of the stacked layers (``attn``, a
     full-attention decoder block with a GLU MLP; the other kinds are
-    still to be ported). Tied embeddings, float32 parameters before
-    division."""
+    still to be ported). ``head_dim`` None means ``d_model // n_heads``.
+    Float32 parameters before division."""
 
     name: str
     family: str
@@ -33,16 +34,18 @@ class ArchConfig:
     d_ff: int
     vocab: int
     cycle: tuple[str, ...] = ("attn",)
+    head_dim: int | None = None
     rope_theta: float = 10_000.0
-    norm_type: str = "nonparam_ln"
-    act: str = "silu"
     window: int = 0             # sliding-window span (0 = full attention)
+    norm_type: str = "rmsnorm"  # rmsnorm | layernorm | nonparam_ln
+    act: str = "silu"           # silu | gelu (tanh approximation)
     attn_chunk: int = 1024      # online-softmax KV chunk of prefill attention
+    tie_embeddings: bool = True
     dtype: Any = torch.bfloat16  # activations and KV caches
 
     @property
     def hd(self) -> int:
-        return self.d_model // self.n_heads
+        return self.head_dim if self.head_dim else self.d_model // self.n_heads
 
     @property
     def n_cycles(self) -> int:
@@ -58,6 +61,7 @@ class ArchConfig:
             n_kv=min(self.n_kv, 2),
             d_ff=min(self.d_ff, 256),
             vocab=min(self.vocab, 512),
+            head_dim=32 if self.head_dim else None,
             attn_chunk=16,
             dtype=torch.float32,
         )
@@ -71,36 +75,58 @@ class ArchConfig:
 # Norms, activations, init
 # ---------------------------------------------------------------------------
 
-def _ported(cfg: ArchConfig) -> None:
-    if cfg.norm_type != "nonparam_ln" or cfg.act != "silu":
-        raise NotImplementedError(
-            f"norm {cfg.norm_type!r} / activation {cfg.act!r} are still to be "
-            "ported (ROADMAP A8); the port has OLMo's nonparam_ln and silu")
+NORM_TYPES = ("rmsnorm", "layernorm", "nonparam_ln")
+ACTIVATIONS = ("silu", "gelu")
 
 
-def norm_init(cfg: ArchConfig) -> dict:
-    """OLMo's LayerNorm has no affine parameters."""
-    _ported(cfg)
-    return {}
+def norm_init(cfg: ArchConfig, d: int, lead: tuple = (), *, device="cuda") -> dict:
+    """RMSNorm has a scale, LayerNorm a scale and a bias, OLMo's
+    non-parametric LayerNorm nothing; ``lead`` stacks them (a layer
+    stack's ``(n, d)``)."""
+    if cfg.norm_type == "rmsnorm":
+        return {"scale": torch.ones(lead + (d,), device=device)}
+    if cfg.norm_type == "layernorm":
+        return {"scale": torch.ones(lead + (d,), device=device),
+                "bias": torch.zeros(lead + (d,), device=device)}
+    if cfg.norm_type == "nonparam_ln":
+        return {}
+    raise ValueError(f"norm_type {cfg.norm_type!r} not in {NORM_TYPES}")
 
 
 def apply_norm(cfg: ArchConfig, p, x: torch.Tensor) -> torch.Tensor:
-    """OLMo's non-parametric LayerNorm, statistics in float32, in one
-    ``F.layer_norm`` launch. Its CUDA kernel gives each row a block of a
-    fixed shape, so a row's mean and variance, and with them a decode row
-    and a verify row, do not depend on how many rows share the launch
-    (separate mean and variance reductions do: PyTorch picks their
-    thread layout from the number of rows). That is the kernel's design,
-    not a documented guarantee: ``tests/test_torch_gpu.py::
-    test_norm_rows_independent_of_count`` holds it on the card at the
-    widths the port runs."""
-    _ported(cfg)
-    return F.layer_norm(x, x.shape[-1:], eps=1e-5)
+    """The reference's norms, each one PyTorch launch whose CUDA kernel
+    gives each row a block of a fixed shape, so a row's statistics, and
+    with them a decode row and a verify row, do not depend on how many
+    rows share the launch (separate mean and variance reductions do:
+    PyTorch picks their thread layout from the number of rows). That is
+    the kernels' design, not a documented guarantee:
+    ``tests/test_torch_gpu.py::test_norm_rows_independent_of_count``
+    holds it on the card at the widths the port runs.
+
+    OLMo's non-parametric LayerNorm takes x as it is (statistics in
+    float32 inside ``F.layer_norm``). RMSNorm (eps 1e-6) and the affine
+    LayerNorm (eps 1e-5) normalise a float32 copy of x with their float32
+    parameters and round once to x's dtype, as the reference does."""
+    if cfg.norm_type == "nonparam_ln":
+        return F.layer_norm(x, x.shape[-1:], eps=1e-5)
+    xf = x.to(torch.float32)
+    if cfg.norm_type == "rmsnorm":
+        y = F.rms_norm(xf, x.shape[-1:], weight=p["scale"], eps=1e-6)
+    elif cfg.norm_type == "layernorm":
+        y = F.layer_norm(xf, x.shape[-1:], weight=p["scale"], bias=p["bias"], eps=1e-5)
+    else:
+        raise ValueError(f"norm_type {cfg.norm_type!r} not in {NORM_TYPES}")
+    return y.to(x.dtype)
 
 
 def activation(cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
-    _ported(cfg)
-    return F.silu(x)
+    """SiLU, or GELU's tanh approximation (``jax.nn.gelu``'s default;
+    ``F.gelu``'s default is the erf form)."""
+    if cfg.act == "silu":
+        return F.silu(x)
+    if cfg.act == "gelu":
+        return F.gelu(x, approximate="tanh")
+    raise ValueError(f"act {cfg.act!r} not in {ACTIVATIONS}")
 
 
 def dense_init(generator: torch.Generator, d_in: int, d_out: int, lead: tuple = (),

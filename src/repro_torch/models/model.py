@@ -24,8 +24,8 @@ import torch
 
 from repro_torch import resolve_device, to_device
 from repro_torch.models import transformer as tfm
-from repro_torch.models.common import (ArchConfig, apply_norm, dense, dense_rows,
-                                      embed_lookup, norm_init)
+from repro_torch.models.common import (ArchConfig, apply_norm, dense, dense_init,
+                                      dense_rows, embed_lookup, norm_init)
 from repro_torch.models.attention import decode_pos_vector
 
 
@@ -35,15 +35,18 @@ class Model:
 
     def init(self, generator: torch.Generator, *, device="cuda") -> dict:
         """Random parameters from ``generator`` (which must live on
-        ``device``), in the reference's tree layout."""
+        ``device``), in the reference's tree layout: an untied
+        unembedding adds ``lm_head`` (d_model, vocab)."""
         cfg = self.cfg
         device = resolve_device(device)
         params: dict[str, Any] = {
             "embed": 0.02 * torch.randn((cfg.vocab, cfg.d_model), generator=generator,
                                         device=device),
             "decoder": tfm.stack_init(cfg, generator, device=device),
-            "final_norm": norm_init(cfg),
+            "final_norm": norm_init(cfg, cfg.d_model, device=device),
         }
+        if not cfg.tie_embeddings:
+            params["lm_head"] = dense_init(generator, cfg.d_model, cfg.vocab, device=device)
         return params
 
     def _embed(self, params, tokens: torch.Tensor) -> torch.Tensor:
@@ -52,10 +55,10 @@ class Model:
         return x * torch.tensor(cfg.d_model ** 0.5, dtype=cfg.dtype)
 
     def _unembed(self, params, x: torch.Tensor, mode: str = "prefill") -> torch.Tensor:
-        """Tied unembedding: ``x @ embed.T``, a transposed view of the
-        table (no copy)."""
-        return dense(x.to(torch.float32), params["embed"].T, dtype=torch.float32,
-                     rows=dense_rows(mode))
+        """``x @ embed.T`` when tied, a transposed view of the table (no
+        copy); ``x @ lm_head`` (the (K, N) layout) when untied."""
+        w = params["embed"].T if self.cfg.tie_embeddings else params["lm_head"]
+        return dense(x.to(torch.float32), w, dtype=torch.float32, rows=dense_rows(mode))
 
     def prefill(self, params, batch, n_valid=None):
         """Logits after the last prompt token, and the prompt's caches.

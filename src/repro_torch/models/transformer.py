@@ -35,10 +35,10 @@ def block_init(cfg: ArchConfig, generator: torch.Generator, kind: str, n: int,
         return dense_init(generator, d_in, d_out, (n,), device=device)
 
     return {
-        "norm1": norm_init(cfg),
+        "norm1": norm_init(cfg, d, (n,), device=device),
         "attn": {"wq": w(d, cfg.n_heads * hd), "wk": w(d, cfg.n_kv * hd),
                  "wv": w(d, cfg.n_kv * hd), "wo": w(cfg.n_heads * hd, d)},
-        "norm2": norm_init(cfg),
+        "norm2": norm_init(cfg, d, (n,), device=device),
         "mlp": {"wi_gate": w(d, cfg.d_ff), "wi_up": w(d, cfg.d_ff), "wo": w(cfg.d_ff, d)},
     }
 

@@ -201,7 +201,8 @@ def test_dequant_matmul_row_independent_of_M(dev, K, N, layout, qdtype, xdtype):
 
 @pytest.mark.parametrize("M", [1, 4, 8])
 @pytest.mark.parametrize("K,N,layout", [(2048, 512, "kn"), (8192, 256, "kn"), (2100, 136, "kn"),
-                                        (2048, 96, "transposed"), (4096, 72, "transposed")])
+                                        (2048, 96, "transposed"), (4096, 72, "transposed"),
+                                        (24576, 256, "kn"), (12288, 64, "transposed")])
 @pytest.mark.parametrize("qdtype", [torch.uint8, torch.uint16])
 def test_dequant_matmul_gemv_equals_its_emulation(dev, M, K, N, layout, qdtype):
     """The one-pass kernels' sums are ``ref.dequant_matmul_gemv_ref``'s, bit
@@ -275,6 +276,12 @@ def test_dequant_matmul_is_deterministic(dev, M, K, N, layout):
 EDGE_B = 5
 EDGE_S_HD = [(31, 128), (32, 128), (33, 128), (1, 128), (255, 64), (256, 64), (257, 64),
              (416, 128), (417, 128), (1000, 256)]
+# the dense variants' heads: minitron-4b's 24 on 8 KV heads (G = 3) and
+# starcoder2-15b's 48 on 4 (G = 12), hd 128, at the single stream's
+# decode (B = 4), the pool's chunk (T = 8) and verify at k = 4 (T = 5)
+NEW_ARCH_DECODE = [(4, 24, 8, 112, 128), (4, 48, 4, 112, 128), (8, 48, 4, 160, 128)]
+NEW_ARCH_VERIFY = [(8, 8, 24, 8, 160, 128), (8, 8, 48, 4, 160, 128), (4, 5, 24, 8, 112, 128),
+                   (4, 5, 48, 4, 112, 128)]
 
 
 def _mask_edge_slot(k_pos):
@@ -285,7 +292,7 @@ def _mask_edge_slot(k_pos):
 
 @pytest.mark.parametrize("B,H,Kh,S,hd", [(4, 16, 16, 112, 128), (3, 8, 2, 50, 64),
                                          (2, 8, 1, 300, 256), (1, 4, 4, 7, 32),
-                                         (2, 24, 2, 70, 16)]
+                                         (2, 24, 2, 70, 16)] + NEW_ARCH_DECODE
                          + [(EDGE_B, 16, 16, S, hd) for S, hd in EDGE_S_HD])
 @pytest.mark.parametrize("window,softcap", [(0, 0.0), (24, 0.0), (0, 30.0)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -439,7 +446,8 @@ EDGE_VERIFY = ([(EDGE_B, 8, 16, 16, S, hd) for S, hd in EDGE_S_HD]
 
 @pytest.mark.parametrize("B,T,H,Kh,S,hd", [(8, 8, 16, 16, 160, 128), (3, 5, 8, 2, 50, 64),
                                            (2, 8, 16, 2, 300, 256), (3, 1, 4, 4, 7, 32),
-                                           (3, 3, 24, 2, 33, 16)] + EDGE_VERIFY)
+                                           (3, 3, 24, 2, 33, 16)] + EDGE_VERIFY
+                         + NEW_ARCH_VERIFY)
 @pytest.mark.parametrize("window,softcap", [(0, 0.0), (24, 0.0), (0, 30.0)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_verify(dev, B, T, H, Kh, S, hd, window, softcap, dtype):
@@ -456,7 +464,8 @@ def test_flash_verify(dev, B, T, H, Kh, S, hd, window, softcap, dtype):
 
 
 @pytest.mark.parametrize("B,T,H,Kh,S,hd", [(8, 8, 16, 16, 160, 128), (3, 5, 8, 2, 50, 64),
-                                           (3, 3, 24, 2, 33, 16)] + EDGE_VERIFY)
+                                           (3, 3, 24, 2, 33, 16)] + EDGE_VERIFY
+                         + NEW_ARCH_VERIFY)
 @pytest.mark.parametrize("window,softcap", [(0, 0.0), (16, 25.0)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_verify_rows_equal_flash_decode(dev, B, T, H, Kh, S, hd, window, softcap,
@@ -668,22 +677,61 @@ def test_decode_rows_independent_of_M(dev, K, N, layout, keep, xdtype):
     _assert_dqmm_close(alone, x, ref.mask_q(q, keep), scale, offset)
 
 
-@pytest.mark.parametrize("d_model", [64, 128, 256, 2048])
+@pytest.mark.parametrize("norm_type,d_model", [("nonparam_ln", d) for d in (64, 128, 256, 2048)]
+                         + [(n, d) for n in ("rmsnorm", "layernorm")
+                            for d in (64, 128, 3072, 6144)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_norm_rows_independent_of_count(dev, dtype, d_model):
+def test_norm_rows_independent_of_count(dev, dtype, d_model, norm_type):
     """The norms' statistics: every row of an M-row ``apply_norm`` (M = 1-80)
     equals (torch.equal) that row normalised alone, at each width the port
-    runs (olmo-1b's 2048 and the reduced models' of these tests)."""
-    from repro_torch.configs import get_config
-    from repro_torch.models.common import apply_norm
+    runs: olmo-1b's non-parametric LayerNorm at 2048, minitron-4b's RMSNorm
+    at 3072 and starcoder2-15b's affine LayerNorm at 6144 (each also at
+    the other's width), and the reduced models' of these tests."""
+    import dataclasses
 
-    cfg = get_config("olmo-1b").reduced(d_model=d_model)
+    from repro_torch.configs import get_config
+    from repro_torch.models.common import apply_norm, norm_init
+
+    cfg = dataclasses.replace(get_config("olmo-1b").reduced(d_model=d_model),
+                              norm_type=norm_type)
     g = torch.Generator(device=dev).manual_seed(9)
     x = (torch.randn((80, cfg.d_model), generator=g, device=dev) * 3 + 1).to(dtype)
-    alone = torch.cat([apply_norm(cfg, {}, x[i:i + 1]) for i in range(80)])
+    p = {k: v + 0.3 * torch.randn(v.shape, generator=g, device=dev)
+         for k, v in norm_init(cfg, d_model, device=dev).items()}
+    alone = torch.cat([apply_norm(cfg, p, x[i:i + 1]) for i in range(80)])
     for M in list(range(1, 17)) + [20, 32, 64, 72, 80]:
-        assert torch.equal(apply_norm(cfg, {}, x[:M]), alone[:M]), M
-        assert torch.equal(apply_norm(cfg, {}, x[:M].reshape(1, M, -1))[0], alone[:M]), M
+        assert torch.equal(apply_norm(cfg, p, x[:M]), alone[:M]), M
+        assert torch.equal(apply_norm(cfg, p, x[:M].reshape(1, M, -1))[0], alone[:M]), M
+
+
+# the dense variants' weights that no olmo-1b launch has: minitron-4b's
+# embed.T (K-contiguous, N = 256,000), starcoder2-15b's untied lm_head
+# ((K, N)) and its mlp.wo at K = 24,576 (6 chunks of K, a cluster of 6),
+# and the narrow wk of each
+NEW_ARCH_WEIGHTS = [(3072, 256000, "transposed"), (6144, 49152, "kn"), (24576, 6144, "kn"),
+                    (3072, 1024, "kn"), (6144, 512, "kn"), (9216, 3072, "kn")]
+
+
+@pytest.mark.parametrize("K,N,layout", NEW_ARCH_WEIGHTS)
+@pytest.mark.parametrize("keep", [None, 4])
+def test_dequant_matmul_at_new_arch_weights(dev, K, N, layout, keep):
+    """Both routes within 1e-4 of the plain version at M = 1, 4, 8, 20 and
+    64 (bfloat16 x, float32 for the unembeddings), and every row of a
+    ``rows="decode"`` launch at M = 20 equal to the row launched alone;
+    every shape on the one-pass kernels."""
+    xdtype = torch.float32 if N in (256000, 49152) else torch.bfloat16
+    x, q, scale, offset = _dqmm_operands(dev, 64, K, N, torch.uint16, layout, xdtype, K + N,
+                                         "silu")
+    kt = None if keep is None else torch.tensor([[keep]], dtype=torch.int32, device=dev)
+    assert dequant_matmul.one_pass(q)
+    mq = ref.mask_q(q, kt)
+    for M in (1, 4, 8, 20, 64):
+        _assert_dqmm_close(dequant_matmul.dequant_matmul(x[:M], q, scale, offset, kt),
+                           x[:M], mq, scale, offset)
+    alone = torch.cat([dequant_matmul.dequant_matmul(x[i:i + 1], q, scale, offset, kt,
+                                                     rows="decode") for i in range(20)])
+    assert torch.equal(dequant_matmul.dequant_matmul(x[:20], q, scale, offset, kt,
+                                                     rows="decode"), alone)
 
 
 def _spec_model(dev, seed=0, **over):

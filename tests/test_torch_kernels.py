@@ -272,7 +272,7 @@ def test_dequant_matmul_gemv_emulation_vs_jax(bits, stage, transposed):
 
 def test_dequant_matmul_gemv_chunks_depend_on_K_N_and_layout_only():
     """The one-pass kernels' chunks of K: a multiple of 512 up to 4096
-    ((K, N) q) or 2048 (embed.T), at most 4, in clusters of 2 where the
+    ((K, N) q) or 2048 (embed.T), at most 8, in clusters of 2 where the
     blocks of 32 (K, N) columns alone do not fill the card; whole K for
     embed.T; ``one_pass`` sends uint32 q and q that 8-value vector loads
     cannot read to the general kernels."""
@@ -281,7 +281,8 @@ def test_dequant_matmul_gemv_chunks_depend_on_K_N_and_layout_only():
         == [1024, 4096, 2048]
     assert chunk(2048, 50304, True) == 2048 and chunk(8192, 64, True) == 2048
     assert chunk(300, 130, False) == 512 and chunk(16384, 64, False) == 4096
-    assert chunk(16385, 64, False) is None and chunk(8200, 64, True) is None
+    assert chunk(16385, 64, False) == 3584 and chunk(24576, 6144, False) == 4096
+    assert chunk(32769, 64, False) is None and chunk(16392, 64, True) is None
     q = torch.zeros((64, 48), dtype=torch.uint16)
     one_pass = dequant_matmul.one_pass
     assert one_pass(q) and one_pass(torch.zeros((48, 64), dtype=torch.uint8).T)
