@@ -13,16 +13,18 @@ with the launch counts set to 0 just before it and read just after:
    variants (RMSNorm, affine LayerNorm, tanh GELU, ``head_dim``, an
    untied ``lm_head``; GQA at G = 3 and 12) at their published widths,
    minitron-4b at its 32 layers and starcoder2-15b at 4 of its 40, from
-   seeded weights: ``divide`` on the card; the single stream (phase 3's
-   shape) from in-memory planes, then from v3 wire bytes through
+   seeded weights: ``divide`` on the card, and an in-memory receiver's
+   stage-8 accumulators equal to ``quantize(leaf).q`` of every tensor
+   (minitron-4b's flat buffer passes element 2^32); the single stream
+   (phase 3's shape) from in-memory planes, then from v3 wire bytes through
    ``ProgressiveClient`` (the store ``torch.equal`` to an in-memory store
    at every stage, fingerprints equal at stage 8, tokens equal); float
    residency on that store against quantized; the pool's 12 requests;
    ``SpeculativeEngine`` at stage 8, tokens equal to plain; B2 on every
    distinct weight shape at M = 1-64 with and without a mask, B3 and B4 at
    the arch's heads, against their plain versions (verify rows equal to
-   decode rows); 2 layers at full width on the card against the CPU's
-   plain versions; the CLI for minitron-4b at full width;
+   decode rows); ``[path]`` (phase 7) at stages 1 and 8; the CLI for
+   minitron-4b at full width;
 2. ``[divide]``: split full-width olmo-1b into eight 2-bit planes on the
    card (``plane_extract``, 8 launches a tensor); the in-memory receiver
    after all 8 stages holds ``quantize(leaf).q`` of every tensor, bit for
@@ -230,6 +232,11 @@ SESSION_POOL_ROUNDS = 48
 SMALL_CHUNK_SCENARIOS = ("browser-3g", "browser-lte-handoff", "edge-stall", "flash-crowd")
 LOSSY_SCENARIOS = ("browser-3g-lossy", "edge-flaky")
 CLI_TIMEOUT_S = 400
+# the CLI's runs (flags, the start of the last line): every flag at its
+# default (float residency, batch 2, prompt 32, 64 decode steps); the slot
+# pool of 4 clients admitting at batch 1
+CLI_STREAM = ([], "served 64 steps across 8 precision stages")
+CLI_POOL = (["--pool-clients", "4", "--no-chunked-prefill"], "served 256 tokens across")
 # [quantized view]: QuantizedLinearState over embed as a (50304, 2048)
 # weight, its matmul checked at these rows at every stage
 VIEW_M = (1, 4, 64)
@@ -546,7 +553,7 @@ def main() -> int:
     calib = _calibrate_phase(model, prog, dev, ops, prompt, clean_fps, session["arrivals_v3"])
     log(f"[calibrate] launches on the path {calib['counts']}, dequant_matmul by route "
         f"{calib['routes']}; {time.perf_counter() - t0:.1f} s")
-    _cli_phase()
+    _cli_phase("olmo-1b", CLI_STREAM, CLI_POOL)
 
     # -- 5. stage 8 one tensor at a time -------------------------------------
     # the accumulators after stage 7, stage 8's operands, and the batched
@@ -913,26 +920,15 @@ def main() -> int:
     caches = [layer(srv.caches["cycles"]["0_attn"], r) for r in range(layers)]
     valid = (k_pos >= 0) & (k_pos <= q_pos[:, None])
     mask = torch.where(valid, 0.0, -1e30).to(cfg.dtype)[:, None, None, :]
-    q4 = q[:, :, None, :]
-    sdpa = torch.nn.functional.scaled_dot_product_attention
-
-    def attend(fn):
-        for c in caches:
-            fn(c)
-
     kv_bytes = 2 * cache["k"].numel() * cache["k"].element_size()
     n_b = kv_bytes + 2 * q.numel() * q.element_size() + k_pos.numel() * 4 + BATCH * 4
     n_ops = 4 * BATCH * cfg.n_heads * S * cfg.hd
     b, by = bound_ms(layers * n_b, layers * n_ops, FP32_FLOPS)
     kern["decode_attention"].update(
-        ms=device_ms(lambda: attend(lambda c: da.flash_decode(q, c["k"], c["v"], k_pos,
-                                                              q_pos)), 5),
-        plain_ms=device_ms(lambda: attend(lambda c: ref.flash_decode_ref(
-            q, c["k"], c["v"], k_pos, q_pos)), 5),
-        library_ms=device_ms(lambda: attend(lambda c: sdpa(q4, c["k"], c["v"],
-                                                           attn_mask=mask)), 5),
-        host_ms=host_ms(lambda: attend(lambda c: da.flash_decode(q, c["k"], c["v"], k_pos,
-                                                                 q_pos)), 5),
+        **_attention_times(
+            lambda: [da.flash_decode(q, c["k"], c["v"], k_pos, q_pos) for c in caches],
+            lambda: [ref.flash_decode_ref(q, c["k"], c["v"], k_pos, q_pos) for c in caches],
+            lambda: [_sdpa(q[:, None], c, mask) for c in caches], (5, 5, 5)),
         bound_ms=b, bound_by=by, per=f"one decode step ({layers} launches)")
 
     # flash_verify: one chunk tick's 16 launches, one per layer's pooled cache
@@ -940,26 +936,17 @@ def main() -> int:
     vvalid = (vk_pos[:, None, :] >= 0) & (vk_pos[:, None, :] <= vq_pos[:, :, None]) \
         & (vq_pos[:, :, None] >= 0)
     vmask = torch.where(vvalid, 0.0, -1e30).to(cfg.dtype)[:, None]   # (B, 1, T, S)
-    vq_h = vq.transpose(1, 2)                                         # (B, H, T, hd)
-
-    def attend_tick(fn):
-        for c in pcaches:
-            fn(c)
-
     kv_bytes = 2 * pcache["k"].numel() * pcache["k"].element_size()
     n_b = kv_bytes + 2 * vq.numel() * vq.element_size() + vk_pos.numel() * 4 \
         + vq_pos.numel() * 4
     n_ops = 4 * POOL_SLOTS * T * cfg.n_heads * PS * cfg.hd
     b, by = bound_ms(layers * n_b, layers * n_ops, FP32_FLOPS)
     kern["flash_verify"].update(
-        ms=device_ms(lambda: attend_tick(lambda c: va.flash_verify(
-            vq, c["k"], c["v"], vk_pos, vq_pos)), 5),
-        plain_ms=device_ms(lambda: attend_tick(lambda c: ref.flash_verify_ref(
-            vq, c["k"], c["v"], vk_pos, vq_pos)), 3),
-        library_ms=device_ms(lambda: attend_tick(lambda c: sdpa(
-            vq_h, c["k"], c["v"], attn_mask=vmask)), 5),
-        host_ms=host_ms(lambda: attend_tick(lambda c: va.flash_verify(
-            vq, c["k"], c["v"], vk_pos, vq_pos)), 5),
+        **_attention_times(
+            lambda: [va.flash_verify(vq, c["k"], c["v"], vk_pos, vq_pos) for c in pcaches],
+            lambda: [ref.flash_verify_ref(vq, c["k"], c["v"], vk_pos, vq_pos)
+                     for c in pcaches],
+            lambda: [_sdpa(vq, c, vmask) for c in pcaches], (5, 3, 5)),
         bound_ms=b, bound_by=by, per=f"one chunk tick ({layers} launches)")
 
     # both attention kernels at long caches, where the body's ring cycles
@@ -2030,19 +2017,15 @@ def _session_small(cfg, dev, ops, acc: dict, routes: dict) -> None:
             f"upgrades {r.upgrades}; host {host_s:.3f} s; launches {c}")
 
 
-def _cli_phase(arch: str = "olmo-1b", pool: bool = True) -> None:
+def _cli_phase(arch: str, *runs) -> None:
     """The CLI at full width, each run a process of its own: ``python -m
-    repro_torch.launch.serve --arch <arch> --scenario pod-coldstart``,
-    every other flag at its default (float residency, batch 2, prompt 32,
-    64 decode steps); then, with ``pool``, the slot pool of 4 clients
-    admitting at batch 1 (``--pool-clients 4 --no-chunked-prefill``)."""
+    repro_torch.launch.serve --arch <arch> --scenario pod-coldstart`` and
+    each run's flags, its last line checked (``CLI_STREAM``,
+    ``CLI_POOL``)."""
     base = [sys.executable, "-m", "repro_torch.launch.serve", "--arch", arch,
             "--scenario", "pod-coldstart"]
     env = {**os.environ, "PYTHONPATH": os.path.join(ROOT, "src")}
-    runs = [(base, "served 64 steps across 8 precision stages")]
-    if pool:
-        runs.append((base + ["--pool-clients", "4", "--no-chunked-prefill"],
-                     "served 256 tokens across"))
+    runs = [(base + flags, last) for flags, last in runs]
     for cmd, last in runs:
         t0 = time.perf_counter()
         proc = subprocess.run(cmd, capture_output=True, text=True, timeout=CLI_TIMEOUT_S,
@@ -2098,10 +2081,11 @@ def _upgrade_phase(prog, dev, ops):
     return run_counts, acc, plane, shifts, out, per_tensor, store.slots
 
 
-def _pool_phase(model, prog, dev, ops):
+def _pool_phase(model, prog, dev, ops, tag="[pool]", fp_bytes=0):
     """Serve 12 requests through the slot pool from stage 1, one upgrade
     per window up to stage 8, and check what came out and which kernels
-    ran. Returns the drained pool, the run's launch counts and
+    ran; ``fp_bytes`` is the float leaves' resident bytes (olmo-1b has
+    none). Returns the drained pool, the run's launch counts and
     ``dequant_matmul``'s launches by route."""
     from repro_torch.serving.engine import PoolRequest, SlotPoolEngine
 
@@ -2122,7 +2106,7 @@ def _pool_phase(model, prog, dev, ops):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     run_counts, routes = counts(), route_counts()
-    gemv_by = check_one_pass(routes, "pool")
+    gemv_by = check_one_pass(routes, tag)
     op_counts = dict(ops.LAUNCH_COUNTS)
 
     layers, ticks, steps = cfg.n_layers, pool._tick_count, pool._step_count
@@ -2132,8 +2116,8 @@ def _pool_phase(model, prog, dev, ops):
         check(len(toks) == budgets[rid], (rid, len(toks), budgets[rid]))
         check(all(0 <= t < cfg.vocab for t in toks), f"request {rid}: token out of vocab")
     check(pool.completed == set(range(POOL_REQUESTS)), pool.completed)
-    check(bool(torch.stack(checked.flags).all()), "non-finite pool logits")
-    check(report["fp_bytes"] == 0, report["fp_bytes"])
+    check(bool(torch.stack(checked.flags).all()), f"{tag} non-finite pool logits")
+    check(report["fp_bytes"] == fp_bytes, (report["fp_bytes"], fp_bytes))
     check(pool.stage == prog.n_stages == 8, f"pool ended at stage {pool.stage}")
     check(run_counts["plane_or_segments"] == 8, run_counts)
     check(ticks > 0 and op_counts["prefill_attention"] == run_counts["flash_verify"]
@@ -2149,15 +2133,16 @@ def _pool_phase(model, prog, dev, ops):
                                   + pass_calls(layers, steps, POOL_SLOTS)), routes)
     n_tok = sum(len(t) for t in out.values())
     ttft = [pool.ttft_s[rid] for rid in range(POOL_REQUESTS)]
-    log(f"[pool] {POOL_REQUESTS} requests, prompts {int(lengths.min())}-"
+    log(f"{tag} {POOL_REQUESTS} requests, prompts {int(lengths.min())}-"
         f"{int(lengths.max())} tokens, budgets {int(budgets.min())}-{int(budgets.max())}; "
         f"{POOL_SLOTS} slots, chunk {POOL_CHUNK}, window {POOL_WINDOW}; stages "
         f"1->{pool.stage}, upgrades at steps {[s for s, _ in pool.upgrades]}")
-    log(f"[pool] {steps} decode steps, {ticks} chunk ticks, "
+    log(f"{tag} {steps} decode steps, {ticks} chunk ticks, "
         f"{len(pool.window_stats)} windows; launches in the run {run_counts}; "
         f"dequant_matmul by route {routes}, GEMV route by kernel {gemv_by}; "
-        f"every request got its budget of in-vocab tokens, logits finite, fp bytes 0")
-    log(f"[pool] {n_tok} tokens in {wall:.3f} s: {n_tok / wall:.1f} tokens/s; TTFT mean "
+        f"every request got its budget of in-vocab tokens, logits finite, fp bytes "
+        f"{report['fp_bytes']}")
+    log(f"{tag} {n_tok} tokens in {wall:.3f} s: {n_tok / wall:.1f} tokens/s; TTFT mean "
         f"{sum(ttft) / len(ttft) * 1e3:.1f} ms, largest {max(ttft) * 1e3:.1f} ms; upgrade "
         f"enqueue ms {[round(u['enqueue_s'] * 1e3, 2) for u in pool.upgrade_log]}")
     return pool, run_counts, routes
@@ -3165,13 +3150,12 @@ def _arch_phase(name: str, n_layers, dev, ops) -> dict:
     8, tokens equal); the slot pool's 12 requests with chunked admission;
     ``SpeculativeEngine`` at stage 8 (k = 4), tokens equal to plain greedy
     tokens; float residency on the wire-fed store at stage 8 against
-    quantized. Between the paths, B2 on every distinct weight shape, B3 and
-    B4 at the arch's
-    heads against their plain versions, and the decode step's B2, B3 and
-    a verify pass's B4 timed. Then 2 layers at full width on the card
-    against the CPU's plain versions, and (at full depth) the CLI. Returns
-    the launch counts and B2's launches by route over the paths, and the
-    kernels' rows."""
+    quantized. Between the paths, the stage-8 accumulators against
+    ``quantize(leaf).q``, B2 on every distinct weight shape, B3 and B4 at
+    the arch's heads against their plain versions, and the decode step's
+    B2, B3 and a verify pass's B4 timed. Then ``_whole_path`` at stages 1
+    and 8, and (at full depth) the CLI. Returns the launch counts and B2's
+    launches by route over the paths, and the kernels' rows."""
     from repro_torch.configs import get_config
     from repro_torch.models.model import build_model
 
@@ -3197,26 +3181,31 @@ def _arch_phase(name: str, n_layers, dev, ops) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    path_err = _arch_path(cfg, dev)
-    log(f"{run.tag} [path] 2 layers at full width, cuda kernels vs cpu plain versions on the "
-        f"same accumulators: prefill and teacher-forced decode logits at stages 1 and 8, "
-        f"prefill chunk and verify logits at stage 8, max |err| / max |logit| = "
-        f"{path_err:.3e} (tolerance {PATH_RTOL}); "
-        f"{time.perf_counter() - t0:.1f} s")
+    path_err, chunk_err = _whole_path(cfg, dev, stages=(1, 8), cpu_divides=False)
+    log(f"{run.tag} [path] 2 layers at full width, cuda kernels vs cpu plain versions, each "
+        f"side ingesting its own copy of the card's planes, fingerprints equal at stages 1 and "
+        f"8: "
+        f"teacher-forced logits at stages 1 and 8 max |err| / max |logit| = {path_err:.3e}; "
+        f"prefill chunk and verify logits at stages 1 and 8: {chunk_err:.3e} (tolerance "
+        f"{PATH_RTOL}); {time.perf_counter() - t0:.1f} s")
     gc.collect()
     torch.cuda.empty_cache()
     if n_layers is None:
-        _cli_phase(name, pool=False)
+        _cli_phase(name, CLI_STREAM)
     log(f"{run.tag} launches on the paths {run.counts}, dequant_matmul by route {run.routes}; "
         f"{time.perf_counter() - t_phase:.1f} s")
-    return {"counts": run.counts, "routes": run.routes, "kern": run.kern, "path_err": path_err}
+    return {"counts": run.counts, "routes": run.routes, "kern": run.kern}
 
 
 def _arch_divide(run):
-    """Seeded weights divided on the card (B6, 8 launches a tensor); the
-    largest tensor's planes against the plain version. Sets the counts of
-    weights and of float norm weights, and returns the divided model."""
-    from repro_torch.core.progressive import divide, tree_flatten_with_path
+    """Seeded weights divided on the card (B6, 8 launches a tensor), the
+    largest tensor's planes against the plain version; then an in-memory
+    receiver through all 8 stages (B1 over the whole flat buffer, past
+    element 2^32 at minitron-4b's width), its stage-8 accumulators against
+    ``quantize(leaf).q`` of every tensor, bit for bit, as ``[divide]``
+    holds olmo-1b's. Sets the counts of weights and of float norm weights,
+    and returns the divided model."""
+    from repro_torch.core.progressive import ReceiverState, divide, tree_flatten_with_path
     from repro_torch.core.quantize import quantize
     from repro_torch.kernels import ref
     from repro_torch.models.common import quantized_resident_eligible
@@ -3248,6 +3237,29 @@ def _arch_divide(run):
         f"{cfg.tie_embeddings}: {run.n_params} parameters ({run.n_fp} in float norm leaves), "
         f"{n_t} tensors; divide on the card {t_divide:.2f} s, launches {got}; the 8 planes of "
         f"{'/'.join(big.path)} {tuple(big.shape)} equal the plain version")
+
+    # every tensor's q kept on the host while the float weights are freed,
+    # so the receiver's old and new buffers fit beside the planes
+    t0 = time.perf_counter()
+    del q
+    want = [quantize(leaves[t.path], 16).q.cpu() for t in prog.tensors]
+    del params, leaves
+    torch.cuda.empty_cache()
+    state = ReceiverState.init(prog, device=run.dev)
+    for s in range(1, prog.n_stages + 1):
+        state = state.receive(prog.stage(s))
+    store = state.store
+    for i, t in enumerate(prog.tensors):
+        check(torch.equal(store._slice_acc(i), want[i].to(run.dev)),
+              f"{run.tag} stage-8 accumulator of {t.path} differs from quantize(leaf).q")
+    n_flat = {dt: b.numel() for dt, b in store.buffers.items()}
+    beyond = ["/".join(t.path) for t, slot in zip(prog.tensors, store.slots)
+              if slot.offset + slot.size > 2 ** 32]
+    check(bool(beyond) == (max(n_flat.values()) > 2 ** 32), (n_flat, beyond))
+    log(f"{run.tag} stage-8 accumulators of an in-memory receiver equal quantize(leaf).q of "
+        f"all {n_t} tensors, bit for bit; flat buffers {n_flat} elements, tensors past "
+        f"element 2^32: {beyond or 'none'}; {time.perf_counter() - t0:.1f} s")
+    del state, store, want
     return prog
 
 
@@ -3312,20 +3324,34 @@ def _arch_single(run, prog) -> torch.Tensor:
     calls = [(xs[w.q.shape[0]], w) for w in ws] + [
         (torch.randn((BATCH, cfg.d_model), generator=xg, device=dev), unembed)]
 
-    def b2(sub):
+    def b2(sub, fn=dqm.dequant_matmul):
         for x, w in sub:
-            dqm.dequant_matmul(x, w.q, w.scale, w.offset)
+            fn(x, w.q, w.scale, w.offset)
 
     b, bb = _dqmm_bound(calls)
     row = {"ms": device_ms(lambda: b2(calls), 2), "host_ms": host_ms(lambda: b2(calls), 2),
            "bound_ms": b, "bound_by": bb,
            "per": f"one decode step ({len(calls)} launches at M={BATCH})"}
-    by_shape = []
+    # each weight shape's launches alone, beside the plain version and
+    # torch.matmul on the dequantised float32 weights (one shape's float
+    # weights held at a time); the step's plain and library times are
+    # the sums over the shapes
+    row["by_shape"] = {}
     for shape in sorted({tuple(w.q.shape) for _, w in calls}):
         sub = [(x, w) for x, w in calls if tuple(w.q.shape) == shape]
-        by_shape.append(f"K={shape[0]} N={shape[1]} x{len(sub)} "
-                        f"{device_ms(lambda: b2(sub), 2) * 1e3:.1f} us (bound "
-                        f"{_dqmm_bound(sub)[0] * 1e3:.1f})")
+        dense = [(x.float(), w.q.to(torch.float32) * w.scale.reshape(()) + w.offset.reshape(()))
+                 for x, w in sub]
+        row["by_shape"][f"K={shape[0]} N={shape[1]}"] = {
+            "launches": len(sub), "ms": device_ms(lambda: b2(sub), 2),
+            "plain_ms": device_ms(lambda: b2(sub, ref.dequant_matmul_ref), 1),
+            "library_ms": device_ms(lambda: [torch.matmul(x, w) for x, w in dense], 2),
+            "bound_ms": _dqmm_bound(sub)[0]}
+        del dense
+    for k in ("plain_ms", "library_ms"):
+        row[k] = sum(r[k] for r in row["by_shape"].values())
+    by_shape = [f"{k} x{r['launches']} {r['ms']:.4f} ms (bound {r['bound_ms']:.4f}, plain "
+                f"{r['plain_ms']:.4f}, library {r['library_ms']:.4f})"
+                for k, r in row["by_shape"].items()]
     # the deepest layer weight also on the general GEMV kernel, which takes
     # what the one-pass kernels cannot: a copy whose row stride (N + 1)
     # rules out their vector loads
@@ -3339,7 +3365,9 @@ def _arch_single(run, prog) -> torch.Tensor:
         device_ms(lambda: dqm.dequant_matmul(x, strided, w.scale, w.offset), 5))}
     del strided
     log(f"{run.tag} [time] dequant_matmul per {row['per']}: {row['ms']:.4f} ms on the device, "
-        f"bound {b:.4f} ms ({bb}), host issue {row['host_ms']:.4f} ms; by weight shape: "
+        f"bound {b:.4f} ms ({bb}), plain {row['plain_ms']:.4f} ms, library "
+        f"{row['library_ms']:.4f} ms (torch.matmul on dequantised float32 weights), host "
+        f"issue {row['host_ms']:.4f} ms; by weight shape: "
         + "; ".join(by_shape) + f"; one launch at K={K} N={N}, one-pass and general kernel "
         f"(a copy of row stride N + 1): {row['general_ms']} ms")
     row["max_rel_err"] = _arch_dqmm_check(run.tag, stack, unembed, cfg, dev, xg)
@@ -3378,7 +3406,7 @@ def _arch_single(run, prog) -> torch.Tensor:
 def _arch_wire(run, prog, tokens) -> None:
     """The single stream from v3 wire bytes through a CUDA client, counted
     from 0 (encode, feed, ingest, serve), an in-memory store fed in
-    lockstep: ``torch.equal`` after every stage (a store's fingerprint is
+    lockstep: ``torch.equal`` at every stage (a store's fingerprint is
     the CRC32 of these bytes, minutes of host work at this width), and
     ``fingerprint()`` equal at stage 8; the tokens equal the in-memory
     stream's. Then float residency on the client's store
@@ -3400,7 +3428,10 @@ def _arch_wire(run, prog, tokens) -> None:
     mem = [ReceiverState.init(prog, device=dev)]
     ingest_ms = []
 
-    def lockstep(s: int) -> None:
+    def lockstep() -> None:
+        # the in-memory store takes the client's newest stage once the
+        # server has upgraded to it and let go of the client's old buffer
+        s = client.stages_complete
         torch.cuda.synchronize()
         t = time.perf_counter()
         mem[0] = mem[0].receive(prog.stage(s))
@@ -3410,7 +3441,7 @@ def _arch_wire(run, prog, tokens) -> None:
                   for k, v in mem[0].store.buffers.items()),
               f"{run.tag} wire-fed store differs from the in-memory one at stage {s}")
 
-    client = ProgressiveClient(on_stage_complete=lockstep, device=dev)
+    client = ProgressiveClient(device=dev)
     feed_to = _feeder(client, blob, 5)
     feed_s = [feed_to(ends[1])]
     srv = ProgressiveServer(run.model, prog, max_len=PROMPT + STEPS, resident="quantized",
@@ -3419,12 +3450,14 @@ def _arch_wire(run, prog, tokens) -> None:
     def arrive(i: int) -> bool:
         if i not in ARRIVALS:
             return False
+        lockstep()
         feed_s.append(feed_to(ends[client.stages_complete + 1]))
         return True
 
     srv.receive_stage()
     srv.start({"tokens": run.prompt})
     res = srv.decode(STEPS, stage_arrival=arrive)
+    lockstep()
     got, _ = _tally(run.counts, run.routes, f"{run.tag} wire")
     check(client.complete and len(ingest_ms) == 8 and srv.stage == 8, ingest_ms)
     check(torch.equal(res.tokens.cpu(), tokens), f"{run.tag} wire-fed tokens differ")
@@ -3456,39 +3489,13 @@ def _peak_rss_gb() -> float:
 
 
 def _arch_pool(run, prog) -> None:
-    """The slot pool's 12 requests, chunked admission from stage 1 and an
-    upgrade a window, counted from 0; then B4 on its live caches."""
-    from repro_torch.serving import PoolRequest, SlotPoolEngine
-
-    cfg, L = run.cfg, run.cfg.n_layers
-    lengths, budgets, prompts = _pool_requests(cfg)
-    checked = FiniteLogits(run.model)
-    pool = SlotPoolEngine(checked, prog, n_slots=POOL_SLOTS, max_len=POOL_MAX_LEN,
-                          resident="quantized", dispatch_window=POOL_WINDOW,
-                          prefill_chunk=POOL_CHUNK, device=run.dev)
-    torch.cuda.synchronize()
-    reset_counts(run.ops)
-    t0 = time.perf_counter()
-    pool.receive_stage()
-    for rid in range(POOL_REQUESTS):
-        pool.submit(PoolRequest(rid=rid, prompt=prompts[rid], max_new_tokens=int(budgets[rid])))
-    out = pool.run(on_window=lambda _: pool.upgrade_if_available())
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    ticks, steps = pool._tick_count, pool._step_count
-    got, by = _tally(run.counts, run.routes, f"{run.tag} pool")
-    check(pool.completed == set(range(POOL_REQUESTS)) and pool.stage == 8, pool.completed)
-    check(all(len(out[r]) == budgets[r] and max(out[r]) < cfg.vocab for r in out), "budgets")
-    check(bool(torch.stack(checked.flags).all()), f"{run.tag} non-finite pool logits")
-    check(got["flash_verify"] == L * ticks > 0 and got["decode_attention"] == L * steps, got)
-    check(by == expect_routes(pass_calls(L, ticks, POOL_SLOTS * POOL_CHUNK)
-                              + pass_calls(L, steps, POOL_SLOTS)), by)
-    n_tok = sum(len(t) for t in out.values())
-    ttft = [pool.ttft_s[r] for r in range(POOL_REQUESTS)]
-    log(f"{run.tag} pool: {POOL_REQUESTS} requests, {POOL_SLOTS} slots, chunk {POOL_CHUNK}; "
-        f"stages 1->8; {steps} decode steps, {ticks} chunk ticks; {n_tok} tokens in "
-        f"{wall:.3f} s: {n_tok / wall:.1f} tokens/s, TTFT mean "
-        f"{sum(ttft) / len(ttft) * 1e3:.1f} ms; launches {got}, dequant_matmul by route {by}")
+    """The slot pool's 12 requests as ``[pool]`` runs them, counted from
+    0; then B4 on its live caches."""
+    pool, got, by = _pool_phase(run.model, prog, run.dev, run.ops, f"{run.tag} pool",
+                                4 * run.n_fp)
+    for acc, new in ((run.counts, got), (run.routes, by)):
+        for k, v in new.items():
+            acc[k] = acc.get(k, 0) + v
     run.kern["flash_verify"] = _arch_verify_check(run, pool)
 
 
@@ -3663,11 +3670,12 @@ def _arch_verify_check(run, pool) -> dict:
             "per": f"one verify pass ({L} launches, T = 5)"}
 
 
-def _attention_times(kernel, plain, library) -> dict:
-    """Device ms of one call of each: the kernel, its plain version and
-    ``scaled_dot_product_attention``."""
-    return {"ms": device_ms(kernel, 3), "plain_ms": device_ms(plain, 1),
-            "library_ms": device_ms(library, 3)}
+def _attention_times(kernel, plain, library, reps=(3, 1, 3)) -> dict:
+    """Device ms of one call of each (``reps`` calls a graph): the kernel,
+    its plain version and ``scaled_dot_product_attention``; and the host's
+    ms to issue the kernel's call."""
+    return {"ms": device_ms(kernel, reps[0]), "plain_ms": device_ms(plain, reps[1]),
+            "library_ms": device_ms(library, reps[2]), "host_ms": host_ms(kernel, reps[0])}
 
 
 def _sdpa(q, cache, mask):
@@ -3676,60 +3684,6 @@ def _sdpa(q, cache, mask):
     return torch.nn.functional.scaled_dot_product_attention(
         q.transpose(1, 2), cache["k"], cache["v"], attn_mask=mask,
         enable_gqa=q.shape[2] != cache["k"].shape[1])
-
-
-def _arch_path(cfg, dev) -> float:
-    """2 layers at the arch's full widths: the card's accumulators after
-    stages 1 and 8, and the same bytes copied to a CPU store; the prefill
-    and a teacher-forced decode step's logits at both stages, a prefill
-    chunk and a verify block at stage 8, each on the card (kernels) and on
-    the CPU (plain versions, minutes of host work at all 8 stages). Returns
-    the worst max |err| / max |logit|."""
-    from repro_torch.core.plane_store import PlaneStore
-    from repro_torch.core.progressive import ReceiverState, divide, rebuild_params
-    from repro_torch.models.common import quantized_resident_eligible
-    from repro_torch.models.model import build_model
-
-    cfg2 = dataclasses.replace(cfg, n_layers=2)
-    model = build_model(cfg2)
-    prog = divide(model.init(torch.Generator(device=dev).manual_seed(3), device=dev))
-    meta = dataclasses.replace(prog, tensors=[
-        dataclasses.replace(t, lo=t.lo.cpu(), hi=t.hi.cpu(), planes=[]) for t in prog.tensors])
-    g = torch.Generator().manual_seed(4)
-    prompt = torch.randint(0, cfg2.vocab, (2, 16), generator=g)
-    forced = torch.randint(0, cfg2.vocab, (2, 1), generator=g)
-    state = ReceiverState.init(prog, device=dev)
-    worst = 0.0
-    for s in range(1, 9):
-        state = state.receive(prog.stage(s))
-        if s not in (1, 8):
-            continue
-        store = PlaneStore.from_model(meta, device="cpu")
-        store.buffers = {k: v.cpu() for k, v in state.store.buffers.items()}
-        store.received = list(state.store.received)
-        sides = {"gpu": (state.materialize_resident(), dev),
-                 "cpu": (rebuild_params(meta, store.quantized_leaves(
-                     eligible=quantized_resident_eligible)), torch.device("cpu"))}
-        logits = {}
-        for side, (params, d) in sides.items():
-            last, caches = model.prefill(params, {"tokens": prompt.to(d)})
-            caches = model.grow_caches(caches, 16 + forced.shape[1])
-            out = [last]
-            for t in range(forced.shape[1]):
-                lg, caches = model.decode_step(params, caches, forced[:, t:t + 1].to(d), 16 + t)
-                out.append(lg)
-            logits[side] = out
-        for lg, lc in zip(logits["gpu"], logits["cpu"]):
-            check(bool(torch.isfinite(lg).all()))
-            err = float((lg.cpu() - lc).abs().max()) / float(lc.abs().max())
-            check(err <= PATH_RTOL, f"[path {cfg.name}] stage {s}: relative logit error {err:.3e}")
-            worst = max(worst, err)
-        if s == 8:
-            ns = types.SimpleNamespace
-            worst = max(worst, _chunk_and_verify(model, ns(params=sides["gpu"][0]),
-                                                 ns(params=sides["cpu"][0]), g, dev, s))
-        del sides, store
-    return worst
 
 
 def _dqmm_bound(calls) -> tuple[float, str]:
@@ -3754,11 +3708,17 @@ def _layer_weights(lr: dict) -> list:
     return [a["wq"], a["wk"], a["wv"], a["wo"], m["wi_gate"], m["wi_up"], m["wo"]]
 
 
-def _whole_path(cfg, dev) -> tuple[float, float]:
+def _whole_path(cfg, dev, stages=range(1, 9), cpu_divides=True) -> tuple[float, float]:
     """The same 2-layer full-width weights served on the card and on the
-    CPU; teacher-forced logits compared after every stage, and the logits
-    of a ragged prefill chunk and a verify block into pooled caches at
-    stages 1 and 8. Returns the worst max |err| / max |logit| of each."""
+    CPU, each side ingesting its own copy of the planes through all 8
+    stages; after each of ``stages``, the fingerprints and teacher-forced
+    logits compared, and after stages 1 and 8 the logits of a ragged
+    prefill chunk and a verify block into pooled caches. The CPU divides
+    its own float copy, or with ``cpu_divides`` False takes a host copy of
+    the card's planes: the new archs, whose planes ``_arch_divide`` holds
+    against ``quantize(leaf).q`` at full depth, and whose 1.0-1.67 B
+    weights take the CPU's plain divide 40-65 s. Returns the worst max
+    |err| / max |logit| of each."""
     from repro_torch.core.progressive import divide
     from repro_torch.models.model import build_model
     from repro_torch.serving.engine import ProgressiveServer
@@ -3766,19 +3726,21 @@ def _whole_path(cfg, dev) -> tuple[float, float]:
     cfg2 = dataclasses.replace(cfg, n_layers=2)
     model = build_model(cfg2)
     params = model.init(torch.Generator(device=dev).manual_seed(3), device=dev)
-    params_cpu = {k: v for k, v in _to_cpu(params).items()}
+    params_cpu = {k: v for k, v in _to_cpu(params).items()} if cpu_divides else None
     gpu = ProgressiveServer(model, divide(params), max_len=16 + 2, resident="quantized",
                             device=dev)
-    cpu = ProgressiveServer(model, divide(params_cpu), max_len=16 + 2,
-                            resident="quantized", device="cpu")
+    cpu = ProgressiveServer(model, divide(params_cpu) if cpu_divides else _cpu_copy(gpu.prog),
+                            max_len=16 + 2, resident="quantized", device="cpu")
     del params, params_cpu
     g = torch.Generator().manual_seed(4)
     prompt = torch.randint(0, cfg2.vocab, (2, 16), generator=g)
-    forced = torch.randint(0, cfg2.vocab, (2, 1), generator=g)
+    forced = torch.randint(0, cfg2.vocab, (2, 2), generator=g)
     worst = worst_chunk = 0.0
     for s in range(1, gpu.prog.n_stages + 1):
         gpu.receive_stage()
         cpu.receive_stage()
+        if s not in stages:
+            continue
         check(gpu.state.store.fingerprint() == cpu.state.store.fingerprint(),
               f"accumulators differ at stage {s}")
         gpu.start({"tokens": prompt})
@@ -3831,7 +3793,6 @@ def _attention_long(cfg, dev, g, S, da, va, ref) -> dict:
     also ``torch.equal`` to a decode launch). Device ms a launch beside
     ``scaled_dot_product_attention`` and the bytes bound."""
     H, Kh, hd = cfg.n_heads, cfg.n_kv, cfg.hd
-    sdpa = torch.nn.functional.scaled_dot_product_attention
     rows = {}
     for name, B, T in (("decode_attention", BATCH, 1), ("flash_verify", POOL_SLOTS, POOL_CHUNK)):
         k = torch.randn((B, Kh, S, hd), generator=g, device=dev).to(cfg.dtype)
@@ -3857,13 +3818,11 @@ def _attention_long(cfg, dev, g, S, da, va, ref) -> dict:
                 check(torch.equal(out[:, t], row), f"flash_verify S={S} row {t} differs")
         valid = k_pos[:, None, :] <= q_pos[:, :, None]
         mask = torch.where(valid, 0.0, -1e30).to(cfg.dtype)[:, None]    # (B, 1, T, S)
-        qh = q.transpose(1, 2)                                          # (B, H, T, hd)
         n_b = 2 * k.numel() * k.element_size() + 2 * q.numel() * q.element_size() \
             + k_pos.numel() * 4 + q_pos.numel() * 4
         b, by = bound_ms(n_b, 4 * B * T * H * S * hd, FP32_FLOPS)
         row = {"ms": device_ms(fn, 10),
-               "library_ms": device_ms(lambda: sdpa(qh, k, v, attn_mask=mask,
-                                                  enable_gqa=Kh != H), 10),
+               "library_ms": device_ms(lambda: _sdpa(q, {"k": k, "v": v}, mask), 10),
                "bound_ms": b, "bound_by": by, "max_abs_err": err}
         rows[name] = row
         log(f"[check] {name} S={S} B={B} T={T} H={H} hd={hd} (one synthetic layer, all "
