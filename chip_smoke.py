@@ -25,6 +25,20 @@ with the launch counts set to 0 just before it and read just after:
    the arch's heads, against their plain versions (verify rows equal to
    decode rows); ``[path]`` (phase 7) at stages 1 and 8; the CLI for
    minitron-4b at full width;
+1b. ``[arch gemma3-27b x6]``: sliding windows over ring caches, qk-norm,
+   the logit softcap and the global layers' rope base (ROADMAP A8(b)) at
+   gemma3-27b's published widths, one 5:1 cycle (6 of its 62 layers):
+   divide and the stage-8 accumulators as 1a; the single stream (a prompt
+   of 1000, 48 steps, every ring wrapping at 1024) against the same stream
+   teacher-forced over rings grown so that they never wrap, within
+   ``RING_RTOL`` and every greedy token equal; the pool's chunked admission over rings (6 requests,
+   prompts 990-1040); ``SpeculativeEngine`` at stage 8 from a prompt of
+   1030, tokens equal to plain greedy tokens over the same rings; float
+   residency; B2 on every weight shape; B3 and B4 on a ring wrapped twice
+   and more, verify rows equal to decode rows, timed beside SDPA with the
+   window mask. No wire, CLI or ``[path]``: they are arch-agnostic byte
+   paths, and the CPU tests hold the windowed numerics against the JAX
+   package;
 2. ``[divide]``: split full-width olmo-1b into eight 2-bit planes on the
    card (``plane_extract``, 8 launches a tensor); the in-memory receiver
    after all 8 stages holds ``quantize(leaf).q`` of every tensor, bit for
@@ -212,6 +226,11 @@ ATTN_RTOL = 2.0 ** -7
 # whole path: bfloat16 activations rounded at other places by the two
 # sums orders compound over 2 layers; allow 3% of the largest logit.
 PATH_RTOL = 3e-2
+# gemma3-27b's stream over wrapping rings against unwrapped rings: the
+# same kernels on the same card, only the order of the slots (and so of
+# the sums over them) differs; the card measured 1.42e-3 of the largest
+# logit, allow 5e-3 and hold every greedy token equal
+RING_RTOL = 5e-3
 # float residency against quantized on the same byte clock: the float
 # path rounds every weight to bfloat16 (2**-9 relative) before a cuBLAS
 # product, B2 multiplies the exact dequantised weight; over 16 layers
@@ -256,6 +275,19 @@ CAL_BATCH, CAL_LEN = 4, 64
 ARCHS = (("minitron-4b", None), ("starcoder2-15b", 4))
 ARCH_DQMM_M = (1, 4, 8, 20, 64)
 ARCH_FP_STEPS = 16
+# [arch gemma3-27b x6]: sliding windows (ROADMAP A8(b)) at gemma3-27b's
+# published widths, one 5:1 cycle of its 62 layers (its float32 weights,
+# 108 GB at full depth, do not fit the card that divides them). The
+# single stream's prompt of 1000 crosses the window (1024) during decode;
+# the pool's 6 requests on 4 slots (numpy seed 3) have prompts of 990-1040
+# and budgets of 24-39; speculation (k = k_max = 4: rings of 1024 + 5)
+# starts past the window; float residency crosses it
+GEMMA = ("gemma3-27b", 6)
+GEMMA_PROMPT = 1000
+GEMMA_POOL_SLOTS, GEMMA_POOL_REQUESTS, GEMMA_POOL_MAX_LEN = 4, 6, 1088
+GEMMA_POOL_PROMPTS, GEMMA_POOL_BUDGETS = (990, 1041), (24, 40)
+GEMMA_SPEC_PROMPT, GEMMA_SPEC_K = 1030, 4
+GEMMA_FP_PROMPT = 1016
 # v2 entropy coding is host numpy (core/entropy.py): its encode and decode
 # are timed on the 2-layer full-width model's attn.wq units (8 planes)
 
@@ -438,6 +470,10 @@ def main() -> int:
         arch_runs[f"arch {name}" + ("" if n_layers is None else f" x{n_layers}")] = \
             _arch_phase(name, n_layers, dev, ops)
         torch.cuda.empty_cache()
+
+    # -- 1b. sliding windows (ROADMAP A8(b)): gemma3-27b, 6 of its 62 layers -
+    arch_runs[f"arch {GEMMA[0]} x{GEMMA[1]}"] = _gemma_phase(dev, ops)
+    torch.cuda.empty_cache()
 
     # -- 2. divide on the card -----------------------------------------------
     cfg = get_config("olmo-1b")
@@ -2081,25 +2117,28 @@ def _upgrade_phase(prog, dev, ops):
     return run_counts, acc, plane, shifts, out, per_tensor, store.slots
 
 
-def _pool_phase(model, prog, dev, ops, tag="[pool]", fp_bytes=0):
-    """Serve 12 requests through the slot pool from stage 1, one upgrade
-    per window up to stage 8, and check what came out and which kernels
-    ran; ``fp_bytes`` is the float leaves' resident bytes (olmo-1b has
-    none). Returns the drained pool, the run's launch counts and
+def _pool_phase(model, prog, dev, ops, tag="[pool]", fp_bytes=0, *, slots=POOL_SLOTS,
+                max_len=POOL_MAX_LEN, requests=None):
+    """Serve the requests (default: the 12 of ``_pool_requests``) through
+    the slot pool of ``slots`` slots from stage 1, one upgrade per window
+    up to stage 8, and check what came out and which kernels ran;
+    ``fp_bytes`` is the float leaves' resident bytes (olmo-1b has none).
+    Returns the drained pool, the run's launch counts and
     ``dequant_matmul``'s launches by route."""
     from repro_torch.serving.engine import PoolRequest, SlotPoolEngine
 
     cfg = model.cfg
-    lengths, budgets, prompts = _pool_requests(cfg)
+    lengths, budgets, prompts = requests or _pool_requests(cfg)
+    n_req = len(prompts)
     checked = FiniteLogits(model)
-    pool = SlotPoolEngine(checked, prog, n_slots=POOL_SLOTS, max_len=POOL_MAX_LEN,
+    pool = SlotPoolEngine(checked, prog, n_slots=slots, max_len=max_len,
                           resident="quantized", dispatch_window=POOL_WINDOW,
                           prefill_chunk=POOL_CHUNK, device=dev)
     torch.cuda.synchronize()
     reset_counts(ops)
     t0 = time.perf_counter()
     pool.receive_stage()
-    for rid in range(POOL_REQUESTS):
+    for rid in range(n_req):
         pool.submit(PoolRequest(rid=rid, prompt=prompts[rid],
                                 max_new_tokens=int(budgets[rid])))
     out = pool.run(on_window=lambda _: pool.upgrade_if_available())
@@ -2111,11 +2150,11 @@ def _pool_phase(model, prog, dev, ops, tag="[pool]", fp_bytes=0):
 
     layers, ticks, steps = cfg.n_layers, pool._tick_count, pool._step_count
     report = pool.resident_report()
-    check(sorted(out) == list(range(POOL_REQUESTS)), sorted(out))
+    check(sorted(out) == list(range(n_req)), sorted(out))
     for rid, toks in out.items():
         check(len(toks) == budgets[rid], (rid, len(toks), budgets[rid]))
         check(all(0 <= t < cfg.vocab for t in toks), f"request {rid}: token out of vocab")
-    check(pool.completed == set(range(POOL_REQUESTS)), pool.completed)
+    check(pool.completed == set(range(n_req)), pool.completed)
     check(bool(torch.stack(checked.flags).all()), f"{tag} non-finite pool logits")
     check(report["fp_bytes"] == fp_bytes, (report["fp_bytes"], fp_bytes))
     check(pool.stage == prog.n_stages == 8, f"pool ended at stage {pool.stage}")
@@ -2129,13 +2168,13 @@ def _pool_phase(model, prog, dev, ops, tag="[pool]", fp_bytes=0):
     check("verify_attention" not in op_counts, op_counts)
     # a chunk tick runs every weight at M = slots x chunk, a decode step at
     # M = slots
-    check(routes == expect_routes(pass_calls(layers, ticks, POOL_SLOTS * POOL_CHUNK)
-                                  + pass_calls(layers, steps, POOL_SLOTS)), routes)
+    check(routes == expect_routes(pass_calls(layers, ticks, slots * POOL_CHUNK)
+                                  + pass_calls(layers, steps, slots)), routes)
     n_tok = sum(len(t) for t in out.values())
-    ttft = [pool.ttft_s[rid] for rid in range(POOL_REQUESTS)]
-    log(f"{tag} {POOL_REQUESTS} requests, prompts {int(lengths.min())}-"
+    ttft = [pool.ttft_s[rid] for rid in range(n_req)]
+    log(f"{tag} {n_req} requests, prompts {int(lengths.min())}-"
         f"{int(lengths.max())} tokens, budgets {int(budgets.min())}-{int(budgets.max())}; "
-        f"{POOL_SLOTS} slots, chunk {POOL_CHUNK}, window {POOL_WINDOW}; stages "
+        f"{slots} slots, chunk {POOL_CHUNK}, window {POOL_WINDOW}; stages "
         f"1->{pool.stage}, upgrades at steps {[s for s, _ in pool.upgrades]}")
     log(f"{tag} {steps} decode steps, {ticks} chunk ticks, "
         f"{len(pool.window_stats)} windows; launches in the run {run_counts}; "
@@ -3173,7 +3212,7 @@ def _arch_phase(name: str, n_layers, dev, ops) -> dict:
     # each path's engines and stores go before the next path builds its
     # own (a client and its stage callback hold each other: collect them)
     for path in (lambda: _arch_wire(run, prog, tokens), lambda: _arch_pool(run, prog),
-                 lambda: _arch_spec(run, prog)):
+                 lambda: _arch_spec(run, prog, run.prompt)):
         gc.collect()
         torch.cuda.empty_cache()
         path()
@@ -3312,13 +3351,66 @@ def _arch_single(run, prog) -> torch.Tensor:
         f"launches {got}; dequant_matmul by route {by}, GEMV route by kernel "
         f"{dict(dqm.launches_by_gemv_kernel)}")
 
-    # a decode step's B2 launches (M = BATCH: bfloat16 x for the layers,
-    # float32 for the unembedding) and B3 launches on the device
+    # a decode step's B2 launches, then B3's on the device
     xg = torch.Generator(device=dev).manual_seed(2)
-    P = srv.params
-    stack = P["decoder"]["cycles"]["0_attn"]
+    run.kern["dequant_matmul"] = _decode_b2_row(run, srv.params, xg)
+
+    caches = [layer(srv.caches["cycles"]["0_attn"], r) for r in range(L)]
+    S = caches[0]["k"].shape[2]
+    k_pos = torch.arange(S, dtype=torch.int32, device=dev).repeat(BATCH, 1)
+    k_pos[1, 41:] = -1
+    q_pos = torch.tensor([S - 1, S - 1, 70, -1], dtype=torch.int32, device=dev)
+    q = torch.randn((BATCH, cfg.n_heads, cfg.hd), generator=xg, device=dev).to(cfg.dtype)
+    n_b = 2 * caches[0]["k"].numel() * caches[0]["k"].element_size() \
+        + 2 * q.numel() * q.element_size() + k_pos.numel() * 4 + BATCH * 4
+    b, bb = bound_ms(L * n_b, L * 4 * BATCH * cfg.n_heads * S * cfg.hd, FP32_FLOPS)
+    o = da.flash_decode(q, caches[0]["k"], caches[0]["v"], k_pos, q_pos)
+    want = ref.flash_decode_ref(q, caches[0]["k"], caches[0]["v"], k_pos, q_pos)
+    err = float((o.float() - want).abs().max())
+    check(bool(torch.isfinite(o).all()) and err <= ATTN_RTOL * float(want.abs().max()),
+          (run.tag, "decode_attention", err))
+    mask = torch.where((k_pos >= 0) & (k_pos <= q_pos[:, None]), 0.0, -1e30).to(cfg.dtype)
+    row = _attention_times(
+        lambda: [da.flash_decode(q, c["k"], c["v"], k_pos, q_pos) for c in caches],
+        lambda: [ref.flash_decode_ref(q, c["k"], c["v"], k_pos, q_pos) for c in caches],
+        lambda: [_sdpa(q[:, None], c, mask[:, None, None]) for c in caches])
+    ms = row["ms"]
+    run.kern["decode_attention"] = {**row, "bound_ms": b, "bound_by": bb, "max_abs_err": err,
+                                    "per": f"one decode step ({L} launches)"}
+    log(f"{run.tag} [check] decode_attention B={BATCH} H={cfg.n_heads} Kh={cfg.n_kv} S={S} "
+        f"hd={cfg.hd} (ragged slot, free slot): max |err| {err:.3e} (tolerance {ATTN_RTOL} of "
+        f"max |out|); [time] a decode step's {L} launches {ms:.4f} ms on the device, bound "
+        f"{b:.4f} ms ({bb}), plain {row['plain_ms']:.4f} ms, library {row['library_ms']:.4f} "
+        f"ms (scaled_dot_product_attention, GQA, additive mask)")
+    return res.tokens.cpu()
+
+
+def _stack_layers(cfg, tree) -> list:
+    """Every layer of a decoder tree (params or caches), in the order a
+    forward pass runs them: each cycle's slots layer by layer, then the
+    tail."""
+    from repro_torch.models.transformer import layer
+
+    out = [layer(tree["cycles"][f"{j}_{kind}"], r) for r in range(cfg.n_cycles)
+           for j, kind in enumerate(cfg.cycle)]
+    return out + [tree["tail"][f"{i}_{kind}"] for i, kind in enumerate(cfg.tail)]
+
+
+def _decode_b2_row(run, P, xg) -> dict:
+    """A decode step's B2 launches at M = BATCH (bfloat16 x for the
+    layers, float32 for the unembedding) on the live views ``P``: the
+    step timed beside its bound, each weight shape's launches beside the
+    plain version and ``torch.matmul`` on dequantised float32 weights, the
+    deepest weight also on the general kernel; then every distinct weight
+    shape checked (:func:`_arch_dqmm_check`). Returns the kernels-line
+    row."""
+    from repro_torch.kernels import dequant_matmul as dqm
+    from repro_torch.kernels import ref
+
+    cfg, dev = run.cfg, run.dev
+    layers = _stack_layers(cfg, P["decoder"])
     unembed = P["embed"].T if cfg.tie_embeddings else P["lm_head"]
-    ws = [w for r in range(L) for w in _layer_weights(layer(stack, r))]
+    ws = [w for lr in layers for w in _layer_weights(lr)]
     xs = {k: torch.randn((BATCH, k), generator=xg, device=dev).to(cfg.dtype)
           for k in {w.q.shape[0] for w in ws}}
     calls = [(xs[w.q.shape[0]], w) for w in ws] + [
@@ -3370,37 +3462,8 @@ def _arch_single(run, prog) -> torch.Tensor:
         f"issue {row['host_ms']:.4f} ms; by weight shape: "
         + "; ".join(by_shape) + f"; one launch at K={K} N={N}, one-pass and general kernel "
         f"(a copy of row stride N + 1): {row['general_ms']} ms")
-    row["max_rel_err"] = _arch_dqmm_check(run.tag, stack, unembed, cfg, dev, xg)
-    run.kern["dequant_matmul"] = row
-
-    caches = [layer(srv.caches["cycles"]["0_attn"], r) for r in range(L)]
-    S = caches[0]["k"].shape[2]
-    k_pos = torch.arange(S, dtype=torch.int32, device=dev).repeat(BATCH, 1)
-    k_pos[1, 41:] = -1
-    q_pos = torch.tensor([S - 1, S - 1, 70, -1], dtype=torch.int32, device=dev)
-    q = torch.randn((BATCH, cfg.n_heads, cfg.hd), generator=xg, device=dev).to(cfg.dtype)
-    n_b = 2 * caches[0]["k"].numel() * caches[0]["k"].element_size() \
-        + 2 * q.numel() * q.element_size() + k_pos.numel() * 4 + BATCH * 4
-    b, bb = bound_ms(L * n_b, L * 4 * BATCH * cfg.n_heads * S * cfg.hd, FP32_FLOPS)
-    o = da.flash_decode(q, caches[0]["k"], caches[0]["v"], k_pos, q_pos)
-    want = ref.flash_decode_ref(q, caches[0]["k"], caches[0]["v"], k_pos, q_pos)
-    err = float((o.float() - want).abs().max())
-    check(bool(torch.isfinite(o).all()) and err <= ATTN_RTOL * float(want.abs().max()),
-          (run.tag, "decode_attention", err))
-    mask = torch.where((k_pos >= 0) & (k_pos <= q_pos[:, None]), 0.0, -1e30).to(cfg.dtype)
-    row = _attention_times(
-        lambda: [da.flash_decode(q, c["k"], c["v"], k_pos, q_pos) for c in caches],
-        lambda: [ref.flash_decode_ref(q, c["k"], c["v"], k_pos, q_pos) for c in caches],
-        lambda: [_sdpa(q[:, None], c, mask[:, None, None]) for c in caches])
-    ms = row["ms"]
-    run.kern["decode_attention"] = {**row, "bound_ms": b, "bound_by": bb, "max_abs_err": err,
-                                    "per": f"one decode step ({L} launches)"}
-    log(f"{run.tag} [check] decode_attention B={BATCH} H={cfg.n_heads} Kh={cfg.n_kv} S={S} "
-        f"hd={cfg.hd} (ragged slot, free slot): max |err| {err:.3e} (tolerance {ATTN_RTOL} of "
-        f"max |out|); [time] a decode step's {L} launches {ms:.4f} ms on the device, bound "
-        f"{b:.4f} ms ({bb}), plain {row['plain_ms']:.4f} ms, library {row['library_ms']:.4f} "
-        f"ms (scaled_dot_product_attention, GQA, additive mask)")
-    return res.tokens.cpu()
+    row["max_rel_err"] = _arch_dqmm_check(run.tag, layers[0], unembed, cfg, dev, xg)
+    return row
 
 
 def _arch_wire(run, prog, tokens) -> None:
@@ -3468,7 +3531,7 @@ def _arch_wire(run, prog, tokens) -> None:
     decode_s = sum(s for _, s in res.window_s)
     del mem, srv
     gc.collect()
-    _arch_fp(run, prog, client)
+    _arch_fp(run, prog, WireStoreReceiver(client, prog), run.prompt, "wire-fed store")
     log(f"{run.tag} wire: encode v3 {t_encode:.2f} s, {len(blob)} bytes, {len(meta['units'])} "
         f"units; fed in seeded ragged chunks of 1 B to {CHUNK_MAX >> 20} MB, a stage at each "
         f"arrival: host feed s a stage {[round(f, 3) for f in feed_s]}, "
@@ -3499,56 +3562,70 @@ def _arch_pool(run, prog) -> None:
     run.kern["flash_verify"] = _arch_verify_check(run, pool)
 
 
-def _arch_spec(run, prog) -> None:
+def _arch_spec(run, prog, prompt, k_max=8):
     """``SpeculativeEngine`` at stage 8 (k = 4, draft 4 bits), counted from
-    0, against the plain server's greedy tokens (run first)."""
+    0, against the plain server's greedy tokens (run first). A windowed
+    arch's rings grow by ``k_max + 1`` slots in the engine, and by as many
+    in the plain server, so both see the same rings. Returns the engine's
+    caches."""
     from repro_torch.serving import ProgressiveServer, SpecConfig, SpeculativeEngine
 
-    L = run.cfg.n_layers
-    plain = ProgressiveServer(run.model, prog, max_len=PROMPT + SPEC_TOKENS,
+    cfg, L, n = run.cfg, run.cfg.n_layers, prompt.shape[1]
+    margin = k_max + 1 if cfg.window else 0
+    plain = ProgressiveServer(run.model, prog, max_len=n + SPEC_TOKENS + margin,
                               resident="quantized", device=run.dev)
     for _ in range(8):
         plain.receive_stage()
-    plain.start({"tokens": run.prompt})
+    plain.start({"tokens": prompt})
+    if margin:
+        plain.caches = run.model.grow_caches(plain.caches, plain.max_len, ring_margin=margin,
+                                             pos=n)
     want = plain.decode(SPEC_TOKENS).tokens.cpu()
     del plain
-    eng = SpeculativeEngine(run.model, prog, max_len=PROMPT + SPEC_TOKENS + 9,
-                            spec=SpecConfig(draft_bits=4, k=4), device=run.dev)
+    gc.collect()
+    eng = SpeculativeEngine(run.model, prog, max_len=n + SPEC_TOKENS + k_max + 1,
+                            spec=SpecConfig(draft_bits=4, k=4, k_max=k_max), device=run.dev)
     torch.cuda.synchronize()
     reset_counts(run.ops)
     for _ in range(8):
         eng.receive_stage()
-    eng.start({"tokens": run.prompt})
+    eng.start({"tokens": prompt})
     res = eng.decode(SPEC_TOKENS)
     steps, verifies = _b2_steps(res.accept_rounds)
     got, by = _tally(run.counts, run.routes, f"{run.tag} spec")
+    rings = sorted({c["k"].shape[-2] for slot, c in eng.caches["cycles"].items()
+                    if slot.endswith("_swa")})
+    check(rings == ([cfg.window + margin] if margin else []), rings)
     check(torch.equal(res.tokens.cpu(), want), f"{run.tag} speculative tokens differ from plain")
     check(got["flash_verify"] == L * verifies and verifies > 0, (got, verifies))
     check(by == {"mma": L * 7, "gemv": (L * 7 + 1) * (steps + verifies) + 1}, by)
     rep = eng.resident_report()
     check(rep["extra_draft_bytes"] == 0 and rep["fp_bytes"] == 4 * run.n_fp, rep["fp_bytes"])
-    log(f"{run.tag} spec: SpeculativeEngine at stage 8, k = 4, draft 4 bits, batch {BATCH}, "
+    log(f"{run.tag} spec: SpeculativeEngine at stage 8, k = 4, k_max = {k_max}, draft 4 bits, "
+        f"batch {BATCH}, prompt {n}{f' (rings of {rings[0]} slots)' if margin else ''}, "
         f"{SPEC_TOKENS} tokens: equal (torch.equal) to plain greedy tokens; {res.rounds} "
         f"rounds, {res.accepted}/{res.drafted} drafts accepted, {verifies} verify passes "
         f"(flash_verify at T = 5, B2 at M = {BATCH * 5} on the GEMV route); extra draft bytes "
         f"0, the norms' float leaves shared; launches {got}, dequant_matmul by route {by}")
+    return eng.caches
 
 
-def _arch_fp(run, prog, client) -> None:
-    """Float residency against quantized on the wire-fed store at stage 8,
-    the same prompt, each a fresh server over the client (one float
-    materialization, no second store); the float run counted from 0."""
-    from repro_torch.serving import ProgressiveServer, WireStoreReceiver
+def _arch_fp(run, prog, receiver, prompt, store) -> None:
+    """Float residency against quantized at stage 8 on ``receiver``'s store
+    (``store`` names it in the log), from ``prompt``, each a fresh server
+    over it (one float materialization, no second store); the float run
+    counted from 0."""
+    from repro_torch.serving import ProgressiveServer
 
-    L, logs = run.cfg.n_layers, {}
+    L, logs, n = run.cfg.n_layers, {}, prompt.shape[1]
     for resident in ("quantized", "fp"):
         lm = LogitLog(run.model)
-        srv = ProgressiveServer(lm, prog, max_len=PROMPT + ARCH_FP_STEPS, resident=resident,
-                                device=run.dev, receiver=WireStoreReceiver(client, prog))
+        srv = ProgressiveServer(lm, prog, max_len=n + ARCH_FP_STEPS, resident=resident,
+                                device=run.dev, receiver=receiver)
         torch.cuda.synchronize()
         reset_counts(run.ops)
         srv.receive_stage()
-        srv.start({"tokens": run.prompt})
+        srv.start({"tokens": prompt})
         res = srv.decode(ARCH_FP_STEPS)
         if resident == "fp":
             got, by = _tally(run.counts, run.routes, f"{run.tag} fp")
@@ -3561,14 +3638,312 @@ def _arch_fp(run, prog, client) -> None:
     worst, n_checked, near = _fp_against_quantized(logs["fp"][0], logs["quantized"][0],
                                                    logs["fp"][1], logs["quantized"][1])
     check(rep["quantized_bytes"] == 0 and rep["fp_bytes"] == 4 * run.n_params, rep)
-    log(f"{run.tag} float residency on the wire-fed store at stage 8 ({ARCH_FP_STEPS} steps x "
-        f"{BATCH}): logits within {worst:.3e} of the largest quantized logit (tolerance "
-        f"{FP_LOGIT_RTOL}), greedy tokens equal at all {n_checked} positions whose top-two "
-        f"margin clears twice that ({near} within it); {rep['fp_bytes']} float bytes beside the "
-        f"client's accumulators")
+    log(f"{run.tag} float residency on the {store} at stage 8 (prompt {n}, {ARCH_FP_STEPS} "
+        f"steps x {BATCH}): logits within {worst:.3e} of the largest quantized logit "
+        f"(tolerance {FP_LOGIT_RTOL}), greedy tokens equal at all {n_checked} positions whose "
+        f"top-two margin clears twice that ({near} within it); {rep['fp_bytes']} float bytes "
+        f"beside the {store}'s accumulators")
 
 
-def _arch_dqmm_check(tag, stack, unembed, cfg, dev, g) -> float:
+class _StoreReceiver:
+    """An in-memory receiver holding every stage of ``prog`` on ``dev``, as
+    a server's ``receiver=``: servers of both residencies over one set of
+    accumulators."""
+
+    def __init__(self, prog, dev):
+        from repro_torch.core.progressive import ReceiverState
+
+        state = ReceiverState.init(prog, device=dev)
+        for s in range(1, prog.n_stages + 1):
+            state = state.receive(prog.stage(s))
+        self.state, self.store = state, state.store
+        self.stages_complete = state.received_stages
+
+    def materialize(self):
+        return self.state.materialize()
+
+    def materialize_resident(self, eligible=None, *, bits=None):
+        return self.state.materialize_resident(eligible, bits=bits)
+
+
+def _gemma_phase(dev, ops) -> dict:
+    """``[arch gemma3-27b x6]``: ROADMAP A8(b) at gemma3-27b's published
+    widths, one 5:1 cycle of its 62 layers, seeded random weights. Each
+    path counted from 0: divide on the card and the stage-8 accumulators
+    against ``quantize(leaf).q`` (:func:`_arch_divide`); the single stream
+    over wrapping rings (:func:`_gemma_single`); the pool's chunked
+    admission over rings; ``SpeculativeEngine`` from a prompt of 1030, past
+    the window (:func:`_arch_spec`, rings grown by k_max + 1 = 5), then B3
+    and B4 on its rings (:func:`_ring_attention`); float residency from a
+    prompt of 1016, across the window (:func:`_arch_fp`). Returns the
+    launch counts, B2's launches by route and the kernels' rows."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import build_model
+
+    t_phase = time.perf_counter()
+    name, n_layers = GEMMA
+    cfg = dataclasses.replace(get_config(name), n_layers=n_layers)
+    run = types.SimpleNamespace(
+        tag=f"[arch {name} x{n_layers}]", cfg=cfg, model=build_model(cfg), dev=dev, ops=ops,
+        counts={}, routes={}, kern={},
+        prompt=torch.randint(0, cfg.vocab, (BATCH, GEMMA_PROMPT),
+                             generator=torch.Generator().manual_seed(1)))
+    log(f"{run.tag} {cfg.n_layers} of {get_config(name).n_layers} layers (one cycle "
+        f"{'/'.join(cfg.cycle)}), window {cfg.window}, qk_norm {cfg.qk_norm}, logit softcap "
+        f"{cfg.logit_softcap}, rope base {cfg.rope_theta:g} (global layers x100); no wire, CLI "
+        f"or [path] here: byte paths no window changes, and the CPU tests hold the windowed "
+        f"numerics against the JAX package")
+    prog = _arch_divide(run)
+    spec_prompt, fp_prompt = (
+        torch.randint(0, cfg.vocab, (BATCH, n), generator=torch.Generator().manual_seed(seed))
+        for n, seed in ((GEMMA_SPEC_PROMPT, 5), (GEMMA_FP_PROMPT, 6)))
+    for path in (lambda: _gemma_single(run, prog), lambda: _gemma_pool(run, prog),
+                 lambda: _ring_attention(run, _arch_spec(run, prog, spec_prompt, GEMMA_SPEC_K)),
+                 lambda: _arch_fp(run, prog, _StoreReceiver(prog, dev), fp_prompt,
+                                  "in-memory store")):
+        gc.collect()
+        torch.cuda.empty_cache()
+        path()
+    del prog
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"{run.tag} launches on the paths {run.counts}, dequant_matmul by route {run.routes}; "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    return {"counts": run.counts, "routes": run.routes, "kern": run.kern}
+
+
+def _gemma_single(run, prog) -> None:
+    """The single stream (batch 4, prompt 1000, 48 steps, a stage every 6)
+    from in-memory planes, quantized, counted from 0: positions 1000-1047
+    cross the window, so every ring wraps. Then a decode step's B2 timed
+    and checked (:func:`_decode_b2_row`), every weight on the one-pass
+    kernels; and the same stream teacher-forced (its tokens fed, the same
+    upgrades) over rings grown to ``max_len`` slots, where slot =
+    position: the logits within ``RING_RTOL`` of the largest and the
+    greedy tokens equal at every step."""
+    from repro_torch.kernels import dequant_matmul as dqm
+    from repro_torch.serving import ProgressiveServer
+
+    cfg, L, dev, model = run.cfg, run.cfg.n_layers, run.dev, run.model
+    max_len = GEMMA_PROMPT + STEPS
+    lm = LogitLog(model)
+    checked = FiniteLogits(lm)
+    srv = ProgressiveServer(checked, prog, max_len=max_len, resident="quantized", device=dev)
+    torch.cuda.synchronize()
+    reset_counts(run.ops)
+    t0 = time.perf_counter()
+    srv.receive_stage()
+    srv.start({"tokens": run.prompt})
+    torch.cuda.synchronize()
+    t_prefill = time.perf_counter() - t0
+    after_prefill = counts()
+    res = srv.decode(STEPS, stage_arrival=lambda i: i in ARRIVALS)
+    got, by = _tally(run.counts, run.routes, f"{run.tag} serve")
+    per_step = {k: (got[k] - after_prefill[k]) / STEPS for k in got}
+    rep = srv.resident_report()
+    decode_s = sum(s for _, s in res.window_s)
+    rings = {slot: c["k"].shape[-2] for slot, c in srv.caches["cycles"].items()}
+    check(rings == {**{f"{j}_swa": cfg.window for j in range(5)}, "5_global": max_len}, rings)
+    check(GEMMA_PROMPT < cfg.window < GEMMA_PROMPT + STEPS, "the stream does not cross the window")
+    check(srv.stage == 8 and [s for _, s in res.upgrades] == list(range(2, 9)), res.upgrades)
+    check(bool(torch.stack(checked.flags).all()) and bool(torch.isfinite(srv.last_logits).all()),
+          f"{run.tag} non-finite logits")
+    check(res.tokens.shape == (BATCH, STEPS) and int(res.tokens.max()) < cfg.vocab)
+    check(rep["quantized_bytes"] == 2 * (run.n_params - run.n_fp)
+          and rep["fp_bytes"] == 4 * run.n_fp and rep["fp_leaves"] > 0, rep)
+    check(per_step["dequant_matmul"] == L * 7 + 1 and per_step["decode_attention"] == L, per_step)
+    check(got["plane_or_segments"] == 8 and got["flash_verify"] == 0, got)
+    check(by == expect_routes([(L * 7, BATCH * GEMMA_PROMPT), (1, BATCH)]
+                              + pass_calls(L, STEPS, BATCH)), by)
+    log(f"{run.tag} single stream (in-memory planes, quantized), prompt {GEMMA_PROMPT}, "
+        f"positions {GEMMA_PROMPT}-{max_len - 1} across the window: stages "
+        f"{res.stage_at_step[0]}->{res.stage_at_step[-1]}, upgrades {res.upgrades}; rings "
+        f"{rings}; resident {rep['quantized_bytes']} B quantized + {rep['fp_bytes']} B in "
+        f"{rep['fp_leaves']} float leaves (norms, q_norm, k_norm)")
+    log(f"{run.tag} receive_stage + prefill {t_prefill * 1e3:.1f} ms; decode {STEPS} steps x "
+        f"{BATCH} with 7 upgrades: {decode_s:.3f} s, {BATCH * STEPS / decode_s:.1f} tokens/s, "
+        f"{decode_s / STEPS * 1e3:.2f} ms/step; per step dequant_matmul "
+        f"{per_step['dequant_matmul']:.0f}, decode_attention {per_step['decode_attention']:.0f}; "
+        f"launches {got}; dequant_matmul by route {by}, GEMV route by kernel "
+        f"{dict(dqm.launches_by_gemv_kernel)}")
+
+    xg = torch.Generator(device=dev).manual_seed(2)
+    P = srv.params
+    unembed = P["embed"].T
+    check(all(dqm.one_pass(w.q) for w in _layer_weights(_stack_layers(cfg, P["decoder"])[0])
+              + [unembed]), f"{run.tag} a weight shape is off the one-pass kernels")
+    run.kern["dequant_matmul"] = _decode_b2_row(run, P, xg)
+    logits, tokens = lm.logits, res.tokens
+    del srv, P, unembed, lm, checked
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the same stream over rings that never wrap, teacher-forced
+    flat = ProgressiveServer(model, prog, max_len=max_len, resident="quantized", device=dev)
+    flat.receive_stage()
+    flat.start({"tokens": run.prompt})
+    caches = model.grow_caches(flat.caches, max_len, ring_margin=max_len - cfg.window,
+                               pos=GEMMA_PROMPT)
+    check(caches["cycles"]["0_swa"]["k"].shape[-2] == max_len)
+    pairs = [(flat.last_logits, logits[0])]
+    for i in range(STEPS):
+        if i in ARRIVALS:
+            flat.receive_stage()
+        lg, caches = model.decode_step(flat.params, caches, tokens[:, i:i + 1],
+                                       GEMMA_PROMPT + i)
+        pairs.append((lg, logits[i + 1]))
+    errs = [float((a - b).abs().max()) / float(b.abs().max()) for a, b in pairs]
+    same = sum(int((a.argmax(-1) == b.argmax(-1)).sum()) for a, b in pairs)
+    check(max(errs) <= RING_RTOL, (run.tag, "wrapped against unwrapped rings", max(errs)))
+    check(same == len(pairs) * BATCH, (run.tag, "greedy tokens over unwrapped rings", same))
+    log(f"{run.tag} the stream over rings of {cfg.window} slots (wrapped) against rings of "
+        f"{max_len} slots (slot = position), the same tokens fed and upgrades at the same "
+        f"steps: max |err| / max |logit| {max(errs):.3e} over the prefill and {STEPS} steps "
+        f"(tolerance {RING_RTOL}); greedy tokens equal at {same} of {len(pairs) * BATCH}")
+
+
+def _gemma_pool(run, prog) -> None:
+    """The pool with chunked admission over rings (margin 8, the chunk),
+    counted from 0: 6 requests on 4 slots, prompts 990-1040, budgets 24-39,
+    an upgrade a window; prompts and decodes cross the window."""
+    cfg = run.cfg
+    rng = np.random.default_rng(3)
+    lengths = rng.integers(*GEMMA_POOL_PROMPTS, GEMMA_POOL_REQUESTS)
+    budgets = rng.integers(*GEMMA_POOL_BUDGETS, GEMMA_POOL_REQUESTS)
+    prompts = [rng.integers(0, cfg.vocab, int(n)) for n in lengths]
+    pool, got, by = _pool_phase(run.model, prog, run.dev, run.ops, f"{run.tag} pool",
+                                4 * run.n_fp, slots=GEMMA_POOL_SLOTS,
+                                max_len=GEMMA_POOL_MAX_LEN, requests=(lengths, budgets, prompts))
+    ring = pool.caches["cycles"]["0_swa"]["k"].shape[-2]
+    check(ring == cfg.window + POOL_CHUNK and pool._ring_margin == POOL_CHUNK, ring)
+    check(int(lengths.max()) + int(budgets.max()) > cfg.window > int(lengths.min()))
+    for acc, new in ((run.counts, got), (run.routes, by)):
+        for k, v in new.items():
+            acc[k] = acc.get(k, 0) + v
+    log(f"{run.tag} pool: rings of {ring} slots (window {cfg.window} + chunk {POOL_CHUNK})")
+
+
+def _ring_attention(run, caches) -> None:
+    """B3 and B4 on the speculative engine's caches at gemma3-27b's heads
+    (G = 2), each slot's k_pos from ``ring_positions`` at a head of its own:
+    wrapped three times, twice, once, and a free slot. On layer 0's ring
+    (window 1024 + 5 slots): decode at the head and a verify block of its
+    last 5 positions within ``ATTN_RTOL`` of the plain versions, every
+    verify row ``torch.equal`` to a decode launch at its position (over the
+    block's k_pos and over a decode step's own). Then a decode step's 6
+    launches (5 rings, the global layer at S = max_len, its last position)
+    and a verify pass's timed beside the plain versions and
+    ``scaled_dot_product_attention`` with the additive window mask."""
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import verify_attention as va
+    from repro_torch.models.attention import ring_positions
+    from repro_torch.models.transformer import attn_window
+
+    cfg, L, dev = run.cfg, run.cfg.n_layers, run.dev
+    g = torch.Generator(device=dev).manual_seed(11)
+    layers = _stack_layers(cfg, caches)
+    windows = [attn_window(cfg, k) for k in cfg.cycle]
+    T = GEMMA_SPEC_K + 1
+
+    def operands(c, window):
+        S = c["k"].shape[2]
+        if window:
+            heads = torch.tensor([3 * S + 7, 2 * S + 1, S + 300, -1], dtype=torch.int32,
+                                 device=dev)
+            k_pos = ring_positions(S, heads)
+        else:
+            heads = torch.full((BATCH,), S - 1, dtype=torch.int32, device=dev)
+            k_pos = torch.arange(S, dtype=torch.int32, device=dev).repeat(BATCH, 1)
+        q_pos = torch.where(heads[:, None] >= 0, heads[:, None] - (T - 1)
+                            + torch.arange(T, dtype=torch.int32, device=dev), -1)
+        return heads, k_pos, q_pos
+
+    q = torch.randn((BATCH, T, cfg.n_heads, cfg.hd), generator=g, device=dev).to(cfg.dtype)
+    q1 = q[:, -1].contiguous()
+    c0, w0 = layers[0], windows[0]
+    heads, k_pos, q_pos = operands(c0, w0)
+    S0 = c0["k"].shape[2]
+    check(w0 == cfg.window and S0 == cfg.window + T and int(k_pos[1].min()) > S0, (w0, S0))
+    dec = da.flash_decode(q1, c0["k"], c0["v"], k_pos, heads, window=w0)
+    want = ref.flash_decode_ref(q1, c0["k"], c0["v"], k_pos, heads, window=w0)
+    err_d = float((dec.float() - want).abs().max())
+    check(bool(torch.isfinite(dec).all()) and err_d <= ATTN_RTOL * float(want.abs().max()),
+          (run.tag, "decode_attention on a ring", err_d))
+    out = va.flash_verify(q, c0["k"], c0["v"], k_pos, q_pos, window=w0)
+    want = ref.flash_verify_ref(q, c0["k"], c0["v"], k_pos, q_pos, window=w0)
+    err_v = float((out.float() - want).abs().max())
+    check(bool(torch.isfinite(out).all()) and err_v <= ATTN_RTOL * float(want.abs().max()),
+          (run.tag, "flash_verify on a ring", err_v))
+    for t in range(T):
+        qt, pt = q[:, t].contiguous(), q_pos[:, t].contiguous()
+        for kp in (k_pos, ring_positions(S0, pt)):
+            row = da.flash_decode(qt, c0["k"], c0["v"], kp, pt, window=w0)
+            check(torch.equal(out[:, t], row), f"{run.tag} flash_verify row {t} on a ring differs")
+
+    ops_d = [(c, w) + operands(c, w) for c, w in zip(layers, windows)]
+
+    def visible(k_pos, q_pos, w):          # (B, T, S) bool, q_pos (B, T)
+        ok = (k_pos[:, None, :] >= 0) & (k_pos[:, None, :] <= q_pos[:, :, None])
+        if w:
+            ok = ok & (k_pos[:, None, :] > q_pos[:, :, None] - w)
+        return ok
+
+    seen_d = [visible(kp, h[:, None], w) for c, w, h, kp, _ in ops_d]
+    seen_v = [visible(kp, qp, w) for c, w, _, kp, qp in ops_d]
+    masks_d, masks_v = ([torch.where(v, 0.0, -1e30).to(cfg.dtype)[:, None] for v in seen]
+                        for seen in (seen_d, seen_v))
+    kv_key = 2 * cfg.n_kv * cfg.hd * layers[0]["k"].element_size()
+    q_row = cfg.n_heads * cfg.hd * q.element_size()
+
+    def n_bytes(seen, T_):
+        # the keys some row of a slot sees (none for a free slot, only the
+        # window's on a ring), a live slot's k_pos, queries and q_pos, and
+        # every slot's output
+        total = 0
+        for v, (_, _, _, kp, _) in zip(seen, ops_d):
+            live = int(v.any(dim=(1, 2)).sum())
+            total += (int(v.any(dim=1).sum()) * kv_key + live * (kp.shape[1] * 4 + T_ * (q_row + 4))
+                      + BATCH * T_ * q_row)
+        return total
+
+    def n_ops(seen):
+        return sum(4 * cfg.n_heads * cfg.hd * int(v.sum()) for v in seen)
+
+    row_d = _attention_times(
+        lambda: [da.flash_decode(q1, c["k"], c["v"], kp, h, window=w) for c, w, h, kp, _ in ops_d],
+        lambda: [ref.flash_decode_ref(q1, c["k"], c["v"], kp, h, window=w)
+                 for c, w, h, kp, _ in ops_d],
+        lambda: [_sdpa(q1[:, None], c, m) for (c, *_), m in zip(ops_d, masks_d)])
+    b_d, by_d = bound_ms(n_bytes(seen_d, 1), n_ops(seen_d), FP32_FLOPS)
+    row_v = _attention_times(
+        lambda: [va.flash_verify(q, c["k"], c["v"], kp, qp, window=w) for c, w, _, kp, qp in ops_d],
+        lambda: [ref.flash_verify_ref(q, c["k"], c["v"], kp, qp, window=w)
+                 for c, w, _, kp, qp in ops_d],
+        lambda: [_sdpa(q, c, m) for (c, *_), m in zip(ops_d, masks_v)])
+    b_v, by_v = bound_ms(n_bytes(seen_v, T), n_ops(seen_v), FP32_FLOPS)
+    S_g = layers[-1]["k"].shape[2]
+    per = (f"{L} launches: {L - 1} on rings of {S0} slots, window {cfg.window}; 1 global, "
+           f"S = {S_g}")
+    run.kern["decode_attention"] = {**row_d, "bound_ms": b_d, "bound_by": by_d,
+                                    "max_abs_err": err_d, "per": f"one decode step ({per})"}
+    run.kern["flash_verify"] = {**row_v, "bound_ms": b_v, "bound_by": by_v, "max_abs_err": err_v,
+                                "per": f"one verify pass at T = {T} ({per})"}
+    log(f"{run.tag} [check] decode_attention and flash_verify (T = {T}) B={BATCH} "
+        f"H={cfg.n_heads} Kh={cfg.n_kv} hd={cfg.hd} on a ring of {S0} slots, window "
+        f"{cfg.window}, slots' heads {heads.tolist()} (wrapped 3, 2 and 1 times, a free slot): "
+        f"max |err| {err_d:.3e} and {err_v:.3e} (tolerance {ATTN_RTOL} of max |out|); every "
+        f"verify row equal (torch.equal) to a decode launch at its position, over the block's "
+        f"k_pos and over its own")
+    for name, row, b, bb in (("decode_attention", row_d, b_d, by_d),
+                             ("flash_verify", row_v, b_v, by_v)):
+        log(f"{run.tag} [time] {name} per {run.kern[name]['per']}: {row['ms']:.4f} ms on the "
+            f"device, bound {b:.4f} ms ({bb}), plain {row['plain_ms']:.4f} ms, library "
+            f"{row['library_ms']:.4f} ms (scaled_dot_product_attention, GQA, additive window "
+            f"mask), host issue {row['host_ms']:.4f} ms")
+
+
+def _arch_dqmm_check(tag, layer0, unembed, cfg, dev, g) -> float:
     """B2 on each distinct weight shape of the arch (layer 0's live stage-8
     views and the unembedding) at ARCH_DQMM_M rows, with and without the
     plane mask keep = 4, within ``DQMM_RTOL`` of the plain version on the
@@ -3581,7 +3956,7 @@ def _arch_dqmm_check(tag, stack, unembed, cfg, dev, g) -> float:
 
     names = ("attn.wq", "attn.wk", "attn.wv", "attn.wo", "mlp.wi_gate", "mlp.wi_up", "mlp.wo")
     weights = {}
-    for nm, w in zip(names, _layer_weights(layer(stack, 0))):
+    for nm, w in zip(names, _layer_weights(layer0)):
         weights.setdefault(tuple(w.q.shape), (nm, w, cfg.dtype))
     weights["unembed"] = ("embed.T" if cfg.tie_embeddings else "lm_head", unembed, torch.float32)
     four = torch.full((1, 1), 4, dtype=torch.int32, device=dev)

@@ -24,7 +24,8 @@ home), N logical shards of the host with ``--device cpu`` (the
 counterpart of XLA's forced host devices); on logical shards tokens
 equal the unsharded run's, and a run across cards is not yet checked.
 ``--arch`` takes the dense decoders (olmo-1b, minitron-4b,
-starcoder2-15b); the other architectures are still to be ported (ROADMAP
+starcoder2-15b, gemma3-27b with its sliding windows), each with
+``--reduced``; the other architectures are still to be ported (ROADMAP
 A8).
 """
 from __future__ import annotations

@@ -19,11 +19,15 @@ from repro_torch.kernels import ops, ref
 @dataclasses.dataclass(frozen=True)
 class ArchConfig:
     """One architecture: the fields the dense decoders (olmo-1b,
-    minitron-4b, starcoder2-15b) need, with the reference's defaults.
-    ``cycle`` names the block kind of the stacked layers (``attn``, a
-    full-attention decoder block with a GLU MLP; the other kinds are
-    still to be ported). ``head_dim`` None means ``d_model // n_heads``.
-    Float32 parameters before division."""
+    minitron-4b, starcoder2-15b, gemma3-27b) need, with the reference's
+    defaults. ``cycle`` is the repeating pattern of block kinds; layers =
+    ``len(cycle) * n_cycles + len(tail)``. The kinds ported: ``attn``, a
+    full-attention decoder block with a GLU MLP; ``swa``, the same block
+    attending over a sliding window of ``window`` positions (a ring
+    cache); ``global``, full attention with a rope base 100x
+    ``rope_theta`` (gemma3's naming). The other kinds are still to be
+    ported. ``head_dim`` None means ``d_model // n_heads``. Float32
+    parameters before division."""
 
     name: str
     family: str
@@ -36,11 +40,13 @@ class ArchConfig:
     cycle: tuple[str, ...] = ("attn",)
     head_dim: int | None = None
     rope_theta: float = 10_000.0
-    window: int = 0             # sliding-window span (0 = full attention)
+    window: int = 0             # sliding-window span of swa blocks (0 = none)
+    qk_norm: bool = False       # RMSNorm of each head's q and k before rope
     norm_type: str = "rmsnorm"  # rmsnorm | layernorm | nonparam_ln
     act: str = "silu"           # silu | gelu (tanh approximation)
     attn_chunk: int = 1024      # online-softmax KV chunk of prefill attention
     tie_embeddings: bool = True
+    logit_softcap: float = 0.0  # tanh cap of the output logits (0 = none)
     dtype: Any = torch.bfloat16  # activations and KV caches
 
     @property
@@ -50,6 +56,11 @@ class ArchConfig:
     @property
     def n_cycles(self) -> int:
         return self.n_layers // len(self.cycle)
+
+    @property
+    def tail(self) -> tuple[str, ...]:
+        """Remainder blocks after the full cycles, continuing the pattern."""
+        return self.cycle[:self.n_layers % len(self.cycle)]
 
     def reduced(self, **overrides) -> "ArchConfig":
         """Smoke-test variant: same family/pattern, tiny dims (the
@@ -62,6 +73,7 @@ class ArchConfig:
             d_ff=min(self.d_ff, 256),
             vocab=min(self.vocab, 512),
             head_dim=32 if self.head_dim else None,
+            window=min(self.window, 16) if self.window else 0,
             attn_chunk=16,
             dtype=torch.float32,
         )
@@ -256,3 +268,7 @@ def embed_lookup(w, tokens: torch.Tensor) -> torch.Tensor:
         return rows.to(torch.float32) * w.scale.reshape(()) + w.offset.reshape(())
     return w[tokens].to(torch.float32)
 
+
+def softcap(x: torch.Tensor, cap: float) -> torch.Tensor:
+    """``tanh(x / cap) * cap``; the identity when ``cap`` is 0."""
+    return torch.tanh(x / cap) * cap if cap else x

@@ -7,8 +7,9 @@ Counterpart of ``src/repro/models/model.py`` for the dense decoder:
     decode_step(params, caches, tokens, pos) -> (logits, caches)
     prefill_chunk(params, caches, tokens, tok_pos) -> (logits, caches)
     verify_step(params, caches, tokens, pos) -> (logits, caches)
-    init_caches(batch, max_len, device=)     -> zeroed caches
-    grow_caches(caches, max_len)       -> prefill caches padded for decoding
+    init_caches(batch, max_len, ring_margin=, device=) -> zeroed caches
+    grow_caches(caches, max_len, ring_margin=, pos=)   -> prefill caches
+                                          grown for decoding
 
 ``batch`` is a dict with ``"tokens"``: (B, S) int. Parameters are a
 nested dict in the reference's layout (``decoder/cycles/0_attn/...``
@@ -25,8 +26,8 @@ import torch
 from repro_torch import resolve_device, to_device
 from repro_torch.models import transformer as tfm
 from repro_torch.models.common import (ArchConfig, apply_norm, dense, dense_init,
-                                      dense_rows, embed_lookup, norm_init)
-from repro_torch.models.attention import decode_pos_vector
+                                      dense_rows, embed_lookup, norm_init, softcap)
+from repro_torch.models.attention import decode_pos_vector, grow_ring_cache
 
 
 @dataclasses.dataclass(frozen=True)
@@ -56,9 +57,11 @@ class Model:
 
     def _unembed(self, params, x: torch.Tensor, mode: str = "prefill") -> torch.Tensor:
         """``x @ embed.T`` when tied, a transposed view of the table (no
-        copy); ``x @ lm_head`` (the (K, N) layout) when untied."""
+        copy); ``x @ lm_head`` (the (K, N) layout) when untied; then the
+        logit softcap (``cfg.logit_softcap``; none at 0)."""
         w = params["embed"].T if self.cfg.tie_embeddings else params["lm_head"]
-        return dense(x.to(torch.float32), w, dtype=torch.float32, rows=dense_rows(mode))
+        logits = dense(x.to(torch.float32), w, dtype=torch.float32, rows=dense_rows(mode))
+        return softcap(logits, self.cfg.logit_softcap)
 
     def prefill(self, params, batch, n_valid=None):
         """Logits after the last prompt token, and the prompt's caches.
@@ -68,8 +71,14 @@ class Model:
         ``n_valid[b]`` positions are real. Every row must share one valid
         length (the slot pool prefills at batch 1). Padded positions are
         masked out of attention (their keys sit at position -1) and the
-        logits are gathered at row ``n_valid - 1``, on the device."""
+        logits are gathered at row ``n_valid - 1``, on the device. A
+        stack with sliding-window blocks refuses ``n_valid``: a ring has
+        no masked slots."""
         cfg = self.cfg
+        if n_valid is not None and any(tfm.attn_window(cfg, k) for k in cfg.cycle + cfg.tail):
+            raise NotImplementedError(
+                "bucket-padded prefill needs position masking, which sliding-window "
+                "rings don't support: admit at the exact prompt length instead")
         tokens = batch["tokens"]
         if n_valid is not None and not isinstance(n_valid, torch.Tensor):
             n_valid = to_device(np.asarray(n_valid, np.int32), tokens.device)
@@ -136,12 +145,21 @@ class Model:
         x = apply_norm(cfg, params["final_norm"], x)
         return self._unembed(params, x, "verify"), caches
 
-    def init_caches(self, batch: int, max_len: int, *, device="cuda"):
-        return tfm.stack_init_caches(self.cfg, batch, max_len,
+    def init_caches(self, batch: int, max_len: int, *, ring_margin: int = 0, device="cuda"):
+        """Zeroed caches; the rings of windowed blocks hold ``window +
+        ring_margin`` slots."""
+        return tfm.stack_init_caches(self.cfg, batch, max_len, ring_margin=ring_margin,
                                      device=resolve_device(device))
 
-    def grow_caches(self, caches, max_len: int):
-        """Pad prefill caches along the sequence axis to ``max_len``."""
+    def grow_caches(self, caches, max_len: int, *, ring_margin: int = 0, pos: int = 0):
+        """Pad prefill caches of full-attention blocks along the sequence
+        axis to ``max_len``. With ``ring_margin`` > 0 the rings of windowed
+        blocks are repacked into ``window + ring_margin`` slots
+        (``grow_ring_cache``; ``pos`` = the tokens consumed so far, the
+        prompt's length), so that blocks of up to ``ring_margin`` rows
+        never overwrite live window entries."""
+        cfg = self.cfg
+
         def pad(a: torch.Tensor) -> torch.Tensor:
             S = a.shape[-2]
             if S >= max_len:
@@ -150,7 +168,16 @@ class Model:
             out[..., :S, :] = a
             return out
 
-        return _map(pad, caches)
+        def grow(kind: str, c: dict) -> dict:
+            if not tfm.attn_window(cfg, kind):
+                return _map(pad, c)
+            if ring_margin:
+                return grow_ring_cache(c, cfg.window + ring_margin, pos)
+            return c
+
+        return {part: {f"{j}_{kind}": grow(kind, caches[part][f"{j}_{kind}"])
+                       for j, kind in enumerate(kinds)}
+                for part, kinds in (("cycles", cfg.cycle), ("tail", cfg.tail))}
 
 
 def _map(fn, tree):

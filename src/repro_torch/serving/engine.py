@@ -49,6 +49,7 @@ from repro_torch.core.quantize import QuantizedTensor
 from repro_torch.launch.mesh import home_device
 from repro_torch.models.common import quantized_resident_eligible
 from repro_torch.models.model import Model
+from repro_torch.models.transformer import attn_window
 
 RESIDENT_MODES = ("fp", "quantized")
 
@@ -285,7 +286,10 @@ class ProgressiveServer(PrecisionManagedEngine):
       from ``self.prog`` into the server's own ReceiverState;
     * receiver: with ``receiver=`` (a :class:`WireStoreReceiver` over a
       wire client) the server holds no accumulators of its own, and
-      ``receive_stage()`` refreshes the views of the client's store."""
+      ``receive_stage()`` refreshes the views of the client's store.
+
+    A sliding-window block's ring holds ``window`` slots (the prefill's);
+    decode writes one position at a time, so it needs no margin."""
 
     def __init__(self, model: Model, prog: ProgressiveModel, max_len: int,
                  receiver: WireStoreReceiver | None = None, resident: str = "fp", *,
@@ -295,6 +299,8 @@ class ProgressiveServer(PrecisionManagedEngine):
         self.caches = None
         self.pos = 0
         self.last_logits = None
+        # ring slots beyond the window (the speculative engine's verify blocks)
+        self._ring_margin = 0
 
     def start(self, batch: dict) -> None:
         if self.params is None:
@@ -302,7 +308,9 @@ class ProgressiveServer(PrecisionManagedEngine):
         tokens = torch.as_tensor(batch["tokens"]).to(device=self.device,
                                                      dtype=torch.int64)
         last_logits, caches = self.model.prefill(self.params, {"tokens": tokens})
-        self.caches = self.model.grow_caches(caches, self.max_len)
+        self.caches = self.model.grow_caches(caches, self.max_len,
+                                             ring_margin=self._ring_margin,
+                                             pos=tokens.shape[1])
         self.pos = tokens.shape[1]
         self.last_logits = last_logits
 
@@ -438,11 +446,17 @@ class SlotPoolEngine(PrecisionManagedEngine):
     masked (``Model.prefill(n_valid)``), so a prefill runs at one of
     O(log max_len) shapes. Nothing in it waits for the device.
 
-    Left for later, each raising ``NotImplementedError``: sliding-window
-    rings and recurrent-slot resets (A8, which
-    brings the reference's ``ring_margin`` too, and the fall-back to
-    batch-1 admission of cross-attention archs); telemetry, which the
-    reference turns on with ``REPRO_TELEMETRY`` (A11).
+    Sliding-window blocks keep rings of ``window + ring_margin`` slots;
+    chunked admission raises the margin to ``prefill_chunk`` (a chunk
+    writes that many rows ahead of the oldest live window entry), and
+    ``prefill_buckets`` is off for them (a ring has no masked slots). A
+    stale ring slot of a prior occupant stays invisible: ``ring_positions``
+    gives a non-negative position only to slots the new occupant wrote.
+
+    Left for later, each raising ``NotImplementedError``: recurrent-slot
+    resets (A8, with the fall-back to batch-1 admission of
+    cross-attention archs); telemetry, which the reference turns on with
+    ``REPRO_TELEMETRY`` (A11).
     ``PoolRequest.extras`` are refused as the reference refuses them for
     a text-only arch; vision and encoder side inputs come with A8. The reference's
     ``decode_cache_size``/``prefill_cache_size`` count JAX executables
@@ -452,11 +466,9 @@ class SlotPoolEngine(PrecisionManagedEngine):
     def __init__(self, model: Model, prog: ProgressiveModel, *, n_slots: int,
                  max_len: int, receiver=None, resident: str = "fp",
                  dispatch_window: int = 8, eos_id: int | None = None,
-                 chunked_prefill: bool | None = None,
+                 ring_margin: int = 0, chunked_prefill: bool | None = None,
                  prefill_chunk: int = 8, prefill_buckets: bool = True,
                  double_buffer: bool = True, mesh=None, device="cuda"):
-        if model.cfg.window:
-            raise _later("sliding-window ring caches", "A8")
         if os.environ.get("REPRO_TELEMETRY", "") not in ("", "0"):
             raise _later("serving telemetry (REPRO_TELEMETRY)", "A11")
         if n_slots < 1:
@@ -466,12 +478,19 @@ class SlotPoolEngine(PrecisionManagedEngine):
         # None: chunked, which every ported arch supports
         self.chunked_prefill = chunked_prefill is not False
         self.prefill_chunk = max(1, int(prefill_chunk))
-        self.prefill_buckets = bool(prefill_buckets)
+        cfg = model.cfg
+        windowed = any(attn_window(cfg, k) for k in cfg.cycle + cfg.tail)
+        if self.chunked_prefill and windowed:
+            # a chunk writes prefill_chunk positions ahead of the oldest
+            # live window entry, as a verify block does
+            ring_margin = max(ring_margin, self.prefill_chunk)
+        self._ring_margin = ring_margin
+        self.prefill_buckets = bool(prefill_buckets) and not windowed
         self.double_buffer = bool(double_buffer)
         self.n_slots = n_slots
         self.dispatch_window = max(1, dispatch_window)
         dev = self.device
-        self.caches = model.init_caches(n_slots, max_len, device=dev)
+        self.caches = model.init_caches(n_slots, max_len, ring_margin=ring_margin, device=dev)
         self.pos = torch.full((n_slots,), -1, dtype=torch.int32, device=dev)
         self.last_logits = torch.zeros((n_slots, model.cfg.vocab), dtype=torch.float32,
                                        device=dev)
@@ -599,8 +618,10 @@ class SlotPoolEngine(PrecisionManagedEngine):
         self._post_admit_batch1(slot, req, last_logits, L)
 
     def _grow_admitted(self, caches, prompt_len: int):
-        """A batch-1 prefill's caches grown to the pool's length."""
-        return self.model.grow_caches(caches, self.max_len)
+        """A batch-1 prefill's caches grown to the pool's length, its rings
+        (``window`` slots) repacked into the pool's ``window + ring_margin``."""
+        return self.model.grow_caches(caches, self.max_len, ring_margin=self._ring_margin,
+                                      pos=prompt_len)
 
     def _post_admit_batch1(self, slot: int, req: PoolRequest, last_logits,
                            prompt_len: int) -> None:

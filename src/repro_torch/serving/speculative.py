@@ -44,8 +44,13 @@ stream whose slots go ragged after the prompt, and
 :class:`SpeculativeSlotPool`, continuous batching where admissions,
 evictions and upgrades interleave with rounds.
 
-Left for later, each raising ``NotImplementedError`` naming its ROADMAP
-item: ring caches and ``ring_margin`` for sliding-window models (A8), and
+Sliding-window rings are grown by ``k_max + 1`` slots in both engines
+(after the prefill, and at the pool's construction), so a verify block's
+rows never land on a position still inside a live window; a draft step
+and the verify row at the same position see the same ring in the same
+slot order, so speculative tokens stay plain greedy tokens.
+
+Left for later, raising ``NotImplementedError`` naming its ROADMAP item:
 the reference's telemetry counters of each accept round (A11;
 ``accept_log`` is kept). The reference's
 ``decode_cache_size`` counts JAX executables and has no counterpart
@@ -155,9 +160,6 @@ class _SpeculativeMixin:
                 f"speculative decoding is not supported for recurrent blocks "
                 f"{sorted(ssm)}: their cumulative state has no overwrite-only "
                 f"rollback (a rejected draft would need a state snapshot per token)")
-        if cfg.window:
-            raise _later("ring caches and ring_margin for sliding-window speculation",
-                         "A8")
         if os.environ.get("REPRO_TELEMETRY", "") not in ("", "0"):
             raise _later("the speculative engines' telemetry (the reference's counters "
                          "of each accept round)", "A11")
@@ -267,6 +269,8 @@ class SpeculativeEngine(_SpeculativeMixin, ProgressiveServer):
         super().__init__(model, prog, max_len, receiver=receiver, resident="quantized",
                          mesh=mesh, device=device)
         self._init_spec(spec)
+        # the prefill's rings grow by the largest verify block
+        self._ring_margin = self.spec.k_max + 1
 
     def start(self, batch: dict) -> None:
         if self.params is None:
@@ -381,9 +385,11 @@ class SpeculativeSlotPool(_SpeculativeMixin, SlotPoolEngine):
                  eos_id: int | None = None, chunked_prefill: bool | None = None,
                  prefill_chunk: int = 8, prefill_buckets: bool = True,
                  double_buffer: bool = True, mesh=None, device="cuda"):
+        spec = spec or SpecConfig()
         super().__init__(model, prog, n_slots=n_slots, max_len=max_len, receiver=receiver,
                          resident="quantized", dispatch_window=dispatch_window,
-                         eos_id=eos_id, chunked_prefill=chunked_prefill,
+                         eos_id=eos_id, ring_margin=spec.k_max + 1,
+                         chunked_prefill=chunked_prefill,
                          prefill_chunk=prefill_chunk, prefill_buckets=prefill_buckets,
                          double_buffer=double_buffer, mesh=mesh, device=device)
         self._init_spec(spec)

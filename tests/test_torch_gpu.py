@@ -506,6 +506,48 @@ def test_attention_row_independent_of_batch(dev, kernel, S, hd, dtype):
     assert torch.equal(run(q, k, v, k_pos, q_pos), batch)
 
 
+@pytest.mark.parametrize("B,H,Kh,hd", [(4, 32, 16, 128), (3, 8, 2, 64)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_attention_on_wrapped_ring(dev, B, H, Kh, hd, dtype):
+    """B3 and B4 over a sliding-window ring (window 24, 5 slots of margin:
+    gemma3-27b's G = 2 at hd 128, and a G = 4 shape), each slot's k_pos
+    from ``ring_positions`` at its own head: wrapped three times, twice, not
+    at all, and a free slot. Decode at the head and a verify block of the
+    last 5 positions within the stated tolerance of the plain versions;
+    every verify row equal (torch.equal) to a decode launch at its position,
+    over the block's k_pos and over the k_pos that a decode step at that
+    position sees (the slots past it hold positions outside the window)."""
+    from repro_torch.models.attention import ring_positions
+
+    window, T = 24, 5
+    ring = window + T
+    g = torch.Generator(device=dev).manual_seed(hd + B)
+    k = torch.randn((B, Kh, ring, hd), generator=g, device=dev).to(dtype)
+    v = torch.randn((B, Kh, ring, hd), generator=g, device=dev).to(dtype)
+    heads = torch.tensor([3 * ring + 7, 2 * ring + 1, 12, -1][:B - 1] + [-1],
+                         dtype=torch.int32, device=dev)
+    k_pos = ring_positions(ring, heads)
+    assert int(k_pos.min()) < 0 and int(k_pos[0].min()) > 2 * ring
+    q_pos = torch.where(heads[:, None] >= 0,
+                        heads[:, None] - (T - 1) + torch.arange(T, dtype=torch.int32,
+                                                                device=dev), -1)
+    q = torch.randn((B, T, H, hd), generator=g, device=dev).to(dtype)
+    tol = 2e-5 if dtype == torch.float32 else 2.0 ** -7
+    dec = decode_attention.flash_decode(q[:, -1].contiguous(), k, v, k_pos, heads,
+                                        window=window)
+    want = ref.flash_decode_ref(q[:, -1], k, v, k_pos, heads, window=window)
+    assert (dec.float() - want).abs().max().item() <= tol * max(1.0, want.abs().max().item())
+    out = verify_attention.flash_verify(q, k, v, k_pos, q_pos, window=window)
+    want = ref.flash_verify_ref(q, k, v, k_pos, q_pos, window=window)
+    assert torch.isfinite(out).all()
+    assert (out.float() - want).abs().max().item() <= tol * max(1.0, want.abs().max().item())
+    for t in range(T):
+        qt, pt = q[:, t].contiguous(), q_pos[:, t].contiguous()
+        for kp in (k_pos, ring_positions(ring, pt)):
+            row = decode_attention.flash_decode(qt, k, v, kp, pt, window=window)
+            assert torch.equal(out[:, t], row), f"row {t}"
+
+
 def test_flash_verify_reads_q_through_strides(dev):
     """A q whose token axis is not the outer one (a transposed view) gives
     the same result as its contiguous copy."""
@@ -679,7 +721,7 @@ def test_decode_rows_independent_of_M(dev, K, N, layout, keep, xdtype):
 
 @pytest.mark.parametrize("norm_type,d_model", [("nonparam_ln", d) for d in (64, 128, 256, 2048)]
                          + [(n, d) for n in ("rmsnorm", "layernorm")
-                            for d in (64, 128, 3072, 6144)])
+                            for d in (64, 128, 3072, 6144)] + [("rmsnorm", 5376)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_norm_rows_independent_of_count(dev, dtype, d_model, norm_type):
     """The norms' statistics: every row of an M-row ``apply_norm`` (M = 1-80)
@@ -704,12 +746,32 @@ def test_norm_rows_independent_of_count(dev, dtype, d_model, norm_type):
         assert torch.equal(apply_norm(cfg, p, x[:M].reshape(1, M, -1))[0], alone[:M]), M
 
 
+@pytest.mark.parametrize("H,hd", [(32, 128), (16, 128), (4, 32)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_qk_norm_rows_independent_of_count(dev, dtype, H, hd):
+    """gemma3-27b's per-head RMSNorm of q (32 heads) and k (16), hd 128:
+    every token's heads normalised in an M-token launch (M = 1-80, the
+    (M, 1, H, hd) of a decode step's slots or (1, M, H, hd) of a verify
+    block) equal (torch.equal) the token's heads alone."""
+    from repro_torch.models.attention import qk_norm
+
+    g = torch.Generator(device=dev).manual_seed(H + hd)
+    x = (torch.randn((80, 1, H, hd), generator=g, device=dev) * 3 + 1).to(dtype)
+    scale = 1.0 + 0.3 * torch.randn((hd,), generator=g, device=dev)
+    alone = torch.cat([qk_norm(x[i:i + 1], scale) for i in range(80)])
+    for M in list(range(1, 17)) + [20, 32, 64, 72, 80]:
+        assert torch.equal(qk_norm(x[:M], scale), alone[:M]), M
+        assert torch.equal(qk_norm(x[:M].reshape(1, M, H, hd), scale)[0], alone[:M, 0]), M
+
+
 # the dense variants' weights that no olmo-1b launch has: minitron-4b's
 # embed.T (K-contiguous, N = 256,000), starcoder2-15b's untied lm_head
 # ((K, N)) and its mlp.wo at K = 24,576 (6 chunks of K, a cluster of 6),
 # and the narrow wk of each
 NEW_ARCH_WEIGHTS = [(3072, 256000, "transposed"), (6144, 49152, "kn"), (24576, 6144, "kn"),
-                    (3072, 1024, "kn"), (6144, 512, "kn"), (9216, 3072, "kn")]
+                    (3072, 1024, "kn"), (6144, 512, "kn"), (9216, 3072, "kn"),
+                    # gemma3-27b: embed.T at N = 262,144, mlp.wo at K = 21,504, wk
+                    (5376, 262144, "transposed"), (21504, 5376, "kn"), (5376, 2048, "kn")]
 
 
 @pytest.mark.parametrize("K,N,layout", NEW_ARCH_WEIGHTS)
@@ -755,11 +817,38 @@ def test_verify_step_equals_decode_steps(dev, pattern):
     target view, ragged across slots, against sequential ``decode_step``s
     of the same blocks. Each verify row's logits and the whole caches
     equal (torch.equal) the sequential ones after every round."""
+    model, prog = _spec_model(dev)
+    _verify_rounds(dev, model, prog, pattern, prompt_len=10, rounds=6)
+
+
+def _gemma_model(dev):
+    """Reduced gemma3-27b in bfloat16 on the card: one 5:1 cycle, window
+    16, qk-norm, softcap, hd 64, divided."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.progressive import divide
+    from repro_torch.models.model import build_model
+
+    model = build_model(get_config("gemma3-27b").reduced(
+        d_model=256, n_heads=4, n_kv=2, head_dim=64, d_ff=512, vocab=512,
+        dtype=torch.bfloat16))
+    prog = divide(model.init(torch.Generator(device=dev).manual_seed(0), device=dev))
+    return model, prog
+
+
+@pytest.mark.parametrize("pattern", ["reject_all", "alternate", "accept_all"])
+def test_windowed_verify_step_equals_decode_steps(dev, pattern):
+    """The same rounds over gemma3-27b's rings (window 16, grown by k_max +
+    1 = 5 after a 20-token prompt), positions past 40: every ring wraps,
+    and verify rows still equal sequential decode steps bit for bit."""
+    model, prog = _gemma_model(dev)
+    _verify_rounds(dev, model, prog, pattern, prompt_len=20, rounds=10)
+
+
+def _verify_rounds(dev, model, prog, pattern, *, prompt_len, rounds):
     from repro_torch.core.progressive import ReceiverState
     from repro_torch.models.common import quantized_resident_eligible
     from repro_torch.serving.speculative import SpeculativeEngine
 
-    model, prog = _spec_model(dev)
     state = ReceiverState.init(prog, device=dev)
     for s in range(1, prog.n_stages + 1):
         state = state.receive(prog.stage(s))
@@ -767,15 +856,15 @@ def test_verify_step_equals_decode_steps(dev, pattern):
     target = state.materialize_resident(quantized_resident_eligible,
                                         bits=SpeculativeEngine._FULL_BITS)
     draft = state.materialize_resident(quantized_resident_eligible, bits=4)
-    B, P, k_max = 3, 10, 4
+    B, P, k_max = 3, prompt_len, 4
     prompt = torch.randint(0, model.cfg.vocab, (B, P), generator=torch.Generator().manual_seed(1))
     logits, caches = model.prefill(plain, {"tokens": prompt.to(dev)})
-    spec_c = model.grow_caches(caches, 64)
-    seq_c = {"cycles": {k: {n: t.clone() for n, t in c.items()}
-                        for k, c in spec_c["cycles"].items()}, "tail": {}}
+    spec_c = model.grow_caches(caches, 64, ring_margin=k_max + 1, pos=P)
+    seq_c = {part: {k: {n: t.clone() for n, t in c.items()} for k, c in spec_c[part].items()}
+             for part in ("cycles", "tail")}
     last = torch.argmax(logits, dim=-1).to(torch.int32)[:, None]
     pos = torch.full((B,), P, dtype=torch.int32, device=dev)
-    for rnd in range(6):
+    for rnd in range(rounds):
         k = 1 + rnd % k_max
         toks, cur = [last], last
         for j in range(k):
@@ -787,8 +876,9 @@ def test_verify_step_equals_decode_steps(dev, pattern):
         for t in range(k + 1):
             lg, seq_c = model.decode_step(plain, seq_c, block[:, t:t + 1], pos + t)
             assert torch.equal(vlog[:, t], lg), (rnd, t)
-        for name in ("k", "v"):
-            assert torch.equal(spec_c["cycles"]["0_attn"][name], seq_c["cycles"]["0_attn"][name])
+        for slot, c in spec_c["cycles"].items():
+            for name in ("k", "v"):
+                assert torch.equal(c[name], seq_c["cycles"][slot][name]), (rnd, slot)
         acc = {"reject_all": [0] * B, "accept_all": [k] * B,
                "alternate": [k if (rnd + b) % 2 else 0 for b in range(B)]}[pattern]
         acc_t = torch.tensor(acc, device=dev)

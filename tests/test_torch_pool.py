@@ -263,7 +263,11 @@ def test_parts_left_for_later_raise(models, monkeypatch, kw):
     model = models[1]
     _, prog = _progs(models, "uint8")
     if "window" in kw:
-        model = build_model(model.cfg.reduced(**REDUCED, window=kw.pop("window")))
+        # sliding windows are ported (tests/test_torch_sliding_window.py): a
+        # windowed pool admits without buckets; a recurrent block is not
+        swa = build_model(model.cfg.reduced(**REDUCED, cycle=("swa",), window=kw.pop("window")))
+        assert not SlotPoolEngine(swa, prog, device="cpu", **POOL).prefill_buckets
+        model = build_model(model.cfg.reduced(**REDUCED, cycle=("mamba2",)))
     if "telemetry" in kw:
         monkeypatch.setenv("REPRO_TELEMETRY", kw.pop("telemetry"))
     settings = {**POOL, **kw}

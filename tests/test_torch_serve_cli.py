@@ -59,6 +59,17 @@ def test_cli_runs_to_its_end(mode, tmp_path, capsys):
         assert (tmp_path / "again.jsonl").read_text() == text
 
 
+@pytest.mark.parametrize("mode", ["default", "speculative", "pool"])
+def test_cli_gemma3_reduced(mode, capsys):
+    """``--arch gemma3-27b --reduced``: sliding windows of 16 over a
+    32-token prompt, every ring wrapped, in the default stream, under
+    speculation and in the pool (chunked admission over rings)."""
+    argv = ["--arch", "gemma3-27b", "--reduced", "--device", "cpu", "--decode-steps", "12"]
+    serve.main(argv + {"default": [], "speculative": ["--speculative", "--draft-k", "2"],
+                       "pool": ["--pool-clients", "3", "--pool-slots", "2"]}[mode])
+    assert "served" in capsys.readouterr().out
+
+
 def test_cli_parts_still_to_port_raise():
     """The other architectures (``--mesh-shards`` is ported:
     ``tests/test_torch_sharded.py`` runs it)."""
