@@ -39,6 +39,24 @@ with the launch counts set to 0 just before it and read just after:
    window mask. No wire, CLI or ``[path]``: they are arch-agnostic byte
    paths, and the CPU tests hold the windowed numerics against the JAX
    package;
+1c. ``[arch mixtral-8x22b x1]``: mixture-of-experts blocks (``swa_moe``:
+   8 experts, top-2, over a window of 4096) at mixtral-8x22b's published
+   widths, 1 of its 56 layers, seeded weights with a skewed router:
+   ``divide`` on the card under ``ExpertPopularityPolicy`` (each expert
+   bank sliced in 8, B6 8 launches a slice), the stage-8 accumulators
+   equal to ``quantize(slice).q`` of every slice, 8 distinct scales a
+   bank, hot experts' planes first in stage 1, the live banks views of
+   the store's buffer; the single stream (phase 3's shape) at the
+   published cf = 1.25, stages 1-8 landing mid-decode, 30 B2 and 1 B3
+   launches a decode step, all on the one-pass GEMV kernels, the share of
+   routed pairs dropped; the pool's 12 requests with chunked admission;
+   ``SpeculativeEngine`` at stage 8 with cf = 4.0 (drop-free), tokens
+   ``torch.equal`` to plain greedy tokens, and at cf = 1.25 (acceptance
+   and drops reported); B2 on every weight shape (the router at N = 8,
+   the expert slots) at M = 1-64 with and without a per-expert mask; B3
+   and B4 at G = 6 on rings; float residency against quantized. No wire,
+   CLI or ``[path]``: byte paths, which the CPU tests hold for a sliced
+   division;
 2. ``[divide]``: split full-width olmo-1b into eight 2-bit planes on the
    card (``plane_extract``, 8 launches a tensor); the in-memory receiver
    after all 8 stages holds ``quantize(leaf).q`` of every tensor, bit for
@@ -168,6 +186,7 @@ from __future__ import annotations
 import dataclasses
 import gc
 import json
+import math
 import os
 import subprocess
 import sys
@@ -288,6 +307,20 @@ GEMMA_POOL_SLOTS, GEMMA_POOL_REQUESTS, GEMMA_POOL_MAX_LEN = 4, 6, 1088
 GEMMA_POOL_PROMPTS, GEMMA_POOL_BUDGETS = (990, 1041), (24, 40)
 GEMMA_SPEC_PROMPT, GEMMA_SPEC_K = 1030, 4
 GEMMA_FP_PROMPT = 1016
+# [arch mixtral-8x22b x1]: mixture-of-experts blocks (ROADMAP A8(c)) at
+# mixtral-8x22b's published widths, 1 of its 56 layers (one layer's divide
+# holds about 41 GB at its peak; 2 layers would not fit the card). The
+# router's 8 columns are scaled by MOE_SKEW (permuted by a seed) so that
+# some experts are hot, as a trained model's are; the expert policy takes
+# its popularity from a calibration batch of MOE_CAL tokens. Speculative
+# tokens equal plain ones only at drop-free capacity, cf = E / K = 4.0;
+# the published cf = 1.25 runs once and reports acceptance. B2 is checked
+# at MOE_DQMM_M rows (16: an expert's rows at the pool's decode step)
+MOE = ("mixtral-8x22b", 1)
+MOE_SKEW = (1.6, 1.3, 1.0, 0.8, 0.6, 0.4, 0.2, 0.1)
+MOE_CAL = (4, 64)
+MOE_DQMM_M = (1, 4, 8, 16, 64)
+MOE_SPEC_K = 4
 # v2 entropy coding is host numpy (core/entropy.py): its encode and decode
 # are timed on the 2-layer full-width model's attn.wq units (8 planes)
 
@@ -392,12 +425,13 @@ def check_one_pass(routes: dict, what: str) -> dict:
 
 def expect_routes(calls) -> dict:
     """Launches by route for ``calls``: (launches, M) pairs, all on uint16
-    accumulators."""
+    accumulators, or (launches, M, rows) triples, rows="decode" forcing
+    the GEMV route."""
     from repro_torch.kernels import dequant_matmul
 
     want = dict.fromkeys(dequant_matmul.launches_by_route, 0)
-    for n, M in calls:
-        want[dequant_matmul.route(M, torch.uint16)] += n
+    for n, M, *rows in calls:
+        want["gemv" if rows == ["decode"] else dequant_matmul.route(M, torch.uint16)] += n
     return want
 
 
@@ -473,6 +507,10 @@ def main() -> int:
 
     # -- 1b. sliding windows (ROADMAP A8(b)): gemma3-27b, 6 of its 62 layers -
     arch_runs[f"arch {GEMMA[0]} x{GEMMA[1]}"] = _gemma_phase(dev, ops)
+    torch.cuda.empty_cache()
+
+    # -- 1c. mixture of experts (ROADMAP A8(c)): mixtral-8x22b, 1 of 56 layers
+    arch_runs[f"arch {MOE[0]} x{MOE[1]}"] = _moe_phase(dev, ops)
     torch.cuda.empty_cache()
 
     # -- 2. divide on the card -----------------------------------------------
@@ -2118,13 +2156,15 @@ def _upgrade_phase(prog, dev, ops):
 
 
 def _pool_phase(model, prog, dev, ops, tag="[pool]", fp_bytes=0, *, slots=POOL_SLOTS,
-                max_len=POOL_MAX_LEN, requests=None):
+                max_len=POOL_MAX_LEN, requests=None, b2_calls=None):
     """Serve the requests (default: the 12 of ``_pool_requests``) through
     the slot pool of ``slots`` slots from stage 1, one upgrade per window
     up to stage 8, and check what came out and which kernels ran;
-    ``fp_bytes`` is the float leaves' resident bytes (olmo-1b has none).
-    Returns the drained pool, the run's launch counts and
-    ``dequant_matmul``'s launches by route."""
+    ``fp_bytes`` is the float leaves' resident bytes (olmo-1b has none);
+    ``b2_calls(ticks, steps)`` gives B2's launches as :func:`expect_routes`
+    reads them (default: the dense layers' :func:`pass_calls`). Returns
+    the drained pool, the run's launch counts and ``dequant_matmul``'s
+    launches by route."""
     from repro_torch.serving.engine import PoolRequest, SlotPoolEngine
 
     cfg = model.cfg
@@ -2163,13 +2203,14 @@ def _pool_phase(model, prog, dev, ops, tag="[pool]", fp_bytes=0, *, slots=POOL_S
           == layers * ticks, (op_counts, run_counts, ticks))
     check(run_counts["decode_attention"] == op_counts["decode_attention"]
           == layers * steps, (run_counts, steps))
-    check(run_counts["dequant_matmul"] == op_counts["dequant_matmul"]
-          == (layers * 7 + 1) * (ticks + steps), (run_counts, ticks, steps))
-    check("verify_attention" not in op_counts, op_counts)
     # a chunk tick runs every weight at M = slots x chunk, a decode step at
     # M = slots
-    check(routes == expect_routes(pass_calls(layers, ticks, slots * POOL_CHUNK)
-                                  + pass_calls(layers, steps, slots)), routes)
+    calls = (b2_calls(ticks, steps) if b2_calls else
+             pass_calls(layers, ticks, slots * POOL_CHUNK) + pass_calls(layers, steps, slots))
+    check(run_counts["dequant_matmul"] == op_counts["dequant_matmul"]
+          == sum(c[0] for c in calls), (run_counts, ticks, steps))
+    check("verify_attention" not in op_counts, op_counts)
+    check(routes == expect_routes(calls), routes)
     n_tok = sum(len(t) for t in out.values())
     ttft = [pool.ttft_s[rid] for rid in range(n_req)]
     log(f"{tag} {n_req} requests, prompts {int(lengths.min())}-"
@@ -3396,25 +3437,29 @@ def _stack_layers(cfg, tree) -> list:
     return out + [tree["tail"][f"{i}_{kind}"] for i, kind in enumerate(cfg.tail)]
 
 
-def _decode_b2_row(run, P, xg) -> dict:
+def _decode_b2_row(run, P, xg, calls=None, check_shapes=None) -> dict:
     """A decode step's B2 launches at M = BATCH (bfloat16 x for the
     layers, float32 for the unembedding) on the live views ``P``: the
     step timed beside its bound, each weight shape's launches beside the
     plain version and ``torch.matmul`` on dequantised float32 weights, the
     deepest weight also on the general kernel; then every distinct weight
-    shape checked (:func:`_arch_dqmm_check`). Returns the kernels-line
-    row."""
+    shape checked (:func:`_arch_dqmm_check`). ``calls`` ((x, view) pairs)
+    and ``check_shapes`` (returns the check's worst error) replace both
+    for a stack whose layers are not the dense seven. Returns the
+    kernels-line row."""
     from repro_torch.kernels import dequant_matmul as dqm
     from repro_torch.kernels import ref
 
     cfg, dev = run.cfg, run.dev
     layers = _stack_layers(cfg, P["decoder"])
     unembed = P["embed"].T if cfg.tie_embeddings else P["lm_head"]
-    ws = [w for lr in layers for w in _layer_weights(lr)]
-    xs = {k: torch.randn((BATCH, k), generator=xg, device=dev).to(cfg.dtype)
-          for k in {w.q.shape[0] for w in ws}}
-    calls = [(xs[w.q.shape[0]], w) for w in ws] + [
-        (torch.randn((BATCH, cfg.d_model), generator=xg, device=dev), unembed)]
+    if calls is None:
+        ws = [w for lr in layers for w in _layer_weights(lr)]
+        xs = {k: torch.randn((BATCH, k), generator=xg, device=dev).to(cfg.dtype)
+              for k in {w.q.shape[0] for w in ws}}
+        calls = [(xs[w.q.shape[0]], w) for w in ws] + [
+            (torch.randn((BATCH, cfg.d_model), generator=xg, device=dev), unembed)]
+    M_all = sorted({x.shape[0] for x, _ in calls})
 
     def b2(sub, fn=dqm.dequant_matmul):
         for x, w in sub:
@@ -3423,7 +3468,8 @@ def _decode_b2_row(run, P, xg) -> dict:
     b, bb = _dqmm_bound(calls)
     row = {"ms": device_ms(lambda: b2(calls), 2), "host_ms": host_ms(lambda: b2(calls), 2),
            "bound_ms": b, "bound_by": bb,
-           "per": f"one decode step ({len(calls)} launches at M={BATCH})"}
+           "per": f"one decode step ({len(calls)} launches at M="
+                  f"{'/'.join(map(str, M_all))})"}
     # each weight shape's launches alone, beside the plain version and
     # torch.matmul on the dequantised float32 weights (one shape's float
     # weights held at a time); the step's plain and library times are
@@ -3462,7 +3508,8 @@ def _decode_b2_row(run, P, xg) -> dict:
         f"issue {row['host_ms']:.4f} ms; by weight shape: "
         + "; ".join(by_shape) + f"; one launch at K={K} N={N}, one-pass and general kernel "
         f"(a copy of row stride N + 1): {row['general_ms']} ms")
-    row["max_rel_err"] = _arch_dqmm_check(run.tag, layers[0], unembed, cfg, dev, xg)
+    row["max_rel_err"] = (check_shapes() if check_shapes else
+                          _arch_dqmm_check(run.tag, layers[0], unembed, cfg, dev, xg))
     return row
 
 
@@ -3698,7 +3745,8 @@ def _gemma_phase(dev, ops) -> dict:
         torch.randint(0, cfg.vocab, (BATCH, n), generator=torch.Generator().manual_seed(seed))
         for n, seed in ((GEMMA_SPEC_PROMPT, 5), (GEMMA_FP_PROMPT, 6)))
     for path in (lambda: _gemma_single(run, prog), lambda: _gemma_pool(run, prog),
-                 lambda: _ring_attention(run, _arch_spec(run, prog, spec_prompt, GEMMA_SPEC_K)),
+                 lambda: _ring_attention(run, _arch_spec(run, prog, spec_prompt, GEMMA_SPEC_K),
+                                         GEMMA_SPEC_K + 1),
                  lambda: _arch_fp(run, prog, _StoreReceiver(prog, dev), fp_prompt,
                                   "in-memory store")):
         gc.collect()
@@ -3823,16 +3871,19 @@ def _gemma_pool(run, prog) -> None:
     log(f"{run.tag} pool: rings of {ring} slots (window {cfg.window} + chunk {POOL_CHUNK})")
 
 
-def _ring_attention(run, caches) -> None:
-    """B3 and B4 on the speculative engine's caches at gemma3-27b's heads
-    (G = 2), each slot's k_pos from ``ring_positions`` at a head of its own:
-    wrapped three times, twice, once, and a free slot. On layer 0's ring
-    (window 1024 + 5 slots): decode at the head and a verify block of its
-    last 5 positions within ``ATTN_RTOL`` of the plain versions, every
-    verify row ``torch.equal`` to a decode launch at its position (over the
-    block's k_pos and over a decode step's own). Then a decode step's 6
-    launches (5 rings, the global layer at S = max_len, its last position)
-    and a verify pass's timed beside the plain versions and
+def _ring_attention(run, caches, T: int) -> None:
+    """B3 and B4 on the speculative engine's caches at the arch's heads
+    (gemma3-27b's G = 2, mixtral-8x22b's G = 6), each slot's k_pos from
+    ``ring_positions`` at a head of its own: wrapped three times, twice,
+    once, and a free slot. ``T`` is the engine's verify block (k + 1), by
+    which its rings outgrow the window. On layer 0's ring (window + T
+    slots): decode at the head and a verify block of its last T positions
+    within ``ATTN_RTOL`` of the plain versions, every verify row
+    ``torch.equal`` to a decode launch at its position (over the block's
+    k_pos and over a decode step's own). Then a decode step's launches
+    (one a layer: a ring, or a global layer at S = max_len at its last
+    position; gemma3-27b's cycle gives 6, mixtral-8x22b's 1) and a verify
+    pass's timed beside the plain versions and
     ``scaled_dot_product_attention`` with the additive window mask."""
     from repro_torch.kernels import decode_attention as da
     from repro_torch.kernels import ref
@@ -3844,7 +3895,6 @@ def _ring_attention(run, caches) -> None:
     g = torch.Generator(device=dev).manual_seed(11)
     layers = _stack_layers(cfg, caches)
     windows = [attn_window(cfg, k) for k in cfg.cycle]
-    T = GEMMA_SPEC_K + 1
 
     def operands(c, window):
         S = c["k"].shape[2]
@@ -3923,8 +3973,9 @@ def _ring_attention(run, caches) -> None:
         lambda: [_sdpa(q, c, m) for (c, *_), m in zip(ops_d, masks_v)])
     b_v, by_v = bound_ms(n_bytes(seen_v, T), n_ops(seen_v), FP32_FLOPS)
     S_g = layers[-1]["k"].shape[2]
-    per = (f"{L} launches: {L - 1} on rings of {S0} slots, window {cfg.window}; 1 global, "
-           f"S = {S_g}")
+    n_ring = sum(1 for _, w, *_ in ops_d if w)
+    per = (f"{L} launches: {n_ring} on rings of {S0} slots, window {cfg.window}"
+           + (f"; {L - n_ring} global, S = {S_g}" if L > n_ring else ""))
     run.kern["decode_attention"] = {**row_d, "bound_ms": b_d, "bound_by": by_d,
                                     "max_abs_err": err_d, "per": f"one decode step ({per})"}
     run.kern["flash_verify"] = {**row_v, "bound_ms": b_v, "bound_by": by_v, "max_abs_err": err_v,
@@ -3943,31 +3994,457 @@ def _ring_attention(run, caches) -> None:
             f"mask), host issue {row['host_ms']:.4f} ms")
 
 
+class MoeAux:
+    """Wraps a Model: keeps, on the device and without a host sync, the
+    MoE auxiliaries (``balance_loss``, ``dropped_frac``, summed over
+    layers) of every forward pass, by mode."""
+
+    def __init__(self, model):
+        self.model = model
+        self.aux: dict[str, list] = {m: [] for m in ("prefill", "decode", "prefill_chunk",
+                                                     "verify")}
+
+    def __getattr__(self, name):
+        return getattr(self.model, name)
+
+    def _run(self, mode, fn, device, *args, **kw):
+        from repro_torch.models.transformer import zero_aux
+
+        aux = zero_aux(device)
+        out = fn(*args, aux=aux, **kw)
+        self.aux[mode].append(aux["dropped_frac"])
+        return out
+
+    def prefill(self, params, batch, *args, **kw):
+        return self._run("prefill", self.model.prefill, batch["tokens"].device, params, batch,
+                         *args, **kw)
+
+    def decode_step(self, params, caches, tokens, pos):
+        return self._run("decode", self.model.decode_step, tokens.device, params, caches,
+                         tokens, pos)
+
+    def prefill_chunk(self, params, caches, tokens, tok_pos):
+        return self._run("prefill_chunk", self.model.prefill_chunk, tokens.device, params,
+                         caches, tokens, tok_pos)
+
+    def verify_step(self, params, caches, tokens, pos):
+        return self._run("verify", self.model.verify_step, tokens.device, params, caches,
+                         tokens, pos)
+
+    def dropped(self) -> dict:
+        """Mean share of routed (token, k) pairs dropped, by mode (one read
+        of the device)."""
+        return {m: round(float(torch.stack(v).mean()), 6) for m, v in self.aux.items() if v}
+
+
+def moe_calls(cfg, passes: int, B: int, T: int, mode: str) -> list:
+    """B2's launches in ``passes`` forward passes of a MoE stack over (B, T)
+    tokens, as :func:`expect_routes` reads them: the attention's four
+    weights and the router at M = B*T, each expert's three slots at M =
+    B*C (C its capacity at T), the unembedding at M = B*T (B for a
+    prefill, which unembeds the last position). Decode and verify force
+    the GEMV route."""
+    from repro_torch.models.moe import capacity
+
+    rows = "decode" if mode in ("decode", "verify") else "any"
+    L = cfg.n_layers
+    return [(passes * L * 5, B * T, rows),
+            (passes * L * 3 * cfg.n_experts, B * capacity(cfg, T), rows),
+            (passes, B if mode == "prefill" else B * T, rows)]
+
+
+def _moe_phase(dev, ops) -> dict:
+    """``[arch mixtral-8x22b x1]``: ROADMAP A8(c) at mixtral-8x22b's
+    published widths, 1 of its 56 layers, seeded random weights with a
+    skewed router. Each path counted from 0: divide under the expert policy
+    (:func:`_moe_divide`); the single stream at the published capacity
+    (:func:`_moe_single`); the pool's chunked admission; speculation at
+    cf = 4.0 and 1.25 (:func:`_moe_spec`), then B3 and B4 on its rings
+    (:func:`_ring_attention`); float residency against quantized
+    (:func:`_arch_fp`). Returns the launch counts, B2's launches by route
+    and the kernels' rows."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import build_model
+
+    t_phase = time.perf_counter()
+    name, n_layers = MOE
+    cfg = dataclasses.replace(get_config(name), n_layers=n_layers)
+    run = types.SimpleNamespace(
+        tag=f"[arch {name} x{n_layers}]", cfg=cfg, model=build_model(cfg), dev=dev, ops=ops,
+        counts={}, routes={}, kern={},
+        prompt=torch.randint(0, cfg.vocab, (BATCH, PROMPT),
+                             generator=torch.Generator().manual_seed(1)))
+    log(f"{run.tag} {cfg.n_layers} of {get_config(name).n_layers} layers ({cfg.cycle[0]}), "
+        f"d_model {cfg.d_model}, {cfg.n_heads} heads on {cfg.n_kv} KV heads (G = "
+        f"{cfg.n_heads // cfg.n_kv}), hd {cfg.hd}, {cfg.n_experts} experts of d_ff {cfg.d_ff}, "
+        f"top-{cfg.top_k}, capacity factor {cfg.capacity_factor}, window {cfg.window}, vocab "
+        f"{cfg.vocab}, untied lm_head; no wire, CLI or [path] here: byte paths, which the CPU "
+        f"tests hold for a sliced division against the JAX package")
+    prog = _moe_divide(run)
+    for path in (lambda: _moe_single(run, prog), lambda: _moe_pool(run, prog),
+                 lambda: _ring_attention(run, _moe_spec(run, prog), MOE_SPEC_K + 1),
+                 lambda: _arch_fp(run, prog, _StoreReceiver(prog, dev), run.prompt,
+                                  "in-memory store")):
+        gc.collect()
+        torch.cuda.empty_cache()
+        path()
+    del prog
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"{run.tag} launches on the paths {run.counts}, dequant_matmul by route {run.routes}; "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    return {"counts": run.counts, "routes": run.routes, "kern": run.kern}
+
+
+def _moe_divide(run):
+    """Seeded weights, the router's columns scaled by a seeded permutation
+    of ``MOE_SKEW``; the experts' popularity from a calibration batch
+    (top-k of the first layer's router over the embedded tokens, as
+    ``examples/expert_priority_moe.py`` measures it); divided on the card
+    under ``ExpertPopularityPolicy`` (B6, 8 launches a slice), the planes
+    of the largest slice and of ``lm_head`` against the plain version;
+    stage 1's sliced planes in order of popularity; 8 distinct scales a
+    bank; then an in-memory receiver through all 8 stages, its stage-8
+    accumulators against ``quantize(slice).q`` of every slice, bit for
+    bit, and the live banks one strided view of the flat buffer each.
+    Sets the counts of weights and returns the divided model."""
+    from repro_torch.core.policy import ExpertPopularityPolicy
+    from repro_torch.core.progressive import ReceiverState, divide, tree_flatten_with_path
+    from repro_torch.core.quantize import dequant_affine, quantize
+    from repro_torch.kernels import ref
+    from repro_torch.models.common import quantized_resident_eligible
+
+    cfg, E, dev = run.cfg, run.cfg.n_experts, run.dev
+    params = run.model.init(torch.Generator(device=dev).manual_seed(0), device=dev)
+    moe_p = params["decoder"]["cycles"][f"0_{cfg.cycle[0]}"]["moe"]
+    perm = torch.randperm(E, generator=torch.Generator().manual_seed(4))
+    moe_p["router"].mul_(torch.tensor(MOE_SKEW)[perm].to(dev))
+    cal = torch.randint(0, cfg.vocab, MOE_CAL, generator=torch.Generator().manual_seed(7))
+    x = run.model._embed(params, cal.to(dev)).float()
+    top = torch.topk(torch.softmax(x @ moe_p["router"][0], -1), cfg.top_k).indices
+    hits = torch.bincount(top.flatten(), minlength=E).cpu()
+    pop = {e: float(hits[e]) / float(hits.sum()) for e in range(E)}
+    leaves = dict(tree_flatten_with_path(params))
+    run.n_params = sum(t.numel() for t in leaves.values())
+    run.n_fp = sum(t.numel() for k, t in leaves.items() if not quantized_resident_eligible(k))
+    torch.cuda.synchronize()
+    reset_counts(run.ops)
+    t0 = time.perf_counter()
+    prog = divide(params, ExpertPopularityPolicy(popularity=pop, n_experts=E))
+    torch.cuda.synchronize()
+    t_divide = time.perf_counter() - t0
+    got, _ = _tally(run.counts, run.routes, f"{run.tag} divide")
+    n_t = len(prog.tensors)
+    sliced = [t for t in prog.tensors if t.slice_axis is not None]
+    check(len(sliced) == 3 * E * cfg.n_layers and all(t.slice_axis == 1 for t in sliced),
+          [(t.path, t.slice_axis) for t in sliced])
+    check(got["plane_extract"] == 8 * n_t and sum(got.values()) == 8 * n_t, got)
+
+    def sub(t):
+        leaf = leaves[t.path]
+        return leaf if t.slice_axis is None else leaf.select(t.slice_axis, t.slice_idx)
+
+    for big in (max(prog.tensors, key=lambda t: math.prod(t.shape)),
+                max(sliced, key=lambda t: math.prod(t.shape))):
+        q = quantize(sub(big), 16).q
+        before = 0
+        for w, plane in zip(big.plan.schedule.widths, big.planes):
+            check(torch.equal(plane, ref.plane_extract_ref(q, 16, before, w, torch.uint8)),
+                  f"{run.tag} plane at {before} of {big.path} slice {big.slice_idx}")
+            before += w
+        del q
+    stage1 = [prog.tensors[i] for i, _ in prog.stage(1)]
+    order = [pop[t.slice_idx] for t in stage1 if t.slice_axis is not None]
+    check(order == sorted(order, reverse=True) and len(set(order)) > 1, order)
+    check(all(t.slice_axis is None for t in stage1[:n_t - len(sliced)]), "a slice before a core "
+          "tensor in stage 1")
+    scales = {}
+    for t in sliced:
+        scales.setdefault(t.path[-1], set()).add(float(dequant_affine(t.lo, t.hi, 16)[0]))
+    check(all(len(v) == E for v in scales.values()), scales)
+    log(f"{run.tag} {run.n_params} parameters ({run.n_fp} in float norm leaves); router "
+        f"popularity on {MOE_CAL[0]}x{MOE_CAL[1]} calibration tokens "
+        f"{ {e: round(p, 3) for e, p in pop.items()} }; divide under ExpertPopularityPolicy on "
+        f"the card {t_divide:.2f} s: {n_t} tensors ({len(sliced)} expert slices), launches "
+        f"{got}; the planes of the largest tensor and slice equal the plain version; stage 1 "
+        f"ships the core tensors, then the slices by popularity; {E} distinct scales a bank")
+
+    t0 = time.perf_counter()
+    want = [quantize(sub(t), 16).q.cpu() for t in prog.tensors]
+    del params, leaves, moe_p, x
+    torch.cuda.empty_cache()
+    state = ReceiverState.init(prog, device=dev)
+    for s in range(1, prog.n_stages + 1):
+        state = state.receive(prog.stage(s))
+    store = state.store
+    for i, t in enumerate(prog.tensors):
+        check(torch.equal(store._slice_acc(i), want[i].reshape(t.shape).to(dev)),
+              f"{run.tag} stage-8 accumulator of {t.path} slice {t.slice_idx} differs from "
+              f"quantize(slice).q")
+    del want
+    leaves = state.materialize_resident()
+    moe_q = leaves["decoder"]["cycles"][f"0_{cfg.cycle[0]}"]["moe"]
+    buf = store.buffers["uint16"]
+    for nm in ("we_gate", "we_up", "we_down"):
+        bank = moe_q[nm]
+        idxs = store.groups[("decoder", "cycles", f"0_{cfg.cycle[0]}", "moe", nm)]
+        check(bank.q.untyped_storage().data_ptr() == buf.untyped_storage().data_ptr()
+              and all(bank.q[0, e].data_ptr() == store.acc(i).data_ptr()
+                      for e, i in enumerate(idxs)), f"{run.tag} {nm} is not a view of the store")
+        check(len(set(bank.scale.flatten().tolist())) == E, bank.scale.flatten())
+    log(f"{run.tag} stage-8 accumulators of an in-memory receiver equal quantize(slice).q of "
+        f"all {n_t} tensors and slices, bit for bit; each live bank one strided view of the "
+        f"store's uint16 buffer (expert e's (d, f) slot its slice's accumulator), "
+        f"{E} scales a bank; {time.perf_counter() - t0:.1f} s")
+    del state, store, leaves, moe_q, bank, buf
+    return prog
+
+
+def _moe_weights(cfg, P, dev) -> tuple[list, list]:
+    """Layer 0's B2 operands in the order a decode step runs them: the
+    attention's four weights, the router, each expert's gate, up and down
+    slot (views of its bank), then the unembedding, as (name, view)
+    pairs; and the experts' names."""
+    lr = _stack_layers(cfg, P["decoder"])[0]
+    a, m = lr["attn"], lr["moe"]
+    out = [(f"attn.{k}", a[k]) for k in ("wq", "wk", "wv", "wo")] + [("moe.router", m["router"])]
+    experts = []
+    for e in range(cfg.n_experts):
+        for k in ("we_gate", "we_up", "we_down"):
+            w = m[k]
+            experts.append(f"moe.{k}[{e}]")
+            out.append((experts[-1], types.SimpleNamespace(q=w.q[e], scale=w.scale[e],
+                                                           offset=w.offset[e])))
+    return out + [("lm_head", P["lm_head"])], experts
+
+
+def _moe_single(run, prog) -> None:
+    """The single stream (batch 4, prompt 64, 48 steps, a stage every 6)
+    from in-memory planes at the published capacity factor, quantized,
+    counted from 0: 30 B2 launches a decode step (4 attention weights,
+    the router at N = 8, 8 x 3 expert slots at M = 8 rows each, lm_head)
+    and 1 B3, every B2 launch on the one-pass GEMV kernels; the share of
+    routed pairs dropped by mode. Then a decode step's B2 timed and every
+    weight shape checked with a per-expert mask (:func:`_decode_b2_row`,
+    :func:`_dqmm_check`), and B3 on layer 0's cache against its plain
+    version."""
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import dequant_matmul as dqm
+    from repro_torch.kernels import ref
+    from repro_torch.models.moe import capacity
+    from repro_torch.serving import ProgressiveServer
+
+    cfg, L, dev = run.cfg, run.cfg.n_layers, run.dev
+    aux = MoeAux(run.model)
+    checked = FiniteLogits(aux)
+    srv = ProgressiveServer(checked, prog, max_len=PROMPT + STEPS, resident="quantized",
+                            device=dev)
+    torch.cuda.synchronize()
+    reset_counts(run.ops)
+    t0 = time.perf_counter()
+    srv.receive_stage()
+    srv.start({"tokens": run.prompt})
+    torch.cuda.synchronize()
+    t_prefill = time.perf_counter() - t0
+    after_prefill = counts()
+    res = srv.decode(STEPS, stage_arrival=lambda i: i in ARRIVALS)
+    got, by = _tally(run.counts, run.routes, f"{run.tag} serve")
+    per_step = {k: (got[k] - after_prefill[k]) / STEPS for k in got}
+    rep = srv.resident_report()
+    decode_s = sum(s for _, s in res.window_s)
+    per_b2 = L * (5 + 3 * cfg.n_experts) + 1
+    dropped = aux.dropped()
+    check(per_b2 == 30 and per_step["dequant_matmul"] == per_b2
+          and per_step["decode_attention"] == L, per_step)
+    check(srv.stage == 8 and [s for _, s in res.upgrades] == list(range(2, 9)), res.upgrades)
+    check(bool(torch.stack(checked.flags).all()) and bool(torch.isfinite(srv.last_logits).all()),
+          f"{run.tag} non-finite logits")
+    check(res.tokens.shape == (BATCH, STEPS) and int(res.tokens.max()) < cfg.vocab)
+    check(rep["quantized_bytes"] == 2 * (run.n_params - run.n_fp)
+          and rep["fp_bytes"] == 4 * run.n_fp and rep["fp_leaves"] > 0, rep)
+    check(rep["quantized_bytes"] + rep["fp_bytes"] // 2 <= srv.state.store.resident_bytes(),
+          (rep, srv.state.store.resident_bytes()))
+    check(got["plane_or_segments"] == 8 and got["flash_verify"] == 0, got)
+    check(by == expect_routes(moe_calls(cfg, 1, BATCH, PROMPT, "prefill")
+                              + moe_calls(cfg, STEPS, BATCH, 1, "decode")), by)
+    check(dropped["decode"] == 0.0, dropped)
+    log(f"{run.tag} single stream (in-memory planes, quantized, cf {cfg.capacity_factor}: "
+        f"capacity {capacity(cfg, PROMPT)} rows an expert at the prefill, {capacity(cfg, 1)} at "
+        f"decode): stages {res.stage_at_step[0]}->{res.stage_at_step[-1]}, upgrades "
+        f"{res.upgrades}; resident {rep['quantized_bytes']} B quantized + {rep['fp_bytes']} B "
+        f"in {rep['fp_leaves']} float leaves (the norms), the store's buffers "
+        f"{srv.state.store.resident_bytes()} B; share of routed pairs dropped {dropped}")
+    log(f"{run.tag} receive_stage + prefill {t_prefill * 1e3:.1f} ms; decode {STEPS} steps x "
+        f"{BATCH} with 7 upgrades: {decode_s:.3f} s, {BATCH * STEPS / decode_s:.1f} tokens/s, "
+        f"{decode_s / STEPS * 1e3:.2f} ms/step; per step dequant_matmul "
+        f"{per_step['dequant_matmul']:.0f}, decode_attention {per_step['decode_attention']:.0f}; "
+        f"launches {got}; dequant_matmul by route {by}, GEMV route by kernel "
+        f"{dict(dqm.launches_by_gemv_kernel)}")
+
+    # a decode step's B2 launches at their rows: B for the attention, the
+    # router and lm_head, B x C for each expert's slots
+    xg = torch.Generator(device=dev).manual_seed(2)
+    named, experts = _moe_weights(cfg, srv.params, dev)
+    check(all(dqm.one_pass(w.q) for _, w in named), f"{run.tag} a weight is off the one-pass "
+          f"kernels")
+    Me = BATCH * capacity(cfg, 1)
+    calls = [(torch.randn((Me if nm in experts else BATCH, w.q.shape[0]), generator=xg,
+                          device=dev).to(torch.float32 if nm == "lm_head" else cfg.dtype), w)
+             for nm, w in named]
+
+    def shapes():
+        # each distinct shape of the other weights with keep = 3; the first
+        # and the last expert's three slots, each expert with keep = 3 + e
+        first: dict = {}
+        for nm, w in named:
+            if nm not in experts:
+                first.setdefault(tuple(w.q.shape), (nm, w))
+        keep = {e: torch.full((1, 1), 3 + e, dtype=torch.int32, device=dev)
+                for e in (0, cfg.n_experts - 1)}
+        weights = [(nm, w, torch.float32 if nm == "lm_head" else cfg.dtype, keep[0])
+                   for nm, w in first.values()]
+        for e, kt in keep.items():
+            weights += [(nm, w, cfg.dtype, kt) for nm, w in named if nm.endswith(f"[{e}]")]
+        return _dqmm_check(run.tag, weights, xg, MOE_DQMM_M,
+                           "keep none and a mask of its own an expert (3 + e bits)")
+
+    run.kern["dequant_matmul"] = _decode_b2_row(run, srv.params, xg, calls=calls,
+                                                check_shapes=shapes)
+
+    # B3 on the stream's own ring: window slots, of which the stream wrote
+    # its first n (slot = position), the rest not yet written
+    c0 = _stack_layers(cfg, srv.caches)[0]
+    S, n = c0["k"].shape[2], PROMPT + STEPS
+    check(S == cfg.window > n, S)
+    k_pos = torch.arange(S, dtype=torch.int32, device=dev).repeat(BATCH, 1)
+    k_pos[:, n:] = -1
+    k_pos[1, 41:] = -1
+    q_pos = torch.tensor([n - 1, n - 1, 70, -1], dtype=torch.int32, device=dev)
+    q = torch.randn((BATCH, cfg.n_heads, cfg.hd), generator=xg, device=dev).to(cfg.dtype)
+    o = da.flash_decode(q, c0["k"], c0["v"], k_pos, q_pos, window=cfg.window)
+    want = ref.flash_decode_ref(q, c0["k"], c0["v"], k_pos, q_pos, window=cfg.window)
+    err = float((o.float() - want).abs().max())
+    check(bool(torch.isfinite(o).all()) and err <= ATTN_RTOL * float(want.abs().max()),
+          (run.tag, "decode_attention", err))
+    log(f"{run.tag} [check] decode_attention B={BATCH} H={cfg.n_heads} Kh={cfg.n_kv} on the "
+        f"stream's ring of {S} slots ({n} written), hd={cfg.hd}, window {cfg.window} (ragged "
+        f"slot, free slot): max |err| {err:.3e} (tolerance {ATTN_RTOL} of max |out|)")
+
+
+def _moe_pool(run, prog) -> None:
+    """The slot pool's 12 requests as ``[pool]`` runs them, counted from 0:
+    a chunk tick runs the attention and router at M = 64 and each expert's
+    slots at M = 8 x C(8) = 16 (the tensor-core route), a decode step
+    every expert's slots at M = 16 on the GEMV route (rows="decode")."""
+    cfg = run.cfg
+    pool, got, by = _pool_phase(
+        run.model, prog, run.dev, run.ops, f"{run.tag} pool", 4 * run.n_fp,
+        b2_calls=lambda ticks, steps: (moe_calls(cfg, ticks, POOL_SLOTS, POOL_CHUNK,
+                                                 "prefill_chunk")
+                                       + moe_calls(cfg, steps, POOL_SLOTS, 1, "decode")))
+    for acc, new in ((run.counts, got), (run.routes, by)):
+        for k, v in new.items():
+            acc[k] = acc.get(k, 0) + v
+    ring = _stack_layers(cfg, pool.caches)[0]["k"].shape[-2]
+    log(f"{run.tag} pool: rings of {ring} slots (window {cfg.window} + chunk {POOL_CHUNK})")
+
+
+def _moe_spec(run, prog):
+    """``SpeculativeEngine`` at stage 8 (k = 4, draft 4 bits, rings grown by
+    k_max + 1 = 5), counted from 0, on the same planes twice: at cf = 4.0
+    (drop-free: every expert's capacity holds a verify block's 5 tokens),
+    its tokens ``torch.equal`` to a plain server's greedy tokens at the same
+    cf over the same rings (run first); then at the published cf = 1.25,
+    where a verify block's capacity is 2 rows an expert: acceptance and the
+    share of routed pairs dropped reported, no equality claimed. Returns
+    the drop-free engine's caches."""
+    from repro_torch.models.model import build_model
+    from repro_torch.serving import ProgressiveServer, SpecConfig, SpeculativeEngine
+
+    cfg, L, n = run.cfg, run.cfg.n_layers, run.prompt.shape[1]
+    margin, max_len = MOE_SPEC_K + 1, n + SPEC_TOKENS + MOE_SPEC_K + 1
+    spec = SpecConfig(draft_bits=4, k=MOE_SPEC_K, k_max=MOE_SPEC_K)
+    free = build_model(dataclasses.replace(cfg, capacity_factor=cfg.n_experts / cfg.top_k))
+    plain = ProgressiveServer(free, prog, max_len=max_len, resident="quantized", device=run.dev)
+    for _ in range(8):
+        plain.receive_stage()
+    plain.start({"tokens": run.prompt})
+    plain.caches = free.grow_caches(plain.caches, max_len, ring_margin=margin, pos=n)
+    want = plain.decode(SPEC_TOKENS).tokens.cpu()
+    del plain
+    gc.collect()
+    out = {}
+    for model in (free, run.model):
+        aux = MoeAux(model)
+        eng = SpeculativeEngine(aux, prog, max_len=max_len, spec=spec, device=run.dev)
+        torch.cuda.synchronize()
+        reset_counts(run.ops)
+        for _ in range(8):
+            eng.receive_stage()
+        eng.start({"tokens": run.prompt})
+        res = eng.decode(SPEC_TOKENS)
+        steps, verifies = _b2_steps(res.accept_rounds)
+        got, by = _tally(run.counts, run.routes, f"{run.tag} spec")
+        cf = model.cfg.capacity_factor
+        check(got["flash_verify"] == L * verifies and verifies > 0, (got, verifies))
+        check(by == expect_routes(moe_calls(model.cfg, 1, BATCH, n, "prefill")
+                                  + moe_calls(model.cfg, steps, BATCH, 1, "decode")
+                                  + moe_calls(model.cfg, verifies, BATCH, MOE_SPEC_K + 1,
+                                              "verify")), by)
+        rep = eng.resident_report()
+        check(rep["extra_draft_bytes"] == 0 and rep["fp_bytes"] == 4 * run.n_fp, rep["fp_bytes"])
+        rings = sorted({c["k"].shape[-2] for c in _stack_layers(cfg, eng.caches)})
+        check(rings == [cfg.window + margin], rings)
+        same = torch.equal(res.tokens.cpu(), want)
+        if cf * cfg.top_k >= cfg.n_experts:
+            check(same, f"{run.tag} speculative tokens at cf {cf} differ from plain")
+        out[cf] = (eng.caches, aux.dropped())
+        log(f"{run.tag} spec at cf {cf}: SpeculativeEngine at stage 8, k = {MOE_SPEC_K}, draft "
+            f"4 bits, batch {BATCH}, prompt {n} (rings of {rings[0]} slots), {SPEC_TOKENS} "
+            f"tokens: {res.rounds} rounds, {res.accepted}/{res.drafted} drafts accepted, "
+            f"{verifies} verify passes; share of routed pairs dropped {out[cf][1]}; tokens "
+            + ("equal (torch.equal) to plain greedy tokens at cf 4.0" if cf == 4.0 else
+               f"{'equal' if same else 'not equal'} to the drop-free plain tokens (no claim: "
+               f"a verify block's capacity drops tokens a decode step keeps)")
+            + f"; extra draft bytes 0; launches {got}, dequant_matmul by route {by}")
+        del eng, aux, res
+        gc.collect()
+    return out[cfg.n_experts / cfg.top_k][0]
+
+
 def _arch_dqmm_check(tag, layer0, unembed, cfg, dev, g) -> float:
     """B2 on each distinct weight shape of the arch (layer 0's live stage-8
     views and the unembedding) at ARCH_DQMM_M rows, with and without the
-    plane mask keep = 4, within ``DQMM_RTOL`` of the plain version on the
+    plane mask keep = 4 (:func:`_dqmm_check`). Returns the worst error over
+    the largest output."""
+    names = ("attn.wq", "attn.wk", "attn.wv", "attn.wo", "mlp.wi_gate", "mlp.wi_up", "mlp.wo")
+    four = torch.full((1, 1), 4, dtype=torch.int32, device=dev)
+    weights = {}
+    for nm, w in zip(names, _layer_weights(layer0)):
+        weights.setdefault(tuple(w.q.shape), (nm, w, cfg.dtype, four))
+    weights["unembed"] = ("embed.T" if cfg.tie_embeddings else "lm_head", unembed,
+                          torch.float32, four)
+    return _dqmm_check(tag, list(weights.values()), g, ARCH_DQMM_M, "keep none and 4")
+
+
+def _dqmm_check(tag, weights, g, Ms, masks: str) -> float:
+    """B2 on each of ``weights`` ((name, view, x dtype, keep) tuples; a view
+    has ``q``, ``scale`` and ``offset``) at ``Ms`` rows, without a mask and
+    with its ``keep``, within ``DQMM_RTOL`` of the plain version on the
     wrapper's route and on the forced GEMV route (verify's rows="decode");
     every row of a forced-GEMV launch at M = 20 equal to the row alone.
     Returns the worst error over the largest output."""
     from repro_torch.kernels import dequant_matmul as dqm
     from repro_torch.kernels import ref
-    from repro_torch.models.transformer import layer
 
-    names = ("attn.wq", "attn.wk", "attn.wv", "attn.wo", "mlp.wi_gate", "mlp.wi_up", "mlp.wo")
-    weights = {}
-    for nm, w in zip(names, _layer_weights(layer0)):
-        weights.setdefault(tuple(w.q.shape), (nm, w, cfg.dtype))
-    weights["unembed"] = ("embed.T" if cfg.tie_embeddings else "lm_head", unembed, torch.float32)
-    four = torch.full((1, 1), 4, dtype=torch.int32, device=dev)
     worst, lines = 0.0, []
-    for nm, w, xd in weights.values():
+    for nm, w, xd, keep in weights:
         K = w.q.shape[0]
-        x = torch.nn.functional.silu(2 * torch.randn((max(ARCH_DQMM_M), K), generator=g,
-                                                     device=dev)).to(xd)
+        x = torch.nn.functional.silu(2 * torch.randn((max(max(Ms), 20), K), generator=g,
+                                                     device=w.q.device)).to(xd)
         rel = 0.0
-        for kt in (None, four):
-            for M in ARCH_DQMM_M:
+        for kt in (None, keep):
+            for M in Ms:
                 yr = ref.dequant_matmul_ref(x[:M], w.q, w.scale, w.offset, kt)
                 mag = float(yr.abs().max())
                 for rows in ("any", "decode"):
@@ -3983,10 +4460,10 @@ def _arch_dqmm_check(tag, layer0, unembed, cfg, dev, g) -> float:
         worst = max(worst, rel)
         lines.append(f"{nm} K={K} N={w.q.shape[1]} "
                      f"{'one-pass' if dqm.one_pass(w.q) else 'general'} {rel:.2e}")
-    log(f"{tag} [check] dequant_matmul on each distinct weight shape at M = "
-        f"{list(ARCH_DQMM_M)}, keep none and 4, the wrapper's route and rows='decode': max "
-        f"|err| / max |y| " + "; ".join(lines) + f" (tolerance {DQMM_RTOL}); every row of an "
-        f"M = 20 rows='decode' launch equal (torch.equal) to the row alone")
+    log(f"{tag} [check] dequant_matmul on each distinct weight shape at M = {list(Ms)}, "
+        f"{masks}, the wrapper's route and rows='decode': max |err| / max |y| "
+        + "; ".join(lines) + f" (tolerance {DQMM_RTOL}); every row of an M = 20 "
+        f"rows='decode' launch equal (torch.equal) to the row alone")
     return worst
 
 

@@ -1,23 +1,25 @@
 """Architecture registry. Each architecture is a module with a CONFIG of
 its published dims. The dense decoders are ported (olmo-1b, minitron-4b,
-starcoder2-15b, and gemma3-27b with its sliding windows); the reference's
+starcoder2-15b, and gemma3-27b with its sliding windows), and the
+mixture-of-experts decoders (mixtral-8x22b, dbrx-132b); the reference's
 other configs raise ``NotImplementedError`` until they are ported
 (ROADMAP A8)."""
 from __future__ import annotations
 
 import importlib
 
-ARCHS = ("olmo_1b", "minitron_4b", "starcoder2_15b", "gemma3_27b")
+ARCHS = ("olmo_1b", "minitron_4b", "starcoder2_15b", "gemma3_27b", "mixtral_8x22b",
+         "dbrx_132b")
 
 _ALIASES = {"olmo-1b": "olmo_1b", "minitron-4b": "minitron_4b",
-            "starcoder2-15b": "starcoder2_15b", "gemma3-27b": "gemma3_27b"}
+            "starcoder2-15b": "starcoder2_15b", "gemma3-27b": "gemma3_27b",
+            "mixtral-8x22b": "mixtral_8x22b", "dbrx-132b": "dbrx_132b"}
 
 
 # the reference's other architectures: module name -> alias
 _LATER = {"xlstm_125m": "xlstm-125m",
           "seamless_m4t_medium": "seamless-m4t-medium",
           "llama32_vision_90b": "llama-3.2-vision-90b", "zamba2_7b": "zamba2-7b",
-          "mixtral_8x22b": "mixtral-8x22b", "dbrx_132b": "dbrx-132b",
           "progressivenet_cnn": "progressivenet-cnn"}
 
 

@@ -2,7 +2,9 @@
 division/concatenation, and the progressive model container."""
 from repro_torch.core.bitplanes import PAPER_DEFAULT, PlaneSchedule, concat, split
 from repro_torch.core.plane_store import PlaneStore, TensorSlot
-from repro_torch.core.policy import DivisionPolicy, UniformPolicy, schedule_from_stages
+from repro_torch.core.policy import (DivisionPolicy, ExpertPopularityPolicy,
+                                     LayerPriorityPolicy, UniformPolicy,
+                                     embeddings_first_score, schedule_from_stages)
 from repro_torch.core.progressive import (ProgressiveModel, ReceiverState, divide,
                                           transmit_reconstruct)
 from repro_torch.core.quantize import (QuantizedTensor, container_dtype, dequantize,
@@ -11,6 +13,7 @@ from repro_torch.core.quantize import (QuantizedTensor, container_dtype, dequant
 __all__ = [
     "QuantizedTensor", "quantize", "dequantize", "truncate", "quantization_error_bound",
     "container_dtype", "PlaneSchedule", "PAPER_DEFAULT", "split", "concat",
-    "DivisionPolicy", "UniformPolicy", "schedule_from_stages", "PlaneStore", "TensorSlot",
+    "DivisionPolicy", "UniformPolicy", "LayerPriorityPolicy", "ExpertPopularityPolicy",
+    "embeddings_first_score", "schedule_from_stages", "PlaneStore", "TensorSlot",
     "ProgressiveModel", "ReceiverState", "divide", "transmit_reconstruct",
 ]

@@ -153,13 +153,6 @@ def _truncated_leaf(store: PlaneStore, idxs: list[int], bits: int) -> torch.Tens
     return torch.stack([v for _, _, v in parts], dim=axis)
 
 
-def _slots_by_key(store: PlaneStore) -> dict:
-    by_key: dict = {}
-    for i, slot in enumerate(store.slots):
-        by_key.setdefault(slot.key, []).append(i)
-    return by_key
-
-
 def measure_plane_gains(model, eval_loss: Callable[[dict], float]
                         ) -> dict[int, list[float]]:
     """Per-tensor marginal loss gain of each plane, measured one leaf at a
@@ -170,7 +163,7 @@ def measure_plane_gains(model, eval_loss: Callable[[dict], float]
     full = dict(store.materialize_leaves())
     base = float(eval_loss(full))
     gains: dict[int, list[float]] = {}
-    for key, idxs in _slots_by_key(store).items():
+    for key, idxs in store.groups.items():
         sched = store.slots[idxs[0]].schedule
         levels = [0] + list(sched.cumulative_bits)  # c_0 = 0 .. c_P = bits
         losses = []
@@ -278,7 +271,7 @@ def greedy_schedule(model, eval_loss: Callable[[dict], float], *,
     current level are dropped, since levels only rise (the reference
     keeps every level: nine float copies of the model at full width)."""
     store = _full_store(model)
-    by_key = _slots_by_key(store)
+    by_key = store.groups
     keys = list(by_key)
     leaf_cache: dict = {}
 

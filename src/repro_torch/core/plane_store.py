@@ -23,14 +23,20 @@ buffer: a store made by :meth:`copy` before the ingest keeps its own.
 Float leaves (eq. 5)
 -------------------
 ``materialize_leaves`` dequantizes into float leaves incrementally: only
-tensors an ingest touched since the last call are recomputed (one
+leaves an ingest touched since the last call are recomputed (one
 batched ``dequantize_buffers`` call), the rest come from a leaf cache.
+A leaf divided in slices (expert banks, one slot a slice) is restacked
+along its slice axis.
 
 Quantized-resident views (eq. 5)
 --------------------------------
 ``quantized_leaves`` hands out each weight as a live
 :class:`QuantizedTensor` whose ``q`` is a view of the flat buffer and
 whose affine is a few float32 scalars on the device: no float weight.
+A sliced leaf's ``q`` is one strided view over its slices' slots (the
+layout puts them one after another, a padded span apart), and its
+affine varies along the slice axis: each expert keeps its own range,
+and no second uint buffer exists.
 ``acc(i)`` is one tensor's accumulator view (the single-tensor view of
 ``serving/quantized.py`` reads it), cached until an ingest replaces the
 buffer it lies in.
@@ -94,14 +100,12 @@ def _entries_from_model(model, indices: Sequence[int] | None = None) -> list[dic
 
 def _entries_from_wire_meta(meta) -> list[dict]:
     """Per-tensor descriptor dicts from a decoded wire header."""
-    if any(t.get("slice_axis") is not None for t in meta["tensors"]):
-        raise NotImplementedError("sliced tensors (per-expert ranges) are still to "
-                                  "be ported (ROADMAP A8)")
     return [{"key": t["path"],
              "schedule": PlaneSchedule(bits=t["bits"], widths=tuple(t["widths"])),
              "lo": torch.tensor(t["lo"], dtype=torch.float32),
              "hi": torch.tensor(t["hi"], dtype=torch.float32),
-             "shape": tuple(t["shape"]), "orig_dtype": FLOAT_DTYPES[t["dtype"]]}
+             "shape": tuple(t["shape"]), "orig_dtype": FLOAT_DTYPES[t["dtype"]],
+             "slice_axis": t.get("slice_axis"), "slice_idx": t.get("slice_idx", 0)}
             for t in meta["tensors"]]
 
 
@@ -139,6 +143,12 @@ class PlaneStore:
         self.slots = slots
         self.device = resolve_device(device)
         self.received = [0] * len(slots)
+        # leaf key -> its slots in slice order (one slot for an unsliced leaf)
+        self.groups: dict[Any, list[int]] = {}
+        for i, t in enumerate(slots):
+            self.groups.setdefault(t.key, []).append(i)
+        for idxs in self.groups.values():
+            idxs.sort(key=lambda i: slots[i].slice_idx)
         # dtype name -> flat uint buffer (length: multiple of block)
         self.buffers: dict[str, torch.Tensor] = {}
         sizes: dict[str, tuple[int, torch.dtype]] = {}
@@ -148,7 +158,7 @@ class PlaneStore:
         for dt, (n, dtype) in sizes.items():
             self.buffers[dt] = torch.zeros((n,), dtype=dtype, device=self.device)
         # float leaves: slots touched since the last materialization, and
-        # the leaves of the untouched ones
+        # the leaves (by key) of the untouched ones
         self._dirty: set[int] = set(range(len(slots)))
         self._leaf_cache: dict[Any, torch.Tensor] = {}
         # stacked eq.-(5) constants per batch of slots; lo/hi/bits never
@@ -209,6 +219,7 @@ class PlaneStore:
         new = object.__new__(PlaneStore)
         new.block = self.block
         new.slots = self.slots
+        new.groups = self.groups
         new.device = self.device
         new.received = list(self.received)
         new.buffers = dict(self.buffers)
@@ -357,11 +368,14 @@ class PlaneStore:
                 del self._qtrunc_cache[tk]
 
     # -- eq. (5): incremental float leaves -----------------------------------
-    def _refresh_fp_leaves(self, jobs: list[int]) -> None:
-        """Dequantize the given slots in one :func:`dequantize_buffers`
-        call and refill the leaf cache. Each leaf is ``(q * scale) +
-        offset`` in float32, cast to its dtype: byte-equal to the
-        reference's leaf on the CPU."""
+    def _refresh_fp_leaves(self, keys: list) -> None:
+        """Dequantize every slot of the given leaves in one
+        :func:`dequantize_buffers` call and refill the leaf cache. Each
+        slot is ``(q * scale) + offset`` in float32, cast to its dtype:
+        byte-equal to the reference's on the CPU; a sliced leaf's slots
+        are stacked along their slice axis, as the reference stacks
+        them."""
+        jobs = [i for key in keys for i in self.groups[key]]
         if not jobs:
             return
         consts = self._consts_cache.get(tuple(jobs))
@@ -370,73 +384,111 @@ class PlaneStore:
                                        [self.slots[i].hi for i in jobs],
                                        [self.slots[i].bits for i in jobs])
             self._consts_cache[tuple(jobs)] = consts
-        vals = dequantize_buffers(
+        vals = iter(dequantize_buffers(
             self.buffers,
             [(dtype_name(self.slots[i].container), self.slots[i].offset,
               self.slots[i].size, self.slots[i].shape) for i in jobs],
             [self.slots[i].bits for i in jobs],
             [self.effective_bits(i) for i in jobs],
-            [self.slots[i].orig_dtype for i in jobs], constants=consts)
-        for i, leaf in zip(jobs, vals):
-            self._leaf_cache[self.slots[i].key] = leaf
+            [self.slots[i].orig_dtype for i in jobs], constants=consts))
+        for key in keys:
+            idxs = self.groups[key]
+            ax = self.slots[idxs[0]].slice_axis
+            parts = [next(vals) for _ in idxs]
+            self._leaf_cache[key] = parts[0] if ax is None else torch.stack(parts, dim=ax)
 
-    def _fp_leaf(self, i: int) -> torch.Tensor:
-        """Slot i dequantized at its received precision, from the leaf
+    def _stale(self, key) -> bool:
+        return key not in self._leaf_cache or any(i in self._dirty for i in self.groups[key])
+
+    def _fp_leaf(self, key) -> torch.Tensor:
+        """One leaf dequantized at its received precision, from the leaf
         cache when no ingest touched it since (an ingest drops the key)."""
-        key = self.slots[i].key
-        if key not in self._leaf_cache or i in self._dirty:
-            self._refresh_fp_leaves([i])
+        if self._stale(key):
+            self._refresh_fp_leaves([key])
         return self._leaf_cache[key]
 
     def materialize_leaves(self) -> dict[Any, torch.Tensor]:
-        """Every tensor dequantized, ``{key: float tensor}``. Only slots
-        touched since the last call are recomputed, in one batched call;
-        the rest come from the leaf cache as the same tensors."""
-        self._refresh_fp_leaves([i for i, s in enumerate(self.slots)
-                                 if s.key not in self._leaf_cache or i in self._dirty])
+        """Every leaf dequantized, ``{key: float tensor}``, sliced leaves
+        restacked. Only leaves touched since the last call are recomputed,
+        in one batched call; the rest come from the leaf cache as the same
+        tensors."""
+        self._refresh_fp_leaves([k for k in self.groups if self._stale(k)])
         self._dirty.clear()
-        return {s.key: self._leaf_cache[s.key] for s in self.slots}
+        return {k: self._leaf_cache[k] for k in self.groups}
 
     def dirty_keys(self) -> set:
         return {self.slots[i].key for i in self._dirty}
 
     # -- quantized-resident views ------------------------------------------
-    def _quantized_leaf(self, i: int) -> QuantizedTensor | None:
-        """Slot i as a live :class:`QuantizedTensor`: ``q`` is a view of
-        the flat buffer and the eq.-(5) affine rides along as float32
-        tensors shaped ``q.shape[:-2] + (1, 1)`` on the device, the shape
-        a stacked leaf slices to one ``(1, 1)`` per layer. None when the
-        leaf cannot feed a dequant matmul (ndim < 2)."""
-        s = self.slots[i]
-        q = self._slice_acc(i)
-        if q.ndim < 2:
-            return None
-        meta_shape = tuple(q.shape[:-2]) + (1, 1)
+    def _stacked_acc(self, idxs: list[int], ax: int) -> torch.Tensor:
+        """The slices' accumulators stacked along ``ax`` as one strided view
+        of the flat buffer: the layout puts a leaf's slices one after
+        another, one padded span apart. Slots laid out otherwise raise,
+        since stacking them would copy a second uint buffer."""
+        s0 = self.slots[idxs[0]]
+        buf = self.buffers[dtype_name(s0.container)]
+        if not all(self.slots[i].offset == s0.offset + n * s0.padded
+                   and self.slots[i].shape == s0.shape for n, i in enumerate(idxs)):
+            raise ValueError(f"the slices of {s0.key!r} are not laid out one after "
+                             "another; a strided view cannot stack them")
+        inner = [math.prod(s0.shape[d + 1:]) for d in range(len(s0.shape))]
+        return buf.as_strided(s0.shape[:ax] + (len(idxs),) + s0.shape[ax:],
+                              inner[:ax] + [s0.padded] + inner[ax:],
+                              buf.storage_offset() + s0.offset)
 
-        def place(value: np.ndarray, dtype) -> torch.Tensor:
-            arr = np.array(np.broadcast_to(value.astype(dtype), meta_shape))
+    def _quantized_leaf(self, key) -> QuantizedTensor | None:
+        """A leaf as a live :class:`QuantizedTensor`: ``q`` is a view of
+        the flat buffer (:meth:`_stacked_acc` for a sliced leaf) and the
+        eq.-(5) affine rides along as float32 tensors shaped ``q.shape[:-2]
+        + (1, 1)`` on the device, the shape a stacked leaf slices to one
+        ``(1, 1)`` per layer; a sliced leaf's values vary along its slice
+        axis, one a slice. None when the leaf cannot feed a dequant matmul
+        (ndim < 2); a sliced leaf that one strided view of one width
+        cannot express (slices of several widths, or slices along one of
+        the two matrix dims) raises."""
+        idxs = self.groups[key]
+        slots = [self.slots[i] for i in idxs]
+        ax = slots[0].slice_axis
+        if ax is None:
+            q = self._slice_acc(idxs[0])
+            if q.ndim < 2:
+                return None
+        else:
+            if (len({s.bits for s in slots}) != 1 or any(s.slice_axis != ax for s in slots)
+                    or ax >= len(slots[0].shape) - 1):
+                raise ValueError(f"sliced leaf {key!r}: slices of one width along an "
+                                 "axis before the two matrix dims are required")
+            q = self._stacked_acc(idxs, ax)
+        meta_shape = tuple(q.shape[:-2]) + (1, 1)
+        along = [1] * len(meta_shape)
+        if ax is not None:
+            along[ax] = len(idxs)
+
+        def place(values: np.ndarray) -> torch.Tensor:
+            """One value a slice, varying along the slice axis."""
+            arr = np.array(np.broadcast_to(values.reshape(along), meta_shape))
             return to_device(arr, self.device)
 
-        const = self._qmeta_cache.get(s.key)
+        const = self._qmeta_cache.get(key)
         if const is None:
             # exact float32 values of the tensor ops, pulled to the host once
-            lo = s.lo.detach().cpu().to(torch.float32).reshape(1).numpy()
-            hi = s.hi.detach().cpu().to(torch.float32).reshape(1).numpy()
-            scale = dequant_affine(torch.from_numpy(lo), torch.from_numpy(hi), s.bits)[0]
-            const = {"lo": place(lo, np.float32), "hi": place(hi, np.float32),
-                     "scale": place(scale.numpy(), np.float32), "lo_np": lo,
-                     "span_np": affine_span(torch.from_numpy(lo),
-                                            torch.from_numpy(hi)).numpy()}
-            self._qmeta_cache[s.key] = const
+            lo = torch.stack([s.lo.detach().cpu().to(torch.float32).reshape(())
+                              for s in slots])
+            hi = torch.stack([s.hi.detach().cpu().to(torch.float32).reshape(())
+                              for s in slots])
+            scale = dequant_affine(lo, hi, slots[0].bits)[0]
+            const = {"lo": place(lo.numpy()), "hi": place(hi.numpy()),
+                     "scale": place(scale.numpy()), "lo_np": lo.numpy(),
+                     "span_np": affine_span(lo, hi).numpy()}
+            self._qmeta_cache[key] = const
         # offset = lo + span * 0.5**(m+1): the same two float32 operations
         # as dequant_affine (whose m == 0 branch equals this at m = 0)
-        m = np.asarray([self.effective_bits(i)], np.int32)
+        m = np.asarray([self.effective_bits(i) for i in idxs], np.int32)
         half_lsb = np.ldexp(np.float32(1.0), -(m + 1)).astype(np.float32)
-        off = const["lo_np"] + const["span_np"] * half_lsb
-        return QuantizedTensor(q=q, lo=const["lo"], hi=const["hi"], bits=s.bits,
-                               orig_dtype=s.orig_dtype, scale=const["scale"],
-                               offset=place(off, np.float32),
-                               received_bits=place(m, np.int32))
+        off = (const["lo_np"] + const["span_np"] * half_lsb).astype(np.float32)
+        return QuantizedTensor(q=q, lo=const["lo"], hi=const["hi"], bits=slots[0].bits,
+                               orig_dtype=slots[0].orig_dtype, scale=const["scale"],
+                               offset=place(off), received_bits=place(m))
 
     def quantized_leaves(self, eligible=None, *, bits: int | None = None
                          ) -> dict[Any, Any]:
@@ -445,35 +497,37 @@ class PlaneStore:
         ``eligible`` is an optional ``key -> bool`` predicate restricting
         which leaves go quantized; every other leaf, and any leaf a
         dequant matmul cannot consume, is dequantized to float. Views of
-        tensors untouched since the last call come back from a cache.
+        leaves untouched since the last call come back from a cache.
 
         ``bits=b`` hands out the truncated-precision views instead
         (:meth:`QuantizedTensor.truncate` at ``min(b, leaf.bits)``: the
         same ``q`` tensors, a deferred plane mask and a recomputed
-        offset), cached by ``(key, b)`` until an ingest touches the key;
-        ineligible leaves stay the shared float leaf. A self-speculative
-        draft built from them adds no resident weight bytes."""
+        offset, per slice for a sliced leaf, whose slices may hold
+        different received bits mid-stream), cached by ``(key, b)`` until
+        an ingest touches the key; ineligible leaves stay the shared float
+        leaf. A self-speculative draft built from them adds no resident
+        weight bytes."""
         out: dict[Any, Any] = {}
-        for i, s in enumerate(self.slots):
-            if eligible is None or eligible(s.key):
-                got = self._qleaf_cache.get(s.key)
+        for key in self.groups:
+            if eligible is None or eligible(key):
+                got = self._qleaf_cache.get(key)
                 if got is None:
-                    got = self._quantized_leaf(i)
+                    got = self._quantized_leaf(key)
                     if got is not None:
-                        self._qleaf_cache[s.key] = got
+                        self._qleaf_cache[key] = got
                 if got is not None:
                     if bits is not None:
                         # clamped per leaf: bits at or above the leaf's
                         # width is its full precision in masked form
                         b_eff = min(bits, got.bits)
-                        trunc = self._qtrunc_cache.get((s.key, b_eff))
+                        trunc = self._qtrunc_cache.get((key, b_eff))
                         if trunc is None:
                             trunc = got.truncate(b_eff)
-                            self._qtrunc_cache[(s.key, b_eff)] = trunc
+                            self._qtrunc_cache[(key, b_eff)] = trunc
                         got = trunc
-                    out[s.key] = got
+                    out[key] = got
                     continue
-            out[s.key] = self._fp_leaf(i)
+            out[key] = self._fp_leaf(key)
         self._dirty.clear()
         return out
 
@@ -577,7 +631,7 @@ class ShardedPlaneStore:
 
     Left for later, each raising ``NotImplementedError``: replica rows
     (a mesh with ``data`` > 1, ROADMAP A13) and expert-sliced tensors
-    (the expert route, ROADMAP A8(c))."""
+    (the expert route, ROADMAP A13)."""
 
     def __init__(self, entries: list[dict], mesh, *, block: int = DEFAULT_BLOCK):
         from repro_torch.launch.mesh import check_serving_mesh
@@ -586,7 +640,7 @@ class ShardedPlaneStore:
         check_serving_mesh(mesh)
         if any(e.get("slice_axis") is not None for e in entries):
             raise NotImplementedError("the expert route of sliced tensors is still to be "
-                                      "ported (ROADMAP A8(c))")
+                                      "ported (ROADMAP A13)")
         self.mesh = mesh
         self.block = block
         self.device = mesh.home
@@ -774,7 +828,7 @@ class ShardedPlaneStore:
             stale = [lidx for i in idxs for jj, lidx in self._placement[i] if jj == j]
             if stale:
                 with _on(sub.device):
-                    sub._refresh_fp_leaves(stale)
+                    sub._refresh_fp_leaves([sub.slots[lidx].key for lidx in stale])
                 sub._dirty.difference_update(stale)
         for i in idxs:
             key = self.keys[i]
@@ -812,7 +866,8 @@ class ShardedPlaneStore:
     def _quantized_leaf(self, i: int):
         parts = []
         for j, lidx in self._placement[i]:
-            got = self.substores[j]._quantized_leaf(lidx)
+            sub = self.substores[j]
+            got = sub._quantized_leaf(sub.slots[lidx].key)
             if got is None:
                 return None
             parts.append(got)

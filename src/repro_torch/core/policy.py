@@ -1,14 +1,18 @@
 """Division policies: how a model's tensors are cut into transmission
 stages, and the self-speculative draft's controller. Counterpart of
-``src/repro/core/policy.py``: the paper's uniform policy (the priority
-and expert-popularity policies are still to be ported) and
+``src/repro/core/policy.py``: the paper's uniform policy, the two
+policies beyond the paper (:class:`LayerPriorityPolicy` orders tensors
+within a stage by a score of their path; :class:`ExpertPopularityPolicy`
+slices expert banks per expert, each slice with its own range, and ships
+the most-routed experts' planes first), and
 :class:`SpeculationController`, which picks the draft length k and the
 draft's precision from the observed acceptance rate (pure Python, the
 reference's decisions), and :func:`schedule_from_stages`."""
 from __future__ import annotations
 
 import dataclasses
-from typing import Sequence
+import re
+from typing import Callable, Mapping, Sequence
 
 from repro_torch.core.bitplanes import PAPER_DEFAULT, PlaneSchedule
 
@@ -30,8 +34,9 @@ class DivisionPolicy:
         raise NotImplementedError
 
     def slice_spec(self, path: tuple, shape: tuple) -> int | None:
-        """An axis to slice this tensor along (one sub-tensor per index),
-        or None to keep it whole."""
+        """An axis to slice this tensor along (one sub-tensor per index,
+        each with its own quantization range and priority), or None to
+        keep it whole."""
         return None
 
     @property
@@ -47,6 +52,75 @@ class UniformPolicy(DivisionPolicy):
 
     def plan(self, path, shape, dtype, slice_idx=None) -> TensorPlan:
         return TensorPlan(schedule=self.schedule)
+
+    @property
+    def n_stages(self) -> int:
+        return self.schedule.n_planes
+
+
+def _path_str(path: tuple) -> str:
+    from repro_torch.core.wire import path_str
+
+    return path_str(path)
+
+
+@dataclasses.dataclass(frozen=True)
+class LayerPriorityPolicy(DivisionPolicy):
+    """Uniform widths, tensors ordered within a stage by ``score`` of
+    their 'a/b/c' path (lower first)."""
+
+    schedule: PlaneSchedule = PAPER_DEFAULT
+    score: Callable[[str], float] = staticmethod(lambda p: 0.0)
+
+    def plan(self, path, shape, dtype, slice_idx=None) -> TensorPlan:
+        return TensorPlan(schedule=self.schedule, priority=self.score(_path_str(path)))
+
+    @property
+    def n_stages(self) -> int:
+        return self.schedule.n_planes
+
+
+def embeddings_first_score(path: str) -> float:
+    """Embeddings, the final norm and the head first (0), then layers by
+    the first number in their path (1 + n), so that a truncated first
+    stage covers the input and output surfaces."""
+    p = path.lower()
+    if "embed" in p or "head" in p or "final" in p:
+        return 0.0
+    m = re.search(r"(\d+)", p)
+    return 1.0 + (int(m.group(1)) if m else 0)
+
+
+_EXPERT_BANK_RE = r"we_(gate|up|down)"
+
+
+@dataclasses.dataclass(frozen=True)
+class ExpertPopularityPolicy(DivisionPolicy):
+    """For MoE models: expert banks (``we_gate``, ``we_up``, ``we_down``)
+    are sliced along the first axis of size ``n_experts``, each slice
+    quantized with its own (min, max) and given priority
+    ``expert_base_priority - popularity[slice]``, so the most-routed
+    experts' planes ship first, after the other tensors (priority 0).
+    ``popularity`` maps a slice index to its routing fraction. A
+    layer-stacked bank is (n_cycles, E, d, f): where n_cycles equals E
+    the layer axis comes first and is the one sliced, as in the
+    reference."""
+
+    schedule: PlaneSchedule = PAPER_DEFAULT
+    popularity: Mapping[int, float] = dataclasses.field(default_factory=dict)
+    n_experts: int = 0
+    expert_base_priority: float = 1.0
+
+    def slice_spec(self, path, shape) -> int | None:
+        if not self.n_experts or not re.search(_EXPERT_BANK_RE, _path_str(path)):
+            return None
+        return next((ax for ax, d in enumerate(shape) if d == self.n_experts), None)
+
+    def plan(self, path, shape, dtype, slice_idx=None) -> TensorPlan:
+        prio = 0.0
+        if slice_idx is not None:
+            prio = self.expert_base_priority - float(self.popularity.get(slice_idx, 0.0))
+        return TensorPlan(schedule=self.schedule, priority=prio)
 
     @property
     def n_stages(self) -> int:

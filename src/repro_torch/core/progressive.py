@@ -57,7 +57,13 @@ def tree_unflatten(skeleton, leaves: Mapping[tuple, Any]):
 
 @dataclasses.dataclass
 class TensorPlanes:
-    """Server-side per-tensor artifact: metadata plus all planes."""
+    """Server-side per-tensor artifact: metadata plus all planes.
+
+    A leaf may be sliced along ``slice_axis`` (expert banks under
+    :class:`~repro_torch.core.policy.ExpertPopularityPolicy`): one
+    TensorPlanes per slice, each with its own (lo, hi) range and
+    priority; ``shape`` is then the slice's (the axis removed), and the
+    receiver restacks the slices along ``slice_axis``."""
 
     path: tuple
     plan: TensorPlan
@@ -66,8 +72,6 @@ class TensorPlanes:
     shape: tuple
     orig_dtype: Any
     planes: list[torch.Tensor]  # MSB-first, len == n_planes
-    # the reference's slice fields, for the wire header; divide slices
-    # nothing yet (ROADMAP A8)
     slice_axis: int | None = None
     slice_idx: int = 0
     n_slices: int = 1
@@ -122,7 +126,9 @@ class ProgressiveModel:
 
 def divide(params, policy: DivisionPolicy | None = None) -> ProgressiveModel:
     """Quantize and bit-divide a parameter tree (paper steps 1-2). The
-    planes stay on the device the parameters lie on."""
+    planes stay on the device the parameters lie on. A leaf the policy
+    slices (``policy.slice_spec``) becomes one tensor a slice, in slice
+    order, each quantized alone."""
     policy = policy or UniformPolicy()
     tensors: list[TensorPlanes] = []
     passthrough: list[tuple[tuple, Any]] = []
@@ -130,15 +136,21 @@ def divide(params, policy: DivisionPolicy | None = None) -> ProgressiveModel:
         if not (isinstance(leaf, torch.Tensor) and leaf.is_floating_point()):
             passthrough.append((path, leaf))
             continue
-        if policy.slice_spec(path, tuple(leaf.shape)) is not None:
-            raise NotImplementedError(
-                "sliced tensors (per-expert ranges) are still to be ported "
-                "(ROADMAP A8)")
-        plan = policy.plan(path, tuple(leaf.shape), leaf.dtype)
-        qt = quantize(leaf, plan.schedule.bits)
-        tensors.append(TensorPlanes(
-            path=path, plan=plan, lo=qt.lo, hi=qt.hi, shape=tuple(leaf.shape),
-            orig_dtype=leaf.dtype, planes=bitplanes.split(qt, plan.schedule.widths)))
+        axis = policy.slice_spec(path, tuple(leaf.shape))
+        if axis is None:
+            slices = [(None, 0, 1, leaf)]
+        else:
+            n = leaf.shape[axis]
+            # a generator: one slice's copy at a time
+            slices = ((axis, e, n, leaf.select(axis, e).contiguous()) for e in range(n))
+        for slice_axis, idx, n_slices, sub in slices:
+            plan = policy.plan(path, tuple(sub.shape), leaf.dtype,
+                               slice_idx=None if slice_axis is None else idx)
+            qt = quantize(sub, plan.schedule.bits)
+            tensors.append(TensorPlanes(
+                path=path, plan=plan, lo=qt.lo, hi=qt.hi, shape=tuple(sub.shape),
+                orig_dtype=leaf.dtype, planes=bitplanes.split(qt, plan.schedule.widths),
+                slice_axis=slice_axis, slice_idx=idx, n_slices=n_slices))
     return ProgressiveModel(tensors=tensors, treedef=tree_skeleton(params),
                             n_stages=policy.n_stages, passthrough=passthrough)
 
@@ -198,8 +210,9 @@ class ReceiverState:
 def rebuild_params(model: ProgressiveModel, tensor_leaves: Mapping,
                    *, key_fn: Callable[[tuple], Any] | None = None):
     """Rebuild the parameter tree from per-leaf values keyed by
-    ``key_fn(path)`` (default: the path itself); non-float passthrough
-    leaves come from the model meta."""
+    ``key_fn(path)`` (default: the path itself; sliced tensors already
+    restacked by the store); non-float passthrough leaves come from the
+    model meta."""
     key_fn = key_fn or (lambda p: p)
     leaves = dict(model.passthrough)
     for t in model.tensors:

@@ -24,9 +24,11 @@ home), N logical shards of the host with ``--device cpu`` (the
 counterpart of XLA's forced host devices); on logical shards tokens
 equal the unsharded run's, and a run across cards is not yet checked.
 ``--arch`` takes the dense decoders (olmo-1b, minitron-4b,
-starcoder2-15b, gemma3-27b with its sliding windows), each with
+starcoder2-15b, gemma3-27b with its sliding windows) and the
+mixture-of-experts decoders (mixtral-8x22b, dbrx-132b), each with
 ``--reduced``; the other architectures are still to be ported (ROADMAP
-A8).
+A8). ``--mesh-shards`` with a MoE arch raises: a bank split on its
+expert dim needs the expert route of sharded serving (ROADMAP A13).
 """
 from __future__ import annotations
 

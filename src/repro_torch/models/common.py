@@ -19,15 +19,18 @@ from repro_torch.kernels import ops, ref
 @dataclasses.dataclass(frozen=True)
 class ArchConfig:
     """One architecture: the fields the dense decoders (olmo-1b,
-    minitron-4b, starcoder2-15b, gemma3-27b) need, with the reference's
+    minitron-4b, starcoder2-15b, gemma3-27b) and the mixture-of-experts
+    decoders (mixtral-8x22b, dbrx-132b) need, with the reference's
     defaults. ``cycle`` is the repeating pattern of block kinds; layers =
     ``len(cycle) * n_cycles + len(tail)``. The kinds ported: ``attn``, a
     full-attention decoder block with a GLU MLP; ``swa``, the same block
     attending over a sliding window of ``window`` positions (a ring
     cache); ``global``, full attention with a rope base 100x
-    ``rope_theta`` (gemma3's naming). The other kinds are still to be
-    ported. ``head_dim`` None means ``d_model // n_heads``. Float32
-    parameters before division."""
+    ``rope_theta`` (gemma3's naming); ``moe`` and ``swa_moe``, the
+    ``attn`` and ``swa`` attention with a mixture-of-experts FFN
+    (``n_experts`` experts, ``top_k`` a token, ``capacity_factor``). The
+    other kinds are still to be ported. ``head_dim`` None means
+    ``d_model // n_heads``. Float32 parameters before division."""
 
     name: str
     family: str
@@ -47,6 +50,9 @@ class ArchConfig:
     attn_chunk: int = 1024      # online-softmax KV chunk of prefill attention
     tie_embeddings: bool = True
     logit_softcap: float = 0.0  # tanh cap of the output logits (0 = none)
+    n_experts: int = 0          # experts of a moe block's FFN (0 = no moe)
+    top_k: int = 0              # experts a token is routed to
+    capacity_factor: float = 1.25  # expert buffer rows = cf * tokens * top_k / n_experts
     dtype: Any = torch.bfloat16  # activations and KV caches
 
     @property
@@ -74,6 +80,11 @@ class ArchConfig:
             vocab=min(self.vocab, 512),
             head_dim=32 if self.head_dim else None,
             window=min(self.window, 16) if self.window else 0,
+            n_experts=min(self.n_experts, 4) if self.n_experts else 0,
+            top_k=min(self.top_k, 2) if self.top_k else 0,
+            # drop-free capacity (cf >= E/K), so that prefill equals decode
+            # exactly; the published configs keep their cf
+            capacity_factor=4.0 if self.n_experts else self.capacity_factor,
             attn_chunk=16,
             dtype=torch.float32,
         )
@@ -227,6 +238,30 @@ def dense(x: torch.Tensor, w, *, dtype, rows: str = "any") -> torch.Tensor:
                                w.keep_bits, bits=w.bits, rows=rows)
         return y.reshape(*lead, w.q.shape[-1]).to(dtype)
     return x @ w.to(dtype)
+
+
+def expert_dense(x: torch.Tensor, w, *, dtype, rows: str = "any") -> torch.Tensor:
+    """The per-expert matmul ``einsum('becd,edf->becf')``: x (B, E, C, d)
+    holds each expert's C buffer rows, w the (E, d, f) bank. A
+    QuantizedTensor bank makes one ``ops.dequant_matmul`` a expert on its
+    (B*C, d) rows, with the expert's own ``q`` (a view of the store's
+    buffer), its (1, 1) ``scale`` and ``offset`` (banks sliced per expert
+    keep a range each) and its own ``keep`` plane mask; ``rows`` as
+    :func:`dense`. A float bank is one einsum in ``dtype``."""
+    if isinstance(w, ShardedLeaf):
+        raise NotImplementedError("the expert route of sharded serving is still to be "
+                                  "ported (ROADMAP A13)")
+    if isinstance(w, QuantizedTensor):
+        B, E, C, d = x.shape
+        outs = []
+        for e in range(E):
+            ye = ops.dequant_matmul(x[:, e].reshape(B * C, d), w.q[e], w.scale[e],
+                                    w.offset[e],
+                                    None if w.keep_bits is None else w.keep_bits[e],
+                                    bits=w.bits, rows=rows)
+            outs.append(ye.reshape(B, C, -1))
+        return torch.stack(outs, dim=1).to(dtype)
+    return torch.einsum("becd,edf->becf", x, w.to(dtype))
 
 
 def _dense_sharded(x: torch.Tensor, w: ShardedLeaf, *, dtype, rows: str) -> torch.Tensor:

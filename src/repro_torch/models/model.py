@@ -11,6 +11,11 @@ Counterpart of ``src/repro/models/model.py`` for the dense decoder:
     grow_caches(caches, max_len, ring_margin=, pos=)   -> prefill caches
                                           grown for decoding
 
+The four forward entry points take ``aux=``, a dict like
+``transformer.zero_aux()``'s, into which a stack with mixture-of-experts
+blocks adds their ``balance_loss`` and ``dropped_frac`` (the reference
+returns them from ``forward`` only; serving drops them).
+
 ``batch`` is a dict with ``"tokens"``: (B, S) int. Parameters are a
 nested dict in the reference's layout (``decoder/cycles/0_attn/...``
 stacked over layers), whether float tensors or QuantizedTensor views.
@@ -63,7 +68,7 @@ class Model:
         logits = dense(x.to(torch.float32), w, dtype=torch.float32, rows=dense_rows(mode))
         return softcap(logits, self.cfg.logit_softcap)
 
-    def prefill(self, params, batch, n_valid=None):
+    def prefill(self, params, batch, n_valid=None, *, aux=None):
         """Logits after the last prompt token, and the prompt's caches.
 
         ``n_valid`` (B,) int32 (a tensor on the tokens' device, or a host
@@ -72,8 +77,11 @@ class Model:
         length (the slot pool prefills at batch 1). Padded positions are
         masked out of attention (their keys sit at position -1) and the
         logits are gathered at row ``n_valid - 1``, on the device. A
-        stack with sliding-window blocks refuses ``n_valid``: a ring has
-        no masked slots."""
+        stack with sliding-window blocks (``swa``, ``swa_moe``) refuses
+        ``n_valid``: a ring has no masked slots. Padded positions still
+        run through a MoE block's router and take expert capacity after
+        the real ones, whose capacity is the padded length's, as in the
+        reference."""
         cfg = self.cfg
         if n_valid is not None and any(tfm.attn_window(cfg, k) for k in cfg.cycle + cfg.tail):
             raise NotImplementedError(
@@ -83,7 +91,8 @@ class Model:
         if n_valid is not None and not isinstance(n_valid, torch.Tensor):
             n_valid = to_device(np.asarray(n_valid, np.int32), tokens.device)
         x = self._embed(params, tokens)
-        x, caches = tfm.run_stack(cfg, params["decoder"], x, mode="prefill", pos=n_valid)
+        x, caches = tfm.run_stack(cfg, params["decoder"], x, mode="prefill", pos=n_valid,
+                                  aux=aux)
         if n_valid is None:
             xl = x[:, -1:, :]
         else:
@@ -92,7 +101,7 @@ class Model:
         xl = apply_norm(cfg, params["final_norm"], xl)
         return self._unembed(params, xl)[:, 0, :], caches
 
-    def decode_step(self, params, caches, tokens: torch.Tensor, pos):
+    def decode_step(self, params, caches, tokens: torch.Tensor, pos, *, aux=None):
         """tokens: (B, 1); pos: int (lock-stepped write position) or (B,)
         int32 per-slot positions (negative = free slot). Writes the
         step's K/V into ``caches`` in place and returns them."""
@@ -100,11 +109,12 @@ class Model:
         pos = decode_pos_vector(pos, tokens.shape[0], tokens.device)
         x = self._embed(params, tokens)
         x, caches = tfm.run_stack(cfg, params["decoder"], x, mode="decode",
-                                  caches=caches, pos=pos)
+                                  caches=caches, pos=pos, aux=aux)
         x = apply_norm(cfg, params["final_norm"], x)
         return self._unembed(params, x, "decode")[:, 0, :], caches
 
-    def prefill_chunk(self, params, caches, tokens: torch.Tensor, tok_pos: torch.Tensor):
+    def prefill_chunk(self, params, caches, tokens: torch.Tensor, tok_pos: torch.Tensor, *,
+                      aux=None):
         """Ragged chunked prefill: consume a (B, C) block of prompt tokens
         straight into the pooled ``caches``, each slot at its own depth.
         ``tok_pos`` (B, C) int32 is token (b, t)'s prompt position;
@@ -116,11 +126,11 @@ class Model:
         cfg = self.cfg
         x = self._embed(params, tokens)
         x, caches = tfm.run_stack(cfg, params["decoder"], x, mode="prefill_chunk",
-                                  caches=caches, pos=tok_pos)
+                                  caches=caches, pos=tok_pos, aux=aux)
         x = apply_norm(cfg, params["final_norm"], x)
         return self._unembed(params, x), caches
 
-    def verify_step(self, params, caches, tokens: torch.Tensor, pos):
+    def verify_step(self, params, caches, tokens: torch.Tensor, pos, *, aux=None):
         """Speculative verify: score a (B, T) block in one pass. Token t of
         slot b sits at ``pos[b] + t``; a negative base masks the slot.
         Returns ``(logits (B, T, V), caches)``: logits[:, t] is exactly
@@ -141,7 +151,7 @@ class Model:
         pos = decode_pos_vector(pos, tokens.shape[0], tokens.device)
         x = self._embed(params, tokens)
         x, caches = tfm.run_stack(cfg, params["decoder"], x, mode="verify",
-                                  caches=caches, pos=pos)
+                                  caches=caches, pos=pos, aux=aux)
         x = apply_norm(cfg, params["final_norm"], x)
         return self._unembed(params, x, "verify"), caches
 

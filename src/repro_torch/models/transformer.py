@@ -2,8 +2,9 @@
 stacked over the cycle dimension.
 
 Counterpart of ``src/repro/models/transformer.py`` for the attention
-blocks ``attn``, ``swa`` and ``global``, and for a tail of blocks after
-the last full cycle (unstacked, as the reference keeps them). The
+blocks ``attn``, ``swa`` and ``global``, the mixture-of-experts blocks
+``moe`` and ``swa_moe``, and for a tail of blocks after the last full
+cycle (unstacked, as the reference keeps them). The
 reference scans the stacked layer axis with ``lax.scan``; here a Python
 loop takes layer ``r`` as a view of every stacked leaf (``q[r]`` of a
 quantized leaf, with the stack's per-layer scale and offset), so the
@@ -17,10 +18,19 @@ import torch
 from repro_torch.core.plane_store import ShardedLeaf
 from repro_torch.core.quantize import QuantizedTensor
 from repro_torch.models import attention as attn
+from repro_torch.models import moe as moe_mod
 from repro_torch.models.common import ArchConfig, apply_norm, dense_init, dense_rows, norm_init
 
 
-ATTN_KINDS = ("attn", "swa", "global")
+ATTN_KINDS = ("attn", "swa", "global", "moe", "swa_moe")
+MOE_KINDS = ("moe", "swa_moe")
+
+
+def zero_aux(device=None) -> dict:
+    """Zeroed MoE auxiliaries (float32 scalars): the dict that
+    ``run_stack(aux=)`` adds each MoE block's into."""
+    return {"balance_loss": torch.zeros((), device=device),
+            "dropped_frac": torch.zeros((), device=device)}
 
 
 def _attn_only(kind: str) -> None:
@@ -30,9 +40,10 @@ def _attn_only(kind: str) -> None:
 
 
 def attn_window(cfg: ArchConfig, kind: str) -> int:
-    """The attention window of a block kind: ``swa`` attends over the last
-    ``cfg.window`` positions, the others over the whole past."""
-    return cfg.window if kind == "swa" else 0
+    """The attention window of a block kind: ``swa`` and ``swa_moe``
+    attend over the last ``cfg.window`` positions, the others over the
+    whole past."""
+    return cfg.window if kind in ("swa", "swa_moe") else 0
 
 
 def attn_theta(cfg: ArchConfig, kind: str) -> float:
@@ -57,16 +68,19 @@ def block_init(cfg: ArchConfig, generator: torch.Generator, kind: str, lead: tup
     if cfg.qk_norm:
         attn_p["q_norm"] = torch.ones(lead + (hd,), device=device)
         attn_p["k_norm"] = torch.ones(lead + (hd,), device=device)
-    return {
-        "norm1": norm_init(cfg, d, lead, device=device),
-        "attn": attn_p,
-        "norm2": norm_init(cfg, d, lead, device=device),
-        "mlp": {"wi_gate": w(d, cfg.d_ff), "wi_up": w(d, cfg.d_ff), "wo": w(cfg.d_ff, d)},
-    }
+    if kind in MOE_KINDS:
+        ffn = {"moe": moe_mod.moe_init(cfg, generator, lead, device=device)}
+    else:
+        ffn = {"mlp": {"wi_gate": w(d, cfg.d_ff), "wi_up": w(d, cfg.d_ff),
+                       "wo": w(cfg.d_ff, d)}}
+    return {"norm1": norm_init(cfg, d, lead, device=device), "attn": attn_p,
+            "norm2": norm_init(cfg, d, lead, device=device), **ffn}
 
 
-def block_apply(cfg: ArchConfig, kind: str, p, x: torch.Tensor, *, mode: str, cache, pos):
-    """Returns (x, new_cache)."""
+def block_apply(cfg: ArchConfig, kind: str, p, x: torch.Tensor, *, mode: str, cache, pos,
+                with_aux: bool = False):
+    """Returns (x, new_cache, aux); ``aux`` is None for a block without
+    experts, and unless ``with_aux`` asks for a MoE block's."""
     _attn_only(kind)
     h = apply_norm(cfg, p["norm1"], x)
     a_out, new_cache = attn.self_attention(cfg, p["attn"], h, mode=mode, cache=cache,
@@ -74,8 +88,12 @@ def block_apply(cfg: ArchConfig, kind: str, p, x: torch.Tensor, *, mode: str, ca
                                            rope_theta=attn_theta(cfg, kind))
     x = x + a_out
     h2 = apply_norm(cfg, p["norm2"], x)
+    if kind in MOE_KINDS:
+        m_out, aux = moe_mod.moe_apply(cfg, p["moe"], h2, rows=dense_rows(mode),
+                                       with_aux=with_aux)
+        return x + m_out, new_cache, aux
     x = x + attn.mlp_apply(cfg, p["mlp"], h2, rows=dense_rows(mode))
-    return x, new_cache
+    return x, new_cache, None
 
 
 def layer(tree, r: int):
@@ -128,25 +146,34 @@ def stack_init_caches(cfg: ArchConfig, batch: int, max_len: int, *, ring_margin:
 
 
 def run_stack(cfg: ArchConfig, params: dict, x: torch.Tensor, *, mode: str,
-              caches=None, pos=None):
+              caches=None, pos=None, aux: dict | None = None):
     """Returns (x, caches). ``prefill`` builds the prompt's caches (stacked
     like the params); ``decode``, ``verify`` and ``prefill_chunk`` write
     into ``caches`` in place and return them. The cycles run first, layer
-    by layer, then the tail."""
+    by layer, then the tail. ``aux``, a dict like :func:`zero_aux`'s,
+    takes the sum over the MoE blocks of their ``balance_loss`` and
+    ``dropped_frac``, as the reference's ``run_stack`` returns them."""
+    def add(a):
+        if a is not None:
+            for k in aux:
+                aux[k] = aux[k] + a[k]
+
     per_layer: dict[str, list] = {f"{j}_{kind}": [] for j, kind in enumerate(cfg.cycle)}
     for r in range(cfg.n_cycles):
         for j, kind in enumerate(cfg.cycle):
             slot = f"{j}_{kind}"
             c = layer(caches["cycles"][slot], r) if caches is not None else None
-            x, nc = block_apply(cfg, kind, layer(params["cycles"][slot], r), x,
-                                mode=mode, cache=c, pos=pos)
+            x, nc, a = block_apply(cfg, kind, layer(params["cycles"][slot], r), x,
+                                   mode=mode, cache=c, pos=pos, with_aux=aux is not None)
             per_layer[slot].append(nc)
+            add(a)
     tail = {}
     for i, kind in enumerate(cfg.tail):
         slot = f"{i}_{kind}"
         c = caches["tail"][slot] if caches is not None else None
-        x, tail[slot] = block_apply(cfg, kind, params["tail"][slot], x, mode=mode, cache=c,
-                                    pos=pos)
+        x, tail[slot], a = block_apply(cfg, kind, params["tail"][slot], x, mode=mode,
+                                       cache=c, pos=pos, with_aux=aux is not None)
+        add(a)
     if mode in ("decode", "verify", "prefill_chunk"):
         return x, caches
     return x, {"cycles": {slot: {name: torch.stack([c[name] for c in cs])

@@ -20,7 +20,10 @@ bit-equal to the unmasked launch at a full-width keep; with
 ``rows="decode"`` every row at M = 5-72 equal to the row launched alone;
 the norms' rows independent of their count; a verify step's logits and
 caches equal to sequential decode steps, and speculative tokens equal to
-plain greedy decoding, exactly.
+plain greedy decoding, exactly. Mixture of experts: B2 at the router
+(N = 8) and the expert slots, ``expert_dense`` on per-expert slot views
+with per-expert masks within the same 1e-4, MoE verify rows equal to
+decode steps exactly.
 """
 import numpy as np
 import pytest
@@ -794,6 +797,121 @@ def test_dequant_matmul_at_new_arch_weights(dev, K, N, layout, keep):
                                                      rows="decode") for i in range(20)])
     assert torch.equal(dequant_matmul.dequant_matmul(x[:20], q, scale, offset, kt,
                                                      rows="decode"), alone)
+
+
+# mixtral-8x22b's router (N = 8) and expert slots at its published widths
+MOE_WEIGHTS = [(6144, 8, "kn"), (6144, 16384, "kn"), (16384, 6144, "kn")]
+
+
+@pytest.mark.parametrize("K,N,layout", MOE_WEIGHTS)
+@pytest.mark.parametrize("keep", [None, 5])
+def test_dequant_matmul_at_moe_weights(dev, K, N, layout, keep):
+    """As ``test_dequant_matmul_at_new_arch_weights`` at the router and the
+    expert slots, M = 1-64 (16: an expert's rows at the pool's decode)."""
+    x, q, scale, offset = _dqmm_operands(dev, 64, K, N, torch.uint16, layout, torch.bfloat16,
+                                         K + N, "silu")
+    kt = None if keep is None else torch.tensor([[keep]], dtype=torch.int32, device=dev)
+    assert dequant_matmul.one_pass(q)
+    mq = ref.mask_q(q, kt)
+    for M in (1, 4, 8, 16, 20, 64):
+        for rows in ("any", "decode"):
+            _assert_dqmm_close(dequant_matmul.dequant_matmul(x[:M], q, scale, offset, kt,
+                                                             rows=rows), x[:M], mq, scale, offset)
+    alone = torch.cat([dequant_matmul.dequant_matmul(x[i:i + 1], q, scale, offset, kt,
+                                                     rows="decode") for i in range(20)])
+    assert torch.equal(dequant_matmul.dequant_matmul(x[:20], q, scale, offset, kt,
+                                                     rows="decode"), alone)
+
+
+def test_expert_dense_on_per_expert_slot_views(dev):
+    """``expert_dense`` through B2 on a bank divided per expert: 8 experts
+    of (1024, 2048), stage 3 cut mid-way so the slices hold different
+    received bits, the 4-bit draft view's per-expert ``keep``. One B2
+    launch an expert on its slot of the store's buffer (a view, no copy),
+    each within 1e-4 of the plain version on its own masked q and affine,
+    at M = 8 and 16 rows an expert, both ``rows``."""
+    from repro_torch.core.plane_store import PlaneStore
+    from repro_torch.core.policy import ExpertPopularityPolicy
+    from repro_torch.core.progressive import divide
+    from repro_torch.models.common import expert_dense
+
+    E, d, f = 8, 1024, 2048
+    g = torch.Generator(device=dev).manual_seed(5)
+    bank = torch.randn((E, d, f), generator=g, device=dev) \
+        * torch.arange(1, E + 1, device=dev)[:, None, None]
+    prog = divide({"moe": {"we_up": bank}}, ExpertPopularityPolicy(
+        n_experts=E, popularity={e: 0.1 * e for e in range(E)}))
+    store = PlaneStore.from_model(prog, device=dev)
+    for s in range(1, 4):
+        items = prog.stage(s)
+        store.ingest(items if s < 3 else items[:5])
+    assert len(set(store.received)) == 2
+    buf = store.buffers["uint16"]
+    idxs = store.groups[("moe", "we_up")]
+    for bits in (None, 4):
+        w = store.quantized_leaves(bits=bits)[("moe", "we_up")]
+        assert w.q.untyped_storage().data_ptr() == buf.untyped_storage().data_ptr()
+        for C in (1, 2):
+            x = torch.randn((8, E, C, d), generator=g, device=dev).to(torch.bfloat16)
+            for rows in ("any", "decode"):
+                before = dequant_matmul.launches
+                y = expert_dense(x, w, dtype=torch.float32, rows=rows)
+                assert dequant_matmul.launches - before == E
+                for e, i in enumerate(idxs):
+                    assert w.q[e].data_ptr() == store.acc(i).data_ptr()
+                    kt = None if w.keep_bits is None else w.keep_bits[e]
+                    want = ref.dequant_matmul_ref(x[:, e].reshape(-1, d), ref.mask_q(w.q[e], kt),
+                                                  w.scale[e], w.offset[e])
+                    err = (y[:, e].reshape(-1, f) - want).abs().max().item()
+                    assert err <= 1e-4 * want.abs().max().item(), (bits, C, rows, e)
+
+
+def _moe_model(dev):
+    """Reduced mixtral-8x22b in bfloat16 on the card: ``swa_moe`` over a
+    window of 16, 4 experts, top-2, drop-free capacity, hd 64, divided
+    under the expert policy."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.policy import ExpertPopularityPolicy
+    from repro_torch.core.progressive import divide
+    from repro_torch.models.model import build_model
+
+    model = build_model(get_config("mixtral-8x22b").reduced(
+        d_model=256, n_heads=4, n_kv=2, d_ff=512, vocab=512, dtype=torch.bfloat16))
+    prog = divide(model.init(torch.Generator(device=dev).manual_seed(0), device=dev),
+                  ExpertPopularityPolicy(n_experts=4, popularity={1: 0.5, 3: 0.2}))
+    return model, prog
+
+
+@pytest.mark.parametrize("pattern", ["reject_all", "alternate", "accept_all"])
+def test_moe_verify_step_equals_decode_steps(dev, pattern):
+    """The verify rounds over mixtral's MoE blocks (rings of 16 + 5,
+    positions past 40; capacity drop-free, so no verify row loses an
+    expert a decode step keeps): every verify row's logits and the caches
+    equal sequential decode steps bit for bit, routing included."""
+    model, prog = _moe_model(dev)
+    _verify_rounds(dev, model, prog, pattern, prompt_len=20, rounds=10)
+
+
+def test_moe_decode_step_never_syncs(dev):
+    """A MoE decode step and an upgrade under
+    ``torch.cuda.set_sync_debug_mode("error")``: routing, dispatch and
+    combine never read the device from the host."""
+    from repro_torch.serving import ProgressiveServer
+
+    model, prog = _moe_model(dev)
+    srv = ProgressiveServer(model, prog, max_len=48, resident="quantized", device=dev)
+    srv.receive_stage()
+    srv.start({"tokens": torch.arange(12).reshape(2, 6)})
+    tok = torch.zeros((2, 1), dtype=torch.int32, device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        logits, caches = model.decode_step(srv.params, srv.caches, tok, 6)
+        srv.receive_stage()
+        logits, caches = model.decode_step(srv.params, caches, tok, 7)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert bool(torch.isfinite(logits).all())
 
 
 def _spec_model(dev, seed=0, **over):

@@ -70,11 +70,22 @@ def test_cli_gemma3_reduced(mode, capsys):
     assert "served" in capsys.readouterr().out
 
 
+@pytest.mark.parametrize("mode", ["default", "speculative", "pool"])
+def test_cli_mixtral_reduced(mode, capsys):
+    """``--arch mixtral-8x22b --reduced``: mixture-of-experts blocks over
+    sliding windows of 16 (4 experts, top-2), in the default stream, under
+    speculation and in the pool."""
+    argv = ["--arch", "mixtral-8x22b", "--reduced", "--device", "cpu", "--decode-steps", "12"]
+    serve.main(argv + {"default": [], "speculative": ["--speculative", "--draft-k", "2"],
+                       "pool": ["--pool-clients", "3", "--pool-slots", "2"]}[mode])
+    assert "served" in capsys.readouterr().out
+
+
 def test_cli_parts_still_to_port_raise():
     """The other architectures (``--mesh-shards`` is ported:
     ``tests/test_torch_sharded.py`` runs it)."""
     with pytest.raises(NotImplementedError, match="A8"):
-        serve.main(["--arch", "dbrx-132b", "--reduced", "--device", "cpu"])
+        serve.main(["--arch", "zamba2-7b", "--reduced", "--device", "cpu"])
 
 
 def test_cli_defaults_to_the_card():
