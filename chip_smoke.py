@@ -24,7 +24,11 @@ with the launch counts set to 0 just before it and read just after:
    distinct weight shape at M = 1-64 with and without a mask, B3 and B4 at
    the arch's heads, against their plain versions (verify rows equal to
    decode rows); ``[path]`` (phase 7) at stages 1 and 8; the CLI for
-   minitron-4b at full width;
+   minitron-4b at full width; ``[mesh]`` for starcoder2-15b x4: its single
+   stream on 2 logical shards of the card, every logit and token
+   ``torch.equal`` to the phase's single-device stream (B7 on every layer
+   weight and the untied ``lm_head``), B7 and B2 launches a decode step
+   counted;
 1b. ``[arch gemma3-27b x6]``: sliding windows over ring caches, qk-norm,
    the logit softcap and the global layers' rope base (ROADMAP A8(b)) at
    gemma3-27b's published widths, one 5:1 cycle (6 of its 62 layers):
@@ -36,9 +40,10 @@ with the launch counts set to 0 just before it and read just after:
    1030, tokens equal to plain greedy tokens over the same rings; float
    residency; B2 on every weight shape; B3 and B4 on a ring wrapped twice
    and more, verify rows equal to decode rows, timed beside SDPA with the
-   window mask. No wire, CLI or ``[path]``: they are arch-agnostic byte
-   paths, and the CPU tests hold the windowed numerics against the JAX
-   package;
+   window mask; ``[mesh]``: the single stream over wrapping rings on 2
+   logical shards, every logit and token equal to one device's. No wire,
+   CLI or ``[path]``: they are arch-agnostic byte paths, and the CPU
+   tests hold the windowed numerics against the JAX package;
 1c. ``[arch mixtral-8x22b x1]``: mixture-of-experts blocks (``swa_moe``:
    8 experts, top-2, over a window of 4096) at mixtral-8x22b's published
    widths, 1 of its 56 layers, seeded weights with a skewed router:
@@ -54,8 +59,15 @@ with the launch counts set to 0 just before it and read just after:
    ``torch.equal`` to plain greedy tokens, and at cf = 1.25 (acceptance
    and drops reported); B2 on every weight shape (the router at N = 8,
    the expert slots) at M = 1-64 with and without a per-expert mask; B3
-   and B4 at G = 6 on rings; float residency against quantized. No wire,
-   CLI or ``[path]``: byte paths, which the CPU tests hold for a sliced
+   and B4 at G = 6 on rings; float residency against quantized;
+   ``[mesh]`` at 2 and 4 logical shards (the expert route: each shard's
+   expert slices on its own sub-store): the single stream, every logit
+   and token equal to one device's, 6 B7 calls and 35 or 45 B2 launches a
+   decode step; the stage-8 banks gathered equal to a single-device
+   store's; a decode step under ``set_sync_debug_mode("error")``;
+   ``SpeculativeEngine`` at cf 4.0, tokens equal to plain; float
+   residency within ``FP_LOGIT_RTOL`` of one device's. No wire, CLI or
+   ``[path]``: byte paths, which the CPU tests hold for a sliced
    division;
 2. ``[divide]``: split full-width olmo-1b into eight 2-bit planes on the
    card (``plane_extract``, 8 launches a tensor); the in-memory receiver
@@ -321,6 +333,11 @@ MOE_SKEW = (1.6, 1.3, 1.0, 0.8, 0.6, 0.4, 0.2, 0.1)
 MOE_CAL = (4, 64)
 MOE_DQMM_M = (1, 4, 8, 16, 64)
 MOE_SPEC_K = 4
+# [mesh] inside an arch phase: its single stream (and for mixtral-8x22b
+# speculation, float residency, the stage-8 banks and a decode step under
+# the sync guard) on n logical shards of the card, over the planes the
+# phase holds, for each n here
+MESH_ARCH_SHARDS = {"starcoder2-15b": (2,), "gemma3-27b": (2,), "mixtral-8x22b": (2, 4)}
 # v2 entropy coding is host numpy (core/entropy.py): its encode and decode
 # are timed on the 2-layer full-width model's attn.wq units (8 planes)
 
@@ -3246,6 +3263,7 @@ def _arch_phase(name: str, n_layers, dev, ops) -> dict:
     run = types.SimpleNamespace(
         tag=f"[arch {name}{'' if n_layers is None else f' x{n_layers}'}]", cfg=cfg,
         model=build_model(cfg), dev=dev, ops=ops, counts={}, routes={}, kern={},
+        mesh_shards=MESH_ARCH_SHARDS.get(name, ()),
         prompt=torch.randint(0, cfg.vocab, (BATCH, PROMPT),
                              generator=torch.Generator().manual_seed(1)))
     prog = _arch_divide(run)
@@ -3253,7 +3271,8 @@ def _arch_phase(name: str, n_layers, dev, ops) -> dict:
     # each path's engines and stores go before the next path builds its
     # own (a client and its stage callback hold each other: collect them)
     for path in (lambda: _arch_wire(run, prog, tokens), lambda: _arch_pool(run, prog),
-                 lambda: _arch_spec(run, prog, run.prompt)):
+                 lambda: _arch_spec(run, prog, run.prompt),
+                 lambda: _arch_mesh(run, prog, PROMPT + STEPS)):
         gc.collect()
         torch.cuda.empty_cache()
         path()
@@ -3355,7 +3374,8 @@ def _arch_single(run, prog) -> torch.Tensor:
     from repro_torch.serving import ProgressiveServer
 
     cfg, L, dev = run.cfg, run.cfg.n_layers, run.dev
-    checked = FiniteLogits(run.model)
+    lm = LogitLog(run.model)
+    checked = FiniteLogits(lm)
     srv = ProgressiveServer(checked, prog, max_len=PROMPT + STEPS, resident="quantized",
                             device=dev)
     torch.cuda.synchronize()
@@ -3381,6 +3401,8 @@ def _arch_single(run, prog) -> torch.Tensor:
     check(got["plane_or_segments"] == 8 and got["flash_verify"] == 0, got)
     check(by == expect_routes([(L * 7, BATCH * PROMPT), (1, BATCH)]
                               + pass_calls(L, STEPS, BATCH)), by)
+    # the stream [mesh] holds its sharded runs to
+    run.stream = (lm.logits, res.tokens.cpu()) if run.mesh_shards else None
     log(f"{run.tag} single stream (in-memory planes, quantized): stages "
         f"{res.stage_at_step[0]}->{res.stage_at_step[-1]}, upgrades {res.upgrades}; resident "
         f"{rep['quantized_bytes']} B quantized + {rep['fp_bytes']} B in {rep['fp_leaves']} "
@@ -3682,6 +3704,7 @@ def _arch_fp(run, prog, receiver, prompt, store) -> None:
         logs[resident] = (lm.logits, res.tokens)
         del srv, lm
         gc.collect()
+    run.fp_ref = logs["fp"]      # the float run [mesh] holds its sharded one to
     worst, n_checked, near = _fp_against_quantized(logs["fp"][0], logs["quantized"][0],
                                                    logs["fp"][1], logs["quantized"][1])
     check(rep["quantized_bytes"] == 0 and rep["fp_bytes"] == 4 * run.n_params, rep)
@@ -3692,15 +3715,197 @@ def _arch_fp(run, prog, receiver, prompt, store) -> None:
         f"beside the {store}'s accumulators")
 
 
-class _StoreReceiver:
-    """An in-memory receiver holding every stage of ``prog`` on ``dev``, as
-    a server's ``receiver=``: servers of both residencies over one set of
-    accumulators."""
+def _mesh_b2_step(cfg, n: int) -> tuple[int, int]:
+    """A decode step's B7 calls and B2 launches on n shards: every layer
+    weight (the attention's four, then the MLP's three or the router) and
+    an untied ``lm_head`` through B7, n B2 launches each but for a router
+    whose n parts are too narrow for the one-pass kernels (B7 joins its
+    columns for one launch); each expert's three slots one B2 launch on
+    its owning shard; a tied ``embed.T`` one B2 launch on the gathered
+    table."""
+    L, E = cfg.n_layers, cfg.n_experts
+    b7 = (5 if E else 7) * L + (0 if cfg.tie_embeddings else 1)
+    joined = L if E and (E // n) % 8 else 0
+    return b7, n * (b7 - joined) + joined + 3 * E * L + (1 if cfg.tie_embeddings else 0)
 
-    def __init__(self, prog, dev):
+
+def _arch_mesh(run, prog, max_len: int, model=None) -> None:
+    """``[mesh]`` of an arch phase, for each n of ``run.mesh_shards``, on
+    ``make_serving_mesh(n, devices=[card] * n)`` over the planes the phase
+    holds: the phase's single stream (:func:`_mesh_stream`), and for a MoE
+    arch the checks of :func:`_moe_mesh`; each check's seconds and the
+    peak device memory logged. ``model`` wraps ``run.model`` as the
+    phase's stream did."""
+    from repro_torch.launch.mesh import make_serving_mesh
+
+    if not run.mesh_shards:
+        return
+    t_mesh = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    one = _StoreReceiver(prog, run.dev) if run.cfg.n_experts else None
+    for n in run.mesh_shards:
+        mesh = make_serving_mesh(n, devices=[run.dev] * n)
+        _mesh_stream(run, prog, mesh, max_len, model or run.model)
+        gc.collect()
+        torch.cuda.empty_cache()
+        if one is not None:
+            _moe_mesh(run, prog, mesh, one)
+            gc.collect()
+            torch.cuda.empty_cache()
+    run.stream = None
+    log(f"{run.tag} [mesh] {time.perf_counter() - t_mesh:.1f} s; peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.1f} GB")
+
+
+def _mesh_stream(run, prog, mesh, max_len: int, model) -> None:
+    """The phase's single stream on ``mesh`` (quantized, 8 stages landing
+    mid-decode), counted from 0: every logit and token ``torch.equal`` to
+    the phase's single-device stream; B7, B2 and B3 launches a decode step
+    as :func:`_mesh_b2_step` counts them, every GEMV launch one-pass; one
+    ``plane_or_segments`` a sub-store a stage; the same quantized bytes."""
+    from repro_torch.serving import ProgressiveServer
+
+    cfg, L, dev, n = run.cfg, run.cfg.n_layers, run.dev, mesh.shape["model"]
+    want_logits, want_tokens = run.stream
+    lm = LogitLog(model)
+    srv = ProgressiveServer(lm, prog, max_len=max_len, resident="quantized", mesh=mesh,
+                            device=dev)
+    t0 = time.perf_counter()
+    torch.cuda.synchronize()
+    reset_counts(run.ops)
+    srv.receive_stage()
+    srv.start({"tokens": run.prompt})
+    after_prefill = counts()
+    res = srv.decode(STEPS, stage_arrival=lambda i: i in ARRIVALS)
+    got, by = _tally(run.counts, run.routes, f"{run.tag} [mesh]")
+    per_step = {k: (got[k] - after_prefill[k]) / STEPS for k in got}
+    b7, b2 = _mesh_b2_step(cfg, n)
+    rep = srv.resident_report()
+    decode_s = sum(s for _, s in res.window_s)
+    check(len(lm.logits) == len(want_logits) == 1 + STEPS, (len(lm.logits), len(want_logits)))
+    check(all(torch.equal(a, b) for a, b in zip(lm.logits, want_logits)),
+          f"{run.tag} [mesh] n={n}: sharded logits differ from one device's")
+    check(torch.equal(res.tokens.cpu(), want_tokens) and srv.stage == 8,
+          f"{run.tag} [mesh] n={n}: sharded tokens differ from one device's")
+    check(per_step["sharded_dequant_matmul"] == b7 and per_step["dequant_matmul"] == b2
+          and per_step["decode_attention"] == L, (per_step, b7, b2))
+    check(got["plane_or_segments"] == 8 * n and got["flash_verify"] == 0, got)
+    check(rep["quantized_bytes"] == 2 * (run.n_params - run.n_fp), rep)
+    log(f"{run.tag} [mesh] {n} logical shards of the card, the single stream (quantized, "
+        f"stages landing mid-decode): {len(lm.logits)} logits and {res.tokens.numel()} tokens "
+        f"equal (torch.equal) to one device's; a decode step {b7} B7 calls, {b2} B2 launches "
+        f"(one device: {L * (5 + 3 * cfg.n_experts if cfg.n_experts else 7) + 1}), "
+        f"{L} B3; launches {got}, B2 by route {by}; resident {rep['quantized_bytes']} B "
+        f"quantized as one device, {rep['gathered_bytes']} B gathered; decode {STEPS} steps x "
+        f"{BATCH} with 7 upgrades: {decode_s:.3f} s, {BATCH * STEPS / decode_s:.1f} tokens/s, "
+        f"{decode_s / STEPS * 1e3:.2f} ms/step; {time.perf_counter() - t0:.1f} s")
+
+
+def _moe_mesh(run, prog, mesh, one) -> None:
+    """The MoE arch's further checks on ``mesh``, over one sharded
+    in-memory receiver at stage 8: every bank's leaves gathered equal to
+    the single-device store ``one``'s (q and each expert's affine); a
+    decode step under ``torch.cuda.set_sync_debug_mode("error")``;
+    ``SpeculativeEngine`` at drop-free cf 4.0, counted from 0, its tokens
+    ``torch.equal`` to the phase's plain greedy tokens; float residency,
+    counted from 0, logits within ``FP_LOGIT_RTOL`` of the phase's
+    single-device float run and tokens equal where the margin clears it."""
+    from repro_torch.core.plane_store import ShardedLeaf
+    from repro_torch.serving import ProgressiveServer, SpecConfig, SpeculativeEngine
+
+    cfg, L, dev, n = run.cfg, run.cfg.n_layers, run.dev, mesh.shape["model"]
+    tag = f"{run.tag} [mesh] n={n}"
+    t0 = time.perf_counter()
+    rec = _StoreReceiver(prog, dev, mesh)
+    mine, want = rec.store.quantized_leaves(), one.store.quantized_leaves()
+    banks = [k for k in mine if k[-1].startswith("we_")]
+    check(len(banks) == 3 * L, banks)
+    for key in banks:
+        leaf = mine[key]
+        check(isinstance(leaf, ShardedLeaf) and leaf.axis == -3 and len(leaf.parts) == n,
+              (key, type(leaf)))
+        whole, w = leaf.gather(), want[key]
+        check(all(torch.equal(getattr(whole, f), getattr(w, f))
+                  for f in ("q", "scale", "offset", "received_bits")),
+              f"{tag}: the stage-8 bank {key} gathered differs from one device's")
+        del whole
+    t_banks = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    srv = ProgressiveServer(run.model, prog, max_len=PROMPT + STEPS, resident="quantized",
+                            receiver=rec, mesh=mesh, device=dev)
+    srv.receive_stage()
+    srv.start({"tokens": run.prompt})
+    tok = torch.zeros((BATCH, 1), dtype=torch.int32, device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        logits, _ = run.model.decode_step(srv.params, srv.caches, tok, PROMPT)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    check(bool(torch.isfinite(logits).all()), f"{tag}: non-finite logits")
+    del srv, logits
+    t_sync = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    free, plain = run.spec_plain
+    n_prompt = run.prompt.shape[1]
+    eng = SpeculativeEngine(free, prog, max_len=n_prompt + SPEC_TOKENS + MOE_SPEC_K + 1,
+                            spec=SpecConfig(draft_bits=4, k=MOE_SPEC_K, k_max=MOE_SPEC_K),
+                            receiver=rec, mesh=mesh, device=dev)
+    torch.cuda.synchronize()
+    reset_counts(run.ops)
+    eng.receive_stage()
+    eng.start({"tokens": run.prompt})
+    res = eng.decode(SPEC_TOKENS)
+    got, by = _tally(run.counts, run.routes, f"{tag} spec")
+    steps, verifies = _b2_steps(res.accept_rounds)
+    check(torch.equal(res.tokens.cpu(), plain),
+          f"{tag}: sharded speculative tokens at cf 4.0 differ from plain")
+    check(got["flash_verify"] == L * verifies and verifies > 0 and got["plane_or_segments"] == 0
+          and eng.resident_report()["extra_draft_bytes"] == 0, (got, verifies))
+    del eng
+    gc.collect()
+    t_spec = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    lm = LogitLog(run.model)
+    fsrv = ProgressiveServer(lm, prog, max_len=n_prompt + ARCH_FP_STEPS, resident="fp",
+                             receiver=rec, mesh=mesh, device=dev)
+    torch.cuda.synchronize()
+    reset_counts(run.ops)
+    fsrv.receive_stage()
+    fsrv.start({"tokens": run.prompt})
+    fres = fsrv.decode(ARCH_FP_STEPS)
+    fgot, fby = _tally(run.counts, run.routes, f"{tag} fp")
+    frep = fsrv.resident_report()
+    check(fby == {"gemv": 0, "mma": 0} and fgot["decode_attention"] == L * ARCH_FP_STEPS,
+          (fgot, fby))
+    fp_logits, fp_tokens = run.fp_ref
+    worst, n_checked, near = _fp_against_quantized(lm.logits, fp_logits, fres.tokens, fp_tokens)
+    del fsrv, lm, rec
+    gc.collect()
+    t_fp = time.perf_counter() - t0
+    log(f"{tag}: the stage-8 banks ({len(banks)}) gathered equal (torch.equal: q, each "
+        f"expert's scale, offset, received bits) to one device's, {t_banks:.1f} s; a sharded "
+        f"decode step under set_sync_debug_mode('error'), {t_sync:.1f} s; SpeculativeEngine "
+        f"at cf 4.0 (k = {MOE_SPEC_K}): {res.accepted}/{res.drafted} drafts accepted, tokens "
+        f"equal (torch.equal) to plain, launches {got}, B2 by route {by}, {t_spec:.1f} s; "
+        f"float residency ({ARCH_FP_STEPS} steps x {BATCH}): logits within {worst:.3e} of one "
+        f"device's largest (tolerance {FP_LOGIT_RTOL}), {n_checked} tokens checked equal, "
+        f"{near} near ties, {frep['gathered_bytes']} B gathered, launches {fgot}, "
+        f"{t_fp:.1f} s")
+
+
+class _StoreReceiver:
+    """An in-memory receiver holding every stage of ``prog`` on ``dev`` (or
+    on ``mesh``, whose home ``dev`` is), as a server's ``receiver=``:
+    servers of both residencies over one set of accumulators."""
+
+    def __init__(self, prog, dev, mesh=None):
         from repro_torch.core.progressive import ReceiverState
 
-        state = ReceiverState.init(prog, device=dev)
+        state = ReceiverState.init(prog, mesh=mesh, device=dev)
         for s in range(1, prog.n_stages + 1):
             state = state.receive(prog.stage(s))
         self.state, self.store = state, state.store
@@ -3732,7 +3937,7 @@ def _gemma_phase(dev, ops) -> dict:
     cfg = dataclasses.replace(get_config(name), n_layers=n_layers)
     run = types.SimpleNamespace(
         tag=f"[arch {name} x{n_layers}]", cfg=cfg, model=build_model(cfg), dev=dev, ops=ops,
-        counts={}, routes={}, kern={},
+        counts={}, routes={}, kern={}, mesh_shards=MESH_ARCH_SHARDS[name],
         prompt=torch.randint(0, cfg.vocab, (BATCH, GEMMA_PROMPT),
                              generator=torch.Generator().manual_seed(1)))
     log(f"{run.tag} {cfg.n_layers} of {get_config(name).n_layers} layers (one cycle "
@@ -3748,7 +3953,8 @@ def _gemma_phase(dev, ops) -> dict:
                  lambda: _ring_attention(run, _arch_spec(run, prog, spec_prompt, GEMMA_SPEC_K),
                                          GEMMA_SPEC_K + 1),
                  lambda: _arch_fp(run, prog, _StoreReceiver(prog, dev), fp_prompt,
-                                  "in-memory store")):
+                                  "in-memory store"),
+                 lambda: _arch_mesh(run, prog, GEMMA_PROMPT + STEPS)):
         gc.collect()
         torch.cuda.empty_cache()
         path()
@@ -3822,6 +4028,7 @@ def _gemma_single(run, prog) -> None:
               + [unembed]), f"{run.tag} a weight shape is off the one-pass kernels")
     run.kern["dequant_matmul"] = _decode_b2_row(run, P, xg)
     logits, tokens = lm.logits, res.tokens
+    run.stream = (logits, tokens.cpu())
     del srv, P, unembed, lm, checked
     gc.collect()
     torch.cuda.empty_cache()
@@ -4071,7 +4278,7 @@ def _moe_phase(dev, ops) -> dict:
     cfg = dataclasses.replace(get_config(name), n_layers=n_layers)
     run = types.SimpleNamespace(
         tag=f"[arch {name} x{n_layers}]", cfg=cfg, model=build_model(cfg), dev=dev, ops=ops,
-        counts={}, routes={}, kern={},
+        counts={}, routes={}, kern={}, mesh_shards=MESH_ARCH_SHARDS[name],
         prompt=torch.randint(0, cfg.vocab, (BATCH, PROMPT),
                              generator=torch.Generator().manual_seed(1)))
     log(f"{run.tag} {cfg.n_layers} of {get_config(name).n_layers} layers ({cfg.cycle[0]}), "
@@ -4084,7 +4291,8 @@ def _moe_phase(dev, ops) -> dict:
     for path in (lambda: _moe_single(run, prog), lambda: _moe_pool(run, prog),
                  lambda: _ring_attention(run, _moe_spec(run, prog), MOE_SPEC_K + 1),
                  lambda: _arch_fp(run, prog, _StoreReceiver(prog, dev), run.prompt,
-                                  "in-memory store")):
+                                  "in-memory store"),
+                 lambda: _arch_mesh(run, prog, PROMPT + STEPS, MoeAux(run.model))):
         gc.collect()
         torch.cuda.empty_cache()
         path()
@@ -4236,7 +4444,8 @@ def _moe_single(run, prog) -> None:
 
     cfg, L, dev = run.cfg, run.cfg.n_layers, run.dev
     aux = MoeAux(run.model)
-    checked = FiniteLogits(aux)
+    lm = LogitLog(aux)
+    checked = FiniteLogits(lm)
     srv = ProgressiveServer(checked, prog, max_len=PROMPT + STEPS, resident="quantized",
                             device=dev)
     torch.cuda.synchronize()
@@ -4268,6 +4477,7 @@ def _moe_single(run, prog) -> None:
     check(by == expect_routes(moe_calls(cfg, 1, BATCH, PROMPT, "prefill")
                               + moe_calls(cfg, STEPS, BATCH, 1, "decode")), by)
     check(dropped["decode"] == 0.0, dropped)
+    run.stream = (lm.logits, res.tokens.cpu())     # the stream [mesh] holds its sharded ones to
     log(f"{run.tag} single stream (in-memory planes, quantized, cf {cfg.capacity_factor}: "
         f"capacity {capacity(cfg, PROMPT)} rows an expert at the prefill, {capacity(cfg, 1)} at "
         f"decode): stages {res.stage_at_step[0]}->{res.stage_at_step[-1]}, upgrades "
@@ -4371,6 +4581,7 @@ def _moe_spec(run, prog):
     plain.start({"tokens": run.prompt})
     plain.caches = free.grow_caches(plain.caches, max_len, ring_margin=margin, pos=n)
     want = plain.decode(SPEC_TOKENS).tokens.cpu()
+    run.spec_plain = (free, want)     # [mesh] holds sharded speculation to these tokens
     del plain
     gc.collect()
     out = {}

@@ -542,21 +542,27 @@ def _path(key) -> str:
     return key if isinstance(key, str) else "/".join(str(k) for k in key)
 
 
-def _on(device: torch.device):
+def on_device(device: torch.device):
     """Make ``device`` current while kernels launch on it: the C launchers
     launch on the current card."""
     return torch.cuda.device(device) if device.type == "cuda" else contextlib.nullcontext()
 
 
-def _to(qt: QuantizedTensor, device: torch.device) -> QuantizedTensor:
-    """A quantized view with every tensor on ``device`` (no copy where
-    they lie there already)."""
+def leaf_to(leaf, device: torch.device):
+    """A leaf, a quantized view or a float tensor, with every tensor on
+    ``device`` (no copy where they lie there already)."""
     def move(t):
         return t if t is None or t.device == device else t.to(device, non_blocking=True)
-    return dataclasses.replace(qt, q=move(qt.q), lo=move(qt.lo), hi=move(qt.hi),
-                               scale=move(qt.scale), offset=move(qt.offset),
-                               received_bits=move(qt.received_bits),
-                               keep_bits=move(qt.keep_bits))
+    if not isinstance(leaf, QuantizedTensor):
+        return move(leaf)
+    return dataclasses.replace(leaf, q=move(leaf.q), lo=move(leaf.lo), hi=move(leaf.hi),
+                               scale=move(leaf.scale), offset=move(leaf.offset),
+                               received_bits=move(leaf.received_bits),
+                               keep_bits=move(leaf.keep_bits))
+
+
+# the eq.-(5) fields of a quantized view, shaped q.shape[:-2] + (1, 1)
+_META_FIELDS = ("lo", "hi", "scale", "offset", "received_bits", "keep_bits")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -564,11 +570,15 @@ class ShardedLeaf:
     """A parameter leaf split on one dim over a mesh's model shards:
     ``parts[j]`` lies on ``mesh.model_devices[j]``, a live
     :class:`QuantizedTensor` view of that shard's accumulator (its
-    eq.-(5) constants shard-local, equal on every shard) or a float
-    tensor. ``axis`` counts from the end (-1: the output dim), so it
-    survives taking one layer of a stacked leaf. The model's
-    ``dense`` runs it through ``ops.sharded_dequant_matmul`` (quantized)
-    or a matmul a shard (float), and gathers the outputs."""
+    eq.-(5) constants shard-local) or a float tensor. ``axis`` counts
+    from the end, so it survives taking one layer of a stacked leaf: -1,
+    the output dim of a dense weight, whose parts share one affine; -3,
+    the expert dim of an ``(E, d, f)`` bank, whose part j holds its
+    experts with their constants shaped ``(E/n, 1, 1)``, one range an
+    expert for a bank divided in slices. The model's ``dense`` runs a
+    dense weight through ``ops.sharded_dequant_matmul`` (quantized) or a
+    matmul a shard (float), ``expert_dense`` a bank a shard, and each
+    gathers the outputs."""
 
     parts: tuple
     axis: int
@@ -581,8 +591,12 @@ class ShardedLeaf:
     @property
     def shape(self) -> tuple:
         shape = list(self._t(self.parts[0]).shape)
-        shape[self.axis] = sum(self._t(p).shape[self.axis] for p in self.parts)
+        shape[self.axis] = sum(self.sizes())
         return tuple(shape)
+
+    def sizes(self) -> list[int]:
+        """Each part's extent along ``axis``."""
+        return [self._t(p).shape[self.axis] for p in self.parts]
 
     def _t(self, part) -> torch.Tensor:
         return part.q if isinstance(part, QuantizedTensor) else part
@@ -593,15 +607,25 @@ class ShardedLeaf:
 
     def gather(self, device=None):
         """The whole leaf on ``device`` (default: the mesh's home device):
-        the parts concatenated along ``axis``, a quantized view carrying
-        part 0's affine (the whole tensor's)."""
+        the parts concatenated along ``axis``. A quantized view's eq.-(5)
+        constants are concatenated along ``axis`` too where it is one of
+        their dims (an expert dim: each part's experts keep their own
+        ranges); split on a matrix dim, the parts share part 0's."""
         device = self.mesh.home if device is None else torch.device(device)
-        ts = [self._t(p) for p in self.parts]
-        whole = torch.cat([t if t.device == device else t.to(device, non_blocking=True)
-                           for t in ts], dim=self.axis)
+
+        def cat(ts):
+            return torch.cat([t if t.device == device else t.to(device, non_blocking=True)
+                              for t in ts], dim=self.axis)
+
+        whole = cat([self._t(p) for p in self.parts])
         if not self.quantized:
             return whole
-        return dataclasses.replace(_to(self.parts[0], device), q=whole)
+        p0 = self.parts[0]
+        if self.axis >= -2:
+            return dataclasses.replace(leaf_to(p0, device), q=whole)
+        return dataclasses.replace(p0, q=whole, **{
+            f: None if getattr(p0, f) is None else cat([getattr(p, f) for p in self.parts])
+            for f in _META_FIELDS})
 
 
 class ShardedPlaneStore:
@@ -610,72 +634,97 @@ class ShardedPlaneStore:
     Counterpart of the reference's ``ShardedPlaneStore``
     (``src/repro/core/plane_store.py:658``). Model shard ``j`` owns an
     ordinary :class:`PlaneStore` on ``mesh.model_devices[j]``: the same
-    flat accumulators and batched ``plane_or_segments`` upgrade. A
-    tensor routes along the axis ``launch.sharding.serving_spec_for_param``
-    shards the parameter it backs:
+    flat accumulators and batched ``plane_or_segments`` upgrade. The
+    tensors of one leaf key (the slices of a bank divided per expert, or
+    one tensor) route together, by the reference's rules in its order:
 
-    * **split** (>= 2-D, the spec shards a dim): each arriving plane is
-      cut along that dim and each piece is ORed on its owning shard only
-      (one ``plane_or_segments`` launch a sub-store a container dtype a
-      stage);
-    * **whole** (1-D, indivisible): round-robin to one sub-store; its leaf
-      is moved to the home device.
+    * **expert** (more than one slice, all along one ``slice_axis``, the
+      slice count divisible by the shard count n): slice r, in
+      ``slice_idx`` order, goes whole to shard ``r // (len / n)``. A
+      shard's slices lie one after another in its sub-store, so its part
+      of the bank is the sub-store's strided view, with no plane surgery
+      and no second uint buffer;
+    * **split** (one unsliced tensor whose spec,
+      ``launch.sharding.serving_spec_for_param``, shards a dim): each
+      arriving plane is cut along that dim and each piece is ORed on its
+      owning shard only (an unsliced ``we_*`` bank splits on its expert
+      dim);
+    * **whole** (anything else: 1-D, indivisible, a slice count n does
+      not divide): round-robin to one sub-store, every slice of a key on
+      the same owner; its leaf is moved to the home device.
 
-    Every plane element is ORed exactly once, on one device. Leaves come
-    back as :class:`ShardedLeaf` objects, except the ones sharded
-    serving gathers (``launch.sharding.GATHERED_LEAVES``: the tied
-    embedding, whose split dim the unembedding contracts), which are
+    Every plane element is ORed exactly once, on one device (one
+    ``plane_or_segments`` launch a sub-store a container dtype a stage).
+    Leaves come back as :class:`ShardedLeaf` objects (``axis`` the split
+    dim, or the slice axis, counted from the end), except the ones
+    sharded serving gathers (``launch.sharding.GATHERED_LEAVES``: the
+    tied embedding, whose split dim the unembedding contracts), which are
     concatenated into one tensor on the home device when an ingest
     touched them, on the device, without a host sync. The eq.-(5)
     constants stay shard-local: each sub-store computes its own.
 
-    Left for later, each raising ``NotImplementedError``: replica rows
-    (a mesh with ``data`` > 1, ROADMAP A13) and expert-sliced tensors
-    (the expert route, ROADMAP A13)."""
+    Left for later, raising ``NotImplementedError``: replica rows (a mesh
+    with ``data`` > 1, ROADMAP A13)."""
 
     def __init__(self, entries: list[dict], mesh, *, block: int = DEFAULT_BLOCK):
         from repro_torch.launch.mesh import check_serving_mesh
         from repro_torch.launch.sharding import gathered_for_serving, serving_spec_for_param
 
         check_serving_mesh(mesh)
-        if any(e.get("slice_axis") is not None for e in entries):
-            raise NotImplementedError("the expert route of sliced tensors is still to be "
-                                      "ported (ROADMAP A13)")
         self.mesh = mesh
         self.block = block
         self.device = mesh.home
-        self._n_model = mesh.shape["model"]
+        self._n_model = n = mesh.shape["model"]
         self.keys = [e["key"] for e in entries]
         self.schedules = [e["schedule"] for e in entries]
         self.shapes = [tuple(e["shape"]) for e in entries]
         self.received = [0] * len(entries)
-        # idx -> ("split", axis) | ("whole", owner shard)
-        self._route: list[tuple[str, int]] = []
+        # key -> its tensors (slices group under one key), in entry order
+        self._groups: dict[Any, list[int]] = {}
+        for i, k in enumerate(self.keys):
+            self._groups.setdefault(k, []).append(i)
+        # key -> ("expert", slice axis) | ("split", axis) | ("whole", owner shard)
+        self._route: dict[Any, tuple[str, int]] = {}
         # idx -> [(shard, local slot)] in shard order
-        self._placement: list[list[tuple[int, int]]] = []
-        self._gathered = [gathered_for_serving(_path(k)) for k in self.keys]
-        per_shard: list[list[dict]] = [[] for _ in range(self._n_model)]
-        rr = 0   # round-robin cursor of whole-routed tensors
-        for e in entries:
-            spec = (serving_spec_for_param(_path(e["key"]), tuple(e["shape"]), mesh)
-                    if len(e["shape"]) >= 2 else ())
-            ax = next((d for d, name in enumerate(spec) if name == "model"), None)
-            if ax is not None:
-                shape = list(e["shape"])
-                shape[ax] //= self._n_model
-                local = dict(e, shape=tuple(shape))
-                place = list(range(self._n_model))
-                self._route.append(("split", ax))
-            else:
-                local, place = e, [rr % self._n_model]
-                self._route.append(("whole", place[0]))
-                rr += 1
-            self._placement.append([(j, len(per_shard[j])) for j in place])
-            for j in place:
-                per_shard[j].append(local)
+        self._placement: list[list[tuple[int, int]]] = [[] for _ in entries]
+        self._gathered = {k: gathered_for_serving(_path(k)) for k in self._groups}
+        per_shard: list[list[dict]] = [[] for _ in range(n)]
+
+        def place(i: int, j: int, entry: dict) -> None:
+            self._placement[i].append((j, len(per_shard[j])))
+            per_shard[j].append(entry)
+
+        rr = 0   # round-robin cursor of whole-routed keys
+        for key, idxs in self._groups.items():
+            e0 = entries[idxs[0]]
+            ax = e0.get("slice_axis")
+            if (ax is not None and len(idxs) > 1 and len(idxs) % n == 0
+                    and all(entries[i].get("slice_axis") == ax for i in idxs)):
+                per = len(idxs) // n
+                for r, i in enumerate(sorted(idxs, key=lambda i: entries[i]["slice_idx"])):
+                    place(i, r // per, entries[i])
+                self._route[key] = ("expert", ax)
+                continue
+            spec = (serving_spec_for_param(_path(key), tuple(e0["shape"]), mesh)
+                    if len(idxs) == 1 and ax is None and len(e0["shape"]) >= 2 else ())
+            split = next((d for d, name in enumerate(spec) if name == "model"), None)
+            if split is not None:
+                shape = list(e0["shape"])
+                shape[split] //= n
+                for j in range(n):
+                    place(idxs[0], j, dict(e0, shape=tuple(shape)))
+                self._route[key] = ("split", split)
+                continue
+            for i in idxs:
+                place(i, rr % n, entries[i])
+            self._route[key] = ("whole", rr % n)
+            rr += 1
+        # key -> the shards that hold a part of it, in shard order
+        self._shards = {k: sorted({j for i in idxs for j, _ in self._placement[i]})
+                        for k, idxs in self._groups.items()}
         self.substores = [PlaneStore._from_entries(per_shard[j], block=block,
                                                    device=mesh.model_devices[j])
-                          for j in range(self._n_model)]
+                          for j in range(n)]
         self._dirty: set[int] = set(range(len(entries)))
         self._leaf_cache: dict[Any, Any] = {}
         self._qleaf_cache: dict[Any, Any] = {}
@@ -695,7 +744,7 @@ class ShardedPlaneStore:
         """Cheap snapshot: each sub-store's :meth:`PlaneStore.copy`."""
         new = object.__new__(ShardedPlaneStore)
         for attr in ("mesh", "block", "device", "_n_model", "keys", "schedules", "shapes",
-                     "_route", "_placement", "_gathered"):
+                     "_groups", "_route", "_placement", "_gathered", "_shards"):
             setattr(new, attr, getattr(self, attr))
         new.received = list(self.received)
         new.substores = [s.copy() for s in self.substores]
@@ -730,11 +779,10 @@ class ShardedPlaneStore:
         residency."""
         seen: set[tuple] = set()
         total = 0
-        for i, key in enumerate(self.keys):
-            kind, _ = self._route[i]
-            if not (self._gathered[i] or (kind == "whole" and
-                                          self.substores[self._placement[i][0][0]].device
-                                          != self.device)):
+        for key in self._groups:
+            kind, owner = self._route[key]
+            if not (self._gathered[key] or (kind == "whole" and
+                                            self.substores[owner].device != self.device)):
                 continue
             for leaf in (self._leaf_cache.get(key), self._qleaf_cache.get(key)):
                 t = leaf.q if isinstance(leaf, QuantizedTensor) else leaf
@@ -757,11 +805,12 @@ class ShardedPlaneStore:
         return list(self._placement[i])
 
     def acc(self, i: int) -> torch.Tensor:
-        """Tensor i's accumulator: a whole-routed tensor's sub-store view,
-        a split one's pieces joined on the home device (an audit and
-        test surface: serving reads the sharded leaves)."""
-        kind, ax = self._route[i]
-        if kind == "whole":
+        """Tensor i's accumulator: an expert slice's or a whole-routed
+        tensor's sub-store view, a split one's pieces joined on the home
+        device (an audit and test surface: serving reads the sharded
+        leaves)."""
+        kind, ax = self._route[self.keys[i]]
+        if kind != "split":
             j, lidx = self._placement[i][0]
             return self.substores[j].acc(lidx)
         return torch.cat([self.substores[j].acc(lidx).to(self.device, non_blocking=True)
@@ -780,7 +829,8 @@ class ShardedPlaneStore:
         sub-store untouched); each sub-store then runs its own batched
         rounds on its own device. A split tensor's plane is cut on the
         device it lies on and each piece copied to its shard (no copy
-        for logical shards of that device)."""
+        for logical shards of that device); an expert slice's or a
+        whole-routed tensor's plane goes to its one owner."""
         pending = list(items)
         counts: dict[int, int] = {}
         for idx, plane in pending:
@@ -796,7 +846,7 @@ class ShardedPlaneStore:
                                  f"exceeds schedule of {total}")
         sub_items: list[list[tuple[int, torch.Tensor]]] = [[] for _ in self.substores]
         for idx, plane in pending:
-            kind, ax = self._route[idx]
+            kind, ax = self._route[self.keys[idx]]
             if kind == "split":
                 pieces = torch.chunk(plane.reshape(self.shapes[idx]), self._n_model, dim=ax)
             else:
@@ -807,7 +857,7 @@ class ShardedPlaneStore:
                                      else piece.to(dev, non_blocking=True)))
         for sub, its in zip(self.substores, sub_items):
             if its:
-                with _on(sub.device):
+                with on_device(sub.device):
                     sub.ingest(its)
         for idx, _ in pending:
             self.received[idx] += 1
@@ -819,59 +869,58 @@ class ShardedPlaneStore:
                 del self._qtrunc_cache[tk]
 
     # -- eq. (5): float leaves -------------------------------------------------
-    def _refresh_fp(self, idxs: list[int]) -> None:
-        """Dequantize the given tensors, one batched call a sub-store
-        (shard-local constants), and assemble their leaves."""
-        if not idxs:
+    def _stale(self, key) -> bool:
+        return key not in self._leaf_cache or any(i in self._dirty for i in self._groups[key])
+
+    def _refresh_fp(self, keys: list) -> None:
+        """Dequantize the given leaves, one batched call a sub-store
+        (shard-local constants), and assemble them."""
+        if not keys:
             return
         for j, sub in enumerate(self.substores):
-            stale = [lidx for i in idxs for jj, lidx in self._placement[i] if jj == j]
+            stale = [k for k in keys if j in self._shards[k]]
             if stale:
-                with _on(sub.device):
-                    sub._refresh_fp_leaves([sub.slots[lidx].key for lidx in stale])
-                sub._dirty.difference_update(stale)
-        for i in idxs:
-            key = self.keys[i]
-            parts = tuple(self.substores[j]._leaf_cache[key] for j, _ in self._placement[i])
-            self._leaf_cache[key] = self._assemble(i, parts)
+                with on_device(sub.device):
+                    sub._refresh_fp_leaves(stale)
+                sub._dirty.difference_update(i for k in stale for i in sub.groups[k])
+        for key in keys:
+            parts = tuple(self.substores[j]._leaf_cache[key] for j in self._shards[key])
+            self._leaf_cache[key] = self._assemble(key, parts)
 
-    def _assemble(self, i: int, parts: tuple):
-        """A tensor's leaf from its parts: moved home (whole), gathered
-        home (:data:`GATHERED_LEAVES`), or a :class:`ShardedLeaf`."""
-        kind, ax = self._route[i]
+    def _assemble(self, key, parts: tuple):
+        """A leaf from its parts: moved home (whole), gathered home
+        (:data:`GATHERED_LEAVES`), or a :class:`ShardedLeaf` whose axis
+        counts from the end (a sliced leaf has one dim more than its
+        slices)."""
+        kind, ax = self._route[key]
         if kind == "whole":
-            p = parts[0]
-            if isinstance(p, QuantizedTensor):
-                return _to(p, self.device)
-            return p if p.device == self.device else p.to(self.device, non_blocking=True)
-        leaf = ShardedLeaf(parts=parts, axis=ax - len(self.shapes[i]), mesh=self.mesh)
-        return leaf.gather() if self._gathered[i] else leaf
+            return leaf_to(parts[0], self.device)
+        ndim = len(self.shapes[self._groups[key][0]]) + (kind == "expert")
+        leaf = ShardedLeaf(parts=parts, axis=ax - ndim, mesh=self.mesh)
+        return leaf.gather() if self._gathered[key] else leaf
 
-    def _fp_leaf(self, i: int):
-        key = self.keys[i]
-        if key not in self._leaf_cache or i in self._dirty:
-            self._refresh_fp([i])
+    def _fp_leaf(self, key):
+        if self._stale(key):
+            self._refresh_fp([key])
         return self._leaf_cache[key]
 
     def materialize_leaves(self) -> dict[Any, Any]:
-        """Every tensor dequantized, ``{key: leaf}``; only tensors touched
+        """Every leaf dequantized, ``{key: leaf}``; only leaves touched
         since the last call are recomputed, the rest come back as the same
         objects."""
-        self._refresh_fp([i for i, k in enumerate(self.keys)
-                          if k not in self._leaf_cache or i in self._dirty])
+        self._refresh_fp([k for k in self._groups if self._stale(k)])
         self._dirty.clear()
-        return {k: self._leaf_cache[k] for k in self.keys}
+        return {k: self._leaf_cache[k] for k in self._groups}
 
     # -- quantized-resident views ------------------------------------------
-    def _quantized_leaf(self, i: int):
+    def _quantized_leaf(self, key):
         parts = []
-        for j, lidx in self._placement[i]:
-            sub = self.substores[j]
-            got = sub._quantized_leaf(sub.slots[lidx].key)
+        for j in self._shards[key]:
+            got = self.substores[j]._quantized_leaf(key)
             if got is None:
                 return None
             parts.append(got)
-        return self._assemble(i, tuple(parts))
+        return self._assemble(key, tuple(parts))
 
     def quantized_leaves(self, eligible=None, *, bits: int | None = None) -> dict[Any, Any]:
         """The sharded mirror of :meth:`PlaneStore.quantized_leaves`:
@@ -881,16 +930,16 @@ class ShardedPlaneStore:
         truncated views, sharing the same accumulators (a gathered
         leaf's view shares the gathered tensor)."""
         out: dict[Any, Any] = {}
-        for i, key in enumerate(self.keys):
+        for key, idxs in self._groups.items():
             if eligible is None or eligible(key):
                 got = self._qleaf_cache.get(key)
                 if got is None:
-                    got = self._quantized_leaf(i)
+                    got = self._quantized_leaf(key)
                     if got is not None:
                         self._qleaf_cache[key] = got
                 if got is not None:
                     if bits is not None:
-                        b_eff = min(bits, self.schedules[i].bits)
+                        b_eff = min(bits, self.schedules[idxs[0]].bits)
                         trunc = self._qtrunc_cache.get((key, b_eff))
                         if trunc is None:
                             trunc = got.truncate(b_eff)
@@ -898,6 +947,6 @@ class ShardedPlaneStore:
                         got = trunc
                     out[key] = got
                     continue
-            out[key] = self._fp_leaf(i)
+            out[key] = self._fp_leaf(key)
         self._dirty.clear()
         return out

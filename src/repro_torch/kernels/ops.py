@@ -63,7 +63,15 @@ def sharded_dequant_matmul(x, shards, scales, offsets, *, mesh, keeps=None, bits
     tensor a shard, on the shard's device: the store's shard-local
     constants. Tensors on the CPU take the plain version
     (``ref.sharded_dequant_matmul_ref``); a CUDA shard launches the
-    kernel or raises."""
+    kernel or raises.
+
+    One case gathers instead: (K, N_j) shards too narrow for the GEMV
+    route's one-pass kernels (8-value loads; mixtral's router, 8 columns
+    in 2 or 4) would take its general kernels, which sum K in another
+    order than the one-pass launch the whole weight takes. Their columns
+    (96 KB for mixtral's router) are joined on x's device and one B2
+    launch runs there, on either route, so the result stays that
+    launch's."""
     global sharded_launches
     _count("sharded_dequant_matmul")
     devs = mesh.model_devices
@@ -78,6 +86,15 @@ def sharded_dequant_matmul(x, shards, scales, offsets, *, mesh, keeps=None, bits
     if x.device.type != "cuda" or any(d.type != "cuda" for d in devs):
         raise ValueError(f"x on {x.device} and shards on {[str(d) for d in devs]}: the "
                          f"CUDA path wants every tensor on a card")
+    if not all(_dqm.one_pass(q, n_split) for q in shards):
+        def home(t):
+            return t if t is None or t.device == x.device else t.to(x.device, non_blocking=True)
+        whole = torch.cat([home(q) for q in shards], dim=1)
+        if _dqm.one_pass(whole):
+            sharded_launches += 1
+            return _dqm.dequant_matmul(x, whole, home(scales[0]), home(offsets[0]),
+                                       None if keeps is None else home(keeps[0]), bits=bits,
+                                       rows=rows)
     outs = []
     for q, s, o, k, dev in zip(shards, scales, offsets,
                                [None] * len(shards) if keeps is None else keeps, devs):

@@ -27,8 +27,8 @@ equal the unsharded run's, and a run across cards is not yet checked.
 starcoder2-15b, gemma3-27b with its sliding windows) and the
 mixture-of-experts decoders (mixtral-8x22b, dbrx-132b), each with
 ``--reduced``; the other architectures are still to be ported (ROADMAP
-A8). ``--mesh-shards`` with a MoE arch raises: a bank split on its
-expert dim needs the expert route of sharded serving (ROADMAP A13).
+A8). With ``--mesh-shards`` a MoE arch's expert banks split on their
+expert dim, each shard running its own experts.
 """
 from __future__ import annotations
 

@@ -11,7 +11,7 @@ from typing import Any
 import torch
 import torch.nn.functional as F
 
-from repro_torch.core.plane_store import ShardedLeaf
+from repro_torch.core.plane_store import ShardedLeaf, on_device
 from repro_torch.core.quantize import QuantizedTensor
 from repro_torch.kernels import ops, ref
 
@@ -167,10 +167,11 @@ def dense_init(generator: torch.Generator, d_in: int, d_out: int, lead: tuple = 
 # accumulators, whose product runs through ops.dequant_matmul: the float
 # weight never exists in device memory.
 #
-# Under a serving mesh a weight split on its output dim is a ShardedLeaf
-# (core/plane_store.py): its product runs a shard at a time
-# (ops.sharded_dequant_matmul, or a matmul a shard for float leaves) and
-# the outputs are gathered on x's device, the mesh's home device, where
+# Under a serving mesh a weight split on its output dim, or an expert
+# bank split on its expert dim, is a ShardedLeaf (core/plane_store.py):
+# its product runs a shard at a time (ops.sharded_dequant_matmul, a
+# matmul a shard for float leaves, or a shard's experts) and the outputs
+# are gathered on x's device, the mesh's home device, where
 # attention, norms, caches and sampling run once: the counterpart of the
 # reference pinning every activation replicated. No contraction is ever
 # split, so no partial sums are added.
@@ -247,10 +248,11 @@ def expert_dense(x: torch.Tensor, w, *, dtype, rows: str = "any") -> torch.Tenso
     (B*C, d) rows, with the expert's own ``q`` (a view of the store's
     buffer), its (1, 1) ``scale`` and ``offset`` (banks sliced per expert
     keep a range each) and its own ``keep`` plane mask; ``rows`` as
-    :func:`dense`. A float bank is one einsum in ``dtype``."""
+    :func:`dense`. A float bank is one einsum in ``dtype``. A
+    :class:`ShardedLeaf` bank split on its expert dim runs a shard at a
+    time (:func:`_expert_dense_sharded`)."""
     if isinstance(w, ShardedLeaf):
-        raise NotImplementedError("the expert route of sharded serving is still to be "
-                                  "ported (ROADMAP A13)")
+        return _expert_dense_sharded(x, w, dtype=dtype, rows=rows)
     if isinstance(w, QuantizedTensor):
         B, E, C, d = x.shape
         outs = []
@@ -262,6 +264,28 @@ def expert_dense(x: torch.Tensor, w, *, dtype, rows: str = "any") -> torch.Tenso
             outs.append(ye.reshape(B, C, -1))
         return torch.stack(outs, dim=1).to(dtype)
     return torch.einsum("becd,edf->becf", x, w.to(dtype))
+
+
+def _expert_dense_sharded(x: torch.Tensor, w: ShardedLeaf, *, dtype, rows: str
+                          ) -> torch.Tensor:
+    """Shard j's experts ``[e0, e1)`` of a bank split on its expert dim:
+    x's slice of experts goes to the shard's device (no copy for logical
+    shards of x's), :func:`expert_dense` runs there on the shard's part
+    (one B2 launch an expert, with the expert's own affine and mask, or
+    one einsum), and the outputs come back to x's device in expert
+    order. An expert's N is never split, so every expert's output equals
+    the unsharded call's."""
+    if w.axis != -3:
+        raise ValueError(f"an expert bank split on axis {w.axis}, not its expert dim")
+    outs, e0 = [], 0
+    for part, size, dev in zip(w.parts, w.sizes(), w.mesh.model_devices):
+        xj = x[:, e0:e0 + size]
+        with on_device(dev):
+            y = expert_dense(xj if xj.device == dev else xj.to(dev, non_blocking=True), part,
+                             dtype=dtype, rows=rows)
+        outs.append(y if y.device == x.device else y.to(x.device, non_blocking=True))
+        e0 += size
+    return torch.cat(outs, dim=1)
 
 
 def _dense_sharded(x: torch.Tensor, w: ShardedLeaf, *, dtype, rows: str) -> torch.Tensor:

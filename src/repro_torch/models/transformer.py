@@ -15,7 +15,7 @@ from __future__ import annotations
 import dataclasses
 import torch
 
-from repro_torch.core.plane_store import ShardedLeaf
+from repro_torch.core.plane_store import ShardedLeaf, leaf_to
 from repro_torch.core.quantize import QuantizedTensor
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
@@ -101,6 +101,13 @@ def layer(tree, r: int):
     if isinstance(tree, dict):
         return {k: layer(v, r) for k, v in tree.items()}
     if isinstance(tree, ShardedLeaf):
+        if tree.axis == -len(tree.shape):
+            # split on the layer axis itself (a bank sliced by layer, when
+            # the depth equals n_experts): layer r is one part's, moved home
+            for part, n in zip(tree.parts, tree.sizes()):
+                if r < n:
+                    return leaf_to(layer(part, r), tree.mesh.home)
+                r -= n
         return dataclasses.replace(tree, parts=tuple(layer(p, r) for p in tree.parts))
     if isinstance(tree, QuantizedTensor):
         return dataclasses.replace(

@@ -23,7 +23,8 @@ caches equal to sequential decode steps, and speculative tokens equal to
 plain greedy decoding, exactly. Mixture of experts: B2 at the router
 (N = 8) and the expert slots, ``expert_dense`` on per-expert slot views
 with per-expert masks within the same 1e-4, MoE verify rows equal to
-decode steps exactly.
+decode steps exactly, and (sharded serving) a bank on 2 and 4 logical
+shards equal to the unsharded bank exactly.
 """
 import numpy as np
 import pytest
@@ -914,6 +915,77 @@ def test_moe_decode_step_never_syncs(dev):
     assert bool(torch.isfinite(logits).all())
 
 
+@pytest.mark.parametrize("n", [2, 4])
+def test_expert_dense_on_sharded_bank(dev, n):
+    """``expert_dense`` on a ``ShardedLeaf`` bank, the expert route of a
+    ``ShardedPlaneStore`` over n logical shards of the card: mixtral's
+    slices (8 experts of 6144 x 16,384), stage 3 cut mid-way so the
+    experts hold different received bits, the 4-bit draft view's
+    per-expert ``keep``. E B2 launches in all, each expert's on its
+    shard's slot, and the result ``torch.equal`` to the unsharded call at
+    M = 4 and 8 rows an expert, both ``rows``."""
+    from repro_torch.core.plane_store import PlaneStore, ShardedLeaf, ShardedPlaneStore
+    from repro_torch.core.policy import ExpertPopularityPolicy
+    from repro_torch.core.progressive import divide
+    from repro_torch.models.common import expert_dense
+
+    E, d, f = 8, 6144, 16384
+    g = torch.Generator(device=dev).manual_seed(6)
+    bank = torch.randn((E, d, f), generator=g, device=dev) \
+        * torch.arange(1, E + 1, device=dev)[:, None, None]
+    prog = divide({"moe": {"we_gate": bank}}, ExpertPopularityPolicy(
+        n_experts=E, popularity={e: 0.1 * e for e in range(E)}))
+    del bank
+    one = PlaneStore.from_model(prog, device=dev)
+    sharded = ShardedPlaneStore.from_model(prog, _mesh(dev, n))
+    for s in range(1, 4):
+        items = prog.stage(s)
+        for store in (one, sharded):
+            store.ingest(items if s < 3 else items[:5])
+    del prog
+    key = ("moe", "we_gate")
+    for bits in (None, 4):
+        w1 = one.quantized_leaves(bits=bits)[key]
+        wn = sharded.quantized_leaves(bits=bits)[key]
+        assert isinstance(wn, ShardedLeaf) and wn.axis == -3 and len(wn.parts) == n
+        assert len(set(w1.received_bits.flatten().tolist())) == (2 if bits is None else 1)
+        for C in (1, 2):
+            x = torch.randn((4, E, C, d), generator=g, device=dev).to(torch.bfloat16)
+            for rows in ("any", "decode"):
+                before = dequant_matmul.launches
+                y = expert_dense(x, wn, dtype=torch.bfloat16, rows=rows)
+                assert dequant_matmul.launches - before == E
+                assert torch.equal(y, expert_dense(x, w1, dtype=torch.bfloat16, rows=rows)), \
+                    (bits, C, rows)
+
+
+def test_sharded_moe_decode_step_never_syncs(dev):
+    """A MoE decode step on 2 logical shards and an upgrade under
+    ``torch.cuda.set_sync_debug_mode("error")``: the shards' experts and
+    the split weights read nothing back to the host; the logits equal one
+    device's."""
+    from repro_torch.serving import ProgressiveServer
+
+    model, prog = _moe_model(dev)
+    logits = []
+    for mesh in (None, _mesh(dev, 2)):
+        srv = ProgressiveServer(model, prog, max_len=48, resident="quantized", mesh=mesh,
+                                device=dev)
+        srv.receive_stage()
+        srv.start({"tokens": torch.arange(12).reshape(2, 6)})
+        tok = torch.zeros((2, 1), dtype=torch.int32, device=dev)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            out, caches = model.decode_step(srv.params, srv.caches, tok, 6)
+            srv.receive_stage()
+            out, caches = model.decode_step(srv.params, caches, tok, 7)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        logits.append(out)
+    assert bool(torch.isfinite(logits[1]).all()) and torch.equal(logits[0], logits[1])
+
+
 def _spec_model(dev, seed=0, **over):
     """Reduced olmo-1b in bfloat16 on the card (hd 64), divided."""
     from repro_torch.configs import get_config
@@ -1337,6 +1409,37 @@ def test_sharded_dequant_matmul_equals_one_launch(dev, n, K, N, layout, keep):
             assert torch.equal(ys, launch(x, q, scale, offset, kt, bits=16)), (M, launch)
         want = ref.sharded_dequant_matmul_ref(x, shards, scales, offsets, keeps, bits=16)
         assert (y - want).abs().max().item() <= 1e-4 * want.abs().max().item() + 1e-6
+
+
+@pytest.mark.parametrize("n", [2, 4])
+@pytest.mark.parametrize("keep", [None, 4])
+def test_sharded_dequant_matmul_narrow_shards_gather(dev, n, keep):
+    """mixtral's router (6144, 8) split on its 8 columns: shards of 4 or 2
+    columns are too narrow for the one-pass kernels, so B7 joins them and
+    launches once (on the one-pass kernel on the GEMV route): one B2
+    launch, ``torch.equal`` to one B2 launch on the whole q."""
+    from repro_torch.kernels import ops
+
+    K, N = 6144, 8
+    x_all, q, scale, offset = _dqmm_operands(dev, 64, K, N, torch.uint16, "kn",
+                                             torch.bfloat16, K + N + n)
+    w = N // n
+    shards = [q[:, j * w:(j + 1) * w].contiguous() for j in range(n)]
+    assert dequant_matmul.one_pass(q) and not dequant_matmul.one_pass(shards[0], N)
+    kt = None if keep is None else torch.full((1, 1), keep, dtype=torch.int32, device=dev)
+    mesh = _mesh(dev, n)
+    for M in (1, 4, 8, 20, 64):
+        for rows in ("any", "decode"):
+            x = x_all[:M]
+            before = dequant_matmul.launches
+            general = dequant_matmul.launches_by_gemv_kernel["general"]
+            y = ops.sharded_dequant_matmul(x, shards, [scale] * n, [offset] * n,
+                                           keeps=None if kt is None else [kt] * n, bits=16,
+                                           rows=rows, mesh=mesh)
+            assert dequant_matmul.launches - before == 1
+            assert dequant_matmul.launches_by_gemv_kernel["general"] == general
+            assert torch.equal(y, dequant_matmul.dequant_matmul(x, q, scale, offset, kt,
+                                                                bits=16, rows=rows)), (M, rows)
 
 
 @pytest.mark.parametrize("M,K,N,layout", [(4, 2048, 2048, "kn"), (8, 2048, 8192, "kn"),

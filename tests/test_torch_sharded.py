@@ -280,8 +280,9 @@ def test_store_matches_reference(world, name, n):
 
 
 def test_store_routes_and_refusals(world):
-    """``embed`` is split for ingest but gathered whole for serving; the
-    parts still to port raise naming their ROADMAP item."""
+    """``embed`` is split for ingest but gathered whole for serving; a
+    lone sliced entry routes whole; replica rows, still to port, raise
+    naming their ROADMAP item."""
     prog = world["progs"]["olmo"]
     st = ReceiverState.init(prog, mesh=_mesh(2), device="cpu").store
     leaves = st.quantized_leaves()
@@ -297,8 +298,10 @@ def test_store_routes_and_refusals(world):
     entries = [{"key": "e", "schedule": prog.tensors[0].plan.schedule, "lo": 0.0, "hi": 1.0,
                 "shape": (4, 8), "orig_dtype": torch.float32, "slice_axis": 0,
                 "slice_idx": 0}]
-    with pytest.raises(NotImplementedError, match="A13"):
-        ShardedPlaneStore(entries, _mesh(2))
+    # a lone slice is not an expert bank the shards can divide: the
+    # reference's rules send it whole to one shard
+    lone = ShardedPlaneStore(entries, _mesh(2))
+    assert lone._route == {"e": ("whole", 0)} and lone.placement(0) == [(0, 0)]
     with pytest.raises(ValueError, match="home device"):
         ReceiverState.init(prog, mesh=make_serving_mesh(2, devices=["meta", "cpu"]),
                            device="cpu")
