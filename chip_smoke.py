@@ -23,12 +23,32 @@ with the launch counts set to 0 just before it and read just after:
    ``SpeculativeEngine`` at stage 8, tokens equal to plain; B2 on every
    distinct weight shape at M = 1-64 with and without a mask, B3 and B4 at
    the arch's heads, against their plain versions (verify rows equal to
-   decode rows); ``[path]`` (phase 7) at stages 1 and 8; the CLI for
+   decode rows); ``[path]`` (phase 7) at stages 1 and 8 (starcoder2-15b's at
+   1 layer); the CLI for
    minitron-4b at full width; ``[mesh]`` for starcoder2-15b x4: its single
    stream on 2 logical shards of the card, every logit and token
    ``torch.equal`` to the phase's single-device stream (B7 on every layer
    weight and the untied ``lm_head``), B7 and B2 launches a decode step
    counted;
+1a'. ``[arch xlstm-125m]`` and ``[arch zamba2-7b x13]``: the recurrent
+   blocks (ROADMAP A8(d)) at their published widths, xlstm-125m whole (6
+   sLSTM and 6 mLSTM blocks), zamba2-7b at 13 of its 81 layers (two cycles
+   of five Mamba-2 blocks and the shared attention block, one set of
+   weights and a cache a use, and a Mamba-2 tail), seeded weights:
+   ``divide`` and the stage-8 accumulators as 1a; the single stream
+   (phase 3's shape) with a decode step's launches checked by name and
+   route (55 B2 and no B3; 37 B2 and 2 B3 at G = 1, hd = 112), then from
+   v3 wire bytes and in float residency as 1a; the last logits of a
+   prefill against a prefill one token shorter and a decode step (the
+   chunked SSD and the mLSTM/sLSTM scans against the step recurrence),
+   within ``PATH_RTOL``; the pool's 12 requests, then each alone in a pool
+   of the same size stepped at the busy pool's stages, tokens
+   ``torch.equal``; a chunk tick and a decode step leaving every masked
+   slot's recurrent state ``torch.equal``; ``SpeculativeEngine`` and a
+   serving mesh refused; B2 on every weight shape, B3 and B4 at the
+   shared block's heads; ``[path]`` at 2 layers (a sLSTM and a mLSTM
+   block; two Mamba-2 blocks as a tail, no full cycle), a prefill chunk
+   and no verify; the CLI for xlstm-125m;
 1b. ``[arch gemma3-27b x6]``: sliding windows over ring caches, qk-norm,
    the logit softcap and the global layers' rope base (ROADMAP A8(b)) at
    gemma3-27b's published widths, one 5:1 cycle (6 of its 62 layers):
@@ -303,9 +323,22 @@ CAL_BATCH, CAL_LEN = 4, 64
 # (its float32 weights, 88 GB at full depth by the reference's GLU MLP,
 # do not fit the card that divides them); B2 checked at these rows on
 # every distinct weight shape, a float-resident run of FP_STEPS steps
-ARCHS = (("minitron-4b", None), ("starcoder2-15b", 4))
+ARCHS = (("minitron-4b", None), ("starcoder2-15b", 4), ("xlstm-125m", None),
+         ("zamba2-7b", 13))
 ARCH_DQMM_M = (1, 4, 8, 20, 64)
 ARCH_FP_STEPS = 16
+# [path] at 2 layers but starcoder2-15b's at 1: the CPU side of its
+# 6144-wide layers set its phase's time (108.7-145.9 s at 2 layers), and
+# with the recurrent phases the script passed 960 s (ROADMAP's first cut)
+ARCH_PATH_LAYERS = {"starcoder2-15b": 1}
+# the recurrent archs of ROADMAP A8(d) among ARCHS (``_recurrent_phase``):
+# xlstm-125m whole, zamba2-7b at 13 of its 81 layers (two cycles of five
+# mamba2 blocks and the shared attention block, and a mamba2 tail; the 81
+# layers' 5.6 B weights do not fit a divide on one card); each recurrent
+# block's B2 weights in the order a token runs them
+RECURRENT_B2 = {"mamba2": ("in_proj", "out_proj"),
+                "mlstm": ("up_proj", "wq", "wk", "wv", "w_if", "down_proj"),
+                "slstm": ("w_in", "up_proj", "down_proj")}
 # [arch gemma3-27b x6]: sliding windows (ROADMAP A8(b)) at gemma3-27b's
 # published widths, one 5:1 cycle of its 62 layers (its float32 weights,
 # 108 GB at full depth, do not fit the card that divides them). The
@@ -1771,13 +1804,15 @@ def _tally(acc: dict, routes: dict, what: str) -> tuple[dict, dict]:
     return got, by
 
 
-def _fp_against_quantized(fp_logits, q_logits, fp_tokens, q_tokens) -> tuple[float, int, int]:
+def _fp_against_quantized(fp_logits, q_logits, fp_tokens, q_tokens, held=True
+                          ) -> tuple[float, int, int]:
     """Hold the float-resident run to the quantized-resident one, step by
     step and row by row while the row's tokens so far agree: logits within
     ``FP_LOGIT_RTOL`` of the largest quantized logit, and the greedy token
     equal wherever the quantized logits' top two are further apart than
     twice that. Returns the worst relative error, the tokens checked and
-    the tokens whose margin did not clear the tolerance."""
+    the tokens whose margin did not clear the tolerance. With ``held``
+    False it only compares: a token that differs ends its row."""
     worst, checked, near = 0.0, 0, 0
     B = fp_tokens.shape[0]
     live = [True] * B
@@ -1789,12 +1824,14 @@ def _fp_against_quantized(fp_logits, q_logits, fp_tokens, q_tokens) -> tuple[flo
                 continue
             mag = float(ql[b].abs().max())
             err = float((fl[b] - ql[b]).abs().max())
-            check(err <= FP_LOGIT_RTOL * mag, ("fp logits", i, b, err, mag))
+            check(not held or err <= FP_LOGIT_RTOL * mag, ("fp logits", i, b, err, mag))
             worst = max(worst, err / mag)
             top2 = torch.topk(ql[b], 2).values
             if float(top2[0] - top2[1]) > 2 * FP_LOGIT_RTOL * mag:
-                check(int(fp_tokens[b, i]) == int(q_tokens[b, i]), ("fp token", i, b))
-                checked += 1
+                same = int(fp_tokens[b, i]) == int(q_tokens[b, i])
+                check(not held or same, ("fp token", i, b))
+                checked += same
+                live[b] = same
             else:
                 near += 1
                 if int(fp_tokens[b, i]) != int(q_tokens[b, i]):
@@ -2173,13 +2210,16 @@ def _upgrade_phase(prog, dev, ops):
 
 
 def _pool_phase(model, prog, dev, ops, tag="[pool]", fp_bytes=0, *, slots=POOL_SLOTS,
-                max_len=POOL_MAX_LEN, requests=None, b2_calls=None):
+                max_len=POOL_MAX_LEN, requests=None, b2_calls=None, attn_layers=None,
+                hook=None):
     """Serve the requests (default: the 12 of ``_pool_requests``) through
     the slot pool of ``slots`` slots from stage 1, one upgrade per window
     up to stage 8, and check what came out and which kernels ran;
     ``fp_bytes`` is the float leaves' resident bytes (olmo-1b has none);
     ``b2_calls(ticks, steps)`` gives B2's launches as :func:`expect_routes`
-    reads them (default: the dense layers' :func:`pass_calls`). Returns
+    reads them (default: the dense layers' :func:`pass_calls`);
+    ``attn_layers`` the attention launches a forward pass (default: a
+    layer each); ``hook(pool)`` runs before the first request. Returns
     the drained pool, the run's launch counts and ``dequant_matmul``'s
     launches by route."""
     from repro_torch.serving.engine import PoolRequest, SlotPoolEngine
@@ -2191,6 +2231,8 @@ def _pool_phase(model, prog, dev, ops, tag="[pool]", fp_bytes=0, *, slots=POOL_S
     pool = SlotPoolEngine(checked, prog, n_slots=slots, max_len=max_len,
                           resident="quantized", dispatch_window=POOL_WINDOW,
                           prefill_chunk=POOL_CHUNK, device=dev)
+    if hook is not None:
+        hook(pool)
     torch.cuda.synchronize()
     reset_counts(ops)
     t0 = time.perf_counter()
@@ -2206,6 +2248,7 @@ def _pool_phase(model, prog, dev, ops, tag="[pool]", fp_bytes=0, *, slots=POOL_S
     op_counts = dict(ops.LAUNCH_COUNTS)
 
     layers, ticks, steps = cfg.n_layers, pool._tick_count, pool._step_count
+    attn = layers if attn_layers is None else attn_layers
     report = pool.resident_report()
     check(sorted(out) == list(range(n_req)), sorted(out))
     for rid, toks in out.items():
@@ -2216,10 +2259,10 @@ def _pool_phase(model, prog, dev, ops, tag="[pool]", fp_bytes=0, *, slots=POOL_S
     check(report["fp_bytes"] == fp_bytes, (report["fp_bytes"], fp_bytes))
     check(pool.stage == prog.n_stages == 8, f"pool ended at stage {pool.stage}")
     check(run_counts["plane_or_segments"] == 8, run_counts)
-    check(ticks > 0 and op_counts["prefill_attention"] == run_counts["flash_verify"]
-          == layers * ticks, (op_counts, run_counts, ticks))
-    check(run_counts["decode_attention"] == op_counts["decode_attention"]
-          == layers * steps, (run_counts, steps))
+    check(ticks > 0 and op_counts.get("prefill_attention", 0) == run_counts["flash_verify"]
+          == attn * ticks, (op_counts, run_counts, ticks))
+    check(run_counts["decode_attention"] == op_counts.get("decode_attention", 0)
+          == attn * steps, (run_counts, steps))
     # a chunk tick runs every weight at M = slots x chunk, a decode step at
     # M = slots
     calls = (b2_calls(ticks, steps) if b2_calls else
@@ -3256,10 +3299,14 @@ def _arch_phase(name: str, n_layers, dev, ops) -> dict:
     from repro_torch.configs import get_config
     from repro_torch.models.model import build_model
 
+    from repro_torch.models.transformer import recurrent_kinds
+
     t_phase = time.perf_counter()
     cfg = get_config(name)
     if n_layers:
         cfg = dataclasses.replace(cfg, n_layers=n_layers)
+    if recurrent_kinds(cfg):
+        return _recurrent_phase(cfg, dev, ops)
     run = types.SimpleNamespace(
         tag=f"[arch {name}{'' if n_layers is None else f' x{n_layers}'}]", cfg=cfg,
         model=build_model(cfg), dev=dev, ops=ops, counts={}, routes={}, kern={},
@@ -3280,8 +3327,10 @@ def _arch_phase(name: str, n_layers, dev, ops) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    path_err, chunk_err = _whole_path(cfg, dev, stages=(1, 8), cpu_divides=False)
-    log(f"{run.tag} [path] 2 layers at full width, cuda kernels vs cpu plain versions, each "
+    depth = ARCH_PATH_LAYERS.get(name, 2)
+    path_err, chunk_err = _whole_path(cfg, dev, stages=(1, 8), cpu_divides=False,
+                                      n_layers=depth)
+    log(f"{run.tag} [path] {depth} layers at full width, cuda kernels vs cpu plain versions, each "
         f"side ingesting its own copy of the card's planes, fingerprints equal at stages 1 and "
         f"8: "
         f"teacher-forced logits at stages 1 and 8 max |err| / max |logit| = {path_err:.3e}; "
@@ -3332,7 +3381,8 @@ def _arch_divide(run):
         before += w
     log(f"{run.tag} {cfg.n_layers} layers, d_model {cfg.d_model}, {cfg.n_heads} heads on "
         f"{cfg.n_kv} KV heads (G = {cfg.n_heads // cfg.n_kv}), hd {cfg.hd}, d_ff {cfg.d_ff}, "
-        f"vocab {cfg.vocab}, {cfg.norm_type}, {cfg.act} (tanh), tied embeddings "
+        f"vocab {cfg.vocab}, {cfg.norm_type}, {cfg.act}{' (tanh)' if cfg.act == 'gelu' else ''}, "
+        f"tied embeddings "
         f"{cfg.tie_embeddings}: {run.n_params} parameters ({run.n_fp} in float norm leaves), "
         f"{n_t} tensors; divide on the card {t_divide:.2f} s, launches {got}; the 8 planes of "
         f"{'/'.join(big.path)} {tuple(big.shape)} equal the plain version")
@@ -3363,17 +3413,35 @@ def _arch_divide(run):
 
 
 def _arch_single(run, prog) -> torch.Tensor:
-    """The single stream from in-memory planes in quantized residency,
-    counted from 0; then a decode step's B2 and B3 launches timed, B2 on
-    every distinct weight shape and B3 on layer 0's cache against their
-    plain versions. Returns the tokens."""
-    from repro_torch.kernels import decode_attention as da
-    from repro_torch.kernels import dequant_matmul as dqm
-    from repro_torch.kernels import ref
+    """The single stream (:func:`_arch_stream`: 7 B2 launches a layer and
+    the unembedding, a B3 a layer, a decode step); then a decode step's B2
+    and B3 launches timed, B2 on every distinct weight shape and B3 on
+    layer 0's cache against their plain versions. Returns the tokens."""
     from repro_torch.models.transformer import layer
+
+    L, dev = run.cfg.n_layers, run.dev
+    srv, res = _arch_stream(run, prog, L * 7 + 1, L,
+                            [(L * 7, BATCH * PROMPT), (1, BATCH)] + pass_calls(L, STEPS, BATCH),
+                            "the norms")
+    # a decode step's B2 launches, then B3's on the device
+    xg = torch.Generator(device=dev).manual_seed(2)
+    run.kern["dequant_matmul"] = _decode_b2_row(run, srv.params, xg)
+    run.kern["decode_attention"] = _decode_attention_row(
+        run, [layer(srv.caches["cycles"]["0_attn"], r) for r in range(L)], xg)
+    return res.tokens.cpu()
+
+
+def _arch_stream(run, prog, b2_step: int, b3_step: int, calls, fp_leaves: str):
+    """The single stream from in-memory planes in quantized residency,
+    counted from 0: stages 1-8 landing mid-decode, logits finite, resident
+    bytes, ``b2_step`` B2 and ``b3_step`` B3 launches a decode step, B2's
+    launches by route as ``calls`` (:func:`expect_routes`) and every GEMV
+    launch on the one-pass kernels (``_tally``); ``fp_leaves`` names the
+    float leaves in the log. Returns the server and its result."""
+    from repro_torch.kernels import dequant_matmul as dqm
     from repro_torch.serving import ProgressiveServer
 
-    cfg, L, dev = run.cfg, run.cfg.n_layers, run.dev
+    cfg, dev = run.cfg, run.dev
     lm = LogitLog(run.model)
     checked = FiniteLogits(lm)
     srv = ProgressiveServer(checked, prog, max_len=PROMPT + STEPS, resident="quantized",
@@ -3397,28 +3465,34 @@ def _arch_single(run, prog) -> torch.Tensor:
     check(res.tokens.shape == (BATCH, STEPS) and int(res.tokens.max()) < cfg.vocab)
     check(rep["quantized_bytes"] == 2 * (run.n_params - run.n_fp)
           and rep["fp_bytes"] == 4 * run.n_fp and rep["fp_leaves"] > 0, rep)
-    check(per_step["dequant_matmul"] == L * 7 + 1 and per_step["decode_attention"] == L, per_step)
+    check(per_step["dequant_matmul"] == b2_step and per_step["decode_attention"] == b3_step,
+          per_step)
     check(got["plane_or_segments"] == 8 and got["flash_verify"] == 0, got)
-    check(by == expect_routes([(L * 7, BATCH * PROMPT), (1, BATCH)]
-                              + pass_calls(L, STEPS, BATCH)), by)
+    check(by == expect_routes(calls), by)
     # the stream [mesh] holds its sharded runs to
     run.stream = (lm.logits, res.tokens.cpu()) if run.mesh_shards else None
     log(f"{run.tag} single stream (in-memory planes, quantized): stages "
         f"{res.stage_at_step[0]}->{res.stage_at_step[-1]}, upgrades {res.upgrades}; resident "
         f"{rep['quantized_bytes']} B quantized + {rep['fp_bytes']} B in {rep['fp_leaves']} "
-        f"float leaves (the norms)")
+        f"float leaves ({fp_leaves})")
     log(f"{run.tag} receive_stage + prefill {t_prefill * 1e3:.1f} ms; decode {STEPS} steps x "
         f"{BATCH} with 7 upgrades: {decode_s:.3f} s, {BATCH * STEPS / decode_s:.1f} tokens/s, "
         f"{decode_s / STEPS * 1e3:.2f} ms/step; per step dequant_matmul "
         f"{per_step['dequant_matmul']:.0f}, decode_attention {per_step['decode_attention']:.0f}; "
         f"launches {got}; dequant_matmul by route {by}, GEMV route by kernel "
         f"{dict(dqm.launches_by_gemv_kernel)}")
+    return srv, res
 
-    # a decode step's B2 launches, then B3's on the device
-    xg = torch.Generator(device=dev).manual_seed(2)
-    run.kern["dequant_matmul"] = _decode_b2_row(run, srv.params, xg)
 
-    caches = [layer(srv.caches["cycles"]["0_attn"], r) for r in range(L)]
+def _decode_attention_row(run, caches, xg) -> dict:
+    """B3 on ``caches`` (a decode step's layer caches, (B, Kh, S, hd)) at
+    the arch's heads: the first within ``ATTN_RTOL`` of the plain version
+    (a ragged slot, a free slot), then the step's launches timed beside
+    the bound, the plain version and SDPA. Returns the kernels-line row."""
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import ref
+
+    cfg, dev, L = run.cfg, run.dev, len(caches)
     S = caches[0]["k"].shape[2]
     k_pos = torch.arange(S, dtype=torch.int32, device=dev).repeat(BATCH, 1)
     k_pos[1, 41:] = -1
@@ -3437,26 +3511,30 @@ def _arch_single(run, prog) -> torch.Tensor:
         lambda: [da.flash_decode(q, c["k"], c["v"], k_pos, q_pos) for c in caches],
         lambda: [ref.flash_decode_ref(q, c["k"], c["v"], k_pos, q_pos) for c in caches],
         lambda: [_sdpa(q[:, None], c, mask[:, None, None]) for c in caches])
-    ms = row["ms"]
-    run.kern["decode_attention"] = {**row, "bound_ms": b, "bound_by": bb, "max_abs_err": err,
-                                    "per": f"one decode step ({L} launches)"}
     log(f"{run.tag} [check] decode_attention B={BATCH} H={cfg.n_heads} Kh={cfg.n_kv} S={S} "
         f"hd={cfg.hd} (ragged slot, free slot): max |err| {err:.3e} (tolerance {ATTN_RTOL} of "
-        f"max |out|); [time] a decode step's {L} launches {ms:.4f} ms on the device, bound "
-        f"{b:.4f} ms ({bb}), plain {row['plain_ms']:.4f} ms, library {row['library_ms']:.4f} "
-        f"ms (scaled_dot_product_attention, GQA, additive mask)")
-    return res.tokens.cpu()
+        f"max |out|); [time] a decode step's {L} launches {row['ms']:.4f} ms on the device, "
+        f"bound {b:.4f} ms ({bb}), plain {row['plain_ms']:.4f} ms, library "
+        f"{row['library_ms']:.4f} ms (scaled_dot_product_attention, GQA, additive mask)")
+    return {**row, "bound_ms": b, "bound_by": bb, "max_abs_err": err,
+            "per": f"one decode step ({L} launches)"}
 
 
 def _stack_layers(cfg, tree) -> list:
     """Every layer of a decoder tree (params or caches), in the order a
     forward pass runs them: each cycle's slots layer by layer, then the
-    tail."""
+    tail; a ``shared_attn`` use is the params' ``shared`` block (a cache
+    tree keeps the use's own cache)."""
     from repro_torch.models.transformer import layer
 
-    out = [layer(tree["cycles"][f"{j}_{kind}"], r) for r in range(cfg.n_cycles)
+    def one(part, slot, kind, r=None):
+        if kind == "shared_attn" and "shared" in tree:
+            return tree["shared"]          # the params' one set (caches keep a use each)
+        return tree[part][slot] if r is None else layer(tree[part][slot], r)
+
+    out = [one("cycles", f"{j}_{kind}", kind, r) for r in range(cfg.n_cycles)
            for j, kind in enumerate(cfg.cycle)]
-    return out + [tree["tail"][f"{i}_{kind}"] for i, kind in enumerate(cfg.tail)]
+    return out + [one("tail", f"{i}_{kind}", kind) for i, kind in enumerate(cfg.tail)]
 
 
 def _decode_b2_row(run, P, xg, calls=None, check_shapes=None) -> dict:
@@ -3683,36 +3761,53 @@ def _arch_fp(run, prog, receiver, prompt, store) -> None:
     """Float residency against quantized at stage 8 on ``receiver``'s store
     (``store`` names it in the log), from ``prompt``, each a fresh server
     over it (one float materialization, no second store); the float run
-    counted from 0."""
+    counted from 0. With ``run.fp_dtype`` (the recurrent archs) both
+    residencies also serve at that activation dtype, whose logits are the
+    ones held to ``FP_LOGIT_RTOL``; the arch dtype's are compared and
+    logged (a random-weight xLSTM moves its logits by more than that when
+    its weights are rounded to bfloat16: PERF.md)."""
+    from repro_torch.models.model import build_model
     from repro_torch.serving import ProgressiveServer
 
-    L, logs, n = run.cfg.n_layers, {}, prompt.shape[1]
-    for resident in ("quantized", "fp"):
-        lm = LogitLog(run.model)
-        srv = ProgressiveServer(lm, prog, max_len=n + ARCH_FP_STEPS, resident=resident,
-                                device=run.dev, receiver=receiver)
-        torch.cuda.synchronize()
-        reset_counts(run.ops)
-        srv.receive_stage()
-        srv.start({"tokens": prompt})
-        res = srv.decode(ARCH_FP_STEPS)
-        if resident == "fp":
-            got, by = _tally(run.counts, run.routes, f"{run.tag} fp")
-            check(by == {"gemv": 0, "mma": 0} and got["decode_attention"] == L * ARCH_FP_STEPS,
-                  (got, by))
-            rep = srv.resident_report()
-        logs[resident] = (lm.logits, res.tokens)
-        del srv, lm
-        gc.collect()
-    run.fp_ref = logs["fp"]      # the float run [mesh] holds its sharded one to
-    worst, n_checked, near = _fp_against_quantized(logs["fp"][0], logs["quantized"][0],
-                                                   logs["fp"][1], logs["quantized"][1])
+    L, n = run.cfg.n_layers, prompt.shape[1]
+    fp_dtype = getattr(run, "fp_dtype", None) or run.cfg.dtype
+    models = {run.cfg.dtype: run.model}
+    models.setdefault(fp_dtype, build_model(dataclasses.replace(run.cfg, dtype=fp_dtype)))
+    logs: dict = {}
+    for dtype, model in models.items():
+        for resident in ("quantized", "fp"):
+            lm = LogitLog(model)
+            srv = ProgressiveServer(lm, prog, max_len=n + ARCH_FP_STEPS, resident=resident,
+                                    device=run.dev, receiver=receiver)
+            torch.cuda.synchronize()
+            reset_counts(run.ops)
+            srv.receive_stage()
+            srv.start({"tokens": prompt})
+            res = srv.decode(ARCH_FP_STEPS)
+            if resident == "fp":
+                got, by = _tally(run.counts, run.routes, f"{run.tag} fp")
+                check(by == {"gemv": 0, "mma": 0} and got["decode_attention"]
+                      == getattr(run, "attn_layers", L) * ARCH_FP_STEPS, (got, by))
+                rep = srv.resident_report()
+            logs[dtype, resident] = (lm.logits, res.tokens)
+            del srv, lm
+            gc.collect()
+    run.fp_ref = logs[run.cfg.dtype, "fp"]   # the float run [mesh] holds its sharded one to
+    found = {dtype: _fp_against_quantized(logs[dtype, "fp"][0], logs[dtype, "quantized"][0],
+                                          logs[dtype, "fp"][1], logs[dtype, "quantized"][1],
+                                          held=dtype == fp_dtype)
+             for dtype in models}
+    worst, n_checked, near = found[fp_dtype]
     check(rep["quantized_bytes"] == 0 and rep["fp_bytes"] == 4 * run.n_params, rep)
+    held = "" if fp_dtype == run.cfg.dtype else f" at {str(fp_dtype)[6:]} activations"
     log(f"{run.tag} float residency on the {store} at stage 8 (prompt {n}, {ARCH_FP_STEPS} "
-        f"steps x {BATCH}): logits within {worst:.3e} of the largest quantized logit "
+        f"steps x {BATCH}){held}: logits within {worst:.3e} of the largest quantized logit "
         f"(tolerance {FP_LOGIT_RTOL}), greedy tokens equal at all {n_checked} positions whose "
         f"top-two margin clears twice that ({near} within it); {rep['fp_bytes']} float bytes "
-        f"beside the {store}'s accumulators")
+        f"beside the {store}'s accumulators"
+        + "".join(f"; at the arch's {str(dt)[6:]} activations (compared, not held): logits "
+                  f"within {found[dt][0]:.3e}, tokens equal at {found[dt][1]} positions "
+                  f"({found[dt][2]} within the margin)" for dt in models if dt != fp_dtype))
 
 
 def _mesh_b2_step(cfg, n: int) -> tuple[int, int]:
@@ -3916,6 +4011,345 @@ class _StoreReceiver:
 
     def materialize_resident(self, eligible=None, *, bits=None):
         return self.state.materialize_resident(eligible, bits=bits)
+
+
+# ---------------------------------------------------------------------------
+# [arch xlstm-125m], [arch zamba2-7b x13]: recurrent blocks (ROADMAP A8(d))
+# ---------------------------------------------------------------------------
+
+def _stack_kinds(cfg) -> list:
+    """The block kind of every layer, in the order a forward pass runs them."""
+    return list(cfg.cycle) * cfg.n_cycles + list(cfg.tail)
+
+
+def recurrent_b2(cfg) -> tuple[int, int, int]:
+    """A recurrent stack's B2 launches a token: the recurrent blocks'
+    (``RECURRENT_B2``), the shared attention block's (7 a use); and the
+    shared block's uses (a B3 launch each a decode step)."""
+    kinds = _stack_kinds(cfg)
+    uses = kinds.count("shared_attn")
+    return sum(len(RECURRENT_B2.get(k, ())) for k in kinds), 7 * uses, uses
+
+
+def recurrent_calls(cfg, passes: int, B: int, T: int, mode: str) -> list:
+    """B2's launches in ``passes`` forward passes of a recurrent stack over
+    (B, T) tokens, as :func:`expect_routes` reads them. A prefill runs
+    each recurrent weight once at M = B*T (its recurrence is the token
+    loop); a chunk tick steps the chunk through the recurrence, T launches
+    of each at M = B; the shared block runs at M = B*T; the unembedding at
+    M = B (a prefill's last position) or B*T. Decode runs every weight at
+    M = B on the GEMV route."""
+    rec, attn, _ = recurrent_b2(cfg)
+    if mode == "decode":
+        return [(passes * (rec + attn + 1), B, "decode")]
+    rec_calls = (passes * rec * T, B) if mode == "prefill_chunk" else (passes * rec, B * T)
+    return [rec_calls, (passes * attn, B * T), (passes, B if mode == "prefill" else B * T)]
+
+
+def _recurrent_phase(cfg, dev, ops) -> dict:
+    """``[arch xlstm-125m]``, ``[arch zamba2-7b x13]``: ROADMAP A8(d) at
+    the published widths, seeded random weights. Each path counted from
+    0: divide on the card (:func:`_arch_divide`); the single stream in
+    quantized residency (:func:`_rec_single`: a decode step's launches by
+    name and route, the prefill against the step recurrence, B2 on every
+    weight shape, B3 at the shared block's heads), then wire-fed and in
+    float residency (:func:`_arch_wire`); the pool, each request alone
+    against it, masked states (:func:`_rec_pool`); speculation and a mesh
+    refused; ``_whole_path`` at 2 layers; the CLI at full depth. Logs each
+    path's seconds and the phase's peak device memory. Returns the launch
+    counts, B2's launches by route and the kernels' rows."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import ssm
+    from repro_torch.models.model import build_model
+
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    full = get_config(cfg.name).n_layers
+    rec, attn, uses = recurrent_b2(cfg)
+    run = types.SimpleNamespace(
+        tag=f"[arch {cfg.name}{'' if cfg.n_layers == full else f' x{cfg.n_layers}'}]",
+        cfg=cfg, model=build_model(cfg), dev=dev, ops=ops, counts={}, routes={}, kern={},
+        mesh_shards=(), attn_layers=uses, fp_dtype=torch.float32,
+        prompt=torch.randint(0, cfg.vocab, (BATCH, PROMPT),
+                             generator=torch.Generator().manual_seed(1)))
+    blocks = {k: _stack_kinds(cfg).count(k) for k in dict.fromkeys(_stack_kinds(cfg))}
+    mamba = (f"; Mamba-2: d_inner {ssm.mamba2_dims(cfg)[0]}, {ssm.mamba2_dims(cfg)[1]} heads of "
+             f"{ssm.mamba2_dims(cfg)[2]}, state {cfg.ssm_state}, conv {cfg.conv_width}, SSD "
+             f"chunk {cfg.ssm_chunk}" if "mamba2" in blocks else "")
+    lstm = (f"; mLSTM d_inner {ssm.mlstm_dims(cfg)[0]} ({cfg.n_heads} heads of "
+            f"{ssm.mlstm_dims(cfg)[2]}), sLSTM up {int(4 * cfg.d_model / 3)}"
+            if "mlstm" in blocks else "")
+    attn_desc = (f"; the shared block: {cfg.n_heads} heads on {cfg.n_kv} KV heads (G = "
+                 f"{cfg.n_heads // cfg.n_kv}), hd {cfg.hd}, d_ff {cfg.d_ff}" if uses else "")
+    log(f"{run.tag} {cfg.n_layers} of {full} layers, blocks {blocks}, d_model {cfg.d_model}"
+        f"{mamba}{lstm}{attn_desc}; vocab {cfg.vocab}, tied; a decode step {rec} + {attn} + 1 B2 "
+        f"and {uses} B3 launches by the code")
+    seconds = {}
+
+    def timed(name, fn):
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        out = fn()
+        seconds[name] = round(time.perf_counter() - t0, 1)
+        return out
+
+    prog = timed("divide", lambda: _arch_divide(run))
+    tokens = timed("stream", lambda: _rec_single(run, prog))
+    timed("wire and fp", lambda: _arch_wire(run, prog, tokens))
+    timed("pool", lambda: _rec_pool(run, prog))
+    timed("refusals", lambda: _rec_refusals(run, prog))
+    del prog
+    timed("path", lambda: _rec_path(run))
+    if cfg.n_layers == full:
+        timed("cli", lambda: _cli_phase(cfg.name, CLI_STREAM))
+    log(f"{run.tag} launches on the paths {run.counts}, dequant_matmul by route {run.routes}; "
+        f"seconds by path {seconds}; peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.1f} GB; "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    return {"counts": run.counts, "routes": run.routes, "kern": run.kern}
+
+
+def _rec_weights(cfg, P) -> list:
+    """A decode step's B2 weights, (name, view) in the order it runs them."""
+    out = []
+    for lr, kind in zip(_stack_layers(cfg, P["decoder"]), _stack_kinds(cfg)):
+        if kind == "shared_attn":
+            out += list(zip(("shared.wq", "shared.wk", "shared.wv", "shared.wo",
+                             "shared.wi_gate", "shared.wi_up", "shared.mlp_wo"),
+                            _layer_weights(lr)))
+        else:
+            out += [(f"{kind}.{k}", lr["mixer"][k]) for k in RECURRENT_B2[kind]]
+    return out + [("embed.T", P["embed"].T)]
+
+
+def _rec_single(run, prog) -> torch.Tensor:
+    """The single stream (:func:`_arch_stream`: a decode step's B2 and B3
+    launches by :func:`recurrent_b2`, by route by :func:`recurrent_calls`).
+    Then, on its stage-8 views: the last logits of a prefill of PROMPT
+    tokens against a prefill of one fewer and a decode step, within
+    ``PATH_RTOL`` (the chunked SSD and the mLSTM/sLSTM scans against the
+    step recurrence, bfloat16 at full width); a decode step's B2 launches
+    timed and every distinct weight shape checked; B3 on the shared
+    block's caches; a whole decode step's device time. Returns the
+    tokens."""
+    from repro_torch.kernels import dequant_matmul as dqm
+    from repro_torch.models.transformer import layer
+
+    cfg, dev = run.cfg, run.dev
+    rec, attn, uses = recurrent_b2(cfg)
+    srv, res = _arch_stream(run, prog, rec + attn + 1, uses,
+                            recurrent_calls(cfg, 1, BATCH, PROMPT, "prefill")
+                            + recurrent_calls(cfg, STEPS, BATCH, 1, "decode"),
+                            "the norms and the recurrences' vectors and matrices")
+
+    # the prefill against the step recurrence on the stage-8 views
+    tokens = run.prompt.to(dev)
+    want, _ = run.model.prefill(srv.params, {"tokens": tokens})
+    _, caches = run.model.prefill(srv.params, {"tokens": tokens[:, :-1]})
+    caches = run.model.grow_caches(caches, PROMPT)
+    got_l, _ = run.model.decode_step(srv.params, caches, tokens[:, -1:], PROMPT - 1)
+    err = float((got_l - want).abs().max()) / float(want.abs().max())
+    check(bool(torch.isfinite(got_l).all()) and err <= PATH_RTOL,
+          f"{run.tag} prefill against prefill + step: {err:.3e}")
+    log(f"{run.tag} [check] the last logits of a prefill of {PROMPT} against a prefill of "
+        f"{PROMPT - 1} and a decode step, stage 8: max |err| / max |logit| = {err:.3e} "
+        f"(tolerance {PATH_RTOL})")
+    del caches
+
+    # a decode step's B2 launches timed, every distinct weight shape checked
+    xg = torch.Generator(device=dev).manual_seed(2)
+    named = _rec_weights(cfg, srv.params)
+    check(len(named) == rec + attn + 1 and all(dqm.one_pass(w.q) for _, w in named),
+          f"{run.tag} a weight is off the one-pass kernels")
+    xs = {}
+    calls = []
+    for nm, w in named:
+        xd = torch.float32 if nm == "embed.T" else cfg.dtype
+        key = (w.q.shape[0], xd)
+        if key not in xs:
+            xs[key] = torch.randn((BATCH, key[0]), generator=xg, device=dev).to(xd)
+        calls.append((xs[key], w))
+    four = torch.full((1, 1), 4, dtype=torch.int32, device=dev)
+
+    def shapes():
+        first: dict = {}
+        for nm, w in named:
+            first.setdefault(tuple(w.q.shape), (nm, w, torch.float32 if nm == "embed.T"
+                                                else cfg.dtype, four))
+        return _dqmm_check(run.tag, list(first.values()), xg, ARCH_DQMM_M, "keep none and 4")
+
+    run.kern["dequant_matmul"] = _decode_b2_row(run, srv.params, xg, calls=calls,
+                                                check_shapes=shapes)
+    if uses:
+        slot = f"{cfg.cycle.index('shared_attn')}_shared_attn"
+        stacked = srv.caches["cycles"][slot]
+        run.kern["decode_attention"] = _decode_attention_row(
+            run, [layer(stacked, r) for r in range(stacked["k"].shape[0])], xg)
+
+    # a whole decode step at stage 8 (writing the stream's last cache row):
+    # its device time against its kernels', and the host's time to issue it
+    nxt = res.tokens[:, -1:].to(dev)
+    last = torch.full((BATCH,), PROMPT + STEPS - 1, dtype=torch.int32, device=dev)
+
+    def step():
+        run.model.decode_step(srv.params, srv.caches, nxt, last)
+
+    step_ms, issue_ms = device_ms(step, 2), host_ms(step, 3)
+    kernels_ms = run.kern["dequant_matmul"]["ms"] + run.kern.get("decode_attention",
+                                                                {"ms": 0.0})["ms"]
+    log(f"{run.tag} [time] a decode step at stage 8 (batch {BATCH}): {step_ms:.4f} ms on the "
+        f"device (graph replay), of which B2 and B3 {kernels_ms:.4f} ms and the rest (the "
+        f"recurrences' plain torch, the norms, the embedding) "
+        f"{step_ms - kernels_ms:.4f} ms; the host issues it in {issue_ms:.3f} ms")
+    return res.tokens.cpu()
+
+
+def _rec_pool(run, prog) -> None:
+    """The pool's 12 requests on 8 slots with chunked admission, counted
+    from 0 (a chunk tick steps each recurrent block through the chunk's
+    tokens, one B2 pass a token; :func:`recurrent_calls`), B4 on the
+    shared block's pooled caches; masked states (:func:`_rec_masked`);
+    then each request alone in a pool of the same size, stepped at the
+    stages the busy pool served it at: tokens ``torch.equal``. With every
+    shape the same, only the other slots' rows differ, and masking must
+    leave a request's arithmetic as it was; an evicted slot's state must
+    be zeroed for the next request."""
+    from repro_torch.serving import PoolRequest, SlotPoolEngine
+
+    cfg, dev = run.cfg, run.dev
+    _, _, uses = recurrent_b2(cfg)
+    stage_of_step: list = []
+
+    def hook(pool):
+        # the stage of each step and the requests in the pool at it
+        step = pool.step
+
+        def logged():
+            stage_of_step.append((pool.stage, {s.rid for s in pool.slots if not s.free}))
+            return step()
+        pool.step = logged
+
+    pool, got, by = _pool_phase(
+        run.model, prog, dev, run.ops, f"{run.tag} pool", 4 * run.n_fp,
+        b2_calls=lambda ticks, steps: (
+            recurrent_calls(cfg, ticks, POOL_SLOTS, POOL_CHUNK, "prefill_chunk")
+            + recurrent_calls(cfg, steps, POOL_SLOTS, 1, "decode")),
+        attn_layers=uses, hook=hook)
+    for acc, new in ((run.counts, got), (run.routes, by)):
+        for k, v in new.items():
+            acc[k] = acc.get(k, 0) + v
+    if uses:
+        run.kern["flash_verify"] = _arch_verify_check(
+            run, pool, slot=f"{cfg.cycle.index('shared_attn')}_shared_attn")
+    busy = {rid: list(t) for rid, t in pool.outputs.items()}
+    _rec_masked(run, pool)
+    del pool
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    _, budgets, prompts = _pool_requests(cfg)
+    t0 = time.perf_counter()
+    n_steps = 0
+    for rid, prompt in enumerate(prompts):
+        stages = [st for st, rids in stage_of_step if rid in rids]
+        alone = SlotPoolEngine(run.model, prog, n_slots=POOL_SLOTS, max_len=POOL_MAX_LEN,
+                               resident="quantized", dispatch_window=POOL_WINDOW,
+                               prefill_chunk=POOL_CHUNK, device=dev)
+        while alone.stage < stages[0]:
+            alone.receive_stage()
+        alone.submit(PoolRequest(rid=rid, prompt=prompt, max_new_tokens=int(budgets[rid])))
+        for st in stages:
+            while alone.stage < st:
+                alone.receive_stage()
+            alone.step()
+        alone.flush()
+        check(alone.outputs[rid] == busy[rid] and rid in alone.completed,
+              f"{run.tag} request {rid} alone differs from the busy pool")
+        n_steps += len(stages)
+        del alone
+        gc.collect()
+    log(f"{run.tag} pool: each of the {len(prompts)} requests alone in a pool of {POOL_SLOTS} "
+        f"slots, stepped at the busy pool's stages ({n_steps} steps): tokens equal (torch.equal) "
+        f"to the busy pool's; {time.perf_counter() - t0:.1f} s")
+
+
+def _rec_masked(run, pool) -> None:
+    """On the drained pool: a request decoding in slot 0, one mid-way
+    through its chunked prefill in slot 1, the rest free. A chunk tick
+    (slot 1's next chunk) leaves every other slot's recurrent leaves
+    ``torch.equal`` to before; a decode step (slot 0) leaves every other
+    slot's so, slot 1's included."""
+    from repro_torch.serving import PoolRequest
+
+    _, _, prompts = _pool_requests(run.cfg)
+    pool.submit(PoolRequest(rid=1000, prompt=prompts[0][:POOL_CHUNK], max_new_tokens=8))
+    pool.step()                  # its one chunk, then its first decode step
+    pool.submit(PoolRequest(rid=1001, prompt=prompts[1][:3 * POOL_CHUNK], max_new_tokens=8))
+    pool.step()                  # slot 1's first chunk of three
+    check(set(pool._prefill_state) == {1} and int(pool.pos[0]) > 0, pool._prefill_state)
+    leaves = [(part, leaf) for part, key in pool._recurrent_keys
+              for leaf in pool.caches[part][key].values()]
+
+    def rows(part, leaf, s):
+        return leaf[:, s] if part == "cycles" else leaf[s]
+
+    def unchanged(fn, live: int, what: str) -> None:
+        before = [leaf.clone() for _, leaf in leaves]
+        fn()
+        for (part, leaf), old in zip(leaves, before):
+            for s in range(pool.n_slots):
+                same = torch.equal(rows(part, leaf, s), rows(part, old, s))
+                check(same != (s == live), f"{run.tag} {what}: slot {s}'s state "
+                      f"{'changed' if not same else 'did not change'}")
+
+    unchanged(pool._prefill_tick, 1, "chunk tick")
+    nxt = torch.argmax(pool.last_logits, dim=-1).to(torch.int32)[:, None]
+    unchanged(lambda: pool.model.decode_step(pool.params, pool.caches, nxt, pool.pos), 0,
+              "decode step")
+    log(f"{run.tag} [check] masked states: a chunk tick (slot 1 mid-prefill; slot 0 decoding "
+        f"and {pool.n_slots - 2} free slots masked) and a decode step (slot 0; slot 1 mid-prefill "
+        f"and the free slots masked): every masked slot's {len(leaves)} recurrent leaves equal "
+        f"(torch.equal) to before, the live slot's changed")
+
+
+def _rec_refusals(run, prog) -> None:
+    """``SpeculativeEngine`` and a serving mesh raise for a recurrent arch."""
+    from repro_torch.launch.mesh import make_serving_mesh
+    from repro_torch.serving import ProgressiveServer, SpecConfig, SpeculativeEngine
+
+    refusals = {
+        "rollback": lambda: SpeculativeEngine(run.model, prog, max_len=PROMPT + SPEC_TOKENS + 9,
+                                              spec=SpecConfig(draft_bits=4, k=4),
+                                              device=run.dev),
+        "ROADMAP A13": lambda: ProgressiveServer(
+            run.model, prog, max_len=PROMPT + STEPS, resident="quantized",
+            mesh=make_serving_mesh(2, devices=[run.dev] * 2), device=run.dev)}
+    for text, fn in refusals.items():
+        try:
+            fn()
+        except NotImplementedError as e:
+            check(text in str(e), (run.tag, text, str(e)))
+        else:
+            check(False, f"{run.tag}: no refusal ({text})")
+        gc.collect()
+    log(f"{run.tag} refusals: SpeculativeEngine (no overwrite-only rollback of a recurrent "
+        f"state) and a serving mesh (ROADMAP A13) raise NotImplementedError")
+
+
+def _rec_path(run) -> None:
+    """``_whole_path`` at 2 layers of the arch at full width: xlstm-125m's
+    sLSTM and mLSTM, zamba2-7b's two mamba2 blocks as a tail (no full
+    cycle); a prefill chunk, no verify."""
+    t0 = time.perf_counter()
+    two = dataclasses.replace(run.cfg, n_layers=2)
+    blocks = _stack_kinds(two)
+    path_err, chunk_err = _whole_path(run.cfg, run.dev, stages=(1, 8), cpu_divides=False)
+    log(f"{run.tag} [path] 2 layers at full width ({blocks}), cuda kernels vs cpu plain "
+        f"versions, each side ingesting its own "
+        f"copy of the card's planes, fingerprints equal at stages 1 and 8: teacher-forced logits "
+        f"max |err| / max |logit| = {path_err:.3e}; prefill chunk logits {chunk_err:.3e} "
+        f"(tolerance {PATH_RTOL}); {time.perf_counter() - t0:.1f} s")
 
 
 def _gemma_phase(dev, ops) -> dict:
@@ -4678,19 +5112,22 @@ def _dqmm_check(tag, weights, g, Ms, masks: str) -> float:
     return worst
 
 
-def _arch_verify_check(run, pool) -> dict:
-    """B4 on layer 0 of the pool's live caches at the arch's heads: a chunk
-    (T = 8) and verify's T = 5, slots ragged, masked and free, within
-    ``ATTN_RTOL`` of the plain version, every row ``torch.equal`` to a
-    ``flash_decode`` launch; then a verify pass's L launches timed."""
+def _arch_verify_check(run, pool, slot="0_attn") -> dict:
+    """B4 on the first layer of the pool's live caches of cycle ``slot`` at
+    the arch's heads: a chunk (T = 8) and verify's T = 5, slots ragged,
+    masked and free, within ``ATTN_RTOL`` of the plain version, every row
+    ``torch.equal`` to a ``flash_decode`` launch; then a verify pass's
+    launches (one a layer of the slot) timed."""
     from repro_torch.kernels import decode_attention as da
     from repro_torch.kernels import ref
     from repro_torch.kernels import verify_attention as va
     from repro_torch.models.transformer import layer
 
-    cfg, L, dev = run.cfg, run.cfg.n_layers, run.dev
+    cfg, dev = run.cfg, run.dev
     g = torch.Generator(device=dev).manual_seed(8)
-    caches = [layer(pool.caches["cycles"]["0_attn"], r) for r in range(L)]
+    stacked = pool.caches["cycles"][slot]
+    caches = [layer(stacked, r) for r in range(stacked["k"].shape[0])]
+    L = len(caches)
     pc = caches[0]
     PS = pc["k"].shape[2]
     k_pos = torch.arange(PS, dtype=torch.int32, device=dev).repeat(POOL_SLOTS, 1)
@@ -4771,8 +5208,9 @@ def _layer_weights(lr: dict) -> list:
     return [a["wq"], a["wk"], a["wv"], a["wo"], m["wi_gate"], m["wi_up"], m["wo"]]
 
 
-def _whole_path(cfg, dev, stages=range(1, 9), cpu_divides=True) -> tuple[float, float]:
-    """The same 2-layer full-width weights served on the card and on the
+def _whole_path(cfg, dev, stages=range(1, 9), cpu_divides=True, n_layers=2
+                ) -> tuple[float, float]:
+    """The same ``n_layers``-layer full-width weights served on the card and on the
     CPU, each side ingesting its own copy of the planes through all 8
     stages; after each of ``stages``, the fingerprints and teacher-forced
     logits compared, and after stages 1 and 8 the logits of a ragged
@@ -4786,7 +5224,7 @@ def _whole_path(cfg, dev, stages=range(1, 9), cpu_divides=True) -> tuple[float, 
     from repro_torch.models.model import build_model
     from repro_torch.serving.engine import ProgressiveServer
 
-    cfg2 = dataclasses.replace(cfg, n_layers=2)
+    cfg2 = dataclasses.replace(cfg, n_layers=n_layers)
     model = build_model(cfg2)
     params = model.init(torch.Generator(device=dev).manual_seed(3), device=dev)
     params_cpu = {k: v for k, v in _to_cpu(params).items()} if cpu_divides else None
@@ -4827,14 +5265,19 @@ def _whole_path(cfg, dev, stages=range(1, 9), cpu_divides=True) -> tuple[float, 
 
 def _chunk_and_verify(model, gpu, cpu, g, dev, stage) -> float:
     """A prefill chunk (slot 0 at positions 0-7, slot 1 a short chunk of 5
-    rows) then a 3-row verify block into pooled caches, on both servers'
-    parameters; returns the worst relative logit error."""
+    rows) then a 3-row verify block (not for a recurrent stack, which
+    refuses it) into pooled caches, on both servers' parameters; returns
+    the worst relative logit error."""
+    from repro_torch.models.transformer import recurrent_kinds
+
     vocab = model.cfg.vocab
     tok_pos = torch.tensor([list(range(8)), [0, 1, 2, 3, 4, -1, -1, -1]],
                            dtype=torch.int32)
     calls = [("prefill_chunk", torch.randint(0, vocab, (2, 8), generator=g), tok_pos),
              ("verify_step", torch.randint(0, vocab, (2, 3), generator=g),
               torch.tensor([8, 5], dtype=torch.int32))]
+    if recurrent_kinds(model.cfg):
+        calls = calls[:1]        # a recurrent stack refuses verify
     caches = {"gpu": model.init_caches(2, 18, device=dev),
               "cpu": model.init_caches(2, 18, device="cpu")}
     worst = 0.0

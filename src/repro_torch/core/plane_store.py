@@ -664,13 +664,16 @@ class ShardedPlaneStore:
     constants stay shard-local: each sub-store computes its own.
 
     Left for later, raising ``NotImplementedError``: replica rows (a mesh
-    with ``data`` > 1, ROADMAP A13)."""
+    with ``data`` > 1) and models with recurrent blocks
+    (``launch.sharding.check_shardable``), ROADMAP A13."""
 
     def __init__(self, entries: list[dict], mesh, *, block: int = DEFAULT_BLOCK):
         from repro_torch.launch.mesh import check_serving_mesh
-        from repro_torch.launch.sharding import gathered_for_serving, serving_spec_for_param
+        from repro_torch.launch.sharding import (check_shardable, gathered_for_serving,
+                                                 serving_spec_for_param)
 
         check_serving_mesh(mesh)
+        check_shardable(_path(e["key"]) for e in entries)
         self.mesh = mesh
         self.block = block
         self.device = mesh.home

@@ -16,11 +16,29 @@ import torch
 NEG_INF = -1e30
 
 
+_SIGNED = {torch.uint8: torch.int8, torch.uint16: torch.int16, torch.uint32: torch.int32}
+
+
 def plane_or_ref(acc: torch.Tensor, plane: torch.Tensor, shift) -> torch.Tensor:
     """Eq. (4): ``acc | (plane << shift)`` in acc's container dtype.
     ``shift`` is an int or an integer tensor broadcastable against acc;
     plane may be any uint dtype. Shifts wrap, as the reference's uint32
-    shift does: only the low bits that fit acc's dtype are kept."""
+    shift does: only the low bits that fit acc's dtype are kept. A plane
+    no wider than acc is shifted in acc's width through signed views (a
+    signed shift wraps as an unsigned one does; a shift past the width
+    keeps nothing), a wider one in int32 or int64."""
+    if plane.element_size() <= acc.element_size():
+        width, signed = 8 * acc.element_size(), _SIGNED[acc.dtype]
+        p = plane.view(signed) if plane.element_size() == acc.element_size() \
+            else plane.to(signed)
+        if isinstance(shift, torch.Tensor):
+            shift = shift.to(acc.device)
+            p = torch.where(shift < width, p << torch.clamp(shift, max=width - 1).to(signed), 0)
+        elif shift < width:
+            p = p << shift
+        else:
+            return acc.clone()
+        return (acc.view(signed) | p).view(acc.dtype)
     wide = torch.int32 if acc.element_size() <= 2 else torch.int64
     if isinstance(shift, torch.Tensor):
         shift = shift.to(wide)
@@ -43,7 +61,8 @@ def plane_extract_ref(q: torch.Tensor, bits: int, before: int, width: int,
 def plane_or_segments_ref(acc: torch.Tensor, plane: torch.Tensor,
                           shifts: torch.Tensor, block: int) -> torch.Tensor:
     """Eq. (4) over a flat buffer with one shift per ``block`` elements."""
-    return plane_or_ref(acc, plane, shifts.repeat_interleave(block))
+    return plane_or_ref(acc.reshape(-1, block), plane.reshape(-1, block),
+                        shifts[:, None]).reshape(-1)
 
 
 def mask_q(q: torch.Tensor, keep, bits: int | None = None) -> torch.Tensor:

@@ -24,11 +24,16 @@ home), N logical shards of the host with ``--device cpu`` (the
 counterpart of XLA's forced host devices); on logical shards tokens
 equal the unsharded run's, and a run across cards is not yet checked.
 ``--arch`` takes the dense decoders (olmo-1b, minitron-4b,
-starcoder2-15b, gemma3-27b with its sliding windows) and the
-mixture-of-experts decoders (mixtral-8x22b, dbrx-132b), each with
-``--reduced``; the other architectures are still to be ported (ROADMAP
-A8). With ``--mesh-shards`` a MoE arch's expert banks split on their
-expert dim, each shard running its own experts.
+starcoder2-15b, gemma3-27b with its sliding windows), the
+mixture-of-experts decoders (mixtral-8x22b, dbrx-132b) and the recurrent
+ones (xlstm-125m: sLSTM and mLSTM blocks; zamba2-7b: Mamba-2 blocks and
+one shared attention block), each with ``--reduced``; the other
+architectures are still to be ported (ROADMAP A8). With
+``--mesh-shards`` a MoE arch's expert banks split on their expert dim,
+each shard running its own experts. For xlstm-125m and zamba2-7b
+``--speculative`` raises (a recurrent state has no overwrite-only
+rollback for rejected drafts) and so does ``--mesh-shards`` (ROADMAP
+A13).
 """
 from __future__ import annotations
 

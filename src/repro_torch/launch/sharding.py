@@ -59,6 +59,20 @@ def serving_spec_for_param(path: str, shape: tuple, mesh: Mesh) -> tuple:
     return ()
 
 
+_RECURRENT_SLOT = re.compile(r"(^|/)\d+_(mamba2|mlstm|slstm)/")
+
+
+def check_shardable(paths) -> None:
+    """Raise for a model sharded serving does not take yet: one with
+    recurrent blocks, whose ``conv_w`` and ``r`` the rules above would
+    split on their last dim while the recurrences read them elementwise
+    (ROADMAP A13)."""
+    kinds = sorted({m.group(2) for p in paths if (m := _RECURRENT_SLOT.search(p))})
+    if kinds:
+        raise NotImplementedError(f"sharded serving of recurrent blocks {kinds} is still "
+                                  "to be ported (ROADMAP A13)")
+
+
 def gathered_for_serving(path: str) -> bool:
     """Whether sharded serving gathers this leaf on the home device
     (:data:`GATHERED_LEAVES`)."""

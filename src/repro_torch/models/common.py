@@ -2,7 +2,7 @@
 the ONE dense-apply dispatch point of quantized-resident serving
 (:func:`dense` and :func:`embed_lookup`).
 
-Counterpart of ``src/repro/models/common.py`` for the dense decoder."""
+Counterpart of ``src/repro/models/common.py`` for the decoders."""
 from __future__ import annotations
 
 import dataclasses
@@ -19,18 +19,24 @@ from repro_torch.kernels import ops, ref
 @dataclasses.dataclass(frozen=True)
 class ArchConfig:
     """One architecture: the fields the dense decoders (olmo-1b,
-    minitron-4b, starcoder2-15b, gemma3-27b) and the mixture-of-experts
-    decoders (mixtral-8x22b, dbrx-132b) need, with the reference's
-    defaults. ``cycle`` is the repeating pattern of block kinds; layers =
+    minitron-4b, starcoder2-15b, gemma3-27b), the mixture-of-experts
+    decoders (mixtral-8x22b, dbrx-132b) and the recurrent ones
+    (xlstm-125m, zamba2-7b) need, with the reference's defaults.
+    ``cycle`` is the repeating pattern of block kinds; layers =
     ``len(cycle) * n_cycles + len(tail)``. The kinds ported: ``attn``, a
     full-attention decoder block with a GLU MLP; ``swa``, the same block
     attending over a sliding window of ``window`` positions (a ring
     cache); ``global``, full attention with a rope base 100x
     ``rope_theta`` (gemma3's naming); ``moe`` and ``swa_moe``, the
     ``attn`` and ``swa`` attention with a mixture-of-experts FFN
-    (``n_experts`` experts, ``top_k`` a token, ``capacity_factor``). The
-    other kinds are still to be ported. ``head_dim`` None means
-    ``d_model // n_heads``. Float32 parameters before division."""
+    (``n_experts`` experts, ``top_k`` a token, ``capacity_factor``);
+    ``mamba2`` (a Mamba-2 SSD block: ``ssm_heads`` heads, ``ssm_state``,
+    ``ssm_expand``, ``conv_width``, prefill in chunks of ``ssm_chunk``),
+    ``mlstm`` and ``slstm`` (xLSTM's blocks, ``lstm_proj_factor``);
+    ``shared_attn``, an ``attn`` block whose one set of weights every use
+    shares (zamba2). The other kinds are still to be ported. ``head_dim``
+    None means ``d_model // n_heads``. Float32 parameters before
+    division."""
 
     name: str
     family: str
@@ -53,6 +59,12 @@ class ArchConfig:
     n_experts: int = 0          # experts of a moe block's FFN (0 = no moe)
     top_k: int = 0              # experts a token is routed to
     capacity_factor: float = 1.25  # expert buffer rows = cf * tokens * top_k / n_experts
+    ssm_state: int = 0          # Mamba-2 state size N
+    ssm_heads: int = 0          # Mamba-2 heads (0: d_inner // 64)
+    ssm_expand: int = 2         # Mamba-2 d_inner = ssm_expand * d_model
+    conv_width: int = 4         # Mamba-2 causal conv taps
+    ssm_chunk: int = 256        # Mamba-2 prefill chunk of the SSD scan
+    lstm_proj_factor: float = 2.0  # mLSTM d_inner = lstm_proj_factor * d_model
     dtype: Any = torch.bfloat16  # activations and KV caches
 
     @property
@@ -76,7 +88,7 @@ class ArchConfig:
             d_model=min(self.d_model, 128),
             n_heads=min(self.n_heads, 4),
             n_kv=min(self.n_kv, 2),
-            d_ff=min(self.d_ff, 256),
+            d_ff=min(self.d_ff, 256) if self.d_ff else 0,
             vocab=min(self.vocab, 512),
             head_dim=32 if self.head_dim else None,
             window=min(self.window, 16) if self.window else 0,
@@ -85,7 +97,10 @@ class ArchConfig:
             # drop-free capacity (cf >= E/K), so that prefill equals decode
             # exactly; the published configs keep their cf
             capacity_factor=4.0 if self.n_experts else self.capacity_factor,
+            ssm_state=min(self.ssm_state, 16) if self.ssm_state else 0,
+            ssm_heads=min(self.ssm_heads, 2) if self.ssm_heads else 0,
             attn_chunk=16,
+            ssm_chunk=8,
             dtype=torch.float32,
         )
         if small["n_heads"] % max(small["n_kv"], 1):

@@ -1,6 +1,6 @@
 """Public model API: ``build_model(cfg) -> Model``.
 
-Counterpart of ``src/repro/models/model.py`` for the dense decoder:
+Counterpart of ``src/repro/models/model.py`` for the decoders:
 
     init(generator, device=)           -> params
     prefill(params, batch, n_valid=)   -> (last_logits, caches)
@@ -77,16 +77,19 @@ class Model:
         length (the slot pool prefills at batch 1). Padded positions are
         masked out of attention (their keys sit at position -1) and the
         logits are gathered at row ``n_valid - 1``, on the device. A
-        stack with sliding-window blocks (``swa``, ``swa_moe``) refuses
-        ``n_valid``: a ring has no masked slots. Padded positions still
+        stack with sliding-window blocks (``swa``, ``swa_moe``) or
+        recurrent blocks refuses ``n_valid``: a ring has no masked slots,
+        and a recurrent state would consume the padding. Padded positions still
         run through a MoE block's router and take expert capacity after
         the real ones, whose capacity is the padded length's, as in the
         reference."""
         cfg = self.cfg
-        if n_valid is not None and any(tfm.attn_window(cfg, k) for k in cfg.cycle + cfg.tail):
+        if n_valid is not None and (any(tfm.attn_window(cfg, k) for k in cfg.cycle + cfg.tail)
+                                    or tfm.recurrent_kinds(cfg)):
             raise NotImplementedError(
                 "bucket-padded prefill needs position masking, which sliding-window "
-                "rings don't support: admit at the exact prompt length instead")
+                "rings and recurrent states don't support — admit at the exact prompt "
+                "length instead")
         tokens = batch["tokens"]
         if n_valid is not None and not isinstance(n_valid, torch.Tensor):
             n_valid = to_device(np.asarray(n_valid, np.int32), tokens.device)
@@ -162,12 +165,14 @@ class Model:
                                      device=resolve_device(device))
 
     def grow_caches(self, caches, max_len: int, *, ring_margin: int = 0, pos: int = 0):
-        """Pad prefill caches of full-attention blocks along the sequence
-        axis to ``max_len``. With ``ring_margin`` > 0 the rings of windowed
-        blocks are repacked into ``window + ring_margin`` slots
+        """Pad prefill caches of full-attention blocks (``attn``,
+        ``global``, ``moe``, ``shared_attn``) along the sequence axis to
+        ``max_len``. With ``ring_margin`` > 0 the rings of windowed blocks
+        are repacked into ``window + ring_margin`` slots
         (``grow_ring_cache``; ``pos`` = the tokens consumed so far, the
         prompt's length), so that blocks of up to ``ring_margin`` rows
-        never overwrite live window entries."""
+        never overwrite live window entries. Recurrent states are final
+        size and come back as they are."""
         cfg = self.cfg
 
         def pad(a: torch.Tensor) -> torch.Tensor:
@@ -179,14 +184,14 @@ class Model:
             return out
 
         def grow(kind: str, c: dict) -> dict:
-            if not tfm.attn_window(cfg, kind):
+            if kind in tfm.FULL_KV_KINDS:
                 return _map(pad, c)
-            if ring_margin:
+            if tfm.attn_window(cfg, kind) and ring_margin:
                 return grow_ring_cache(c, cfg.window + ring_margin, pos)
             return c
 
         return {part: {f"{j}_{kind}": grow(kind, caches[part][f"{j}_{kind}"])
-                       for j, kind in enumerate(kinds)}
+                       for j, kind in enumerate(kinds) if f"{j}_{kind}" in caches[part]}
                 for part, kinds in (("cycles", cfg.cycle), ("tail", cfg.tail))}
 
 

@@ -49,7 +49,8 @@ from repro_torch.core.quantize import QuantizedTensor
 from repro_torch.launch.mesh import home_device
 from repro_torch.models.common import quantized_resident_eligible
 from repro_torch.models.model import Model
-from repro_torch.models.transformer import attn_window
+from repro_torch.models.ssm import RECURRENT_KINDS
+from repro_torch.models.transformer import attn_window, recurrent_kinds
 
 RESIDENT_MODES = ("fp", "quantized")
 
@@ -453,10 +454,16 @@ class SlotPoolEngine(PrecisionManagedEngine):
     stale ring slot of a prior occupant stays invisible: ``ring_positions``
     gives a non-negative position only to slots the new occupant wrote.
 
-    Left for later, each raising ``NotImplementedError``: recurrent-slot
-    resets (A8, with the fall-back to batch-1 admission of
-    cross-attention archs); telemetry, which the reference turns on with
-    ``REPRO_TELEMETRY`` (A11).
+    Recurrent blocks (``mamba2``, ``mlstm``, ``slstm``) keep a cumulative
+    state a slot, which a prior occupant would leak into the next: chunked
+    admission zeroes the slot's state in place
+    (:meth:`_reset_recurrent_slot`), and ``prefill_buckets`` is off for
+    them (a state would consume the padding).
+
+    Left for later, each raising ``NotImplementedError``: the fall-back to
+    batch-1 admission of cross-attention archs (A8); telemetry, which the
+    reference turns on with ``REPRO_TELEMETRY`` (A11); a mesh for an arch
+    with recurrent blocks (A13: its sharded store raises).
     ``PoolRequest.extras`` are refused as the reference refuses them for
     a text-only arch; vision and encoder side inputs come with A8. The reference's
     ``decode_cache_size``/``prefill_cache_size`` count JAX executables
@@ -485,12 +492,20 @@ class SlotPoolEngine(PrecisionManagedEngine):
             # live window entry, as a verify block does
             ring_margin = max(ring_margin, self.prefill_chunk)
         self._ring_margin = ring_margin
-        self.prefill_buckets = bool(prefill_buckets) and not windowed
+        # a ring has no masked slots, and a recurrent state would consume
+        # the padding
+        self.prefill_buckets = bool(prefill_buckets) and not windowed \
+            and not recurrent_kinds(cfg)
         self.double_buffer = bool(double_buffer)
         self.n_slots = n_slots
         self.dispatch_window = max(1, dispatch_window)
         dev = self.device
         self.caches = model.init_caches(n_slots, max_len, ring_margin=ring_margin, device=dev)
+        # (part, slot key) of every recurrent block's cache
+        self._recurrent_keys = [(part, f"{j}_{kind}") for part, kinds in
+                                (("cycles", cfg.cycle), ("tail", cfg.tail))
+                                for j, kind in enumerate(kinds)
+                                if kind in RECURRENT_KINDS and f"{j}_{kind}" in self.caches[part]]
         self.pos = torch.full((n_slots,), -1, dtype=torch.int32, device=dev)
         self.last_logits = torch.zeros((n_slots, model.cfg.vocab), dtype=torch.float32,
                                        device=dev)
@@ -629,12 +644,22 @@ class SlotPoolEngine(PrecisionManagedEngine):
 
     def _begin_chunked_prefill(self, slot: int, req: PoolRequest,
                                prompt: np.ndarray) -> None:
-        """Host bookkeeping only: stage the prompt for :meth:`_prefill_tick`.
-        A prior occupant's stale cache rows need no reset: the causal mask
-        hides every row past a query's position, and a row is written
-        before any query reaches it."""
+        """Stage the prompt for :meth:`_prefill_tick`. A prior occupant's
+        stale KV rows need no reset: the causal mask hides every row past a
+        query's position, and a row is written before any query reaches
+        it. A recurrent state is cumulative, not positional, so it is
+        zeroed (:meth:`_reset_recurrent_slot`)."""
+        self._reset_recurrent_slot(slot)
         self._prefill_state[slot] = {"prompt": prompt, "off": 0, "rid": req.rid,
                                      "len": int(prompt.shape[0])}
+
+    def _reset_recurrent_slot(self, slot: int) -> None:
+        """Zero one slot's recurrent state, in place on the device: a fill
+        of the slot's rows of each leaf (batch axis 1 of a stacked slot, 0
+        of a tail block), nothing read back, nothing cache-sized copied."""
+        for part, key in self._recurrent_keys:
+            for leaf in self.caches[part][key].values():
+                (leaf[:, slot] if part == "cycles" else leaf[slot]).zero_()
 
     def _prefill_tick(self) -> None:
         """Advance every mid-prefill slot by one (B, chunk) block in one

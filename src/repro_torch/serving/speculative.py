@@ -154,7 +154,7 @@ class _SpeculativeMixin:
 
     def _init_spec(self, spec: SpecConfig | None) -> None:
         cfg = self.model.cfg
-        ssm = set(cfg.cycle) & self._SSM_KINDS
+        ssm = set(cfg.cycle + cfg.tail) & self._SSM_KINDS
         if ssm:
             raise NotImplementedError(
                 f"speculative decoding is not supported for recurrent blocks "

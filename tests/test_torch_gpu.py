@@ -26,6 +26,8 @@ with per-expert masks within the same 1e-4, MoE verify rows equal to
 decode steps exactly, and (sharded serving) a bank on 2 and 4 logical
 shards equal to the unsharded bank exactly.
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -282,10 +284,15 @@ EDGE_S_HD = [(31, 128), (32, 128), (33, 128), (1, 128), (255, 64), (256, 64), (2
              (416, 128), (417, 128), (1000, 256)]
 # the dense variants' heads: minitron-4b's 24 on 8 KV heads (G = 3) and
 # starcoder2-15b's 48 on 4 (G = 12), hd 128, at the single stream's
-# decode (B = 4), the pool's chunk (T = 8) and verify at k = 4 (T = 5)
-NEW_ARCH_DECODE = [(4, 24, 8, 112, 128), (4, 48, 4, 112, 128), (8, 48, 4, 160, 128)]
+# decode (B = 4), the pool's chunk (T = 8) and verify at k = 4 (T = 5);
+# zamba2-7b's shared block, 32 heads on 32 (G = 1) at hd 112, whose rows
+# (224 bytes in bfloat16) are not whole 128-byte lines: the copy warp
+# stages them, not the tensor memory accelerator
+NEW_ARCH_DECODE = [(4, 24, 8, 112, 128), (4, 48, 4, 112, 128), (8, 48, 4, 160, 128),
+                   (4, 32, 32, 112, 112), (8, 32, 32, 160, 112)]
 NEW_ARCH_VERIFY = [(8, 8, 24, 8, 160, 128), (8, 8, 48, 4, 160, 128), (4, 5, 24, 8, 112, 128),
-                   (4, 5, 48, 4, 112, 128)]
+                   (4, 5, 48, 4, 112, 128),
+                   (8, 8, 32, 32, 160, 112), (4, 5, 32, 32, 112, 112)]
 
 
 def _mask_edge_slot(k_pos):
@@ -615,6 +622,68 @@ def test_pool_step_and_upgrade_never_sync(dev):
     assert pool.stage == prog.n_stages and pool._tick_count > 0
 
 
+def _recurrent_pool(dev, name, **over):
+    from repro_torch.configs import get_config
+    from repro_torch.core.progressive import divide
+    from repro_torch.models.model import build_model
+    from repro_torch.serving.engine import SlotPoolEngine
+
+    cfg = get_config(name).reduced(d_model=64, vocab=128, **over)
+    model = build_model(dataclasses.replace(cfg, dtype=torch.bfloat16))
+    prog = divide(model.init(torch.Generator(device=dev).manual_seed(0), device=dev))
+    return SlotPoolEngine(model, prog, n_slots=3, max_len=40, resident="quantized",
+                          dispatch_window=2, prefill_chunk=4, device=dev)
+
+
+def test_recurrent_pool_step_and_tick_never_sync(dev):
+    """A zamba2-shaped pool (13 layers: mamba2 blocks and the shared
+    attention block, bfloat16): admissions into used slots (each zeroes
+    the slot's recurrent state), chunk ticks stepping the recurrences
+    token by token with masked rows, decode steps and double-buffered
+    upgrades run under ``torch.cuda.set_sync_debug_mode("error")``."""
+    from repro_torch.serving.engine import PoolRequest
+
+    pool = _recurrent_pool(dev, "zamba2-7b", n_layers=13)
+    pool.receive_stage()
+    rng = np.random.default_rng(0)
+    for rid in range(5):
+        pool.queue.append(PoolRequest(rid=rid, prompt=rng.integers(0, 128, 3 + 3 * rid),
+                                      max_new_tokens=6))
+    torch.cuda.synchronize()
+    while any(not s.free for s in pool.slots) or pool.queue:
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            pool._admit_from_queue()
+            for _ in range(pool.dispatch_window):
+                if any(not s.free for s in pool.slots):
+                    pool.step()
+            pool.upgrade_if_available()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        pool.flush()
+    assert pool.completed == set(range(5))
+    assert all(len(v) == 6 for v in pool.outputs.values())
+    assert pool.stage == pool.prog.n_stages and pool._tick_count > 0
+
+
+def test_reset_recurrent_slot_no_host_read(dev):
+    """``_reset_recurrent_slot`` zeroes one slot's rows of every recurrent
+    leaf in place under ``set_sync_debug_mode("error")``: no host read."""
+    pool = _recurrent_pool(dev, "xlstm-125m", n_layers=4)
+    leaves = [leaf for part, key in pool._recurrent_keys
+              for leaf in pool.caches[part][key].values()]
+    for i, leaf in enumerate(leaves):
+        leaf.fill_(float(i + 1))
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        pool._reset_recurrent_slot(2)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    for i, leaf in enumerate(leaves):
+        assert not leaf[:, 2].any() and bool((leaf[:, :2] == i + 1).all())
+
+
 def test_client_feed_and_catch_up_upgrade_never_sync(dev):
     """On the card, a v3 client fed one stage's bytes (verify, upload,
     unpack, OR) and the wire-fed server's catch-up upgrade run under
@@ -733,8 +802,6 @@ def test_norm_rows_independent_of_count(dev, dtype, d_model, norm_type):
     runs: olmo-1b's non-parametric LayerNorm at 2048, minitron-4b's RMSNorm
     at 3072 and starcoder2-15b's affine LayerNorm at 6144 (each also at
     the other's width), and the reduced models' of these tests."""
-    import dataclasses
-
     from repro_torch.configs import get_config
     from repro_torch.models.common import apply_norm, norm_init
 

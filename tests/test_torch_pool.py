@@ -263,11 +263,15 @@ def test_parts_left_for_later_raise(models, monkeypatch, kw):
     model = models[1]
     _, prog = _progs(models, "uint8")
     if "window" in kw:
-        # sliding windows are ported (tests/test_torch_sliding_window.py): a
-        # windowed pool admits without buckets; a recurrent block is not
+        # sliding windows (tests/test_torch_sliding_window.py) and recurrent
+        # blocks (tests/test_torch_recurrent.py) are ported: such a pool
+        # admits without buckets; a recurrent pool on a mesh is not ported
         swa = build_model(model.cfg.reduced(**REDUCED, cycle=("swa",), window=kw.pop("window")))
         assert not SlotPoolEngine(swa, prog, device="cpu", **POOL).prefill_buckets
         model = build_model(model.cfg.reduced(**REDUCED, cycle=("mamba2",)))
+        assert not SlotPoolEngine(model, prog, device="cpu", **POOL).prefill_buckets
+        prog = divide(model.init(torch.Generator(), device="cpu"))
+        kw["mesh"] = make_serving_mesh(2, devices=["cpu"] * 2)
     if "telemetry" in kw:
         monkeypatch.setenv("REPRO_TELEMETRY", kw.pop("telemetry"))
     settings = {**POOL, **kw}

@@ -83,9 +83,10 @@ def test_cli_mixtral_reduced(mode, capsys):
 
 def test_cli_parts_still_to_port_raise():
     """The other architectures (``--mesh-shards`` is ported:
-    ``tests/test_torch_sharded.py`` runs it)."""
+    ``tests/test_torch_sharded.py`` runs it; the recurrent archs serve:
+    ``tests/test_torch_recurrent.py``)."""
     with pytest.raises(NotImplementedError, match="A8"):
-        serve.main(["--arch", "zamba2-7b", "--reduced", "--device", "cpu"])
+        serve.main(["--arch", "seamless-m4t-medium", "--reduced", "--device", "cpu"])
 
 
 def test_cli_defaults_to_the_card():
