@@ -9,10 +9,10 @@ with the launch counts set to 0 just before it and read just after:
 
 1. build every CUDA kernel from ``src/repro_torch/kernels/csrc``, one
    ``nvcc`` per source, all at once;
-1a. ``[arch minitron-4b]`` and ``[arch starcoder2-15b x4]``: the dense
+1a. ``[arch minitron-4b]`` and ``[arch starcoder2-15b x2]``: the dense
    variants (RMSNorm, affine LayerNorm, tanh GELU, ``head_dim``, an
    untied ``lm_head``; GQA at G = 3 and 12) at their published widths,
-   minitron-4b at its 32 layers and starcoder2-15b at 4 of its 40, from
+   minitron-4b at its 32 layers and starcoder2-15b at 2 of its 40, from
    seeded weights: ``divide`` on the card, and an in-memory receiver's
    stage-8 accumulators equal to ``quantize(leaf).q`` of every tensor
    (minitron-4b's flat buffer passes element 2^32); the single stream
@@ -25,7 +25,7 @@ with the launch counts set to 0 just before it and read just after:
    the arch's heads, against their plain versions (verify rows equal to
    decode rows); ``[path]`` (phase 7) at stages 1 and 8 (starcoder2-15b's at
    1 layer); the CLI for
-   minitron-4b at full width; ``[mesh]`` for starcoder2-15b x4: its single
+   minitron-4b at full width; ``[mesh]`` for starcoder2-15b x2: its single
    stream on 2 logical shards of the card, every logit and token
    ``torch.equal`` to the phase's single-device stream (B7 on every layer
    weight and the untied ``lm_head``), B7 and B2 launches a decode step
@@ -89,6 +89,30 @@ with the launch counts set to 0 just before it and read just after:
    residency within ``FP_LOGIT_RTOL`` of one device's. No wire, CLI or
    ``[path]``: byte paths, which the CPU tests hold for a sliced
    division;
+1d. ``[arch seamless-m4t-medium]``: cross attention and encoders
+   (ROADMAP A8(e)) at seamless-m4t-medium's published widths and depth
+   (12 ``enc_attn`` encoder blocks, 12 ``selfcross`` decoder blocks,
+   vocab 256,206), seeded weights and a seeded ``enc_input`` of
+   ``prompt // 4`` frames: divide and the stage-8 accumulators as 1a; the
+   single stream (phase 3's shape) with a decode step's launches checked
+   by name and route (109 B2 on the one-pass GEMV kernels, 24 B3: a self
+   and a cross launch a layer), and a prefill's (the encoder's 84 and the
+   cross ``wk``/``wv``'s 24 B2 launches at the frames' 64 rows, the
+   decoder's 108 at the prompt's 256, on the tensor cores; the
+   unembedding on the GEMV route); then from v3 wire bytes and in float
+   residency as 1a; ``SpeculativeEngine`` at stage 8, tokens equal to
+   plain; the pool refused; B2 on every distinct weight shape (``embed.T``
+   at N = 256,206 included), B3 and B4 over the self caches and the cross
+   caches (16 slots, half a 32-key chunk, every row at ``q_pos = S``),
+   verify rows equal to decode rows, timed beside SDPA; the CLI.
+   ``[vision path]``: llama-3.2-vision-90b's cross path at its reduced
+   config with its gates drawn away from 0: the single stream with a
+   decode step's launches checked, its logits against the CPU's plain
+   versions teacher-forced within ``PATH_RTOL``; ``SpeculativeEngine``,
+   tokens equal to plain; the pool's batch-1 fall-back with an image a
+   request, each request alone equal to the busy pool; B3 and B4 over its
+   cross cache; then over 20 cross caches at the published heads (B 4,
+   Kh 8, G 8, hd 128, Tv 1601, T 5), timed beside SDPA and the bound;
 2. ``[divide]``: split full-width olmo-1b into eight 2-bit planes on the
    card (``plane_extract``, 8 launches a tensor); the in-memory receiver
    after all 8 stages holds ``quantize(leaf).q`` of every tensor, bit for
@@ -319,11 +343,13 @@ MESH_B7_M = (1, 4, 8, 20, 64, 256)
 # [calibrate]: the calibration batch (numpy-free torch seed 7)
 CAL_BATCH, CAL_LEN = 4, 64
 # [arch]: the dense variants of ROADMAP A8(a) at their published widths,
-# minitron-4b at its full 32 layers and starcoder2-15b at 4 of its 40
+# minitron-4b at its full 32 layers and starcoder2-15b at 2 of its 40
 # (its float32 weights, 88 GB at full depth by the reference's GLU MLP,
-# do not fit the card that divides them); B2 checked at these rows on
-# every distinct weight shape, a float-resident run of FP_STEPS steps
-ARCHS = (("minitron-4b", None), ("starcoder2-15b", 4), ("xlstm-125m", None),
+# do not fit the card that divides them; 4 layers until the cross phases
+# took the script past 960 s: ROADMAP's second cut); B2 checked at these
+# rows on every distinct weight shape, a float-resident run of FP_STEPS
+# steps
+ARCHS = (("minitron-4b", None), ("starcoder2-15b", 2), ("xlstm-125m", None),
          ("zamba2-7b", 13))
 ARCH_DQMM_M = (1, 4, 8, 20, 64)
 ARCH_FP_STEPS = 16
@@ -371,6 +397,21 @@ MOE_SPEC_K = 4
 # the sync guard) on n logical shards of the card, over the planes the
 # phase holds, for each n here
 MESH_ARCH_SHARDS = {"starcoder2-15b": (2,), "gemma3-27b": (2,), "mixtral-8x22b": (2, 4)}
+# [arch seamless-m4t-medium]: cross attention and encoders (ROADMAP A8(e))
+# at seamless-m4t-medium's published widths and depth (715,466,752
+# weights); [vision path]: llama-3.2-vision-90b's cross path at its
+# reduced config (its smallest stack with a cross block, one cycle of 5
+# layers at the published widths, holds 6.4 B weights, which a divide on
+# one card does not fit), VISION_REQUESTS requests in its pool, and B3/B4
+# over VISION_HEADS_LAYERS cross caches at its published heads (its 100
+# layers hold 20 cross layers); seamless's B3/B4 are also timed over 12
+# cross caches of CROSS_LONG_TV frames at its heads, a memory 25 times the
+# stub's 16 frames, standing for a speech input much longer than its text
+CROSS = "seamless-m4t-medium"
+VISION = "llama-3.2-vision-90b"
+VISION_REQUESTS = 3
+VISION_HEADS_LAYERS = 20
+CROSS_LONG_TV = 400
 # v2 entropy coding is host numpy (core/entropy.py): its encode and decode
 # are timed on the 2-layer full-width model's attn.wq units (8 planes)
 
@@ -428,6 +469,13 @@ def host_ms(fn, reps: int) -> float:
 def bound_ms(n_bytes: float, n_ops: float, peak_ops: float) -> tuple[float, str]:
     t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S * 1e3, n_ops / peak_ops * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def attn_flops(dtype) -> float:
+    """The card's peak rate for attention over q and caches of ``dtype``:
+    the tensor cores' for bfloat16 and float16, the float32 units'
+    otherwise."""
+    return BF16_FLOPS if dtype in (torch.bfloat16, torch.float16) else FP32_FLOPS
 
 
 def kernel_counters() -> dict:
@@ -561,6 +609,12 @@ def main() -> int:
 
     # -- 1c. mixture of experts (ROADMAP A8(c)): mixtral-8x22b, 1 of 56 layers
     arch_runs[f"arch {MOE[0]} x{MOE[1]}"] = _moe_phase(dev, ops)
+    torch.cuda.empty_cache()
+
+    # -- 1d. cross attention and encoders (ROADMAP A8(e)) ----------------------
+    arch_runs[f"arch {CROSS}"] = _cross_phase(dev, ops)
+    torch.cuda.empty_cache()
+    arch_runs["vision path"] = _vision_phase(dev, ops)
     torch.cuda.empty_cache()
 
     # -- 2. divide on the card -----------------------------------------------
@@ -1047,7 +1101,7 @@ def main() -> int:
     kv_bytes = 2 * cache["k"].numel() * cache["k"].element_size()
     n_b = kv_bytes + 2 * q.numel() * q.element_size() + k_pos.numel() * 4 + BATCH * 4
     n_ops = 4 * BATCH * cfg.n_heads * S * cfg.hd
-    b, by = bound_ms(layers * n_b, layers * n_ops, FP32_FLOPS)
+    b, by = bound_ms(layers * n_b, layers * n_ops, attn_flops(cache["k"].dtype))
     kern["decode_attention"].update(
         **_attention_times(
             lambda: [da.flash_decode(q, c["k"], c["v"], k_pos, q_pos) for c in caches],
@@ -1064,7 +1118,7 @@ def main() -> int:
     n_b = kv_bytes + 2 * vq.numel() * vq.element_size() + vk_pos.numel() * 4 \
         + vq_pos.numel() * 4
     n_ops = 4 * POOL_SLOTS * T * cfg.n_heads * PS * cfg.hd
-    b, by = bound_ms(layers * n_b, layers * n_ops, FP32_FLOPS)
+    b, by = bound_ms(layers * n_b, layers * n_ops, attn_flops(pcache["k"].dtype))
     kern["flash_verify"].update(
         **_attention_times(
             lambda: [va.flash_verify(vq, c["k"], c["v"], vk_pos, vq_pos) for c in pcaches],
@@ -2729,16 +2783,18 @@ def _view_phase(model, prog, dev, ops, prompt) -> dict:
     return {"counts": view_counts, "routes": view_routes}
 
 
-def _alone(model, prog, prompt, budget, admit_stage, step_stages, dev) -> list:
-    """One request alone in a 1-slot batch-1 pool: admitted at
-    ``admit_stage``, each step j run at ``step_stages[j]``."""
+def _alone(model, prog, prompt, budget, admit_stage, step_stages, dev, extras=None,
+           max_len=POOL_MAX_LEN) -> list:
+    """One request (with its ``extras``) alone in a 1-slot batch-1 pool:
+    admitted at ``admit_stage``, each step j run at ``step_stages[j]``."""
     from repro_torch.serving import PoolRequest, SlotPoolEngine
 
-    pool = SlotPoolEngine(model, prog, n_slots=1, max_len=POOL_MAX_LEN, resident="quantized",
+    pool = SlotPoolEngine(model, prog, n_slots=1, max_len=max_len, resident="quantized",
                           chunked_prefill=False, device=dev)
     while pool.stage < admit_stage:
         pool.receive_stage()
-    pool.submit(PoolRequest(rid=0, prompt=prompt, max_new_tokens=budget))
+    pool.submit(PoolRequest(rid=0, prompt=prompt, max_new_tokens=budget,
+                            extras=extras or {}))
     for st in step_stages[:budget]:
         while pool.stage < st:
             pool.receive_stage()
@@ -3450,7 +3506,7 @@ def _arch_stream(run, prog, b2_step: int, b3_step: int, calls, fp_leaves: str):
     reset_counts(run.ops)
     t0 = time.perf_counter()
     srv.receive_stage()
-    srv.start({"tokens": run.prompt})
+    srv.start(_batch(run, run.prompt))
     torch.cuda.synchronize()
     t_prefill = time.perf_counter() - t0
     after_prefill = counts()
@@ -3484,6 +3540,13 @@ def _arch_stream(run, prog, b2_step: int, b3_step: int, calls, fp_leaves: str):
     return srv, res
 
 
+def _batch(run, prompt) -> dict:
+    """A prompt's batch: its tokens and, for a cross-attention arch, its
+    memory input (``run.memory(prompt)``)."""
+    memory = getattr(run, "memory", None)
+    return {"tokens": prompt, **(memory(prompt) if memory else {})}
+
+
 def _decode_attention_row(run, caches, xg) -> dict:
     """B3 on ``caches`` (a decode step's layer caches, (B, Kh, S, hd)) at
     the arch's heads: the first within ``ATTN_RTOL`` of the plain version
@@ -3500,7 +3563,8 @@ def _decode_attention_row(run, caches, xg) -> dict:
     q = torch.randn((BATCH, cfg.n_heads, cfg.hd), generator=xg, device=dev).to(cfg.dtype)
     n_b = 2 * caches[0]["k"].numel() * caches[0]["k"].element_size() \
         + 2 * q.numel() * q.element_size() + k_pos.numel() * 4 + BATCH * 4
-    b, bb = bound_ms(L * n_b, L * 4 * BATCH * cfg.n_heads * S * cfg.hd, FP32_FLOPS)
+    b, bb = bound_ms(L * n_b, L * 4 * BATCH * cfg.n_heads * S * cfg.hd,
+                     attn_flops(caches[0]["k"].dtype))
     o = da.flash_decode(q, caches[0]["k"], caches[0]["v"], k_pos, q_pos)
     want = ref.flash_decode_ref(q, caches[0]["k"], caches[0]["v"], k_pos, q_pos)
     err = float((o.float() - want).abs().max())
@@ -3665,7 +3729,7 @@ def _arch_wire(run, prog, tokens) -> None:
         return True
 
     srv.receive_stage()
-    srv.start({"tokens": run.prompt})
+    srv.start(_batch(run, run.prompt))
     res = srv.decode(STEPS, stage_arrival=arrive)
     lockstep()
     got, _ = _tally(run.counts, run.routes, f"{run.tag} wire")
@@ -3723,7 +3787,7 @@ def _arch_spec(run, prog, prompt, k_max=8):
                               resident="quantized", device=run.dev)
     for _ in range(8):
         plain.receive_stage()
-    plain.start({"tokens": prompt})
+    plain.start(_batch(run, prompt))
     if margin:
         plain.caches = run.model.grow_caches(plain.caches, plain.max_len, ring_margin=margin,
                                              pos=n)
@@ -3736,7 +3800,7 @@ def _arch_spec(run, prog, prompt, k_max=8):
     reset_counts(run.ops)
     for _ in range(8):
         eng.receive_stage()
-    eng.start({"tokens": prompt})
+    eng.start(_batch(run, prompt))
     res = eng.decode(SPEC_TOKENS)
     steps, verifies = _b2_steps(res.accept_rounds)
     got, by = _tally(run.counts, run.routes, f"{run.tag} spec")
@@ -3744,8 +3808,12 @@ def _arch_spec(run, prog, prompt, k_max=8):
                     if slot.endswith("_swa")})
     check(rings == ([cfg.window + margin] if margin else []), rings)
     check(torch.equal(res.tokens.cpu(), want), f"{run.tag} speculative tokens differ from plain")
-    check(got["flash_verify"] == L * verifies and verifies > 0, (got, verifies))
-    check(by == {"mma": L * 7, "gemv": (L * 7 + 1) * (steps + verifies) + 1}, by)
+    check(got["flash_verify"] == getattr(run, "attn_layers", L) * verifies and verifies > 0,
+          (got, verifies))
+    # the prefill's launches on the tensor cores, a pass's on the GEMV route
+    # (and the prefill's unembedding of the last position)
+    mma, per_pass = getattr(run, "spec_b2", (L * 7, L * 7 + 1))
+    check(by == {"mma": mma, "gemv": per_pass * (steps + verifies) + 1}, by)
     rep = eng.resident_report()
     check(rep["extra_draft_bytes"] == 0 and rep["fp_bytes"] == 4 * run.n_fp, rep["fp_bytes"])
     log(f"{run.tag} spec: SpeculativeEngine at stage 8, k = 4, k_max = {k_max}, draft 4 bits, "
@@ -3782,7 +3850,7 @@ def _arch_fp(run, prog, receiver, prompt, store) -> None:
             torch.cuda.synchronize()
             reset_counts(run.ops)
             srv.receive_stage()
-            srv.start({"tokens": prompt})
+            srv.start(_batch(run, prompt))
             res = srv.decode(ARCH_FP_STEPS)
             if resident == "fp":
                 got, by = _tally(run.counts, run.routes, f"{run.tag} fp")
@@ -4162,46 +4230,13 @@ def _rec_single(run, prog) -> torch.Tensor:
     named = _rec_weights(cfg, srv.params)
     check(len(named) == rec + attn + 1 and all(dqm.one_pass(w.q) for _, w in named),
           f"{run.tag} a weight is off the one-pass kernels")
-    xs = {}
-    calls = []
-    for nm, w in named:
-        xd = torch.float32 if nm == "embed.T" else cfg.dtype
-        key = (w.q.shape[0], xd)
-        if key not in xs:
-            xs[key] = torch.randn((BATCH, key[0]), generator=xg, device=dev).to(xd)
-        calls.append((xs[key], w))
-    four = torch.full((1, 1), 4, dtype=torch.int32, device=dev)
-
-    def shapes():
-        first: dict = {}
-        for nm, w in named:
-            first.setdefault(tuple(w.q.shape), (nm, w, torch.float32 if nm == "embed.T"
-                                                else cfg.dtype, four))
-        return _dqmm_check(run.tag, list(first.values()), xg, ARCH_DQMM_M, "keep none and 4")
-
-    run.kern["dequant_matmul"] = _decode_b2_row(run, srv.params, xg, calls=calls,
-                                                check_shapes=shapes)
+    run.kern["dequant_matmul"] = _named_b2_row(run, srv.params, named, xg)
     if uses:
         slot = f"{cfg.cycle.index('shared_attn')}_shared_attn"
         stacked = srv.caches["cycles"][slot]
         run.kern["decode_attention"] = _decode_attention_row(
             run, [layer(stacked, r) for r in range(stacked["k"].shape[0])], xg)
-
-    # a whole decode step at stage 8 (writing the stream's last cache row):
-    # its device time against its kernels', and the host's time to issue it
-    nxt = res.tokens[:, -1:].to(dev)
-    last = torch.full((BATCH,), PROMPT + STEPS - 1, dtype=torch.int32, device=dev)
-
-    def step():
-        run.model.decode_step(srv.params, srv.caches, nxt, last)
-
-    step_ms, issue_ms = device_ms(step, 2), host_ms(step, 3)
-    kernels_ms = run.kern["dequant_matmul"]["ms"] + run.kern.get("decode_attention",
-                                                                {"ms": 0.0})["ms"]
-    log(f"{run.tag} [time] a decode step at stage 8 (batch {BATCH}): {step_ms:.4f} ms on the "
-        f"device (graph replay), of which B2 and B3 {kernels_ms:.4f} ms and the rest (the "
-        f"recurrences' plain torch, the norms, the embedding) "
-        f"{step_ms - kernels_ms:.4f} ms; the host issues it in {issue_ms:.3f} ms")
+    _step_time(run, srv, res, "the recurrences' plain torch, the norms, the embedding")
     return res.tokens.cpu()
 
 
@@ -4318,21 +4353,12 @@ def _rec_refusals(run, prog) -> None:
     from repro_torch.launch.mesh import make_serving_mesh
     from repro_torch.serving import ProgressiveServer, SpecConfig, SpeculativeEngine
 
-    refusals = {
-        "rollback": lambda: SpeculativeEngine(run.model, prog, max_len=PROMPT + SPEC_TOKENS + 9,
-                                              spec=SpecConfig(draft_bits=4, k=4),
-                                              device=run.dev),
-        "ROADMAP A13": lambda: ProgressiveServer(
-            run.model, prog, max_len=PROMPT + STEPS, resident="quantized",
-            mesh=make_serving_mesh(2, devices=[run.dev] * 2), device=run.dev)}
-    for text, fn in refusals.items():
-        try:
-            fn()
-        except NotImplementedError as e:
-            check(text in str(e), (run.tag, text, str(e)))
-        else:
-            check(False, f"{run.tag}: no refusal ({text})")
-        gc.collect()
+    _refused(run.tag, "rollback", lambda: SpeculativeEngine(
+        run.model, prog, max_len=PROMPT + SPEC_TOKENS + 9, spec=SpecConfig(draft_bits=4, k=4),
+        device=run.dev))
+    _refused(run.tag, "ROADMAP A13", lambda: ProgressiveServer(
+        run.model, prog, max_len=PROMPT + STEPS, resident="quantized",
+        mesh=make_serving_mesh(2, devices=[run.dev] * 2), device=run.dev))
     log(f"{run.tag} refusals: SpeculativeEngine (no overwrite-only rollback of a recurrent "
         f"state) and a serving mesh (ROADMAP A13) raise NotImplementedError")
 
@@ -4606,13 +4632,13 @@ def _ring_attention(run, caches, T: int) -> None:
         lambda: [ref.flash_decode_ref(q1, c["k"], c["v"], kp, h, window=w)
                  for c, w, h, kp, _ in ops_d],
         lambda: [_sdpa(q1[:, None], c, m) for (c, *_), m in zip(ops_d, masks_d)])
-    b_d, by_d = bound_ms(n_bytes(seen_d, 1), n_ops(seen_d), FP32_FLOPS)
+    b_d, by_d = bound_ms(n_bytes(seen_d, 1), n_ops(seen_d), attn_flops(layers[0]["k"].dtype))
     row_v = _attention_times(
         lambda: [va.flash_verify(q, c["k"], c["v"], kp, qp, window=w) for c, w, _, kp, qp in ops_d],
         lambda: [ref.flash_verify_ref(q, c["k"], c["v"], kp, qp, window=w)
                  for c, w, _, kp, qp in ops_d],
         lambda: [_sdpa(q, c, m) for (c, *_), m in zip(ops_d, masks_v)])
-    b_v, by_v = bound_ms(n_bytes(seen_v, T), n_ops(seen_v), FP32_FLOPS)
+    b_v, by_v = bound_ms(n_bytes(seen_v, T), n_ops(seen_v), attn_flops(layers[0]["k"].dtype))
     S_g = layers[-1]["k"].shape[2]
     n_ring = sum(1 for _, w, *_ in ops_d if w)
     per = (f"{L} launches: {n_ring} on rings of {S0} slots, window {cfg.window}"
@@ -5057,6 +5083,509 @@ def _moe_spec(run, prog):
     return out[cfg.n_experts / cfg.top_k][0]
 
 
+# ---------------------------------------------------------------------------
+# [arch seamless-m4t-medium], [vision path]: cross attention and encoders
+# (ROADMAP A8(e))
+# ---------------------------------------------------------------------------
+
+def cross_b2(cfg) -> tuple[int, int, int]:
+    """An encoder-decoder stack's B2 launches: a decode step's (each
+    ``selfcross`` layer's self-attention 4, its cross-attention's ``wq``
+    and ``wo``, the MLP's 3, then the unembedding), and a prefill's on the
+    tensor cores: on the encoder's frames (7 an encoder layer, each
+    decoder layer's cross ``wk`` and ``wv``) and on the prompt (9 a
+    decoder layer)."""
+    L, E = cfg.n_layers, cfg.enc_layers
+    return 9 * L + 1, 7 * E + 2 * L, 9 * L
+
+
+def _cross_phase(dev, ops) -> dict:
+    """``[arch seamless-m4t-medium]``: ROADMAP A8(e) at seamless-m4t-medium's
+    published widths and depth (12 ``enc_attn`` encoder blocks, 12
+    ``selfcross`` decoder blocks), seeded random weights and a seeded
+    ``enc_input`` of ``prompt // 4`` frames. Each path counted from 0:
+    divide on the card and the stage-8 accumulators (:func:`_arch_divide`);
+    the single stream (:func:`_cross_single`: a decode step's and a
+    prefill's launches by name and route, B2 on every weight shape, B3 and
+    B4 over the self and the cross caches); the stream from v3 wire bytes
+    and float residency (:func:`_arch_wire`); ``SpeculativeEngine`` at
+    stage 8 against plain greedy tokens (:func:`_arch_spec`); the pool
+    refused; the CLI. Returns the launch counts, B2's launches by route and
+    the kernels' rows."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import build_model
+    from repro_torch.serving import SlotPoolEngine
+
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = get_config(CROSS)
+    L, E = cfg.n_layers, cfg.enc_layers
+    model = build_model(cfg)
+    step_b2, frame_b2, prompt_b2 = cross_b2(cfg)
+
+    def memory(prompt) -> dict:
+        # the stub frontend's frames for this prompt, from a seed
+        g = torch.Generator(device=dev).manual_seed(3)
+        return {"enc_input": torch.randn((prompt.shape[0], model.enc_len(prompt.shape[1]),
+                                          cfg.d_model), generator=g, device=dev).to(cfg.dtype)}
+
+    run = types.SimpleNamespace(
+        tag=f"[arch {cfg.name}]", cfg=cfg, model=model, dev=dev, ops=ops, counts={},
+        routes={}, kern={}, mesh_shards=(), attn_layers=2 * L,
+        spec_b2=(frame_b2 + prompt_b2, step_b2), memory=memory,
+        prompt=torch.randint(0, cfg.vocab, (BATCH, PROMPT),
+                             generator=torch.Generator().manual_seed(1)))
+    log(f"{run.tag} {E} encoder blocks over {model.enc_len(PROMPT)} frames a {PROMPT}-token "
+        f"prompt and {L} selfcross decoder blocks; a decode step {step_b2} B2 and {2 * L} B3 "
+        f"launches, a prefill {frame_b2} + {prompt_b2} B2 launches on the tensor cores and the "
+        f"unembedding's, by the code")
+    seconds = {}
+
+    def timed(name, fn):
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        out = fn()
+        seconds[name] = round(time.perf_counter() - t0, 1)
+        return out
+
+    prog = timed("divide", lambda: _arch_divide(run))
+    tokens = timed("stream", lambda: _cross_single(run, prog))
+    timed("wire and fp", lambda: _arch_wire(run, prog, tokens))
+    timed("spec", lambda: _arch_spec(run, prog, run.prompt))
+    timed("pool refused", lambda: _refused(run.tag, "encoder-decoder", lambda: SlotPoolEngine(
+        model, prog, n_slots=2, max_len=PROMPT + STEPS, resident="quantized", device=dev)))
+    del prog
+    timed("cli", lambda: _cli_phase(cfg.name, CLI_STREAM))
+    log(f"{run.tag} launches on the paths {run.counts}, dequant_matmul by route {run.routes}; "
+        f"seconds by path {seconds}; peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.1f} GB; "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    return {"counts": run.counts, "routes": run.routes, "kern": run.kern}
+
+
+def _refused(tag, text, fn) -> None:
+    """``fn()`` raises ``NotImplementedError`` naming ``text``."""
+    try:
+        fn()
+    except NotImplementedError as e:
+        check(text in str(e), (tag, text, str(e)))
+    else:
+        check(False, f"{tag}: no refusal ({text})")
+    gc.collect()
+    log(f"{tag} refused, as it should be: {text}")
+
+
+def _cross_single(run, prog) -> torch.Tensor:
+    """The single stream (:func:`_arch_stream`) with a decode step's
+    launches checked by name and route (:func:`cross_b2`: B2 on the
+    one-pass GEMV kernels, a self and a cross B3 a layer); then a prefill
+    at stage 8 counted alone (the encoder's and the cross projections'
+    launches at the frames' rows, the decoder's at the prompt's, on the
+    tensor cores; the last position's unembedding on the GEMV route); a
+    decode step's B2 launches timed and every distinct weight shape
+    checked (``embed.T`` at N = 256,206 included); B3 and B4 over the self
+    and the cross caches (:func:`_memory_rows`); a whole decode step's
+    device time; B3 and B4 over 12 cross caches of ``CROSS_LONG_TV``
+    frames at seamless's heads. Returns the tokens."""
+    from repro_torch.kernels import dequant_matmul as dqm
+    from repro_torch.models.transformer import layer
+
+    cfg, dev, L = run.cfg, run.dev, run.cfg.n_layers
+    step_b2, frame_b2, prompt_b2 = cross_b2(cfg)
+    frames = run.model.enc_len(PROMPT)
+    prefill = [(frame_b2, BATCH * frames), (prompt_b2, BATCH * PROMPT), (1, BATCH)]
+    srv, res = _arch_stream(run, prog, step_b2, 2 * L,
+                            prefill + [(STEPS * step_b2, BATCH, "decode")],
+                            "the norms")
+
+    # a prefill alone at stage 8
+    batch = _batch(run, run.prompt.to(dev))
+    torch.cuda.synchronize()
+    reset_counts(run.ops)
+    _, caches = run.model.prefill(srv.params, batch)
+    got, by = _tally(run.counts, run.routes, f"{run.tag} prefill")
+    check(got["dequant_matmul"] == frame_b2 + prompt_b2 + 1 and got["decode_attention"] == 0
+          and got["flash_verify"] == 0, got)
+    check(by == expect_routes(prefill), by)
+    cross = caches["cycles"]["0_selfcross"]["cross"]["k"]
+    check(tuple(cross.shape) == (L, BATCH, cfg.n_kv, frames, cfg.hd), cross.shape)
+    log(f"{run.tag} a prefill at stage 8 counted alone: dequant_matmul {got['dequant_matmul']} "
+        f"launches, by route {by} ({frame_b2} at M = {BATCH * frames}: the encoder's "
+        f"{7 * cfg.enc_layers} and the cross wk/wv {2 * L}; {prompt_b2} at M = "
+        f"{BATCH * PROMPT}; the unembedding at M = {BATCH}); cross caches "
+        f"{tuple(cross.shape)}; launches {got}")
+    del caches
+
+    # a decode step's B2 launches timed, every distinct weight shape checked
+    xg = torch.Generator(device=dev).manual_seed(2)
+    named = []
+    for r in range(L):
+        lr = layer(srv.params["decoder"]["cycles"]["0_selfcross"], r)
+        named += [(f"self_attn.{k}", lr["self_attn"][k]) for k in ("wq", "wk", "wv", "wo")]
+        named += [(f"cross_attn.{k}", lr["cross_attn"][k]) for k in ("wq", "wo")]
+        named += [(f"mlp.{k}", lr["mlp"][k]) for k in ("wi_gate", "wi_up", "wo")]
+    named.append(("embed.T", srv.params["embed"].T))
+    check(len(named) == step_b2 and all(dqm.one_pass(w.q) for _, w in named),
+          f"{run.tag} a weight is off the one-pass kernels")
+    run.kern["dequant_matmul"] = _named_b2_row(run, srv.params, named, xg)
+    stacked = srv.caches["cycles"]["0_selfcross"]
+    run.kern["decode_attention"], run.kern["flash_verify"] = _memory_rows(
+        run.tag, {"self": ([layer(stacked["self"], r) for r in range(L)], True),
+                  "cross": ([layer(stacked["cross"], r) for r in range(L)], False)},
+        cfg.n_heads, cfg.dtype, dev, xg)
+    # the cross layers at seamless's heads over a memory of CROSS_LONG_TV frames
+    mem = [{k: torch.randn((BATCH, cfg.n_kv, CROSS_LONG_TV, cfg.hd), generator=xg,
+                           device=dev).to(cfg.dtype) for k in ("k", "v")} for _ in range(L)]
+    for kind, row in zip(("decode_attention", "flash_verify"), _memory_rows(
+            f"{run.tag} long memory", {"cross": (mem, False)}, cfg.n_heads, cfg.dtype, dev, xg)):
+        run.kern[kind]["long_memory"] = {k: row[k] for k in (
+            "per", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by", "max_abs_err")}
+    del mem
+    _step_time(run, srv, res, "the norms, the embedding, rope, the cache writes")
+    return res.tokens.cpu()
+
+
+def _named_b2_row(run, P, named, xg) -> dict:
+    """:func:`_decode_b2_row` over ``named`` ((name, view) in the order a
+    decode step runs them, the unembedding last): bfloat16 x for the
+    layers, float32 for the unembedding; every distinct weight shape
+    checked with and without a mask (:func:`_dqmm_check`)."""
+    cfg, dev = run.cfg, run.dev
+    xs, calls = {}, []
+    for nm, w in named:
+        xd = torch.float32 if nm in ("embed.T", "lm_head") else cfg.dtype
+        key = (w.q.shape[0], xd)
+        if key not in xs:
+            xs[key] = torch.randn((BATCH, key[0]), generator=xg, device=dev).to(xd)
+        calls.append((xs[key], w))
+    four = torch.full((1, 1), 4, dtype=torch.int32, device=dev)
+
+    def shapes():
+        first: dict = {}
+        for nm, w in named:
+            first.setdefault(tuple(w.q.shape), (nm, w, torch.float32 if nm in
+                                                ("embed.T", "lm_head") else cfg.dtype, four))
+        return _dqmm_check(run.tag, list(first.values()), xg, ARCH_DQMM_M, "keep none and 4")
+
+    return _decode_b2_row(run, P, xg, calls=calls, check_shapes=shapes)
+
+
+def _step_time(run, srv, res, rest: str) -> None:
+    """A whole decode step at stage 8 (writing the stream's last cache
+    row): its device time against its kernels' (B2's and B3's rows, where
+    the arch has them), the ``rest`` named in the log, and the host's time
+    to issue it."""
+    dev = run.dev
+    nxt = res.tokens[:, -1:].to(dev)
+    last = torch.full((BATCH,), PROMPT + STEPS - 1, dtype=torch.int32, device=dev)
+
+    def step():
+        run.model.decode_step(srv.params, srv.caches, nxt, last)
+
+    step_ms, issue_ms = device_ms(step, 2), host_ms(step, 3)
+    kernels_ms = sum(run.kern[k]["ms"] for k in ("dequant_matmul", "decode_attention")
+                     if k in run.kern)
+    log(f"{run.tag} [time] a decode step at stage 8 (batch {BATCH}): {step_ms:.4f} ms on the "
+        f"device (graph replay), of which B2 and B3 {kernels_ms:.4f} ms and the rest ({rest}) "
+        f"{step_ms - kernels_ms:.4f} ms; the host issues it in {issue_ms:.3f} ms")
+
+
+def _memory_rows(tag, groups, H, dtype, dev, g, T=5) -> tuple[dict, dict]:
+    """B3 (one row a slot) and B4 (``T`` rows a slot) over each group of
+    layer caches ((B, Kh, S, hd) each): ``groups`` maps a name to (the
+    caches, causal). A causal group (a self cache, every row written)
+    queries at its last positions; a memory group (a cross cache) at
+    ``q_pos = S`` on every row, every key valid. On each group's first
+    cache: both kernels within ``ATTN_RTOL`` of their plain versions, every
+    B4 row ``torch.equal`` to a B3 launch of that row. Then each kernel's
+    launches over all the groups timed (one decode step's, one verify
+    pass's) beside the bound, the plain version and SDPA, and each group
+    alone. Returns the B3 and B4 rows."""
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import verify_attention as va
+
+    first = next(iter(groups.values()))[0][0]["k"]
+    B, _, _, hd = first.shape
+    q1 = torch.randn((B, H, hd), generator=g, device=dev).to(dtype)
+    qT = torch.randn((B, T, H, hd), generator=g, device=dev).to(dtype)
+    ops_ = {}
+    worst = {"decode": 0.0, "verify": 0.0}
+    for name, (caches, causal) in groups.items():
+        c = caches[0]
+        S = c["k"].shape[2]
+        k_pos = torch.arange(S, dtype=torch.int32, device=dev).expand(B, S)
+        if causal:
+            p1 = torch.full((B,), S - 1, dtype=torch.int32, device=dev)
+            pT = (torch.arange(T, dtype=torch.int32, device=dev) + S - T).repeat(B, 1)
+        else:
+            p1 = torch.full((B,), S, dtype=torch.int32, device=dev)
+            pT = torch.full((B, T), S, dtype=torch.int32, device=dev)
+        o1, w1 = (da.flash_decode(q1, c["k"], c["v"], k_pos, p1),
+                  ref.flash_decode_ref(q1, c["k"], c["v"], k_pos, p1))
+        oT, wT = (va.flash_verify(qT, c["k"], c["v"], k_pos, pT),
+                  ref.flash_verify_ref(qT, c["k"], c["v"], k_pos, pT))
+        for kind, o, w in (("decode", o1, w1), ("verify", oT, wT)):
+            err = float((o.float() - w).abs().max())
+            check(bool(torch.isfinite(o).all()) and err <= ATTN_RTOL * float(w.abs().max()),
+                  (tag, name, kind, err))
+            worst[kind] = max(worst[kind], err)
+        for t in range(T):
+            row = da.flash_decode(qT[:, t].contiguous(), c["k"], c["v"], k_pos,
+                                  pT[:, t].contiguous())
+            check(torch.equal(oT[:, t], row), f"{tag} {name} flash_verify row {t} differs")
+        valid = k_pos[:, None, :] <= pT[:, :, None]
+        ops_[name] = dict(caches=caches, S=S, k_pos=k_pos, p1=p1, pT=pT,
+                          m1=torch.where(valid[:, -1:], 0.0, -1e30).to(dtype)[:, None],
+                          mT=torch.where(valid, 0.0, -1e30).to(dtype)[:, None])
+
+    def launches(kind, which, fn):
+        out = []
+        for name in which:
+            o = ops_[name]
+            for c in o["caches"]:
+                if kind == "decode":
+                    out.append(fn(q1, c, o["k_pos"], o["p1"], o["m1"]))
+                else:
+                    out.append(fn(qT, c, o["k_pos"], o["pT"], o["mT"]))
+        return out
+
+    fns = {"decode": (lambda q, c, kp, qp, m: da.flash_decode(q, c["k"], c["v"], kp, qp),
+                      lambda q, c, kp, qp, m: ref.flash_decode_ref(q, c["k"], c["v"], kp, qp),
+                      lambda q, c, kp, qp, m: _sdpa(q[:, None], c, m)),
+           "verify": (lambda q, c, kp, qp, m: va.flash_verify(q, c["k"], c["v"], kp, qp),
+                      lambda q, c, kp, qp, m: ref.flash_verify_ref(q, c["k"], c["v"], kp, qp),
+                      lambda q, c, kp, qp, m: _sdpa(q, c, m))}
+    rows = {}
+    for kind, (kern, plain, lib) in fns.items():
+        rows_T = 1 if kind == "decode" else T
+
+        def bound(which):
+            n_b = n_ops = 0
+            for name in which:
+                for c in ops_[name]["caches"]:
+                    S = c["k"].shape[2]
+                    n_b += 2 * c["k"].numel() * c["k"].element_size() \
+                        + 2 * B * rows_T * H * hd * c["k"].element_size() + B * S * 4 \
+                        + B * rows_T * 4
+                    n_ops += 4 * B * rows_T * H * S * hd
+            return bound_ms(n_b, n_ops, attn_flops(first.dtype))
+
+        def timed(which):
+            return _attention_times(lambda: launches(kind, which, kern),
+                                    lambda: launches(kind, which, plain),
+                                    lambda: launches(kind, which, lib))
+
+        row = timed(list(ops_))
+        row["bound_ms"], row["bound_by"] = bound(list(ops_))
+        row["max_abs_err"] = worst[kind]
+        n = sum(len(o["caches"]) for o in ops_.values())
+        row["per"] = (f"one {'decode step' if kind == 'decode' else f'verify pass (T = {T})'} "
+                      f"({n} launches: " + ", ".join(f"{len(o['caches'])} over the {name} "
+                                                      f"cache, S = {o['S']}"
+                                                      for name, o in ops_.items()) + ")")
+        row["by_cache"] = {}
+        for name, o in ops_.items():
+            sub = timed([name])
+            b, bb = bound([name])
+            row["by_cache"][name] = {"S": o["S"], "launches": len(o["caches"]), **sub,
+                                     "bound_ms": b, "bound_by": bb}
+        rows[kind] = row
+        log(f"{tag} [check] {'decode_attention' if kind == 'decode' else 'flash_verify'} B={B} "
+            f"H={H} Kh={first.shape[1]} hd={hd} over "
+            + ", ".join(f"the {name} cache (S = {o['S']}, q_pos "
+                        f"{'the last positions' if groups[name][1] else '= S'})"
+                        for name, o in ops_.items())
+            + f": max |err| {worst[kind]:.3e} (tolerance {ATTN_RTOL} of max |out|)"
+            + ("; every row equal (torch.equal) to a flash_decode launch" if kind == "verify"
+               else "")
+            + f"; [time] {row['per']}: {row['ms']:.4f} ms on the device, bound "
+            f"{row['bound_ms']:.4f} ms ({row['bound_by']}), plain {row['plain_ms']:.4f} ms, "
+            f"library {row['library_ms']:.4f} ms (scaled_dot_product_attention, additive "
+            f"mask); by cache " + "; ".join(
+                f"{name} {r['ms']:.4f} ms (bound {r['bound_ms']:.4f}, plain "
+                f"{r['plain_ms']:.4f}, library {r['library_ms']:.4f})"
+                for name, r in row["by_cache"].items()))
+    return rows["decode"], rows["verify"]
+
+
+def _vision_phase(dev, ops) -> dict:
+    """``[vision path]``: llama-3.2-vision-90b's cross path at its reduced
+    config (one cycle of four ``attn`` blocks and a gated ``cross`` block,
+    ``vision_proj``; float32), seeded weights with the gates drawn away
+    from 0 and seeded images. Each path counted from 0: divide on the
+    card; the single stream (a decode step's launches by name and route),
+    its logits against the same stream teacher-forced on the CPU's plain
+    versions; ``SpeculativeEngine`` at stage 8, tokens equal to plain;
+    the pool's batch-1 fall-back with each request's image, an upgrade a
+    window, each request alone in a 1-slot pool at the busy pool's stages
+    ``torch.equal``. Then B3 and B4 over the stream's cross cache (Tv =
+    16), and over a cross cache at llama-3.2-vision-90b's published heads
+    (Kh 8, G 8, hd 128, Tv 1601, B 4, T 5), whose rows it returns with the
+    counts."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.progressive import divide
+    from repro_torch.models.model import build_model
+    from repro_torch.models.transformer import layer
+    from repro_torch.serving import ProgressiveServer
+
+    t_phase = time.perf_counter()
+    tag = "[vision path]"
+    cfg = get_config(VISION).reduced()
+    model = build_model(cfg)
+    acc, routes = {}, {}
+    g = torch.Generator(device=dev).manual_seed(4)
+    params = model.init(torch.Generator(device=dev).manual_seed(0), device=dev)
+    gates = params["decoder"]["cycles"]["4_cross"]
+    for name in ("gate_attn", "gate_mlp"):
+        gates[name].copy_(torch.empty_like(gates[name]).uniform_(0.5, 1.0, generator=g))
+    torch.cuda.synchronize()
+    reset_counts(ops)
+    prog = divide(params)
+    got, _ = _tally(acc, routes, f"{tag} divide")
+    check(got["plane_extract"] == 8 * len(prog.tensors), got)
+    del params
+    images = torch.randn((BATCH, cfg.vision_tokens, cfg.d_vision), generator=g, device=dev)
+    prompt = torch.randint(0, cfg.vocab, (BATCH, PROMPT),
+                           generator=torch.Generator().manual_seed(1))
+    L = cfg.n_layers
+    step_b2 = 4 * 7 + 5 + 1          # four attn blocks, the cross block's wq, wo and MLP, lm_head
+    log(f"{tag} {VISION} reduced: {L} layers {cfg.cycle}, d_model {cfg.d_model}, "
+        f"{cfg.n_heads} heads on {cfg.n_kv} KV heads, {cfg.vision_tokens} image embeddings of "
+        f"{cfg.d_vision}, float32; gates {[float(v) for v in gates['gate_attn']]} (attention) "
+        f"and {[float(v) for v in gates['gate_mlp']]} (MLP), each scaling its output by its "
+        f"tanh; divide on the card {got}")
+
+    # the single stream, then the same stream on the CPU, teacher-forced
+    lm = LogitLog(model)
+    srv = ProgressiveServer(lm, prog, max_len=PROMPT + STEPS, resident="quantized", device=dev)
+    torch.cuda.synchronize()
+    reset_counts(ops)
+    srv.receive_stage()
+    srv.start({"tokens": prompt, "vision_embeds": images})
+    after = counts()
+    res = srv.decode(STEPS, stage_arrival=lambda i: i in ARRIVALS)
+    got, by = _tally(acc, routes, f"{tag} serve")
+    per_step = {k: (got[k] - after[k]) / STEPS for k in got}
+    check(per_step["dequant_matmul"] == step_b2 and per_step["decode_attention"] == 5
+          and got["flash_verify"] == 0, per_step)
+    check(after["dequant_matmul"] == 4 * 7 + 7 + 1 + 1, after)   # + vision_proj, lm_head
+    check(srv.stage == 8 and bool(torch.isfinite(srv.last_logits).all()), srv.stage)
+    cpu = ProgressiveServer(model, _cpu_copy(prog), max_len=PROMPT + STEPS,
+                            resident="quantized", device="cpu")
+    cpu.receive_stage()
+    cpu.start({"tokens": prompt, "vision_embeds": images.cpu()})
+    want = [cpu.last_logits]
+    toks = res.tokens.cpu()
+    for i in range(STEPS):
+        if i in ARRIVALS:
+            cpu.receive_stage()
+        logits, cpu.caches = model.decode_step(cpu.params, cpu.caches,
+                                               (toks[:, i:i + 1]), PROMPT + i)
+        want.append(logits)
+    err = max(float((a.cpu() - b).abs().max()) / float(b.abs().max())
+              for a, b in zip(lm.logits, want))
+    check(len(lm.logits) == len(want) and err <= PATH_RTOL, (tag, err))
+    caches = srv.caches
+    log(f"{tag} single stream: stages {res.stage_at_step[0]}->{res.stage_at_step[-1]}, per "
+        f"decode step dequant_matmul {per_step['dequant_matmul']:.0f} and decode_attention "
+        f"{per_step['decode_attention']:.0f} (4 self, 1 cross over {cfg.vision_tokens} "
+        f"slots); launches {got}, by route {by}; the prefill and every step's logits within "
+        f"{err:.3e} of the CPU's plain versions teacher-forced, relative to the largest "
+        f"(tolerance {PATH_RTOL})")
+    del srv, cpu, lm
+    gc.collect()
+
+    # speculation against plain greedy tokens at stage 8
+    from repro_torch.serving import SpecConfig, SpeculativeEngine
+
+    batch = {"tokens": prompt, "vision_embeds": images}
+    plain = ProgressiveServer(model, prog, max_len=PROMPT + SPEC_TOKENS + 9,
+                              resident="quantized", device=dev)
+    eng = SpeculativeEngine(model, prog, max_len=PROMPT + SPEC_TOKENS + 9,
+                            spec=SpecConfig(draft_bits=4, k=4), device=dev)
+    for _ in range(8):
+        plain.receive_stage()
+    plain.start(batch)
+    want_toks = plain.decode(SPEC_TOKENS).tokens.cpu()
+    torch.cuda.synchronize()
+    reset_counts(ops)
+    for _ in range(8):
+        eng.receive_stage()
+    eng.start(batch)
+    sres = eng.decode(SPEC_TOKENS)
+    got, by = _tally(acc, routes, f"{tag} spec")
+    check(torch.equal(sres.tokens.cpu(), want_toks), f"{tag} speculative tokens differ")
+    steps, verifies = _b2_steps(sres.accept_rounds)
+    check(got["flash_verify"] == 5 * verifies and verifies > 0, (got, verifies))
+    log(f"{tag} spec: SpeculativeEngine at stage 8, k = 4, {SPEC_TOKENS} tokens x {BATCH}: "
+        f"equal (torch.equal) to plain greedy tokens; {sres.rounds} rounds, "
+        f"{sres.accepted}/{sres.drafted} drafts accepted, {verifies} verify passes (B4 over "
+        f"the self and the cross caches); launches {got}, by route {by}")
+    del plain, eng
+    gc.collect()
+
+    _vision_pool(tag, model, prog, dev, ops, acc, routes)
+    kern = {}
+    xg = torch.Generator(device=dev).manual_seed(5)
+    _memory_rows(f"{tag} reduced", {"cross": ([layer(caches["cycles"]["4_cross"], 0)], False)},
+                 cfg.n_heads, cfg.dtype, dev, xg)
+    del caches, prog
+    gc.collect()
+    torch.cuda.empty_cache()
+    # a cross layer at llama-3.2-vision-90b's published heads
+    full = get_config(VISION)
+    mem = []
+    for _ in range(VISION_HEADS_LAYERS):
+        mem.append({k: torch.randn((BATCH, full.n_kv, full.vision_tokens, full.hd), generator=xg,
+                                   device=dev).to(torch.bfloat16) for k in ("k", "v")})
+    kern["decode_attention"], kern["flash_verify"] = _memory_rows(
+        f"{tag} published heads", {"cross": (mem, False)}, full.n_heads, torch.bfloat16, dev,
+        xg)
+    log(f"{tag} launches on the paths {acc}, dequant_matmul by route {routes}; "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    return {"counts": acc, "routes": routes, "kern": kern}
+
+
+def _vision_pool(tag, model, prog, dev, ops, acc, routes) -> None:
+    """The pool with ``chunked_prefill=None`` (it falls back to batch-1
+    admission): ``VISION_REQUESTS`` requests with an image each on 2
+    slots, an upgrade a window from stage 1, the last in a slot an
+    eviction freed; then each request alone in a 1-slot pool, replayed at
+    the busy pool's stages with its image: tokens ``torch.equal``."""
+    from repro_torch.serving import PoolRequest, SlotPoolEngine
+
+    cfg = model.cfg
+    rng = np.random.default_rng(9)
+    reqs = [(rng.integers(0, cfg.vocab, int(n)), int(b), {"vision_embeds": rng.standard_normal(
+        (cfg.vision_tokens, cfg.d_vision)).astype(np.float32)})
+            for n, b in zip(rng.integers(16, 60, VISION_REQUESTS),
+                            rng.integers(12, 25, VISION_REQUESTS))]
+    max_len = 96
+    pool = SlotPoolEngine(FiniteLogits(model), prog, n_slots=2, max_len=max_len,
+                          resident="quantized", dispatch_window=4, device=dev)
+    check(pool.chunked_prefill is False, "the vision pool does not fall back to batch 1")
+    torch.cuda.synchronize()
+    reset_counts(ops)
+    pool.receive_stage()
+    for rid, (p, b, ex) in enumerate(reqs):
+        pool.submit(PoolRequest(rid=rid, prompt=p, max_new_tokens=b, extras=ex))
+    out = pool.run(on_window=lambda _: pool.upgrade_if_available())
+    got, by = _tally(acc, routes, f"{tag} pool")
+    check(bool(torch.stack(pool.model.flags).all()), f"{tag} non-finite pool logits")
+    check(pool.completed == set(range(VISION_REQUESTS)) and pool._tick_count == 0,
+          pool.completed)
+    for rid, (p, b, ex) in enumerate(reqs):
+        alone = _alone(model, prog, p, b, pool.admit_stage[rid], pool.stage_log[rid], dev,
+                       extras=ex, max_len=max_len)
+        check(alone == out[rid], f"{tag} pool request {rid} alone differs from the busy pool")
+    log(f"{tag} pool: {VISION_REQUESTS} requests with an image each on 2 slots, batch-1 "
+        f"admission (chunked_prefill=None fell back), stages 1->{pool.stage}, admission "
+        f"stages {pool.admit_stage}; launches {got}, by route {by}; each request alone in a "
+        f"1-slot pool at the busy pool's stages, with its image: tokens equal (torch.equal)")
+
+
 def _arch_dqmm_check(tag, layer0, unembed, cfg, dev, g) -> float:
     """B2 on each distinct weight shape of the arch (layer 0's live stage-8
     views and the unembedding) at ARCH_DQMM_M rows, with and without the
@@ -5152,7 +5681,8 @@ def _arch_verify_check(run, pool, slot="0_attn") -> dict:
             check(torch.equal(out[:, t], row), f"{run.tag} flash_verify T={T} row {t} differs")
     n_b = 2 * pc["k"].numel() * pc["k"].element_size() + 2 * q.numel() * q.element_size() \
         + k_pos.numel() * 4 + q_pos.numel() * 4
-    b, by = bound_ms(L * n_b, L * 4 * POOL_SLOTS * 5 * cfg.n_heads * PS * cfg.hd, FP32_FLOPS)
+    b, by = bound_ms(L * n_b, L * 4 * POOL_SLOTS * 5 * cfg.n_heads * PS * cfg.hd,
+                     attn_flops(pc["k"].dtype))
     valid = (k_pos[:, None, :] >= 0) & (k_pos[:, None, :] <= q_pos[:, :, None]) \
         & (q_pos[:, :, None] >= 0)
     mask = torch.where(valid, 0.0, -1e30).to(cfg.dtype)[:, None]   # (B, 1, T, S)
@@ -5326,7 +5856,7 @@ def _attention_long(cfg, dev, g, S, da, va, ref) -> dict:
         mask = torch.where(valid, 0.0, -1e30).to(cfg.dtype)[:, None]    # (B, 1, T, S)
         n_b = 2 * k.numel() * k.element_size() + 2 * q.numel() * q.element_size() \
             + k_pos.numel() * 4 + q_pos.numel() * 4
-        b, by = bound_ms(n_b, 4 * B * T * H * S * hd, FP32_FLOPS)
+        b, by = bound_ms(n_b, 4 * B * T * H * S * hd, attn_flops(k.dtype))
         row = {"ms": device_ms(fn, 10),
                "library_ms": device_ms(lambda: _sdpa(q, {"k": k, "v": v}, mask), 10),
                "bound_ms": b, "bound_by": by, "max_abs_err": err}

@@ -664,7 +664,7 @@ class ShardedPlaneStore:
     constants stay shard-local: each sub-store computes its own.
 
     Left for later, raising ``NotImplementedError``: replica rows (a mesh
-    with ``data`` > 1) and models with recurrent blocks
+    with ``data`` > 1) and models with recurrent or cross-attention blocks
     (``launch.sharding.check_shardable``), ROADMAP A13."""
 
     def __init__(self, entries: list[dict], mesh, *, block: int = DEFAULT_BLOCK):

@@ -25,15 +25,22 @@ counterpart of XLA's forced host devices); on logical shards tokens
 equal the unsharded run's, and a run across cards is not yet checked.
 ``--arch`` takes the dense decoders (olmo-1b, minitron-4b,
 starcoder2-15b, gemma3-27b with its sliding windows), the
-mixture-of-experts decoders (mixtral-8x22b, dbrx-132b) and the recurrent
+mixture-of-experts decoders (mixtral-8x22b, dbrx-132b), the recurrent
 ones (xlstm-125m: sLSTM and mLSTM blocks; zamba2-7b: Mamba-2 blocks and
-one shared attention block), each with ``--reduced``; the other
-architectures are still to be ported (ROADMAP A8). With
-``--mesh-shards`` a MoE arch's expert banks split on their expert dim,
-each shard running its own experts. For xlstm-125m and zamba2-7b
-``--speculative`` raises (a recurrent state has no overwrite-only
-rollback for rejected drafts) and so does ``--mesh-shards`` (ROADMAP
-A13).
+one shared attention block) and the cross-attention ones
+(seamless-m4t-medium: an encoder-decoder over ``prompt_len // 4`` frames;
+llama-3.2-vision-90b: gated image layers over ``vision_tokens`` image
+embeddings), each with ``--reduced``; progressivenet-cnn is still to be
+ported (ROADMAP A8). A cross-attention arch's memory input is zeros, as
+the reference launcher makes it. With ``--mesh-shards`` a MoE arch's
+expert banks split on their expert dim, each shard running its own
+experts. For xlstm-125m and zamba2-7b ``--speculative`` raises (a
+recurrent state has no overwrite-only rollback for rejected drafts), and
+for them and the cross-attention archs so does ``--mesh-shards``
+(ROADMAP A13). seamless-m4t-medium refuses ``--pool-clients`` (the pool's
+caches have one length, its cross caches the prompt's); the pool admits
+llama-3.2-vision-90b at batch 1, but the session's clients send no image
+embeddings, so its requests raise as the reference's fail.
 """
 from __future__ import annotations
 
@@ -128,10 +135,17 @@ def _verify_fault_recovery(result, blob, model, prog, batch, *, device, mesh=Non
 
 def build_batch(cfg, batch: int, prompt_len: int, seed: int) -> dict:
     """A (batch, prompt_len) int32 prompt from a seeded generator, on the
-    host (the server moves it to its device)."""
+    host (the server moves it to its device); an encoder's frames
+    (``enc_input``, ``prompt_len // enc_seq_divisor`` of them, at least 1)
+    or an image's embeddings (``vision_embeds``) as zeros, as the
+    reference launcher makes them."""
     gen = torch.Generator().manual_seed(seed)
-    return {"tokens": torch.randint(0, cfg.vocab, (batch, prompt_len), generator=gen,
-                                    dtype=torch.int32)}
+    out = {"tokens": torch.randint(0, cfg.vocab, (batch, prompt_len), generator=gen,
+                                   dtype=torch.int32)}
+    mem = cfg.memory_input(prompt_len)
+    if mem is not None:
+        out[mem[0]] = torch.zeros((batch, *mem[1]), dtype=cfg.dtype)
+    return out
 
 
 def main(argv: list[str] | None = None) -> None:
@@ -172,7 +186,8 @@ def main(argv: list[str] | None = None) -> None:
     ap.add_argument("--chunked-prefill", default=None,
                     action=argparse.BooleanOptionalAction,
                     help="force chunked admission on/off for the pool (default: auto "
-                         "— on for every arch without cross-attention)")
+                         "— on for every arch without cross-attention; a vision arch "
+                         "admits at batch 1 and refuses --chunked-prefill)")
     ap.add_argument("--pool-slots", type=int, default=4,
                     help="slot-pool size for --pool-clients")
     ap.add_argument("--crowd-span-s", type=float, default=1.0,

@@ -60,17 +60,21 @@ def serving_spec_for_param(path: str, shape: tuple, mesh: Mesh) -> tuple:
 
 
 _RECURRENT_SLOT = re.compile(r"(^|/)\d+_(mamba2|mlstm|slstm)/")
+_CROSS_SLOT = re.compile(r"(^|/)\d+_(enc_attn|cross|selfcross)/")
 
 
 def check_shardable(paths) -> None:
-    """Raise for a model sharded serving does not take yet: one with
-    recurrent blocks, whose ``conv_w`` and ``r`` the rules above would
-    split on their last dim while the recurrences read them elementwise
-    (ROADMAP A13)."""
-    kinds = sorted({m.group(2) for p in paths if (m := _RECURRENT_SLOT.search(p))})
-    if kinds:
-        raise NotImplementedError(f"sharded serving of recurrent blocks {kinds} is still "
-                                  "to be ported (ROADMAP A13)")
+    """Raise for a model sharded serving does not take yet (ROADMAP A13):
+    one with recurrent blocks, whose ``conv_w`` and ``r`` the rules above
+    would split on their last dim while the recurrences read them
+    elementwise; one with an encoder or cross-attention blocks, whose
+    memory caches and encoder pass no sharded engine builds yet."""
+    paths = list(paths)
+    for pattern, what in ((_RECURRENT_SLOT, "recurrent"), (_CROSS_SLOT, "cross-attention")):
+        kinds = sorted({m.group(2) for p in paths if (m := pattern.search(p))})
+        if kinds:
+            raise NotImplementedError(f"sharded serving of {what} blocks {kinds} is still "
+                                      "to be ported (ROADMAP A13)")
 
 
 def gathered_for_serving(path: str) -> bool:

@@ -1,6 +1,7 @@
 """Attention: RoPE, chunked online-softmax prefill attention, native
-``(B, Kh, S, hd)`` KV caches, sliding-window ring caches and the
-self-attention of a decoder block.
+``(B, Kh, S, hd)`` KV caches, sliding-window ring caches, the
+self-attention of a decoder block and the cross-attention of an
+encoder-decoder or vision block.
 
 Counterpart of ``src/repro/models/attention.py`` for the ``prefill``,
 ``decode``, ``verify`` and ``prefill_chunk`` modes, with or without a
@@ -45,12 +46,14 @@ def rope(x: torch.Tensor, pos: torch.Tensor, theta: float) -> torch.Tensor:
 
 
 def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                      q_pos: torch.Tensor, k_pos: torch.Tensor, *, window: int = 0,
-                      chunk: int = 1024) -> torch.Tensor:
-    """Causal online-softmax attention over KV chunks, never a (Tq, Tk)
-    score matrix per head beyond one chunk. q: (B, Tq, H, hd); k/v: (B,
-    Tk, K, hd); q_pos (Tq,), k_pos (Tk,) int32 (negative = invalid key).
-    ``window`` > 0 also masks keys at or before ``q_pos - window``."""
+                      q_pos: torch.Tensor, k_pos: torch.Tensor, *, causal: bool = True,
+                      window: int = 0, chunk: int = 1024) -> torch.Tensor:
+    """Online-softmax attention over KV chunks, never a (Tq, Tk) score
+    matrix per head beyond one chunk. q: (B, Tq, H, hd); k/v: (B, Tk, K,
+    hd); q_pos (Tq,), k_pos (Tk,) int32 (negative = invalid key).
+    ``causal`` masks keys past ``q_pos`` (an encoder's and a cross
+    attention's queries see every valid key); ``window`` > 0 also masks
+    keys at or before ``q_pos - window``."""
     B, Tq, H, hd = q.shape
     Tk, K = k.shape[1], k.shape[2]
     G = H // K
@@ -69,7 +72,9 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         vv = v[:, c0:c0 + chunk].to(torch.float32)
         pp = k_pos[c0:c0 + chunk]
         s = torch.einsum("bqkgd,bskd->bkgqs", qg, kk)
-        valid = (pp[None, :] >= 0) & (pp[None, :] <= q_pos[:, None])
+        valid = (pp[None, :] >= 0).expand(Tq, -1)
+        if causal:
+            valid = valid & (pp[None, :] <= q_pos[:, None])
         if window:
             valid = valid & (pp[None, :] > q_pos[:, None] - window)
         s = torch.where(valid, s, NEG_INF)
@@ -300,3 +305,66 @@ def self_attention(cfg: ArchConfig, p, x: torch.Tensor, *, mode: str, cache, pos
         out = attend(q, cache["k"], cache["v"], k_pos, tok_pos,
                      window=window)                                # (B, T, H, hd)
     return dense(out.reshape(B, Tq, -1), p["wo"], dtype=cfg.dtype, rows=rows), cache
+
+
+def cross_attention(cfg: ArchConfig, p, x: torch.Tensor, enc_kv: dict, *, native: bool,
+                    rows: str = "any", positions: dict | None = None) -> torch.Tensor:
+    """Attention of ``x`` over a memory computed once at prefill (the
+    encoder's output, or the projected image embeddings) and static
+    afterwards. ``native=False`` (a prefill): ``enc_kv`` is (B, Tv, Kh,
+    hd) from :func:`cross_kv` and attention runs chunked, every query
+    seeing every memory slot. ``native=True`` (a decode step, Tq = 1, or a
+    verify block): ``enc_kv`` is the cached native (B, Kh, Tv, hd) layout,
+    read through ``ops.decode_attention`` or ``ops.verify_attention`` with
+    ``k_pos = arange(Tv)`` and every row at ``q_pos = Tv``, so that the
+    causal mask admits every slot and no step transposes the cache.
+    ``rows`` is the dense layers' (``common.dense_rows``); ``positions``,
+    a dict shared by the layers of one step, keeps those positions by
+    (Tv, Tq), so that a step builds them once, not once a layer. No rope:
+    memory positions are not the decoder's."""
+    dt = cfg.dtype
+    B, Tq, _ = x.shape
+    q = dense(x, p["wq"], dtype=dt, rows=rows).reshape(B, Tq, cfg.n_heads, cfg.hd)
+    if cfg.qk_norm:
+        q = qk_norm(q, p["q_norm"])
+    if native:
+        Tv = enc_kv["k"].shape[2]
+        positions = {} if positions is None else positions
+        if (Tv, Tq) not in positions:
+            positions[Tv, Tq] = (
+                torch.arange(Tv, dtype=torch.int32, device=x.device).expand(B, Tv),
+                torch.full((B,) if Tq == 1 else (B, Tq), Tv, dtype=torch.int32,
+                           device=x.device))
+        k_pos, q_pos = positions[Tv, Tq]
+        if Tq == 1:
+            out = ops.decode_attention(q[:, 0], enc_kv["k"], enc_kv["v"], k_pos,
+                                       q_pos)[:, None]
+        else:
+            out = ops.verify_attention(q, enc_kv["k"], enc_kv["v"], k_pos, q_pos)
+    else:
+        Tv = enc_kv["k"].shape[1]
+        out = chunked_attention(
+            q, enc_kv["k"], enc_kv["v"], torch.zeros((Tq,), dtype=torch.int32, device=x.device),
+            torch.arange(Tv, dtype=torch.int32, device=x.device), causal=False,
+            chunk=cfg.attn_chunk)
+    return dense(out.reshape(B, Tq, -1), p["wo"], dtype=dt, rows=rows)
+
+
+def cross_kv(cfg: ArchConfig, p, enc_out: torch.Tensor) -> dict:
+    """A block's keys and values of the memory ``enc_out`` (B, Tv, d),
+    projected once at prefill: (B, Tv, Kh, hd), ``k_norm`` applied with
+    ``qk_norm``. :func:`to_native_kv` makes the cache of them."""
+    dt = cfg.dtype
+    B, Tv, _ = enc_out.shape
+    k = dense(enc_out, p["wk"], dtype=dt).reshape(B, Tv, cfg.n_kv, cfg.hd)
+    v = dense(enc_out, p["wv"], dtype=dt).reshape(B, Tv, cfg.n_kv, cfg.hd)
+    if cfg.qk_norm:
+        k = qk_norm(k, p["k_norm"])
+    return {"k": k, "v": v}
+
+
+def to_native_kv(kv: dict) -> dict:
+    """(B, Tv, Kh, hd) -> the native (B, Kh, Tv, hd) cache, one transpose
+    at prefill, so that decode steps read the cache as it is."""
+    return {"k": kv["k"].transpose(1, 2).contiguous(),
+            "v": kv["v"].transpose(1, 2).contiguous()}

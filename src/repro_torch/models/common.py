@@ -16,12 +16,17 @@ from repro_torch.core.quantize import QuantizedTensor
 from repro_torch.kernels import ops, ref
 
 
+# blocks that attend over a memory (an encoder's output, image embeddings)
+CROSS_KINDS = ("cross", "selfcross")
+
+
 @dataclasses.dataclass(frozen=True)
 class ArchConfig:
     """One architecture: the fields the dense decoders (olmo-1b,
     minitron-4b, starcoder2-15b, gemma3-27b), the mixture-of-experts
-    decoders (mixtral-8x22b, dbrx-132b) and the recurrent ones
-    (xlstm-125m, zamba2-7b) need, with the reference's defaults.
+    decoders (mixtral-8x22b, dbrx-132b), the recurrent ones (xlstm-125m,
+    zamba2-7b) and the cross-attention ones (seamless-m4t-medium,
+    llama-3.2-vision-90b) need, with the reference's defaults.
     ``cycle`` is the repeating pattern of block kinds; layers =
     ``len(cycle) * n_cycles + len(tail)``. The kinds ported: ``attn``, a
     full-attention decoder block with a GLU MLP; ``swa``, the same block
@@ -34,7 +39,13 @@ class ArchConfig:
     ``ssm_expand``, ``conv_width``, prefill in chunks of ``ssm_chunk``),
     ``mlstm`` and ``slstm`` (xLSTM's blocks, ``lstm_proj_factor``);
     ``shared_attn``, an ``attn`` block whose one set of weights every use
-    shares (zamba2). The other kinds are still to be ported. ``head_dim``
+    shares (zamba2); ``enc_attn``, a bidirectional encoder block
+    (``enc_layers`` of them, over ``seq // enc_seq_divisor`` frames);
+    ``selfcross``, an encoder-decoder block (self-attention, then
+    attention over the encoder's output, then the MLP); ``cross``, a
+    vision block attending over ``vision_tokens`` image embeddings of
+    width ``d_vision`` (projected by ``vision_proj``), its attention and
+    MLP each gated by ``tanh`` of a learned scalar. ``head_dim``
     None means ``d_model // n_heads``. Float32 parameters before
     division."""
 
@@ -65,6 +76,10 @@ class ArchConfig:
     conv_width: int = 4         # Mamba-2 causal conv taps
     ssm_chunk: int = 256        # Mamba-2 prefill chunk of the SSD scan
     lstm_proj_factor: float = 2.0  # mLSTM d_inner = lstm_proj_factor * d_model
+    enc_layers: int = 0         # encoder blocks of an encoder-decoder model
+    enc_seq_divisor: int = 4    # encoder frames = seq // enc_seq_divisor
+    vision_tokens: int = 0      # image embeddings a request (0 = no vision memory)
+    d_vision: int = 0           # their width, projected to d_model by vision_proj
     dtype: Any = torch.bfloat16  # activations and KV caches
 
     @property
@@ -79,6 +94,23 @@ class ArchConfig:
     def tail(self) -> tuple[str, ...]:
         """Remainder blocks after the full cycles, continuing the pattern."""
         return self.cycle[:self.n_layers % len(self.cycle)]
+
+    @property
+    def uses_cross(self) -> bool:
+        return any(k in CROSS_KINDS for k in self.cycle)
+
+    def memory_input(self, seq_len: int) -> tuple[str, tuple[int, int]] | None:
+        """The batch key a cross-attention arch reads its memory from, and
+        that input's per-request shape for a prompt of ``seq_len`` tokens:
+        an encoder's frames, ``("enc_input", (max(1, seq_len //
+        enc_seq_divisor), d_model))``, or an image's embeddings,
+        ``("vision_embeds", (vision_tokens, d_vision))``; None for an arch
+        without a memory."""
+        if self.enc_layers:
+            return "enc_input", (max(1, seq_len // self.enc_seq_divisor), self.d_model)
+        if self.vision_tokens:
+            return "vision_embeds", (self.vision_tokens, self.d_vision)
+        return None
 
     def reduced(self, **overrides) -> "ArchConfig":
         """Smoke-test variant: same family/pattern, tiny dims (the
@@ -99,6 +131,9 @@ class ArchConfig:
             capacity_factor=4.0 if self.n_experts else self.capacity_factor,
             ssm_state=min(self.ssm_state, 16) if self.ssm_state else 0,
             ssm_heads=min(self.ssm_heads, 2) if self.ssm_heads else 0,
+            enc_layers=min(self.enc_layers, 2) if self.enc_layers else 0,
+            vision_tokens=min(self.vision_tokens, 16) if self.vision_tokens else 0,
+            d_vision=min(self.d_vision, 64) if self.d_vision else 0,
             attn_chunk=16,
             ssm_chunk=8,
             dtype=torch.float32,

@@ -10,15 +10,21 @@ Counterpart of ``src/repro/models/model.py`` for the decoders:
     init_caches(batch, max_len, ring_margin=, device=) -> zeroed caches
     grow_caches(caches, max_len, ring_margin=, pos=)   -> prefill caches
                                           grown for decoding
+    enc_len(seq_len)                   -> slots of a cross cache
 
 The four forward entry points take ``aux=``, a dict like
 ``transformer.zero_aux()``'s, into which a stack with mixture-of-experts
 blocks adds their ``balance_loss`` and ``dropped_frac`` (the reference
 returns them from ``forward`` only; serving drops them).
 
-``batch`` is a dict with ``"tokens"``: (B, S) int. Parameters are a
-nested dict in the reference's layout (``decoder/cycles/0_attn/...``
-stacked over layers), whether float tensors or QuantizedTensor views.
+``batch`` is a dict with ``"tokens"``: (B, S) int, and for a
+cross-attention arch its memory's input: ``"enc_input"`` (B, S_enc,
+d_model), the encoder's frame embeddings (S_enc = ``enc_len(S)`` as the
+reference's stub makes them), or ``"vision_embeds"`` (B, vision_tokens,
+d_vision), the image embeddings ``vision_proj`` projects. Parameters are
+a nested dict in the reference's layout (``decoder/cycles/0_attn/...``
+stacked over layers, ``encoder/stack/...``), whether float tensors or
+QuantizedTensor views.
 """
 from __future__ import annotations
 
@@ -42,7 +48,10 @@ class Model:
     def init(self, generator: torch.Generator, *, device="cuda") -> dict:
         """Random parameters from ``generator`` (which must live on
         ``device``), in the reference's tree layout: an untied
-        unembedding adds ``lm_head`` (d_model, vocab)."""
+        unembedding adds ``lm_head`` (d_model, vocab), an encoder
+        ``encoder`` (``stack``, its ``enc_attn`` blocks, and
+        ``final_norm``), a vision arch ``vision_proj`` (d_vision,
+        d_model)."""
         cfg = self.cfg
         device = resolve_device(device)
         params: dict[str, Any] = {
@@ -53,7 +62,36 @@ class Model:
         }
         if not cfg.tie_embeddings:
             params["lm_head"] = dense_init(generator, cfg.d_model, cfg.vocab, device=device)
+        if cfg.enc_layers:
+            params["encoder"] = {
+                "stack": tfm.stack_init(self._enc_cfg(), generator, device=device),
+                "final_norm": norm_init(cfg, cfg.d_model, device=device)}
+        if cfg.vision_tokens:
+            params["vision_proj"] = dense_init(generator, cfg.d_vision, cfg.d_model,
+                                               device=device)
         return params
+
+    def _enc_cfg(self) -> ArchConfig:
+        return dataclasses.replace(self.cfg, cycle=("enc_attn",), n_layers=self.cfg.enc_layers)
+
+    def _encode(self, params, batch) -> torch.Tensor | None:
+        """The memory the decoder's cross-attention blocks read: the
+        encoder stack over ``batch["enc_input"]`` then its final norm, or
+        ``batch["vision_embeds"]`` through ``vision_proj``; None for an
+        arch without either. Both run once, at prefill, every dense layer
+        on the rows their count picks."""
+        cfg = self.cfg
+        mem = cfg.memory_input(0)
+        if mem is None:
+            return None
+        if mem[0] not in batch:
+            raise ValueError(f"this arch reads its cross-attention memory from "
+                             f"batch[{mem[0]!r}], which is missing")
+        x = torch.as_tensor(batch[mem[0]]).to(cfg.dtype)
+        if cfg.enc_layers:
+            x, _ = tfm.run_stack(self._enc_cfg(), params["encoder"]["stack"], x, mode="full")
+            return apply_norm(cfg, params["encoder"]["final_norm"], x)
+        return dense(x, params["vision_proj"], dtype=cfg.dtype)
 
     def _embed(self, params, tokens: torch.Tensor) -> torch.Tensor:
         cfg = self.cfg
@@ -93,9 +131,10 @@ class Model:
         tokens = batch["tokens"]
         if n_valid is not None and not isinstance(n_valid, torch.Tensor):
             n_valid = to_device(np.asarray(n_valid, np.int32), tokens.device)
+        enc_out = self._encode(params, batch)
         x = self._embed(params, tokens)
         x, caches = tfm.run_stack(cfg, params["decoder"], x, mode="prefill", pos=n_valid,
-                                  aux=aux)
+                                  aux=aux, enc_out=enc_out)
         if n_valid is None:
             xl = x[:, -1:, :]
         else:
@@ -160,9 +199,16 @@ class Model:
 
     def init_caches(self, batch: int, max_len: int, *, ring_margin: int = 0, device="cuda"):
         """Zeroed caches; the rings of windowed blocks hold ``window +
-        ring_margin`` slots."""
-        return tfm.stack_init_caches(self.cfg, batch, max_len, ring_margin=ring_margin,
-                                     device=resolve_device(device))
+        ring_margin`` slots, the cross caches ``enc_len(max_len)``."""
+        return tfm.stack_init_caches(self.cfg, batch, max_len, self.enc_len(max_len),
+                                     ring_margin=ring_margin, device=resolve_device(device))
+
+    def enc_len(self, seq_len: int) -> int:
+        """Slots of a cross cache: the encoder's frames for a prompt of
+        ``seq_len`` tokens (at least 1), or the image's ``vision_tokens``;
+        0 for an arch without a memory."""
+        mem = self.cfg.memory_input(seq_len)
+        return 0 if mem is None else mem[1][0]
 
     def grow_caches(self, caches, max_len: int, *, ring_margin: int = 0, pos: int = 0):
         """Pad prefill caches of full-attention blocks (``attn``,
@@ -171,8 +217,10 @@ class Model:
         are repacked into ``window + ring_margin`` slots
         (``grow_ring_cache``; ``pos`` = the tokens consumed so far, the
         prompt's length), so that blocks of up to ``ring_margin`` rows
-        never overwrite live window entries. Recurrent states are final
-        size and come back as they are."""
+        never overwrite live window entries. Recurrent states and the
+        cross caches (a ``cross`` block's, a ``selfcross`` block's
+        ``cross`` part: no ``max_len`` axis) are final size and come back
+        as they are; a ``selfcross`` block's ``self`` part is padded."""
         cfg = self.cfg
 
         def pad(a: torch.Tensor) -> torch.Tensor:
@@ -184,6 +232,8 @@ class Model:
             return out
 
         def grow(kind: str, c: dict) -> dict:
+            if kind == "selfcross":
+                return {"self": _map(pad, c["self"]), "cross": c["cross"]}
             if kind in tfm.FULL_KV_KINDS:
                 return _map(pad, c)
             if tfm.attn_window(cfg, kind) and ring_margin:

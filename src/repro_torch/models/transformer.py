@@ -5,8 +5,11 @@ Counterpart of ``src/repro/models/transformer.py`` for the attention
 blocks ``attn``, ``swa`` and ``global``, the mixture-of-experts blocks
 ``moe`` and ``swa_moe``, the recurrent blocks ``mamba2``, ``mlstm`` and
 ``slstm``, zamba2's ``shared_attn`` (one set of weights under
-``decoder/shared``, a cache for each use), and for a tail of blocks
-after the last full cycle (unstacked, as the reference keeps them). The
+``decoder/shared``, a cache for each use), the cross-attention blocks
+``cross`` and ``selfcross`` (a cache of the memory's keys and values,
+written once at prefill) and the encoder's ``enc_attn`` (no cache), and
+for a tail of blocks after the last full cycle (unstacked, as the
+reference keeps them). The
 reference scans the stacked layer axis with ``lax.scan``; here a Python
 loop takes layer ``r`` as a view of every stacked leaf (``q[r]`` of a
 quantized leaf, with the stack's per-layer scale and offset), so the
@@ -25,11 +28,12 @@ from repro_torch.core.quantize import QuantizedTensor
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm
-from repro_torch.models.common import ArchConfig, apply_norm, dense_init, dense_rows, norm_init
+from repro_torch.models.common import (CROSS_KINDS, ArchConfig, apply_norm, dense, dense_init,
+                                      dense_rows, norm_init)
 from repro_torch.models.ssm import RECURRENT_KINDS
 
 
-ATTN_KINDS = ("attn", "swa", "global", "moe", "swa_moe", "shared_attn")
+ATTN_KINDS = ("attn", "swa", "global", "moe", "swa_moe", "shared_attn", "enc_attn")
 MOE_KINDS = ("moe", "swa_moe")
 # blocks whose KV cache holds every position (grown to max_len after a prefill)
 FULL_KV_KINDS = ("attn", "global", "moe", "shared_attn")
@@ -43,7 +47,7 @@ def zero_aux(device=None) -> dict:
 
 
 def _ported(kind: str) -> None:
-    if kind not in ATTN_KINDS + RECURRENT_KINDS:
+    if kind not in ATTN_KINDS + CROSS_KINDS + RECURRENT_KINDS:
         raise NotImplementedError(f"block kind {kind!r} is still to be ported "
                                   "(ROADMAP A8)")
 
@@ -71,7 +75,11 @@ def block_init(cfg: ArchConfig, generator: torch.Generator, kind: str, lead: tup
     """Parameters of a block of one kind; ``lead`` stacks them (``(n,)``
     for a cycle slot's ``n`` layers, ``()`` for a tail block). With
     ``qk_norm`` the attention holds ``q_norm``/``k_norm`` scales (hd,). A
-    recurrent block is a norm and its ``mixer``."""
+    recurrent block is a norm and its ``mixer``. A ``cross`` block's
+    ``gate_attn`` and ``gate_mlp`` start at 0, as the reference's do (so
+    its attention and MLP add nothing until the gates move); a
+    ``selfcross`` block has a ``self_attn``, a ``norm_x`` and a
+    ``cross_attn``."""
     _ported(kind)
     d, hd = cfg.d_model, cfg.hd
     if kind in RECURRENT_KINDS:
@@ -81,28 +89,54 @@ def block_init(cfg: ArchConfig, generator: torch.Generator, kind: str, lead: tup
     def w(d_in, d_out):
         return dense_init(generator, d_in, d_out, lead, device=device)
 
-    attn_p = {"wq": w(d, cfg.n_heads * hd), "wk": w(d, cfg.n_kv * hd),
-              "wv": w(d, cfg.n_kv * hd), "wo": w(cfg.n_heads * hd, d)}
-    if cfg.qk_norm:
-        attn_p["q_norm"] = torch.ones(lead + (hd,), device=device)
-        attn_p["k_norm"] = torch.ones(lead + (hd,), device=device)
+    def attention() -> dict:
+        # the memory of a cross attention is projected to d_model upstream
+        attn_p = {"wq": w(d, cfg.n_heads * hd), "wk": w(d, cfg.n_kv * hd),
+                  "wv": w(d, cfg.n_kv * hd), "wo": w(cfg.n_heads * hd, d)}
+        if cfg.qk_norm:
+            attn_p["q_norm"] = torch.ones(lead + (hd,), device=device)
+            attn_p["k_norm"] = torch.ones(lead + (hd,), device=device)
+        return attn_p
+
+    def norm() -> dict:
+        return norm_init(cfg, d, lead, device=device)
+
+    def mlp() -> dict:
+        return {"wi_gate": w(d, cfg.d_ff), "wi_up": w(d, cfg.d_ff), "wo": w(cfg.d_ff, d)}
+
+    if kind == "cross":
+        return {"norm1": norm(), "attn": attention(),
+                "gate_attn": torch.zeros(lead, device=device), "norm2": norm(), "mlp": mlp(),
+                "gate_mlp": torch.zeros(lead, device=device)}
+    if kind == "selfcross":
+        return {"norm1": norm(), "self_attn": attention(), "norm_x": norm(),
+                "cross_attn": attention(), "norm2": norm(), "mlp": mlp()}
+    attn_p = attention()
     if kind in MOE_KINDS:
         ffn = {"moe": moe_mod.moe_init(cfg, generator, lead, device=device)}
     else:
-        ffn = {"mlp": {"wi_gate": w(d, cfg.d_ff), "wi_up": w(d, cfg.d_ff),
-                       "wo": w(cfg.d_ff, d)}}
-    return {"norm1": norm_init(cfg, d, lead, device=device), "attn": attn_p,
-            "norm2": norm_init(cfg, d, lead, device=device), **ffn}
+        ffn = {"mlp": mlp()}
+    return {"norm1": norm(), "attn": attn_p, "norm2": norm(), **ffn}
 
 
 def block_apply(cfg: ArchConfig, kind: str, p, x: torch.Tensor, *, mode: str, cache, pos,
-                with_aux: bool = False):
+                with_aux: bool = False, enc_out: torch.Tensor | None = None,
+                mem_pos: dict | None = None):
     """Returns (x, new_cache, aux); ``aux`` is None for a block without
     experts, and unless ``with_aux`` asks for a MoE block's. A recurrent
-    block's modes are :func:`_recurrent_apply`'s."""
+    block's modes are :func:`_recurrent_apply`'s, a cross-attention
+    block's :func:`_cross_apply`'s (``enc_out``, the memory, read at
+    prefill; ``mem_pos``, the memory's positions a step shares). An
+    ``enc_attn`` block ropes q and k at positions 0..T-1 and attends over
+    every position, keeping no cache, in any ``mode``."""
     _ported(kind)
     if kind in RECURRENT_KINDS:
         return _recurrent_apply(cfg, kind, p, x, mode=mode, cache=cache, pos=pos)
+    if kind in CROSS_KINDS:
+        return _cross_apply(cfg, kind, p, x, mode=mode, cache=cache, pos=pos, enc_out=enc_out,
+                            mem_pos=mem_pos)
+    if kind == "enc_attn":
+        return _encoder_apply(cfg, p, x), None, None
     h = apply_norm(cfg, p["norm1"], x)
     a_out, new_cache = attn.self_attention(cfg, p["attn"], h, mode=mode, cache=cache,
                                            pos=pos, window=attn_window(cfg, kind),
@@ -115,6 +149,73 @@ def block_apply(cfg: ArchConfig, kind: str, p, x: torch.Tensor, *, mode: str, ca
         return x + m_out, new_cache, aux
     x = x + attn.mlp_apply(cfg, p["mlp"], h2, rows=dense_rows(mode))
     return x, new_cache, None
+
+
+def _encoder_apply(cfg: ArchConfig, p, x: torch.Tensor) -> torch.Tensor:
+    """A bidirectional encoder block over the whole sequence."""
+    h = apply_norm(cfg, p["norm1"], x)
+    q, k, v = attn.project_qkv(cfg, p["attn"], h, h)
+    T = h.shape[1]
+    qpos = torch.arange(T, dtype=torch.int32, device=x.device)
+    q = attn.rope(q, qpos, cfg.rope_theta)
+    k = attn.rope(k, qpos, cfg.rope_theta)
+    o = attn.chunked_attention(q, k, v, qpos, qpos, causal=False, chunk=cfg.attn_chunk)
+    x = x + dense(o.reshape(*h.shape[:2], -1), p["attn"]["wo"], dtype=cfg.dtype)
+    h2 = apply_norm(cfg, p["norm2"], x)
+    return x + attn.mlp_apply(cfg, p["mlp"], h2)
+
+
+def _cross_apply(cfg: ArchConfig, kind: str, p, x: torch.Tensor, *, mode: str, cache, pos,
+                 enc_out, mem_pos=None):
+    """A cross-attention block in each mode:
+
+    * ``prefill``: the memory's keys and values projected from
+      ``enc_out`` (:func:`attention.cross_kv`) and attended chunked; the
+      cache is their native layout (``cross``), or ``{"self": the
+      self-attention's cache, "cross": that}`` (``selfcross``). With a
+      bucket-padded prompt (``pos``) only the self-attention is masked;
+    * ``decode`` and ``verify``: the memory read from the cache through
+      B3 or B4 (:func:`attention.cross_attention`, its positions kept in
+      ``mem_pos``), never written;
+    * ``prefill_chunk`` raises: a chunk step has no memory (the pool
+      admits these archs at batch 1).
+
+    ``cross`` adds its attention and its MLP scaled by ``tanh`` of
+    ``gate_attn`` and ``gate_mlp``, cast to the activation dtype."""
+    if mode == "prefill_chunk":
+        # the memory comes from the admission's encoder pass, which a
+        # chunk step does not run
+        raise NotImplementedError(f"chunked prefill is not supported for {kind} blocks")
+    if mode not in ("prefill", "decode", "verify"):
+        raise ValueError(f"unknown mode {mode!r}")
+    rows = dense_rows(mode)
+    native = mode != "prefill"
+
+    def attend(pa, h, mem):
+        if native:
+            return attn.cross_attention(cfg, pa, h, mem, native=True, rows=rows,
+                                        positions=mem_pos), mem
+        kv = attn.cross_kv(cfg, pa, enc_out)
+        return attn.cross_attention(cfg, pa, h, kv, native=False), attn.to_native_kv(kv)
+
+    if kind == "cross":
+        h = apply_norm(cfg, p["norm1"], x)
+        a_out, new_cache = attend(p["attn"], h, cache)
+        x = x + torch.tanh(p["gate_attn"]).to(cfg.dtype) * a_out
+        h2 = apply_norm(cfg, p["norm2"], x)
+        m_out = attn.mlp_apply(cfg, p["mlp"], h2, rows=rows)
+        return x + torch.tanh(p["gate_mlp"]).to(cfg.dtype) * m_out, new_cache, None
+    h = apply_norm(cfg, p["norm1"], x)
+    a_out, new_self = attn.self_attention(cfg, p["self_attn"], h, mode=mode,
+                                          cache=None if cache is None else cache["self"],
+                                          pos=pos)
+    x = x + a_out
+    hx = apply_norm(cfg, p["norm_x"], x)
+    c_out, new_cross = attend(p["cross_attn"], hx, None if cache is None else cache["cross"])
+    x = x + c_out
+    h2 = apply_norm(cfg, p["norm2"], x)
+    x = x + attn.mlp_apply(cfg, p["mlp"], h2, rows=rows)
+    return x, {"self": new_self, "cross": new_cross}, None
 
 
 def _recurrent_apply(cfg: ArchConfig, kind: str, p, x: torch.Tensor, *, mode: str, cache,
@@ -208,26 +309,37 @@ def stack_init(cfg: ArchConfig, generator: torch.Generator, *, device="cuda") ->
     return out
 
 
-def _cache_len(cfg: ArchConfig, kind: str, max_len: int, ring_margin: int) -> int:
+def _cache_len(cfg: ArchConfig, kind: str, max_len: int, ring_margin: int,
+               enc_len: int = 0) -> int:
     """A block's cache rows: a ring of ``window + ring_margin`` slots for a
-    windowed kind, ``max_len`` rows otherwise."""
+    windowed kind, the memory's ``enc_len`` for a ``cross`` block,
+    ``max_len`` rows otherwise."""
+    if kind == "cross":
+        return enc_len
     return cfg.window + ring_margin if attn_window(cfg, kind) else max_len
 
 
-def stack_init_caches(cfg: ArchConfig, batch: int, max_len: int, *, ring_margin: int = 0,
-                      device="cuda"):
+def stack_init_caches(cfg: ArchConfig, batch: int, max_len: int, enc_len: int = 0, *,
+                      ring_margin: int = 0, device="cuda"):
     """Zeroed caches, stacked like the params (a ``shared_attn`` block's
     too: a cache for each use): native (B, Kh, S, hd) KV caches, or a
-    recurrent block's zeroed state (``ssm.INIT_CACHE``). ``ring_margin``
+    recurrent block's zeroed state (``ssm.INIT_CACHE``); a ``cross``
+    block's holds the memory's ``enc_len`` slots, a ``selfcross`` block's
+    is ``{"self": max_len rows, "cross": enc_len slots}``. ``ring_margin``
     widens the rings of windowed blocks beyond the window for multi-row
     writes (verify blocks, prefill chunks)."""
+    def kv(rows: int, lead: tuple) -> dict:
+        shape = lead + (batch, cfg.n_kv, rows, cfg.hd)
+        return {"k": torch.zeros(shape, dtype=cfg.dtype, device=device),
+                "v": torch.zeros(shape, dtype=cfg.dtype, device=device)}
+
     def zeros(kind: str, lead: tuple) -> dict:
         _ported(kind)
         if kind in RECURRENT_KINDS:
             return ssm.INIT_CACHE[kind](cfg, batch, cfg.dtype, lead, device=device)
-        shape = lead + (batch, cfg.n_kv, _cache_len(cfg, kind, max_len, ring_margin), cfg.hd)
-        return {"k": torch.zeros(shape, dtype=cfg.dtype, device=device),
-                "v": torch.zeros(shape, dtype=cfg.dtype, device=device)}
+        if kind == "selfcross":
+            return {"self": kv(max_len, lead), "cross": kv(enc_len, lead)}
+        return kv(_cache_len(cfg, kind, max_len, ring_margin, enc_len), lead)
 
     return {"cycles": {f"{j}_{kind}": zeros(kind, (cfg.n_cycles,))
                        for j, kind in enumerate(cfg.cycle) if cfg.n_cycles},
@@ -235,15 +347,20 @@ def stack_init_caches(cfg: ArchConfig, batch: int, max_len: int, *, ring_margin:
 
 
 def run_stack(cfg: ArchConfig, params: dict, x: torch.Tensor, *, mode: str,
-              caches=None, pos=None, aux: dict | None = None):
+              caches=None, pos=None, aux: dict | None = None,
+              enc_out: torch.Tensor | None = None):
     """Returns (x, caches). ``prefill`` builds the prompt's caches (stacked
     like the params); ``decode``, ``verify`` and ``prefill_chunk`` write
-    into ``caches`` in place and return them. The cycles run first, layer
-    by layer, then the tail; a ``shared_attn`` block takes ``shared``'s
-    weights and its own use's cache. ``aux``, a dict like
-    :func:`zero_aux`'s, takes the sum over the MoE blocks of their
-    ``balance_loss`` and ``dropped_frac``, as the reference's
-    ``run_stack`` returns them."""
+    into ``caches`` in place and return them; ``full`` (an encoder stack
+    of ``enc_attn`` blocks) keeps none and returns None. The cycles run
+    first, layer by layer, then the tail; a ``shared_attn`` block takes
+    ``shared``'s weights and its own use's cache; every block gets
+    ``enc_out``, the memory a cross-attention block reads at prefill, and
+    one ``mem_pos`` for the call, so that the cross blocks of a step
+    build the memory's positions once.
+    ``aux``, a dict like :func:`zero_aux`'s, takes the sum over the MoE
+    blocks of their ``balance_loss`` and ``dropped_frac``, as the
+    reference's ``run_stack`` returns them."""
     def add(a):
         if a is not None:
             for k in aux:
@@ -254,13 +371,16 @@ def run_stack(cfg: ArchConfig, params: dict, x: torch.Tensor, *, mode: str,
             return params["shared"]
         return params[part][slot] if r is None else layer(params[part][slot], r)
 
+    # the memory's positions, built by the first cross block to read them
+    mem_pos: dict = {}
     per_layer: dict[str, list] = {f"{j}_{kind}": [] for j, kind in enumerate(cfg.cycle)}
     for r in range(cfg.n_cycles):
         for j, kind in enumerate(cfg.cycle):
             slot = f"{j}_{kind}"
             c = layer(caches["cycles"][slot], r) if caches is not None else None
             x, nc, a = block_apply(cfg, kind, weights("cycles", slot, kind, r), x,
-                                   mode=mode, cache=c, pos=pos, with_aux=aux is not None)
+                                   mode=mode, cache=c, pos=pos, with_aux=aux is not None,
+                                   enc_out=enc_out, mem_pos=mem_pos)
             per_layer[slot].append(nc)
             add(a)
     tail = {}
@@ -268,10 +388,19 @@ def run_stack(cfg: ArchConfig, params: dict, x: torch.Tensor, *, mode: str,
         slot = f"{i}_{kind}"
         c = caches["tail"][slot] if caches is not None else None
         x, tail[slot], a = block_apply(cfg, kind, weights("tail", slot, kind), x, mode=mode,
-                                       cache=c, pos=pos, with_aux=aux is not None)
+                                       cache=c, pos=pos, with_aux=aux is not None,
+                                       enc_out=enc_out, mem_pos=mem_pos)
         add(a)
+    if mode == "full":
+        return x, None
     if mode in ("decode", "verify", "prefill_chunk"):
         return x, caches
-    return x, {"cycles": {slot: {name: torch.stack([c[name] for c in cs]) for name in cs[0]}
-                          for slot, cs in per_layer.items() if cs},
+    return x, {"cycles": {slot: _stack(cs) for slot, cs in per_layer.items() if cs},
                "tail": tail}
+
+
+def _stack(trees: list):
+    """The layers' cache trees (nested dicts of tensors) stacked leaf by leaf."""
+    if isinstance(trees[0], dict):
+        return {name: _stack([t[name] for t in trees]) for name in trees[0]}
+    return torch.stack(trees)

@@ -308,7 +308,11 @@ class ProgressiveServer(PrecisionManagedEngine):
             raise RuntimeError("no planes received yet — call receive_stage()")
         tokens = torch.as_tensor(batch["tokens"]).to(device=self.device,
                                                      dtype=torch.int64)
-        last_logits, caches = self.model.prefill(self.params, {"tokens": tokens})
+        # a cross-attention arch's memory input, on the server's device
+        mem = self.model.cfg.memory_input(tokens.shape[1])
+        inputs = ({mem[0]: torch.as_tensor(batch[mem[0]]).to(self.device)}
+                  if mem is not None and mem[0] in batch else {})
+        last_logits, caches = self.model.prefill(self.params, {"tokens": tokens, **inputs})
         self.caches = self.model.grow_caches(caches, self.max_len,
                                              ring_margin=self._ring_margin,
                                              pos=tokens.shape[1])
@@ -376,8 +380,10 @@ class PoolRequest:
     prompt: Any                  # (S,) int token ids
     max_new_tokens: int
     extras: dict = dataclasses.field(default_factory=dict)
-    # per-request side inputs of vision and encoder archs (ROADMAP A8);
-    # the dense decoder accepts none
+    # per-request fixed-size side inputs, each without the leading batch
+    # dim: a vision arch's "vision_embeds" (vision_tokens, d_vision). An
+    # encoder's "enc_input" has a prompt-derived length and is not
+    # poolable (see SlotPoolEngine.__init__)
 
 
 @dataclasses.dataclass
@@ -460,12 +466,19 @@ class SlotPoolEngine(PrecisionManagedEngine):
     (:meth:`_reset_recurrent_slot`), and ``prefill_buckets`` is off for
     them (a state would consume the padding).
 
-    Left for later, each raising ``NotImplementedError``: the fall-back to
-    batch-1 admission of cross-attention archs (A8); telemetry, which the
-    reference turns on with ``REPRO_TELEMETRY`` (A11); a mesh for an arch
-    with recurrent blocks (A13: its sharded store raises).
-    ``PoolRequest.extras`` are refused as the reference refuses them for
-    a text-only arch; vision and encoder side inputs come with A8. The reference's
+    A vision arch (``cross`` blocks) admits at batch 1: its prefill runs
+    ``vision_proj`` on the request's ``extras["vision_embeds"]`` and
+    writes each ``cross`` block's memory cache into the slot's rows, so
+    ``chunked_prefill=None`` falls back to batch 1 and ``True`` raises. An
+    encoder-decoder arch (``enc_layers`` > 0) raises: its cross caches'
+    length follows each prompt's, and the pool's caches have one length.
+    ``extras`` keys and per-request shapes are checked at submit, as the
+    reference checks them.
+
+    Left for later, each raising ``NotImplementedError``: telemetry, which
+    the reference turns on with ``REPRO_TELEMETRY`` (A11); a mesh for an
+    arch with recurrent or cross-attention blocks (A13: its sharded store
+    raises). The reference's
     ``decode_cache_size``/``prefill_cache_size`` count JAX executables
     and have no counterpart: nothing is compiled here.
     """
@@ -480,12 +493,30 @@ class SlotPoolEngine(PrecisionManagedEngine):
             raise _later("serving telemetry (REPRO_TELEMETRY)", "A11")
         if n_slots < 1:
             raise ValueError("n_slots must be >= 1")
+        cfg = model.cfg
+        if cfg.enc_layers:
+            # the cross caches' length follows the prompt's (frames = seq //
+            # divisor), so a request's caches do not tile into the pool's
+            # one length without per-slot memory masking; the single stream
+            # serves these archs
+            raise NotImplementedError(
+                "SlotPoolEngine does not support encoder-decoder models with "
+                "prompt-derived encoder lengths (cfg.enc_layers > 0); use ProgressiveServer")
         super().__init__(model, prog, max_len, receiver=receiver, resident=resident,
                          mesh=mesh, device=device)
-        # None: chunked, which every ported arch supports
-        self.chunked_prefill = chunked_prefill is not False
+        # a chunk step has no memory: cross-attention archs admit at batch 1
+        if chunked_prefill is None:
+            chunked_prefill = not cfg.uses_cross
+        elif chunked_prefill and cfg.uses_cross:
+            raise NotImplementedError(
+                "chunked prefill is not supported for cross-attention archs (admission "
+                "must run the vision/enc encoder); use chunked_prefill=None to fall back "
+                "automatically")
+        self.chunked_prefill = bool(chunked_prefill)
         self.prefill_chunk = max(1, int(prefill_chunk))
-        cfg = model.cfg
+        # per-request side inputs and their shapes (no batch dim)
+        mem = cfg.memory_input(0)
+        self._extra_specs = dict([mem]) if mem is not None else {}
         windowed = any(attn_window(cfg, k) for k in cfg.cycle + cfg.tail)
         if self.chunked_prefill and windowed:
             # a chunk writes prefill_chunk positions ahead of the oldest
@@ -580,9 +611,14 @@ class SlotPoolEngine(PrecisionManagedEngine):
             raise ValueError(
                 f"request needs {prompt.shape[0]} prompt + "
                 f"{req.max_new_tokens} new tokens > max_len {self.max_len}")
-        for k in req.extras:
-            # the dense decoder takes no side inputs
-            raise ValueError(f"unknown extras key {k!r}; this arch accepts []")
+        for k, v in req.extras.items():
+            if k not in self._extra_specs:
+                raise ValueError(f"unknown extras key {k!r}; this arch accepts "
+                                 f"{sorted(self._extra_specs)}")
+            got, want = tuple(np.shape(v)), self._extra_specs[k]
+            if got != want:
+                raise ValueError(f"extras[{k!r}] must have per-request shape {want} "
+                                 f"(no batch dim), got {got}")
 
     def _admit_from_queue(self) -> None:
         while self.queue and (free := self.free_slots()):
@@ -611,9 +647,9 @@ class SlotPoolEngine(PrecisionManagedEngine):
         """Batch-1 admission: prefill the prompt alone (padded to its
         bucket with ``prefill_buckets``), grow its caches to ``max_len``
         and write them into the slot's rows; the slot's end position and
-        last-row logits go in on the device. The prompt goes up through
-        pinned memory and every write is a device copy, so nothing
-        waits."""
+        last-row logits go in on the device. The prompt and the request's
+        ``extras`` (with a leading axis of 1) go up through pinned memory
+        and every write is a device copy, so nothing waits."""
         L = int(prompt.shape[0])
         tokens = prompt[None, :]
         n_valid = None
@@ -623,6 +659,10 @@ class SlotPoolEngine(PrecisionManagedEngine):
                 tokens = np.pad(tokens, ((0, 0), (0, bucket - L)))
             n_valid = np.asarray([L], np.int32)
         batch = {"tokens": to_device(tokens.astype(np.int32), self.device)}
+        for k, v in req.extras.items():
+            # a tensor as it lies (on the card or not), an array through pinned memory
+            batch[k] = (v.to(self.device, non_blocking=True) if isinstance(v, torch.Tensor)
+                        else to_device(np.asarray(v), self.device))[None]
         if n_valid is not None:
             n_valid = to_device(n_valid, self.device)
         last_logits, caches = self.model.prefill(self.params, batch, n_valid)

@@ -1568,3 +1568,128 @@ def test_serving_mesh_needs_cards_unless_told(dev):
     assert home_device(mesh, "cuda") == mesh.home
     with pytest.raises(ValueError, match="home device"):
         home_device(mesh, torch.device("cuda", 1))
+
+
+# ---------------------------------------------------------------------------
+# cross caches (ROADMAP A8(e)): every key valid, every row at q_pos = S
+# ---------------------------------------------------------------------------
+
+def _cross_operands(dev, B, T, H, Kh, S, hd, dtype, seed):
+    """q (B, T, H, hd) over a memory cache (B, Kh, S, hd) as the cross
+    blocks read it: ``k_pos = arange(S)`` on every slot, every row at
+    ``q_pos = S`` (no key is past a query)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q = torch.randn((B, T, H, hd), generator=g, device=dev).to(dtype)
+    k = torch.randn((B, Kh, S, hd), generator=g, device=dev).to(dtype)
+    v = torch.randn((B, Kh, S, hd), generator=g, device=dev).to(dtype)
+    k_pos = torch.arange(S, dtype=torch.int32, device=dev).expand(B, S)
+    q_pos = torch.full((B, T), S, dtype=torch.int32, device=dev)
+    return q, k, v, k_pos, q_pos
+
+
+# seamless-m4t-medium's decoder over a 64-token prompt's 16 frames (half a
+# 32-key chunk), and llama-3.2-vision-90b's cross layers at its published
+# heads over one tile's 1601 image embeddings (not a multiple of 32)
+CROSS_SHAPES = [(4, 16, 16, 16, 64), (4, 64, 8, 1601, 128)]
+
+
+@pytest.mark.parametrize("B,H,Kh,S,hd", CROSS_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_attention_over_cross_cache(dev, B, H, Kh, S, hd, dtype):
+    """B3 (one row a slot) and B4 (T = 5 rows a slot) within the stated
+    tolerance of their plain versions, and every B4 row equal to a B3
+    launch of that row, bit for bit."""
+    q, k, v, k_pos, q_pos = _cross_operands(dev, B, 5, H, Kh, S, hd, dtype, S + hd)
+    tol = 2e-5 if dtype == torch.float32 else 2.0 ** -7
+    out = verify_attention.flash_verify(q, k, v, k_pos, q_pos)
+    want = ref.flash_verify_ref(q, k, v, k_pos, q_pos)
+    assert torch.isfinite(out).all()
+    assert (out.float() - want).abs().max().item() <= tol * max(1.0, want.abs().max().item())
+    for t in range(5):
+        row = decode_attention.flash_decode(q[:, t].contiguous(), k, v, k_pos,
+                                            q_pos[:, t].contiguous())
+        want_row = ref.flash_decode_ref(q[:, t], k, v, k_pos, q_pos[:, t])
+        assert (row.float() - want_row).abs().max().item() <= \
+            tol * max(1.0, want_row.abs().max().item())
+        assert torch.equal(out[:, t], row), f"row {t}"
+
+
+@pytest.mark.parametrize("M", [1, 4, 64])
+def test_dequant_matmul_at_seamless_unembedding(dev, M):
+    """seamless-m4t-medium's tied unembedding: the (256206, 1024) table's
+    transposed view, N not a multiple of 8, on the one-pass K-contiguous
+    GEMV kernel below 16 rows and the tensor-core kernel at 64, float32
+    x, within 1e-4 of the plain version."""
+    x, q, scale, offset = _dqmm_operands(dev, M, 1024, 256206, torch.uint16, "transposed",
+                                         torch.float32, M)
+    assert dequant_matmul.one_pass(q)
+    _assert_dqmm_close(dequant_matmul.dequant_matmul(x, q, scale, offset), x, q, scale,
+                       offset)
+
+
+def test_seamless_decode_step_never_syncs(dev):
+    """A reduced seamless-m4t-medium (encoder, ``selfcross`` blocks) on the
+    card in bfloat16: after the prefill, a decode step (B3 over the self
+    and the cross caches), an upgrade and a verify step under
+    ``torch.cuda.set_sync_debug_mode("error")``."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.progressive import divide
+    from repro_torch.models.model import build_model
+    from repro_torch.serving import ProgressiveServer
+
+    model = build_model(get_config("seamless-m4t-medium").reduced(
+        d_model=256, n_heads=4, n_kv=4, d_ff=512, vocab=512, dtype=torch.bfloat16))
+    prog = divide(model.init(torch.Generator(device=dev).manual_seed(0), device=dev))
+    srv = ProgressiveServer(model, prog, max_len=48, resident="quantized", device=dev)
+    srv.receive_stage()
+    g = torch.Generator(device=dev).manual_seed(1)
+    srv.start({"tokens": torch.arange(24).reshape(2, 12),
+               "enc_input": torch.randn((2, 3, 256), generator=g, device=dev)})
+    tok = torch.zeros((2, 1), dtype=torch.int32, device=dev)
+    block = torch.zeros((2, 3), dtype=torch.int32, device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        logits, caches = model.decode_step(srv.params, srv.caches, tok, 12)
+        srv.receive_stage()
+        logits, caches = model.decode_step(srv.params, caches, tok, 13)
+        vlogits, caches = model.verify_step(srv.params, caches, block, 14)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert bool(torch.isfinite(logits).all()) and bool(torch.isfinite(vlogits).all())
+
+
+def test_vision_pool_takes_images_on_the_card(dev):
+    """A reduced llama-3.2-vision-90b pool (batch-1 admission) on the
+    card: images submitted as tensors on the card give the tokens of the
+    same images submitted as numpy arrays."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.progressive import divide
+    from repro_torch.models.model import build_model
+    from repro_torch.serving import PoolRequest, SlotPoolEngine
+
+    model = build_model(get_config("llama-3.2-vision-90b").reduced())
+    params = model.init(torch.Generator(device=dev).manual_seed(0), device=dev)
+    g = torch.Generator(device=dev).manual_seed(1)
+    gates = params["decoder"]["cycles"]["4_cross"]
+    for name in ("gate_attn", "gate_mlp"):
+        gates[name].copy_(torch.empty_like(gates[name]).uniform_(0.5, 1.0, generator=g))
+    prog = divide(params)
+    cfg = model.cfg
+    images = torch.randn((2, cfg.vision_tokens, cfg.d_vision), generator=g, device=dev)
+    rng = np.random.default_rng(2)
+    prompts = [rng.integers(0, cfg.vocab, n).astype(np.int32) for n in (9, 14)]
+
+    def run(as_numpy: bool) -> dict:
+        pool = SlotPoolEngine(model, prog, n_slots=2, max_len=40, resident="quantized",
+                              device=dev)
+        for _ in range(8):
+            pool.receive_stage()
+        for rid, prompt in enumerate(prompts):
+            image = images[rid].cpu().numpy() if as_numpy else images[rid]
+            pool.submit(PoolRequest(rid=rid, prompt=prompt, max_new_tokens=8,
+                                    extras={"vision_embeds": image}))
+        assert pool.chunked_prefill is False
+        return pool.run()
+
+    assert run(as_numpy=False) == run(as_numpy=True)

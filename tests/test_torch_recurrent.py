@@ -189,9 +189,12 @@ _REFERENCE = """
 
 class Reference:
     """The reference side of one arch: its jobs' processes, started
-    together, each read once when a test asks for it."""
+    together, each read once when a test asks for it. ``script`` replaces
+    this module's ``_REFERENCE`` (``tests/test_torch_cross.py`` passes its
+    own)."""
 
-    def __init__(self, tmp, name: str, over: dict, weights: dict, jobs, **inputs):
+    def __init__(self, tmp, name: str, over: dict, weights: dict, jobs, *,
+                 script: str | None = None, **inputs):
         self.tmp, self.out = tmp, {}
         spec = {"name": name, "over": {**SIZE, **over}, "stages": list(CHECK_STAGES),
                 "max_len": MAX_LEN, "steps": STEPS, "pool": POOL,
@@ -208,7 +211,8 @@ class Reference:
             name = job.replace("/", "_")
             with open(tmp / f"{name}.err", "w") as err:
                 self.procs[job] = subprocess.Popen(
-                    [sys.executable, "-c", textwrap.dedent(_REFERENCE), str(tmp / "in.npz"),
+                    [sys.executable, "-c", textwrap.dedent(script or _REFERENCE),
+                     str(tmp / "in.npz"),
                      str(tmp / f"{name}.npz"), job],
                     stdout=subprocess.DEVNULL, stderr=err, env=env)
 

@@ -82,11 +82,12 @@ def test_cli_mixtral_reduced(mode, capsys):
 
 
 def test_cli_parts_still_to_port_raise():
-    """The other architectures (``--mesh-shards`` is ported:
+    """The other architecture (``--mesh-shards`` is ported:
     ``tests/test_torch_sharded.py`` runs it; the recurrent archs serve:
-    ``tests/test_torch_recurrent.py``)."""
+    ``tests/test_torch_recurrent.py``; the cross-attention ones:
+    ``tests/test_torch_cross.py``, ``tests/test_torch_vision.py``)."""
     with pytest.raises(NotImplementedError, match="A8"):
-        serve.main(["--arch", "seamless-m4t-medium", "--reduced", "--device", "cpu"])
+        serve.main(["--arch", "progressivenet-cnn", "--reduced", "--device", "cpu"])
 
 
 def test_cli_defaults_to_the_card():
