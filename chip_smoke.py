@@ -113,6 +113,17 @@ with the launch counts set to 0 just before it and read just after:
    request, each request alone equal to the busy pool; B3 and B4 over its
    cross cache; then over 20 cross caches at the published heads (B 4,
    Kh 8, G 8, hd 128, Tv 1601, T 5), timed beside SDPA and the bound;
+1e. ``[arch progressivenet-cnn]``: the paper's own CNN (ROADMAP A8(f))
+   at its published widths (13 tensors, 3,931 weights), seeded weights
+   and seeded images at 16x16 (batch 512, Table II's test set) and
+   224x224 (batch 64, ImageNet's input): ``divide`` on the card (B6),
+   its planes and v3 blob equal to the CPU's; the blob through a
+   ``ProgressiveClient`` on the card (B1 a stage) beside one on the CPU;
+   at each of the 8 stages ``materialize`` and ``cnn_apply``, the logits
+   within ``CNN_RTOL`` of the CPU's plain path, the top-1 agreement with
+   the undivided float32 model printed (Table II's column); stage-8
+   accumulators equal to ``quantize(leaf).q``; B1 and B6 at its shapes
+   timed;
 2. ``[divide]``: split full-width olmo-1b into eight 2-bit planes on the
    card (``plane_extract``, 8 launches a tensor); the in-memory receiver
    after all 8 stages holds ``quantize(leaf).q`` of every tensor, bit for
@@ -148,7 +159,12 @@ with the launch counts set to 0 just before it and read just after:
    window apart, each request alone in a 1-slot pool at the run's stages
    ``torch.equal`` to the busy pool (so speculative tokens equal plain
    batch-1 tokens); the tokens batch-1 shares with chunked admission at
-   stage 8;
+   stage 8. ``[telemetry]`` (ROADMAP A11): the single stream (12 steps,
+   2 upgrades) and ``SpeculativeEngine`` (16 tokens) each with the
+   registry off and then on: tokens ``torch.equal`` and launches equal,
+   nothing recorded off, the counters equal the runs' records and
+   ``kernel_launches_total`` ``LAUNCH_COUNTS`` on, the wall ms a step
+   printed both ways;
 4. ``[wire]``: the same model from wire bytes: ``wire.encode`` (v3),
    ``ProgressiveClient.feed`` in seeded ragged chunks of 1 B to 64 MB,
    one stage at each arrival of phase 3's schedule, and
@@ -184,7 +200,8 @@ with the launch counts set to 0 just before it and read just after:
    full-width model (the lossy ones end in ``TransportError`` there) and
    the lossy ones on reduced olmo-1b, recovered. ``[cli]``: ``python -m
    repro_torch.launch.serve --arch olmo-1b --scenario pod-coldstart`` at
-   full width, as a process of its own;
+   full width, as a process of its own, with ``--metrics``: the file
+   holds every metric family the reference's launcher writes;
    ``[calibrate]``: ``weight_sse_schedule`` (float64 on the card),
    ``calibrate_schedule(method="marginal")`` and ``greedy_schedule`` at
    full width under a float-leaf cross-entropy loss, each valid and
@@ -412,6 +429,38 @@ VISION = "llama-3.2-vision-90b"
 VISION_REQUESTS = 3
 VISION_HEADS_LAYERS = 20
 CROSS_LONG_TV = 400
+# [arch progressivenet-cnn]: the paper's own CNN (ROADMAP A8(f)) at its
+# published widths (channels 16, 32, 64; 3 input channels, 10 classes),
+# classifying seeded numpy images at each stage: (input size, batch) of
+# the reference's Table II test set and of ImageNet's input (the pool is
+# global, so the model takes any size). Each seeded image is a random
+# colour plus unit noise: white noise alone averages out in the global
+# pool at 224x224, where every image would take one class. Its logits on
+# the card against
+# the CPU's plain path: cuDNN and the CPU sum each convolution in other
+# orders in float32 (TF32 off), and the batch norm divides by the batch's
+# own spread; allow 1e-4 of the largest logit
+CNN = "progressivenet-cnn"
+CNN_BATCHES = ((16, 512), (224, 64))
+CNN_RTOL = 1e-4
+# [telemetry]: full-width olmo-1b's single stream from stage TEL_START,
+# TEL_STEPS decode steps with stages landing at TEL_ARRIVALS, and
+# SpeculativeEngine at stage 8 for TEL_SPEC_TOKENS tokens at batch 1 (k =
+# 4), each run TEL_TURNS times with the registry off and then on
+TEL_START, TEL_STEPS, TEL_ARRIVALS, TEL_SPEC_TOKENS, TEL_TURNS = 6, 12, (4, 8), 16, 2
+# the metric families the reference's launcher writes with --metrics for
+# CLI_STREAM and CLI_POOL (reduced olmo-1b, pod-coldstart)
+CLI_STREAM_FAMILIES = frozenset((
+    "client_bytes_fed_total", "client_flush_planes", "client_planes_ored_total",
+    "client_resume_cursor_byte", "client_resume_cursor_unit", "engine_tokens_total",
+    "engine_ttft_s", "kernel_launches_total", "session_bytes_total", "session_chunks_total",
+    "session_decode_steps_total", "session_stage_completions_total", "session_upgrades_total",
+    "span_decode_window_wall_s", "span_stage_arrival_sim_s", "span_upgrade_ingest_wall_s",
+    "span_upgrade_refresh_wall_s", "store_or_round_planes", "store_or_rounds_total",
+    "store_refresh_dispatches_total", "store_refresh_slots", "store_resident_bytes"))
+CLI_POOL_FAMILIES = CLI_STREAM_FAMILIES - {"session_decode_steps_total"} | {
+    "engine_prefill_ticks_total", "engine_upgrade_enqueue_s", "engine_upgrade_stall_s",
+    "engine_upgrades_total", "engine_window_steps", "pool_window_tokens"}
 # v2 entropy coding is host numpy (core/entropy.py): its encode and decode
 # are timed on the 2-layer full-width model's attn.wq units (8 planes)
 
@@ -617,6 +666,10 @@ def main() -> int:
     arch_runs["vision path"] = _vision_phase(dev, ops)
     torch.cuda.empty_cache()
 
+    # -- 1e. the paper's own CNN (ROADMAP A8(f)), progressive inference -------
+    arch_runs[f"arch {CNN}"] = _cnn_phase(dev, ops)
+    torch.cuda.empty_cache()
+
     # -- 2. divide on the card -----------------------------------------------
     cfg = get_config("olmo-1b")
     model = build_model(cfg)
@@ -711,6 +764,8 @@ def main() -> int:
     _spec_rejections(model, prog_scaled, prompt, dev)
     _spec_pool_rejections(model, prog_scaled, dev)
     del prog_scaled
+    # the serving telemetry (ROADMAP A11), off and on, on the same planes
+    telemetry = _telemetry_phase(model, prog, dev, ops, prompt)
 
     # -- 4. the same model from wire bytes -----------------------------------
     wire_counts, wire_routes, blob = _wire_phase(model, prog, dev, ops, prompt, res,
@@ -731,7 +786,8 @@ def main() -> int:
     calib = _calibrate_phase(model, prog, dev, ops, prompt, clean_fps, session["arrivals_v3"])
     log(f"[calibrate] launches on the path {calib['counts']}, dequant_matmul by route "
         f"{calib['routes']}; {time.perf_counter() - t0:.1f} s")
-    _cli_phase("olmo-1b", CLI_STREAM, CLI_POOL)
+    _cli_phase("olmo-1b", CLI_STREAM, CLI_POOL,
+               families=(CLI_STREAM_FAMILIES, CLI_POOL_FAMILIES))
 
     # -- 5. stage 8 one tensor at a time -------------------------------------
     # the accumulators after stage 7, stage 8's operands, and the batched
@@ -1181,7 +1237,8 @@ def main() -> int:
              "wire": wire_counts, "session": session["counts"],
              "upgrade per tensor": upgrade_counts, "quantized view": view["counts"],
              "pool batch-1": batch1["counts"], "calibrate": calib["counts"],
-             "mesh": mesh["counts"], **{k: r["counts"] for k, r in arch_runs.items()}}
+             "mesh": mesh["counts"], "telemetry": telemetry["counts"],
+             **{k: r["counts"] for k, r in arch_runs.items()}}
     launches = {name: sum(c.get(name, 0) for c in paths.values()) for name in sources}
     check(all(launches[name] > 0 for name in sources), launches)
     # dequant_matmul's launches by route on the paths that run it
@@ -1189,7 +1246,8 @@ def main() -> int:
                    "spec pool": spec_pool["routes"], "wire": wire_routes,
                    "session": session["routes"], "quantized view": view["routes"],
                    "pool batch-1": batch1["routes"], "calibrate": calib["routes"],
-                   "mesh": mesh["routes"], **{k: r["routes"] for k, r in arch_runs.items()}}
+                   "mesh": mesh["routes"], "telemetry": telemetry["routes"],
+                   **{k: r["routes"] for k, r in arch_runs.items()}}
     by_route = {k: sum(r[k] for r in route_paths.values()) for k in dqm.launches_by_route}
     check(sum(by_route.values()) == launches["dequant_matmul"] and all(by_route.values()),
           (by_route, launches["dequant_matmul"]))
@@ -2199,26 +2257,45 @@ def _session_small(cfg, dev, ops, acc: dict, routes: dict) -> None:
             f"upgrades {r.upgrades}; host {host_s:.3f} s; launches {c}")
 
 
-def _cli_phase(arch: str, *runs) -> None:
+def _cli_phase(arch: str, *runs, families=()) -> None:
     """The CLI at full width, each run a process of its own: ``python -m
     repro_torch.launch.serve --arch <arch> --scenario pod-coldstart`` and
     each run's flags, its last line checked (``CLI_STREAM``,
-    ``CLI_POOL``)."""
+    ``CLI_POOL``). With ``families`` (one set a run) each run also gets
+    ``--metrics``: its file parses as Prometheus text and holds every
+    family of its set (the reference launcher's, ``CLI_STREAM_FAMILIES``,
+    ``CLI_POOL_FAMILIES``)."""
+    import tempfile
+
+    from repro_torch.obs.exporters import parse_prometheus
+
     base = [sys.executable, "-m", "repro_torch.launch.serve", "--arch", arch,
             "--scenario", "pod-coldstart"]
     env = {**os.environ, "PYTHONPATH": os.path.join(ROOT, "src")}
-    runs = [(base + flags, last) for flags, last in runs]
-    for cmd, last in runs:
-        t0 = time.perf_counter()
-        proc = subprocess.run(cmd, capture_output=True, text=True, timeout=CLI_TIMEOUT_S,
-                              env=env, cwd=ROOT)
-        wall = time.perf_counter() - t0
-        check(proc.returncode == 0, ("cli", cmd[3:], proc.returncode, proc.stderr[-3000:]))
-        out = proc.stdout.strip().splitlines()
-        check(out and out[-1].startswith(last), out[-3:])
-        for line in out:
-            log(f"[cli] {line[:300]}")
-        log(f"[cli] {' '.join(cmd[1:])}: exit 0 in {wall:.1f} s")
+    with tempfile.TemporaryDirectory() as tmp:
+        metrics = [os.path.join(tmp, f"cli{i}.prom") for i in range(len(families))]
+        runs = [(base + flags + (["--metrics", metrics[i]] if i < len(families) else []), last)
+                for i, (flags, last) in enumerate(runs)]
+        for i, (cmd, last) in enumerate(runs):
+            t0 = time.perf_counter()
+            proc = subprocess.run(cmd, capture_output=True, text=True, timeout=CLI_TIMEOUT_S,
+                                  env=env, cwd=ROOT)
+            wall = time.perf_counter() - t0
+            check(proc.returncode == 0, ("cli", cmd[3:], proc.returncode, proc.stderr[-3000:]))
+            out = proc.stdout.strip().splitlines()
+            check(out and out[-1].startswith(last) or
+                  i < len(families) and len(out) > 1 and out[-2].startswith(last), out[-3:])
+            for line in out:
+                log(f"[cli] {line[:300]}")
+            if i < len(families):
+                with open(metrics[i]) as f:
+                    got = parse_prometheus(f.read())
+                missing = sorted(families[i] - set(got))
+                check(not missing, ("cli --metrics lacks", missing))
+                log(f"[cli] --metrics: {len(got)} families, every one of the reference "
+                    f"launcher's {len(families[i])} for this mode; kernel_launches_total "
+                    + str({k: int(v) for k, v in got["kernel_launches_total"]["samples"].items()}))
+            log(f"[cli] {' '.join(cmd[1:])}: exit 0 in {wall:.1f} s")
 
 
 def _upgrade_phase(prog, dev, ops):
@@ -5584,6 +5661,296 @@ def _vision_pool(tag, model, prog, dev, ops, acc, routes) -> None:
         f"admission (chunked_prefill=None fell back), stages 1->{pool.stage}, admission "
         f"stages {pool.admit_stage}; launches {got}, by route {by}; each request alone in a "
         f"1-slot pool at the busy pool's stages, with its image: tokens equal (torch.equal)")
+
+
+def _cnn_phase(dev, ops) -> dict:
+    """``[arch progressivenet-cnn]``: the paper's own CNN (ROADMAP A8(f)) at
+    its published widths (``cnn_init``: channels 16, 32, 64; 13 tensors,
+    3,931 weights), seeded weights, progressive inference on the card.
+    Each path counted from 0: ``divide`` on the card (B6, 8 launches a
+    tensor), its planes and its v3 wire blob equal to the CPU divide's
+    (the plain version); the blob fed in seeded ragged chunks through a
+    ``ProgressiveClient`` on the card (B1, one launch a stage over all 13
+    tensors) beside one on the CPU; at each of the 8 stages
+    ``materialize`` and ``cnn_apply`` on each ``CNN_BATCHES`` batch, the
+    logits within ``CNN_RTOL`` of the CPU client's leaves through the
+    plain path, and the top-1 agreement with the undivided float32 model
+    (Table II's column) printed with the ms of each; at stage 8 every
+    accumulator ``torch.equal`` to ``quantize(leaf).q``. Then B1 on a
+    stage's operands and B6 on the 13 tensors, timed beside their bounds,
+    plain versions and library calls. Returns the launch counts, B2's
+    launches by route (none) and the kernels' rows."""
+    from repro_torch.configs.progressivenet_cnn import cnn_apply, cnn_init
+    from repro_torch.core import wire
+    from repro_torch.core.progressive import ReceiverState, divide
+    from repro_torch.core.quantize import quantize
+    from repro_torch.kernels import bitplane, ref
+    from repro_torch.transmission import ProgressiveClient
+
+    tag = f"[arch {CNN}]"
+    t_phase = time.perf_counter()
+    acc, routes, kern = {}, {}, {}
+    params = cnn_init(torch.Generator(device=dev).manual_seed(0), device=dev)
+    cpu_params = {k: v.cpu() for k, v in params.items()}
+    x_cpu = {size: torch.from_numpy(_cnn_images(size, b)) for size, b in CNN_BATCHES}
+    x_dev = {size: x.to(dev) for size, x in x_cpu.items()}
+    # the undivided float32 model's classes, Table II's reference
+    full = {size: cnn_apply(params, x).argmax(-1) for size, x in x_dev.items()}
+
+    torch.cuda.synchronize()
+    reset_counts(ops)
+    t0 = time.perf_counter()
+    prog = divide(params)
+    torch.cuda.synchronize()
+    t_divide = time.perf_counter() - t0
+    got, _ = _tally(acc, routes, f"{tag} divide")
+    n_t = len(prog.tensors)
+    check(got["plane_extract"] == 8 * n_t and sum(got.values()) == 8 * n_t, (tag, got))
+    cpu_prog = divide(cpu_params)
+    for t, c in zip(prog.tensors, cpu_prog.tensors):
+        check(t.path == c.path and all(torch.equal(a.cpu(), b)
+                                       for a, b in zip(t.planes, c.planes)), (tag, t.path))
+    blob = wire.encode(prog, integrity=True)
+    check(blob == wire.encode(cpu_prog, integrity=True), f"{tag} wire blob differs")
+    numel = sorted(int(np.prod(t.shape)) for t in prog.tensors)
+    log(f"{tag} {n_t} tensors of {numel[0]}-{numel[-1]} elements, {sum(numel)} weights; "
+        f"divide on the card {t_divide * 1e3:.1f} ms, launches {got}; every plane equals the "
+        f"CPU divide's (the plain version) and the v3 blob ({len(blob)} bytes) the CPU's")
+
+    # the stream: the card's client beside the CPU's, a stage at a time
+    _, ends = _stage_ends(wire, blob)
+    client, cpu_client = ProgressiveClient(device=dev), ProgressiveClient(device="cpu")
+    feed = _feeder(client, blob, 7)
+    cpu_client.feed(blob[:ends[0]])
+    torch.cuda.synchronize()
+    reset_counts(ops)
+    feed(ends[0])
+    stages = []
+    for s in range(1, len(ends)):
+        feed(ends[s])
+        cpu_client.feed(blob[ends[s - 1]:ends[s]])
+        check(client.stages_complete == cpu_client.stages_complete == s, (tag, s))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        leaves = client.materialize()
+        torch.cuda.synchronize()
+        row = {"stage": s, "materialize_ms": (time.perf_counter() - t0) * 1e3}
+        cpu_leaves = cpu_client.materialize()
+        row["leaf_max_abs_diff"] = max(float((leaves[k].cpu() - v).abs().max())
+                                       for k, v in cpu_leaves.items())
+        for size, x in x_dev.items():
+            t0 = time.perf_counter()
+            logits = cnn_apply(leaves, x)
+            torch.cuda.synchronize()
+            apply_ms = (time.perf_counter() - t0) * 1e3
+            want = cnn_apply(cpu_leaves, x_cpu[size])
+            err = float((logits.cpu() - want).abs().max()) / float(want.abs().max())
+            check(bool(torch.isfinite(logits).all()) and err <= CNN_RTOL, (tag, s, size, err))
+            row[size] = {"apply_ms": apply_ms, "rel_err": err,
+                         "top1_agreement": float((logits.argmax(-1) == full[size]).float().mean())}
+        stages.append(row)
+        log(f"{tag} stage {s} ({2 * s} bits): materialize {row['materialize_ms']:.2f} ms, "
+            f"leaves against the CPU client's max |diff| {row['leaf_max_abs_diff']:.3e}; "
+            + "; ".join(f"{size}x{size} x {x.shape[0]}: cnn_apply {row[size]['apply_ms']:.2f} "
+                        f"ms, max |err| / max |logit| against the CPU "
+                        f"{row[size]['rel_err']:.3e} (tolerance {CNN_RTOL}), top-1 agreement "
+                        f"with the float model {row[size]['top1_agreement']:.4f}"
+                        for size, x in x_dev.items()))
+    got, _ = _tally(acc, routes, f"{tag} stream")
+    check(got["plane_or_segments"] == 8 and sum(got.values()) == 8, (tag, got))
+    for i, t in enumerate(prog.tensors):
+        check(torch.equal(client.store._slice_acc(i), quantize(params[t.path[0]], 16).q),
+              f"{tag} stage-8 accumulator of {t.path} differs from quantize(leaf).q")
+    log(f"{tag} the stream's launches {got}; stage-8 accumulators equal quantize(leaf).q of "
+        f"all {n_t} tensors; the float model's classes take "
+        + ", ".join(f"{len(set(c.tolist()))} of 10 values at {size}x{size}"
+                    for size, c in full.items())
+        + "; top-1 agreement by stage: " + "; ".join(
+            f"{size}x{size} " + ", ".join(f"{r[size]['top1_agreement']:.4f}" for r in stages)
+            for size in x_dev))
+    del client, cpu_client
+
+    # B1 on stage 8's operands (every tensor in one round) after stage 7
+    state = ReceiverState.init(prog, device=dev)
+    for s in range(1, prog.n_stages):
+        state = state.receive(prog.stage(s))
+    store = state.store
+    ((dt, (_, plane, shifts)),) = store.round_operands(dict(prog.stage(8))).items()
+    buf = store.buffers[dt]
+    check(plane.numel() == buf.numel(), (tag, plane.numel(), buf.numel()))
+    check(torch.equal(bitplane.plane_or_segments(buf, plane, shifts),
+                      ref.plane_or_segments_ref(buf, plane, shifts, store.block)),
+          f"{tag} plane_or_segments differs from its plain version")
+    n = buf.numel()
+    sh = int(shifts[0])
+    check(bool((shifts == sh).all()), f"{tag} shifts differ within the round")
+    b16, p16 = buf.view(torch.int16), plane.view(torch.int16)
+    b, by = bound_ms(3 * 2 * n + 4 * (n // store.block), n * 2, FP32_FLOPS)
+    kern["plane_or_segments"] = {
+        "ms": device_ms(lambda: bitplane.plane_or_segments(buf, plane, shifts), 20),
+        "plain_ms": device_ms(lambda: ref.plane_or_segments_ref(buf, plane, shifts,
+                                                                store.block), 5),
+        "library_ms": device_ms(lambda: torch.bitwise_or(
+            b16, torch.bitwise_left_shift(p16, sh)), 20),
+        "host_ms": host_ms(lambda: bitplane.plane_or_segments(buf, plane, shifts), 20),
+        "bound_ms": b, "bound_by": by, "max_abs_err": 0,
+        "per": f"one stage ({n_t} tensors padded to {n} elements, one launch)"}
+    # B6: one plane of each of the 13 tensors, from its q
+    qs = [quantize(params[t.path[0]], 16).q for t in prog.tensors]
+    for q in qs:
+        check(torch.equal(bitplane.plane_extract(q, bits=16, before=6, width=2,
+                                                 out_dtype=torch.uint8),
+                          ref.plane_extract_ref(q, 16, 6, 2, torch.uint8)), (tag, "B6"))
+    n_el = sum(q.numel() for q in qs)
+    b, by = bound_ms(3 * n_el, 3 * n_el, FP32_FLOPS)
+
+    def each(fn):
+        for q in qs:
+            fn(q)
+
+    kern["plane_extract"] = {
+        "ms": device_ms(lambda: each(lambda q: bitplane.plane_extract(
+            q, bits=16, before=6, width=2, out_dtype=torch.uint8)), 5),
+        "plain_ms": device_ms(lambda: each(lambda q: ref.plane_extract_ref(
+            q, 16, 6, 2, torch.uint8)), 5),
+        "library_ms": device_ms(lambda: each(lambda q: torch.bitwise_right_shift(
+            torch.bitwise_and(torch.bitwise_left_shift(q.to(torch.int32), 6), 0xFFFF),
+            14).to(torch.uint8)), 5),
+        "host_ms": host_ms(lambda: each(lambda q: bitplane.plane_extract(
+            q, bits=16, before=6, width=2, out_dtype=torch.uint8)), 5),
+        "bound_ms": b, "bound_by": by, "max_abs_err": 0,
+        "per": f"one plane of each of the {n_t} tensors ({n_t} launches, {n_el} elements)"}
+    for name, row in kern.items():
+        log(f"{tag} [time] {name} per {row['per']}: {row['ms']:.4f} ms on the device, bound "
+            f"{row['bound_ms']:.4f} ms ({row['bound_by']}), plain {row['plain_ms']:.4f} ms, "
+            f"library {row['library_ms']:.4f} ms; host issue {row['host_ms']:.4f} ms")
+    log(f"{tag} launches on the paths {acc}; {time.perf_counter() - t_phase:.1f} s")
+    return {"counts": acc, "routes": routes, "kern": kern}
+
+
+def _cnn_images(size: int, batch: int) -> np.ndarray:
+    """Seeded NHWC images: each a random colour (twice a unit normal a
+    channel) plus unit noise a pixel."""
+    rng = np.random.default_rng(size)
+    colour = 2 * rng.standard_normal((batch, 1, 1, 3))
+    return (colour + rng.standard_normal((batch, size, size, 3))).astype(np.float32)
+
+
+def _metric_values(reg) -> dict:
+    """A registry's samples: ``(family, labels) -> value`` for counters and
+    gauges, ``-> (count, sum)`` for histograms."""
+    out = {}
+    for m in reg.collect():
+        for labels, v in m.samples():
+            out[(m.name, labels)] = (len(v), float(sum(v))) if isinstance(v, (list, tuple)) \
+                else float(v)
+    return out
+
+
+def _family_total(values: dict, family: str, index=None) -> float:
+    """The sum over a family's label sets (of the count, ``index`` 0, or the
+    sum, 1, of a histogram)."""
+    return sum(v if index is None else v[index] for (f, _), v in values.items() if f == family)
+
+
+def _telemetry_phase(model, prog, dev, ops, prompt) -> dict:
+    """``[telemetry]``: ROADMAP A11's second half on full-width olmo-1b.
+    The single stream (quantized residency from stage ``TEL_START``,
+    ``TEL_STEPS`` decode steps in one dispatch window, the next stages
+    landing at ``TEL_ARRIVALS``) and ``SpeculativeEngine`` (stage 8, batch
+    1, k = 4, ``TEL_SPEC_TOKENS`` tokens), each run with the registry off
+    and then on, ``TEL_TURNS`` times in turn, the launch counts set to 0
+    before each run: tokens
+    ``torch.equal`` and launches equal between the two; the off run
+    records nothing; in the on run the counters equal the run's own
+    records (tokens, stages ingested and refreshed, windows, rounds and
+    accepted drafts) and ``kernel_launches_total`` equals
+    ``ops.LAUNCH_COUNTS``; the wall ms a step (a round) printed, off and
+    on. Returns the launch counts and B2's launches by route."""
+    from repro_torch import obs
+    from repro_torch.serving import ProgressiveServer, SpecConfig, SpeculativeEngine
+
+    tag = "[telemetry]"
+    t_phase = time.perf_counter()
+    acc, routes = {}, {}
+
+    def stream():
+        srv = ProgressiveServer(model, prog, max_len=PROMPT + TEL_STEPS, resident="quantized",
+                                device=dev)
+        for _ in range(TEL_START):
+            srv.receive_stage()
+        srv.start({"tokens": prompt})
+        res = srv.decode(TEL_STEPS, stage_arrival=lambda i: i in TEL_ARRIVALS,
+                         dispatch_window=TEL_STEPS)
+        check(res.upgrades == [(a, TEL_START + 1 + j) for j, a in enumerate(TEL_ARRIVALS)],
+              (tag, res.upgrades))
+        return res, sum(w for _, w in res.window_s) / TEL_STEPS, "step"
+
+    def spec():
+        eng = SpeculativeEngine(model, prog, max_len=PROMPT + TEL_SPEC_TOKENS + 16,
+                                spec=SpecConfig(draft_bits=4, k=4), device=dev)
+        for _ in range(prog.n_stages):
+            eng.receive_stage()
+        eng.start({"tokens": prompt[:1]})
+        res = eng.decode(TEL_SPEC_TOKENS)
+        return res, res.wall_s / res.rounds, "round"
+
+    for name, fn in (("stream", stream), ("spec", spec)):
+        seen, per_ms = {}, {False: [], True: []}
+        for on in (False, True) * TEL_TURNS:
+            gc.collect()
+            torch.cuda.empty_cache()
+            obs.reset()
+            with obs.telemetry(on):
+                torch.cuda.synchronize()
+                reset_counts(ops)
+                res, per_s, per = fn()
+                got, _ = _tally(acc, routes, f"{tag} {name}")
+                reg = obs.get_registry()
+                run = {"res": res, "tokens": res.tokens.cpu(), "got": got,
+                       "launches": dict(ops.LAUNCH_COUNTS), "values": _metric_values(reg),
+                       "families": len(reg)}
+            per_ms[on].append(per_s * 1e3)
+            if on in seen:   # a later turn: the same tokens, launches and records
+                check(torch.equal(run["tokens"], seen[on]["tokens"]) and run["got"] ==
+                      seen[on]["got"] and run["values"].keys() == seen[on]["values"].keys(),
+                      (tag, name, "turns differ"))
+            else:
+                seen[on] = run
+        off, on_ = seen[False], seen[True]
+        check(torch.equal(off["tokens"], on_["tokens"]), f"{tag} {name}: tokens differ")
+        check(off["got"] == on_["got"] and off["launches"] == on_["launches"],
+              (tag, name, off["launches"], on_["launches"]))
+        check(off["families"] == 0, (tag, name, "the off run recorded", off["families"]))
+        v, res = on_["values"], on_["res"]
+        kernels = {dict(ls)["kernel"]: int(x) for (f, ls), x in v.items()
+                   if f == "kernel_launches_total"}
+        check(kernels == on_["launches"], (tag, name, kernels, on_["launches"]))
+        ingests = TEL_START + len(TEL_ARRIVALS) if name == "stream" else prog.n_stages
+        engine = "single" if name == "stream" else "SpeculativeEngine"
+        want = {"engine_tokens_total": TEL_STEPS if name == "stream" else TEL_SPEC_TOKENS,
+                "span_upgrade_ingest_wall_s": ingests, "span_upgrade_refresh_wall_s": ingests,
+                "store_or_rounds_total": ingests, "engine_ttft_s": 1,
+                "span_decode_window_wall_s": len(res.window_s) if name == "stream" else 1}
+        if name == "spec":
+            want.update(spec_rounds_total=res.rounds, spec_accepted_per_round=res.rounds)
+            check(_family_total(v, "spec_accepted_per_round", 1) == res.accepted,
+                  (tag, "accepted drafts", res.accepted))
+        have = {f: _family_total(v, f, None if f.endswith("_total") else 0) for f in want}
+        check(have == want, (tag, name, have, want))
+        check(v[("engine_tokens_total", (("engine", engine),))] == want["engine_tokens_total"],
+              (tag, name, engine))
+        check(kernels["plane_or_segments"] == ingests, (tag, name, kernels))
+        log(f"{tag} {name}: tokens {tuple(on_['tokens'].shape)} torch.equal with telemetry off "
+            f"and on, the same launches {on_['launches']}; off: nothing recorded; on: "
+            f"{on_['families']} families, counters equal the run's records {want}"
+            + (f" and {res.accepted} accepted drafts" if name == "spec" else "")
+            + f", kernel_launches_total equal to LAUNCH_COUNTS; wall ms a {per} "
+            f"(host-bound: the host issues it), turns in the order off, on: "
+            + ", ".join(f"{a:.3f}, {b:.3f}" for a, b in zip(per_ms[False], per_ms[True])))
+    obs.reset()
+    log(f"{tag} launches on the paths {acc}; {time.perf_counter() - t_phase:.1f} s")
+    return {"counts": acc, "routes": routes}
 
 
 def _arch_dqmm_check(tag, layer0, unembed, cfg, dev, g) -> float:

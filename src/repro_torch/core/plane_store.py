@@ -52,6 +52,7 @@ from typing import Any, Sequence
 import numpy as np
 import torch
 
+from repro_torch import obs as _obs
 from repro_torch import resolve_device, to_device
 from repro_torch.core.bitplanes import PlaneSchedule
 from repro_torch.core.quantize import (QuantizedTensor, affine_span, container_dtype,
@@ -331,6 +332,10 @@ class PlaneStore:
         return out
 
     def _ingest_round(self, items: dict[int, torch.Tensor]) -> None:
+        if _obs.enabled():
+            reg = _obs.get_registry()
+            reg.counter("store_or_rounds_total", "batched plane-OR rounds").inc()
+            reg.histogram("store_or_round_planes", "planes per OR round").observe(len(items))
         operands = self.round_operands(items)
         # every cached accumulator view of a replaced buffer goes (the
         # reference drops only the touched tensors'; an untouched view
@@ -378,6 +383,12 @@ class PlaneStore:
         jobs = [i for key in keys for i in self.groups[key]]
         if not jobs:
             return
+        if _obs.enabled():
+            reg = _obs.get_registry()
+            reg.counter("store_refresh_dispatches_total",
+                        "batched eq.-(5) refresh dispatches").inc()
+            reg.histogram("store_refresh_slots",
+                          "tensor slots per refresh dispatch").observe(len(jobs))
         consts = self._consts_cache.get(tuple(jobs))
         if consts is None:
             consts = dequant_constants([self.slots[i].lo for i in jobs],

@@ -12,6 +12,7 @@ import collections
 
 import torch
 
+from repro_torch import obs as _obs
 from repro_torch.kernels import bitplane as _bp
 from repro_torch.kernels import decode_attention as _da
 from repro_torch.kernels import dequant_matmul as _dqm
@@ -32,7 +33,18 @@ def reset_launch_counts() -> None:
 
 
 def _count(name: str) -> None:
+    """Tally one call: ``LAUNCH_COUNTS`` and, with telemetry on, the
+    registry's ``kernel_launches_total{kernel=...}``. The port runs
+    eagerly, so both count every call: equal to ``LAUNCH_COUNTS``. The
+    reference counts a jitted entry point once a trace (4 decode steps
+    are 1 ``decode_attention``), so the two packages' values of this
+    family differ by design; its name and help text are the reference's,
+    so one dashboard reads both."""
     LAUNCH_COUNTS[name] += 1
+    if _obs.enabled():
+        _obs.get_registry().counter(
+            "kernel_launches_total",
+            "Pallas kernel dispatches by entry point").inc(kernel=name)
 
 
 def dequant_matmul(x, q, scale, offset, keep=None, *, bits=None, rows="any"):

@@ -30,9 +30,12 @@ ones (xlstm-125m: sLSTM and mLSTM blocks; zamba2-7b: Mamba-2 blocks and
 one shared attention block) and the cross-attention ones
 (seamless-m4t-medium: an encoder-decoder over ``prompt_len // 4`` frames;
 llama-3.2-vision-90b: gated image layers over ``vision_tokens`` image
-embeddings), each with ``--reduced``; progressivenet-cnn is still to be
-ported (ROADMAP A8). A cross-attention arch's memory input is zeros, as
-the reference launcher makes it. With ``--mesh-shards`` a MoE arch's
+embeddings) and progressivenet-cnn, each with ``--reduced``. For
+progressivenet-cnn, as for the reference launcher, that is the decoder
+its ``ArchConfig`` describes (4 layers, d_model 64, vocab 10); the CNN
+itself is ``configs/progressivenet_cnn.cnn_init`` and ``cnn_apply``. A
+cross-attention arch's memory input is zeros, as the reference launcher
+makes it. With ``--mesh-shards`` a MoE arch's
 expert banks split on their expert dim, each shard running its own
 experts. For xlstm-125m and zamba2-7b ``--speculative`` raises (a
 recurrent state has no overwrite-only rollback for rejected drafts), and
@@ -73,9 +76,10 @@ def _write_event_log(result, event_log: str | None) -> None:
 
 def _write_metrics(metrics: str | None) -> None:
     """Dump the telemetry registry: Prometheus text at ``metrics``, the
-    structured summary (with spans) as JSON at ``metrics + '.json'``.
-    The session's counters and spans are there; the engines' and the
-    client's are still to be ported (ROADMAP A11)."""
+    structured summary (with spans) as JSON at ``metrics + '.json'``:
+    the session's, the client's, the store's, the engines' and the
+    kernel entry points' families, as the reference's launcher writes
+    them."""
     if not metrics:
         return
     from repro_torch import obs

@@ -29,17 +29,24 @@ mesh's model shards, weights split on their output dim run a shard at a
 time (``ops.sharded_dequant_matmul``, or a float matmul a shard) and are
 gathered on the home device, where everything else runs: token-identical
 to one device at every stage (see ``launch/sharding.py``).
+
+Telemetry (``repro_torch.obs``, off by default; ``REPRO_TELEMETRY=1`` or
+``obs.configure(True)``) mirrors the reference's spans, counters and
+histograms from values the engines already hold on the host: the
+upgrade's ingest and refresh split, each window's wall time and counts,
+each request's time to first token, each upgrade's record. No site reads
+the device or launches anything.
 """
 from __future__ import annotations
 
 import dataclasses
-import os
 import time
 from typing import Any, Callable
 
 import numpy as np
 import torch
 
+from repro_torch import obs as _obs
 from repro_torch import resolve_device, to_device
 from repro_torch.core import wire
 from repro_torch.core.progressive import (ProgressiveModel, ReceiverState, rebuild_params,
@@ -277,6 +284,12 @@ class PrecisionManagedEngine:
         self._refresh_params()
         self._last_upgrade_split = {"ingest_s": t1 - t0,
                                     "refresh_s": time.perf_counter() - t1}
+        if _obs.enabled():
+            tr = _obs.get_tracer()
+            tr.record("upgrade_ingest", wall_s=self._last_upgrade_split["ingest_s"],
+                      stage=self.stage)
+            tr.record("upgrade_refresh", wall_s=self._last_upgrade_split["refresh_s"],
+                      stage=self.stage)
 
 
 class ProgressiveServer(PrecisionManagedEngine):
@@ -357,10 +370,18 @@ class ProgressiveServer(PrecisionManagedEngine):
                 dt = now - win_t0
                 window_s.append((win_steps, dt))
                 per_step.extend([dt / win_steps] * win_steps)
+                if _obs.enabled():
+                    _obs.get_tracer().record("decode_window", wall_s=dt, engine="single")
                 win_t0 = now
                 win_steps = 0
         total = time.perf_counter() - t_start
         self.last_logits = logits
+        if _obs.enabled():
+            reg = _obs.get_registry()
+            reg.histogram("engine_ttft_s", "wall seconds to first token value").observe(
+                ttft or 0.0, engine="single")
+            reg.counter("engine_tokens_total", "tokens emitted by serving engines").inc(
+                steps, engine="single")
         return GenerationResult(
             tokens=torch.stack(toks, dim=1) if toks else None,
             stage_at_step=stage_at, upgrades=upgrades, per_step_s=per_step,
@@ -409,10 +430,6 @@ class PoolStepStats:
     upgrades: int = 0
     upgrade_enqueue_s: float = 0.0
     prefill_ticks: int = 0  # chunked-prefill blocks advanced this window
-
-
-def _later(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is still to be ported (ROADMAP {item})")
 
 
 class SlotPoolEngine(PrecisionManagedEngine):
@@ -475,9 +492,8 @@ class SlotPoolEngine(PrecisionManagedEngine):
     ``extras`` keys and per-request shapes are checked at submit, as the
     reference checks them.
 
-    Left for later, each raising ``NotImplementedError``: telemetry, which
-    the reference turns on with ``REPRO_TELEMETRY`` (A11); a mesh for an
-    arch with recurrent or cross-attention blocks (A13: its sharded store
+    Left for later, raising ``NotImplementedError``: a mesh for an arch
+    with recurrent or cross-attention blocks (A13: its sharded store
     raises). The reference's
     ``decode_cache_size``/``prefill_cache_size`` count JAX executables
     and have no counterpart: nothing is compiled here.
@@ -489,8 +505,6 @@ class SlotPoolEngine(PrecisionManagedEngine):
                  ring_margin: int = 0, chunked_prefill: bool | None = None,
                  prefill_chunk: int = 8, prefill_buckets: bool = True,
                  double_buffer: bool = True, mesh=None, device="cuda"):
-        if os.environ.get("REPRO_TELEMETRY", "") not in ("", "0"):
-            raise _later("serving telemetry (REPRO_TELEMETRY)", "A11")
         if n_slots < 1:
             raise ValueError("n_slots must be >= 1")
         cfg = model.cfg
@@ -748,6 +762,10 @@ class SlotPoolEngine(PrecisionManagedEngine):
         t = self._submit_t.get(rid)
         if t is not None and rid not in self.ttft_s:
             self.ttft_s[rid] = time.perf_counter() - t
+            if _obs.enabled():
+                _obs.get_registry().histogram(
+                    "engine_ttft_s", "wall seconds to first token value").observe(
+                        self.ttft_s[rid], engine=type(self).__name__)
 
     def _evict(self, slot: int) -> int:
         rid = self.slots[slot].rid
@@ -823,14 +841,25 @@ class SlotPoolEngine(PrecisionManagedEngine):
         return self._record_window(stats)
 
     def _record_window(self, stats: PoolStepStats) -> PoolStepStats:
-        """Window chokepoint: append the stats, reset the window's
-        accumulators."""
+        """Window chokepoint, shared with the speculative pool: append the
+        stats, reset the window's accumulators, mirror the stats into the
+        telemetry registry."""
         self.window_stats.append(stats)
         self._pending.clear()
         self._win_t0 = None
         self._win_upgrades = 0
         self._win_upgrade_enqueue_s = 0.0
         self._win_prefill_ticks = 0
+        if _obs.enabled():
+            engine = type(self).__name__
+            reg = _obs.get_registry()
+            reg.counter("engine_tokens_total", "tokens emitted by serving engines").inc(
+                stats.tokens_emitted, engine=engine)
+            reg.counter("engine_prefill_ticks_total", "chunked prefill ticks").inc(
+                stats.prefill_ticks, engine=engine)
+            reg.histogram("engine_window_steps", "decode steps per flushed window").observe(
+                stats.steps, engine=engine)
+            _obs.get_tracer().record("decode_window", wall_s=stats.wall_s, engine=engine)
         return stats
 
     def upgrade_if_available(self) -> bool:
@@ -855,7 +884,7 @@ class SlotPoolEngine(PrecisionManagedEngine):
         self._win_upgrades += 1
         self._win_upgrade_enqueue_s += enqueue_s
         split = self._last_upgrade_split
-        self.upgrade_log.append({
+        self._record_upgrade({
             "step": self._step_count, "stage": self.stage,
             "enqueue_s": enqueue_s, "stall_s": stall_s,
             "ingest_s": split.get("ingest_s", 0.0),
@@ -864,6 +893,20 @@ class SlotPoolEngine(PrecisionManagedEngine):
             "sharded": self.mesh is not None, "double_buffer": self.double_buffer})
         self.upgrades.append((self._step_count, self.stage))
         return True
+
+    def _record_upgrade(self, rec: dict) -> None:
+        """Upgrade chokepoint: the ``upgrade_log`` record, and the
+        registry's counter and histograms over the same values."""
+        self.upgrade_log.append(rec)
+        if _obs.enabled():
+            engine = type(self).__name__
+            reg = _obs.get_registry()
+            reg.counter("engine_upgrades_total", "precision upgrades applied").inc(
+                engine=engine, stage=rec["stage"])
+            reg.histogram("engine_upgrade_enqueue_s", "host enqueue seconds per upgrade"
+                          ).observe(rec["enqueue_s"], engine=engine)
+            reg.histogram("engine_upgrade_stall_s", "host-blocked seconds per upgrade"
+                          ).observe(rec["stall_s"], engine=engine)
 
     def run(self, *, max_steps: int = 100_000,
             on_window: Callable[[int], None] | None = None) -> dict[int, list[int]]:

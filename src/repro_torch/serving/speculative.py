@@ -50,26 +50,28 @@ rows never land on a position still inside a live window; a draft step
 and the verify row at the same position see the same ring in the same
 slot order, so speculative tokens stay plain greedy tokens.
 
-Left for later, raising ``NotImplementedError`` naming its ROADMAP item:
-the reference's telemetry counters of each accept round (A11;
-``accept_log`` is kept). The reference's
-``decode_cache_size`` counts JAX executables and has no counterpart
-until the port captures CUDA graphs, as for the plain engines.
+Telemetry (``repro_torch.obs``, off by default) mirrors each accept
+round (``_record_accept``: the round counter, accepted drafts a slot, the
+controller's rate) and the single stream's run (time to first token,
+tokens, a ``decode_window`` span), from the host values a round already
+reads. The reference's ``decode_cache_size`` counts JAX executables and
+has no counterpart until the port captures CUDA graphs, as for the plain
+engines.
 """
 from __future__ import annotations
 
 import dataclasses
-import os
 import time
 from typing import Any, Callable
 
 import numpy as np
 import torch
 
+from repro_torch import obs as _obs
 from repro_torch import to_device
 from repro_torch.core.policy import SpeculationController
 from repro_torch.serving.engine import (PoolStepStats, ProgressiveServer, SlotPoolEngine,
-                                        _later, resident_report)
+                                        resident_report)
 
 
 @dataclasses.dataclass
@@ -160,9 +162,6 @@ class _SpeculativeMixin:
                 f"speculative decoding is not supported for recurrent blocks "
                 f"{sorted(ssm)}: their cumulative state has no overwrite-only "
                 f"rollback (a rejected draft would need a state snapshot per token)")
-        if os.environ.get("REPRO_TELEMETRY", "") not in ("", "0"):
-            raise _later("the speculative engines' telemetry (the reference's counters "
-                         "of each accept round)", "A11")
         self.spec = spec or SpecConfig()
         # The verify block writes T = k + 1 rows from the base position and
         # the cache write clamps at the cache end: without k_max + 1 rows
@@ -202,6 +201,22 @@ class _SpeculativeMixin:
         acceptance evidence is stale: relax it toward its prior."""
         super().receive_stage()
         self.controller.on_upgrade()
+
+    def _record_accept(self, rec: dict) -> dict:
+        """Accept-round chokepoint: the ``accept_log`` record, and the
+        registry's views of the same values (round counter, accepted
+        drafts a slot, the controller's rate)."""
+        self.accept_log.append(rec)
+        if _obs.enabled():
+            engine = type(self).__name__
+            reg = _obs.get_registry()
+            reg.counter("spec_rounds_total", "speculative accept rounds").inc(engine=engine)
+            for a in rec["accepted"]:
+                reg.histogram("spec_accepted_per_round",
+                              "accepted drafts per slot per round").observe(a, engine=engine)
+            reg.gauge("spec_accept_rate", "controller acceptance EWMA").set(
+                rec["rate"], engine=engine)
+        return rec
 
     def received_bits_now(self) -> int:
         """Least effective precision over the store's tensors: what the
@@ -352,15 +367,22 @@ class SpeculativeEngine(_SpeculativeMixin, ProgressiveServer):
             drafted += k_eff * n_active
             accepted_total += int(acc_np[active].sum())
             self.controller.update(int(acc_np[active].sum()), k_eff * n_active)
-            rec = {"round": rounds, "k": k_eff, "accepted": [int(a) for a in acc_np[active]],
-                   "rate": self.controller.rate, "stage": self.stage,
-                   "emitted": [len(e) for e in emitted]}
-            self.accept_log.append(rec)
+            rec = self._record_accept(
+                {"round": rounds, "k": k_eff, "accepted": [int(a) for a in acc_np[active]],
+                 "rate": self.controller.rate, "stage": self.stage,
+                 "emitted": [len(e) for e in emitted]})
             if on_round is not None:
                 on_round(rec)
             rounds += 1
         wall = time.perf_counter() - t_start
         self.last_logits = None   # the plain path's handle is stale now
+        if _obs.enabled():
+            reg = _obs.get_registry()
+            reg.histogram("engine_ttft_s", "wall seconds to first token value").observe(
+                ttft, engine="SpeculativeEngine")
+            reg.counter("engine_tokens_total", "tokens emitted by serving engines").inc(
+                steps * B, engine="SpeculativeEngine")
+            _obs.get_tracer().record("decode_window", wall_s=wall, engine="SpeculativeEngine")
         return SpeculativeResult(
             tokens=torch.tensor(np.array([e[:steps] for e in emitted], np.int64)),
             stage_log=[s[:steps] for s in stage_log], upgrades=upgrades,
@@ -512,9 +534,8 @@ class SpeculativeSlotPool(_SpeculativeMixin, SlotPoolEngine):
             acc_np = flat[off:off + n]
             g_np = flat[off + n:off + n + n * T].reshape(n, T)
             off += n + n * T
-            self.accept_log.append({"k": k_eff,
-                                    "accepted": [int(acc_np[s]) for s in snapshot],
-                                    "rate": self.controller.rate, "stage": stage})
+            self._record_accept({"k": k_eff, "accepted": [int(acc_np[s]) for s in snapshot],
+                                 "rate": self.controller.rate, "stage": stage})
             self.controller.update(int(sum(acc_np[s] for s in snapshot)),
                                    k_eff * len(snapshot))
             for slot, rid in snapshot.items():

@@ -27,14 +27,18 @@ ingests:
 
 Host memory: the client drops bytes it has consumed and slices units out
 of its buffer without copying them; only packed bytes go to the card.
-The reference's telemetry calls (off by default there) are left out
-until telemetry is ported (ROADMAP A11).
+
+Telemetry (``repro_torch.obs``, off by default) counts what the client
+already holds on the host: bytes fed, the resume cursor, units verified,
+quarantined, repaired and duplicated, planes ORed a flush and the
+store's resident bytes, under the reference's names.
 """
 from __future__ import annotations
 
 import struct
 from typing import Callable
 
+from repro_torch import obs as _obs
 from repro_torch import resolve_device
 from repro_torch.core import wire
 from repro_torch.core.plane_store import PlaneStore, ShardedPlaneStore
@@ -89,6 +93,13 @@ class ProgressiveClient:
             # consumed bytes are never read again
             del self._buf[:self._cursor - self._base]
             self._base = self._cursor
+        if _obs.enabled():
+            reg = _obs.get_registry()
+            reg.counter("client_bytes_fed_total",
+                        "bytes fed to the progressive client").inc(len(chunk))
+            seq, off = self.resume_cursor
+            reg.gauge("client_resume_cursor_unit", "first unit not fully arrived").set(seq)
+            reg.gauge("client_resume_cursor_byte", "wire offset of the resume cursor").set(off)
 
     @property
     def stages_complete(self) -> int:
@@ -184,11 +195,17 @@ class ProgressiveClient:
             raise ValueError(f"repair seq {seq} out of range")
         if seq in self._verified:
             self.duplicate_units += 1
+            if _obs.enabled():
+                _obs.get_registry().counter("client_duplicate_units_total",
+                                            "duplicate unit deliveries dropped").inc()
             return True
         ok = self._verify_and_stash(seq, payload, origin="repair")
         if ok:
             self._nacks.pop(seq, None)
             self._advance_contig()
+        if _obs.enabled():
+            _obs.get_registry().counter("client_repairs_total",
+                                        "out-of-band unit repairs").inc(ok=ok)
         return ok
 
     # -- internal machinery --------------------------------------------------
@@ -324,9 +341,15 @@ class ProgressiveClient:
         if reason is not None:
             self._nacks[seq] = reason
             self.quarantine_log.append({"seq": seq, "origin": origin, "reason": reason})
+            if _obs.enabled():
+                _obs.get_registry().counter("client_quarantined_total",
+                                            "units quarantined before ingest").inc(origin=origin)
             return False
         self._ready[seq] = (idx, plane)
         self._verified.add(seq)
+        if _obs.enabled():
+            _obs.get_registry().counter("client_units_verified_total",
+                                        "integrity-verified units").inc(origin=origin)
         return True
 
     def _advance_contig(self) -> None:
@@ -356,8 +379,18 @@ class ProgressiveClient:
         """Push buffered planes into the store: one batched OR launch per
         container dtype (per plane round)."""
         if self._pending:
+            if _obs.enabled():
+                reg = _obs.get_registry()
+                reg.counter("client_planes_ored_total",
+                            "planes OR-ed into the store").inc(len(self._pending))
+                reg.histogram("client_flush_planes",
+                              "planes per batched flush").observe(len(self._pending))
             self.store.ingest(self._pending)
             self._pending = []
+            if _obs.enabled():
+                _obs.get_registry().gauge("store_resident_bytes",
+                                          "accumulator bytes resident on device").set(
+                                              self.store.resident_bytes())
 
     # -- inference-side view -------------------------------------------------
     def materialize(self):

@@ -117,9 +117,10 @@ def test_configs_equal_reference(name):
     assert red.hd == jred.hd and red.n_heads // red.n_kv == jred.n_heads // jred.n_kv
     assert get_config("olmo-1b").norm_type == "nonparam_ln"
     # the cross-attention archs are ported (tests/test_torch_cross.py,
-    # tests/test_torch_vision.py); the CNN is still to come
-    with pytest.raises(NotImplementedError, match="A8"):
-        get_config("progressivenet-cnn")
+    # tests/test_torch_vision.py), and the CNN's config is the reference's
+    # (tests/test_torch_cnn.py holds the CNN itself)
+    cnn, jcnn = get_config("progressivenet-cnn"), jax_get_config("progressivenet-cnn")
+    assert {f: getattr(cnn, f) for f in fields} == {f: getattr(jcnn, f) for f in fields}
 
 
 @pytest.mark.parametrize("norm_type", ["rmsnorm", "layernorm", "nonparam_ln"])

@@ -585,10 +585,17 @@ def test_flash_verify_mixed_devices_raise(dev):
         verify_attention.flash_verify(q, k, v, k_pos, q_pos.cpu())
 
 
-def test_pool_step_and_upgrade_never_sync(dev):
+# the paths that telemetry records from run once with the registry off,
+# once on: what it records is host values, so neither waits for the device
+TELEMETRY = pytest.mark.parametrize("telemetry", [False, True], ids=["off", "telemetry"])
+
+
+@TELEMETRY
+def test_pool_step_and_upgrade_never_sync(dev, telemetry):
     """On the card, ``step()`` (prefill ticks included) and a double-
     buffered upgrade run under ``torch.cuda.set_sync_debug_mode("error")``,
     which raises on any operation that waits for the device."""
+    from repro_torch import obs
     from repro_torch.configs import get_config
     from repro_torch.core.progressive import divide
     from repro_torch.models.model import build_model
@@ -606,17 +613,21 @@ def test_pool_step_and_upgrade_never_sync(dev):
         pool.submit(PoolRequest(rid=rid, prompt=rng.integers(0, 128, 3 + 2 * rid),
                                 max_new_tokens=6))
     torch.cuda.synchronize()
-    while any(not s.free for s in pool.slots) or pool.queue:
-        torch.cuda.set_sync_debug_mode("error")
-        try:
-            for _ in range(pool.dispatch_window):
-                if any(not s.free for s in pool.slots):
-                    pool.step()
-            pool.upgrade_if_available()
-        finally:
-            torch.cuda.set_sync_debug_mode("default")
-        pool.flush()
-        pool._admit_from_queue()
+    obs.reset()
+    with obs.telemetry(telemetry):
+        while any(not s.free for s in pool.slots) or pool.queue:
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                for _ in range(pool.dispatch_window):
+                    if any(not s.free for s in pool.slots):
+                        pool.step()
+                pool.upgrade_if_available()
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            pool.flush()
+            pool._admit_from_queue()
+        ups = obs.get_registry().get("engine_upgrades_total")
+        assert (ups is not None) == telemetry
     assert pool.completed == set(range(5))
     assert all(len(v) == 6 for v in pool.outputs.values())
     assert pool.stage == prog.n_stages and pool._tick_count > 0
@@ -684,12 +695,14 @@ def test_reset_recurrent_slot_no_host_read(dev):
         assert not leaf[:, 2].any() and bool((leaf[:, :2] == i + 1).all())
 
 
-def test_client_feed_and_catch_up_upgrade_never_sync(dev):
+@TELEMETRY
+def test_client_feed_and_catch_up_upgrade_never_sync(dev, telemetry):
     """On the card, a v3 client fed one stage's bytes (verify, upload,
     unpack, OR) and the wire-fed server's catch-up upgrade run under
     ``torch.cuda.set_sync_debug_mode("error")``, which raises on any
     operation that waits for the device. The store then equals the
     in-memory receiver's."""
+    from repro_torch import obs
     from repro_torch.configs import get_config
     from repro_torch.core import wire
     from repro_torch.core.progressive import ReceiverState, divide
@@ -711,13 +724,20 @@ def test_client_feed_and_catch_up_upgrade_never_sync(dev):
     srv.receive_stage()
     srv.start({"tokens": torch.arange(8).reshape(1, 8)})
     torch.cuda.synchronize()
-    torch.cuda.set_sync_debug_mode("error")
-    try:
-        for a in range(ends[1], ends[2], 997):
-            client.feed(blob[a:min(a + 997, ends[2])])
-        srv.receive_stage()
-    finally:
-        torch.cuda.set_sync_debug_mode("default")
+    obs.reset()
+    with obs.telemetry(telemetry):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            for a in range(ends[1], ends[2], 997):
+                client.feed(blob[a:min(a + 997, ends[2])])
+            srv.receive_stage()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        fed = obs.get_registry().get("client_bytes_fed_total")
+        if telemetry:
+            assert fed.value() == ends[2] - ends[1]
+        else:
+            assert fed is None
     assert client.stages_complete == srv.stage == 2
     state = ReceiverState.init(prog, device=dev)
     for s in (1, 2):
@@ -1186,11 +1206,29 @@ def test_speculative_tokens_equal_plain_on_the_card(dev):
     assert outs[0] == outs[1]
 
 
-def test_spec_round_and_upgrade_never_sync(dev):
+@TELEMETRY
+def test_spec_round_and_upgrade_never_sync(dev, telemetry):
     """A speculative round of either engine and an upgrade of both views
     run under ``torch.cuda.set_sync_debug_mode("error")``; only the
     round's one host read (the single stream's, the pool's at flush)
     waits for the device."""
+    from repro_torch import obs
+
+    obs.reset()
+    with obs.telemetry(telemetry):
+        pool = _spec_rounds_without_sync(dev)
+        rounds = obs.get_registry().get("spec_rounds_total")
+        if telemetry:
+            assert rounds.value(engine="SpeculativeSlotPool") == len(pool.accept_log) > 0
+        else:
+            assert rounds is None
+    assert pool.completed == set(range(5)) and all(len(v) == 6 for v in pool.outputs.values())
+
+
+def _spec_rounds_without_sync(dev):
+    """The single stream's rounds around an upgrade, then the pool's
+    steps and upgrades, each under ``set_sync_debug_mode("error")``.
+    Returns the pool, run to its end."""
     from repro_torch import to_device
     from repro_torch.serving import (PoolRequest, SpecConfig, SpeculativeEngine,
                                      SpeculativeSlotPool)
@@ -1230,7 +1268,7 @@ def test_spec_round_and_upgrade_never_sync(dev):
             torch.cuda.set_sync_debug_mode("default")
         pool.flush()
         pool._admit_from_queue()
-    assert pool.completed == set(range(5)) and all(len(v) == 6 for v in pool.outputs.values())
+    return pool
 
 
 def _pool_model(dev, seed=0):
@@ -1693,3 +1731,55 @@ def test_vision_pool_takes_images_on_the_card(dev):
         return pool.run()
 
     assert run(as_numpy=False) == run(as_numpy=True)
+
+
+# ---------------------------------------------------------------------------
+# the paper's CNN (progressivenet-cnn): progressive inference on the card
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("size,batch", [(16, 64), (224, 8)])
+def test_cnn_progressive_inference_against_plain(dev, size, batch):
+    """The CNN at its published widths divided on the card (B6) and fed
+    through a v3 client (B1 a stage): its planes and wire bytes equal the
+    CPU's, the stage-8 accumulators equal ``quantize(leaf).q``, the leaves
+    at each stage equal the CPU client's, and the logits on them are
+    within 1e-4 of the CPU's largest |logit|. ``cnn_apply`` runs its
+    convolutions in IEEE float32 and leaves cuDNN's TF32 switch as it
+    found it."""
+    from repro_torch.configs.progressivenet_cnn import cnn_apply, cnn_init
+    from repro_torch.core import wire
+    from repro_torch.core.progressive import divide
+    from repro_torch.core.quantize import quantize
+    from repro_torch.transmission import ProgressiveClient
+
+    params = cnn_init(torch.Generator(device=dev).manual_seed(0), device=dev)
+    cpu_params = {k: v.cpu() for k, v in params.items()}
+    before = bitplane.plane_extract_launches
+    prog, cpu_prog = divide(params), divide(cpu_params)
+    assert bitplane.plane_extract_launches - before == 8 * len(prog.tensors) == 104
+    for t, c in zip(prog.tensors, cpu_prog.tensors):
+        assert all(torch.equal(a.cpu(), b) for a, b in zip(t.planes, c.planes)), t.path
+    blob = wire.encode(prog, integrity=True)
+    assert blob == wire.encode(cpu_prog, integrity=True)
+    x = torch.from_numpy(np.random.default_rng(size).standard_normal(
+        (batch, size, size, 3)).astype(np.float32))
+    client, cpu_client = ProgressiveClient(device=dev), ProgressiveClient(device="cpu")
+    meta, hdr = wire.decode_header(blob)
+    ends = np.cumsum([hdr] + wire.layout_from_header(meta, hdr).stage_bytes).tolist()
+    tf32 = torch.backends.cudnn.allow_tf32 = True   # the default, which cnn_apply overrides
+    client.feed(blob[:ends[0]])
+    cpu_client.feed(blob[:ends[0]])
+    before = bitplane.launches
+    for s in range(1, len(ends)):
+        client.feed(blob[ends[s - 1]:ends[s]])
+        cpu_client.feed(blob[ends[s - 1]:ends[s]])
+        leaves, cpu_leaves = client.materialize(), cpu_client.materialize()
+        for k, v in cpu_leaves.items():
+            assert torch.equal(leaves[k].cpu(), v), (s, k)
+        got, want = cnn_apply(leaves, x.to(dev)), cnn_apply(cpu_leaves, x)
+        assert torch.backends.cudnn.allow_tf32 is tf32
+        err = float((got.cpu() - want).abs().max())
+        assert err <= 1e-4 * float(want.abs().max()), (s, err)
+    assert bitplane.launches - before == 8
+    for i, t in enumerate(prog.tensors):
+        assert torch.equal(client.store._slice_acc(i), quantize(params[t.path[0]], 16).q), t.path

@@ -34,6 +34,7 @@ from repro.core.progressive import divide as jax_divide
 from repro.models.model import build_model as jax_build_model
 from repro.serving.engine import PoolRequest as JPoolRequest
 from repro.serving.engine import SlotPoolEngine as JSlotPool
+from repro_torch import obs
 from repro_torch.configs import get_config
 from repro_torch.core.bitplanes import PlaneSchedule
 from repro_torch.core.policy import UniformPolicy
@@ -273,7 +274,22 @@ def test_parts_left_for_later_raise(models, monkeypatch, kw):
         prog = divide(model.init(torch.Generator(), device="cpu"))
         kw["mesh"] = make_serving_mesh(2, devices=["cpu"] * 2)
     if "telemetry" in kw:
+        # telemetry is ported (tests/test_torch_telemetry.py): the pool
+        # serves with REPRO_TELEMETRY set, and with the registry on its
+        # counters equal its own records
         monkeypatch.setenv("REPRO_TELEMETRY", kw.pop("telemetry"))
+        pool = SlotPoolEngine(model, prog, device="cpu", **POOL)
+        with obs.telemetry(True):
+            pool.receive_stage()
+            pool.submit(PoolRequest(rid=0, prompt=np.arange(6, dtype=np.int32),
+                                    max_new_tokens=4))
+            out = pool.run(on_window=lambda _: pool.upgrade_if_available())
+            reg = obs.get_registry()
+            assert reg.get("engine_tokens_total").value(engine="SlotPoolEngine") == \
+                len(out[0]) == 4
+            assert sum(reg.get("engine_upgrades_total").value(engine="SlotPoolEngine", stage=s)
+                       for s in range(2, 9)) == len(pool.upgrade_log) > 0
+        return
     settings = {**POOL, **kw}
     with pytest.raises(NotImplementedError, match="ROADMAP A"):
         SlotPoolEngine(model, prog, device="cpu", **settings)

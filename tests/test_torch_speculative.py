@@ -56,6 +56,7 @@ from repro.serving.engine import PoolRequest as JPoolRequest
 from repro.serving.speculative import SpecConfig as JSpecConfig
 from repro.serving.speculative import SpeculativeEngine as JSpecEngine
 from repro.serving.speculative import SpeculativeSlotPool as JSpecPool
+from repro_torch import obs
 from repro_torch.configs import get_config
 from repro_torch.core.bitplanes import PlaneSchedule
 from repro_torch.core.plane_store import PlaneStore
@@ -449,9 +450,17 @@ def test_headroom_and_recurrent_checks_raise(models, monkeypatch):
     assert bpool.slots[1].free and bpool.slots[0].dispatched == 1
     out = bpool.run()
     assert len(out[0]) == 5 and len(out[1]) == 1 and bpool.completed == {0, 1}
+    # telemetry is ported (tests/test_torch_telemetry.py): an engine serves
+    # with REPRO_TELEMETRY set, and with the registry on it records each round
     monkeypatch.setenv("REPRO_TELEMETRY", "1")
-    with pytest.raises(NotImplementedError, match="A11"):
-        SpeculativeEngine(model, prog, max_len=24, spec=spec, device="cpu")
+    eng = SpeculativeEngine(model, prog, max_len=24, spec=spec, device="cpu")
+    for _ in range(prog.n_stages):
+        eng.receive_stage()
+    eng.start({"tokens": np.zeros((1, 8), np.int32)})
+    with obs.telemetry(True):
+        res = eng.decode(4)
+        assert obs.get_registry().get("spec_rounds_total").value(
+            engine="SpeculativeEngine") == res.rounds > 0
 
 
 def test_draft_adds_no_resident_bytes(models):
