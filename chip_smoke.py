@@ -23,8 +23,9 @@ with the launch counts set to 0 just before it and read just after:
    ``SpeculativeEngine`` at stage 8, tokens equal to plain; B2 on every
    distinct weight shape at M = 1-64 with and without a mask, B3 and B4 at
    the arch's heads, against their plain versions (verify rows equal to
-   decode rows); ``[path]`` (phase 7) at stages 1 and 8 (starcoder2-15b's at
-   1 layer); the CLI for
+   decode rows); ``[path]`` (phase 7) at stages 1 and 8 for starcoder2-15b
+   and minitron-4b at 1 layer (olmo-1b's ``[cli]`` runs beside
+   minitron-4b's, ``[train cli]`` beside starcoder2-15b's); the CLI for
    minitron-4b at full width; ``[mesh]`` for starcoder2-15b x2: its single
    stream on 2 logical shards of the card, every logit and token
    ``torch.equal`` to the phase's single-device stream (B7 on every layer
@@ -48,7 +49,7 @@ with the launch counts set to 0 just before it and read just after:
    serving mesh refused; B2 on every weight shape, B3 and B4 at the
    shared block's heads; ``[path]`` at 2 layers (a sLSTM and a mLSTM
    block; two Mamba-2 blocks as a tail, no full cycle), a prefill chunk
-   and no verify; the CLI for xlstm-125m;
+   and no verify; the CLI for xlstm-125m (beside phase 7);
 1b. ``[arch gemma3-27b x6]``: sliding windows over ring caches, qk-norm,
    the logit softcap and the global layers' rope base (ROADMAP A8(b)) at
    gemma3-27b's published widths, one 5:1 cycle (6 of its 62 layers):
@@ -124,6 +125,22 @@ with the launch counts set to 0 just before it and read just after:
    the undivided float32 model printed (Table II's column); stage-8
    accumulators equal to ``quantize(leaf).q``; B1 and B6 at its shapes
    timed;
+1f. ``[train]`` (ROADMAP A12(b)): ``[train cli]``, ``python -m
+   repro_torch.launch.train --arch olmo-1b --steps 2 --ckpt-dir DIR
+   --ckpt-every 2`` at full width as a process of its own (run beside
+   starcoder2-15b's ``[path]``), exit 0; ``[train step]``: 2 layers of
+   olmo-1b at full width, a train step on
+   the card against the CPU's plain path (loss, every leaf's gradient,
+   AdamW on the same gradients); then the whole of olmo-1b through
+   ``train(...)`` for ``TRAIN_STEPS`` steps at 8 x 128 with a checkpoint
+   at the last (B6): losses finite, every leaf changed, step ms, tokens/s
+   and peak memory; ``[train ckpt]``: 8 stages (sizes equal to the
+   CLI's checkpoint's), the files through a client on the card (B1 a
+   stage) to ``quantize(p).q`` of every trained tensor, a held-out
+   batch's loss from stages 1, 2, 4 and 8 each nearer to the float
+   params'; ``[train serve]``: the files as one stream through a
+   ``WireStoreReceiver``, tokens ``torch.equal`` to a server over the
+   in-memory ``divide`` (B2, B3);
 2. ``[divide]``: split full-width olmo-1b into eight 2-bit planes on the
    card (``plane_extract``, 8 launches a tensor); the in-memory receiver
    after all 8 stages holds ``quantize(leaf).q`` of every tensor, bit for
@@ -198,7 +215,8 @@ with the launch counts set to 0 just before it and read just after:
    the clean one and whose final tokens equal a clean run's;
    ``run_serving_pool``; then the small-chunk scenarios on the 2-layer
    full-width model (the lossy ones end in ``TransportError`` there) and
-   the lossy ones on reduced olmo-1b, recovered. ``[cli]``: ``python -m
+   the lossy ones on reduced olmo-1b, recovered. ``[cli]`` (run beside
+   minitron-4b's ``[path]``): ``python -m
    repro_torch.launch.serve --arch olmo-1b --scenario pod-coldstart`` at
    full width, as a process of its own, with ``--metrics``: the file
    holds every metric family the reference's launcher writes;
@@ -233,7 +251,8 @@ with the launch counts set to 0 just before it and read just after:
    alternate and accept-all rounds;
 7. run the same 2-layer full-width model on the card (kernels) and on
    the CPU (plain versions) and compare teacher-forced decode, prefill
-   chunk and verify logits;
+   chunk and verify logits; xlstm-125m's and seamless-m4t-medium's CLI
+   processes run beside it (it times nothing);
 8. time each kernel at the paths' shapes beside its bound, its plain
    version and one PyTorch call (or chain of calls) that computes the
    same function: ``dequant_matmul`` over a decode step's (M = 4), the
@@ -256,6 +275,7 @@ last ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import gc
 import json
@@ -263,6 +283,7 @@ import math
 import os
 import subprocess
 import sys
+import tempfile
 import time
 import types
 
@@ -343,6 +364,12 @@ SESSION_POOL_ROUNDS = 48
 SMALL_CHUNK_SCENARIOS = ("browser-3g", "browser-lte-handoff", "edge-stall", "flash-crowd")
 LOSSY_SCENARIOS = ("browser-3g-lossy", "edge-flaky")
 CLI_TIMEOUT_S = 400
+# CLI processes run beside a [path]'s CPU side, which times nothing: each
+# [path] takes the runs queued under its arch in BESIDE_PATH (filled by
+# ``main`` and the phases), if the card has this many GiB free for both
+# (else they run after it); olmo-1b's is phase 7's
+BESIDE_GIB = {"minitron-4b": 56, "starcoder2-15b": 52, "olmo-1b": 24}
+BESIDE_PATH: dict[str, list] = {}
 # the CLI's runs (flags, the start of the last line): every flag at its
 # default (float residency, batch 2, prompt 32, 64 decode steps); the slot
 # pool of 4 clients admitting at batch 1
@@ -372,8 +399,12 @@ ARCH_DQMM_M = (1, 4, 8, 20, 64)
 ARCH_FP_STEPS = 16
 # [path] at 2 layers but starcoder2-15b's at 1: the CPU side of its
 # 6144-wide layers set its phase's time (108.7-145.9 s at 2 layers), and
-# with the recurrent phases the script passed 960 s (ROADMAP's first cut)
-ARCH_PATH_LAYERS = {"starcoder2-15b": 1}
+# with the recurrent phases the script passed 960 s (ROADMAP's first cut);
+# minitron-4b's at 1: its CPU side over the 256,000-row embedding took
+# 37.8-60.9 s at 2 layers and 45.1 s at 1, and with the training phase the
+# script took 1231.7 s at 2 layers on a slow host (ROADMAP's third cut;
+# PERF.md has the runs)
+ARCH_PATH_LAYERS = {"starcoder2-15b": 1, "minitron-4b": 1}
 # the recurrent archs of ROADMAP A8(d) among ARCHS (``_recurrent_phase``):
 # xlstm-125m whole, zamba2-7b at 13 of its 81 layers (two cycles of five
 # mamba2 blocks and the shared attention block, and a mamba2 tail; the 81
@@ -443,6 +474,28 @@ CROSS_LONG_TV = 400
 CNN = "progressivenet-cnn"
 CNN_BATCHES = ((16, 512), (224, 64))
 CNN_RTOL = 1e-4
+# [train] (ROADMAP A12(b)): full-width olmo-1b trained TRAIN_STEPS steps
+# at the launcher's batch and sequence (8 x 128) through train(), a
+# checkpoint at the last step, then served from its files with the
+# stages landing at TRAIN_ARRIVALS of TRAIN_SERVE_STEPS decode steps.
+# [train step] holds a train step of 2 of its layers on the card against
+# the CPU's plain path, bfloat16 activations on both: the loss within
+# TRAIN_LOSS_RTOL (a mean over 256 positions; bfloat16 against float32
+# differs by 2e-5 at d_model 512 on the CPU), each leaf's gradient within
+# TRAIN_GRAD_RTOL of its largest |g| (bfloat16 against float32: 7e-3 to
+# 1.3e-2 at d_model 512; two bfloat16 paths that round at other points
+# differ by up to twice that, and the full width's longer sums add to
+# it), and AdamW on the same gradients within TRAIN_OPT_RTOL (float32
+# elementwise on both). The checkpoint's held-out losses are taken with
+# float32 activations, so that the stages' differences are not bfloat16
+# rounding: stage 8 within TRAIN_STAGE8_RTOL of the float params' loss
+# (16-bit weights move a loss near ln(vocab) by about 1e-8 relative)
+TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ, TRAIN_PROFILED = 4, 8, 128, 2
+TRAIN_STEP_LAYERS, TRAIN_STEP_BATCH = 2, 2
+TRAIN_SERVE_STEPS, TRAIN_ARRIVALS = 16, (2, 4, 6, 8, 10, 12, 14)
+TRAIN_LOSS_RTOL, TRAIN_GRAD_RTOL, TRAIN_OPT_RTOL = 1e-3, 5e-2, 1e-6
+TRAIN_STAGE8_RTOL = 1e-4
+TRAIN_LOSS_STAGES = (1, 2, 4, 8)
 # [telemetry]: full-width olmo-1b's single stream from stage TEL_START,
 # TEL_STEPS decode steps with stages landing at TEL_ARRIVALS, and
 # SpeculativeEngine at stage 8 for TEL_SPEC_TOKENS tokens at batch 1 (k =
@@ -645,6 +698,17 @@ def main() -> int:
     log(f"[env] python {sys.version.split()[0]} torch {torch.__version__} "
         f"cuda {torch.version.cuda}")
 
+    # the CLIs beside the [path]s: olmo-1b's beside minitron-4b's, the
+    # training launcher beside starcoder2-15b's, the recurrent and cross
+    # archs' (queued by their phases) beside phase 7's
+    train_dir = tempfile.TemporaryDirectory()
+    train_cli: dict = {}
+    BESIDE_PATH.update({
+        "minitron-4b": [lambda: _cli_phase("olmo-1b", CLI_STREAM, CLI_POOL,
+                                           families=(CLI_STREAM_FAMILIES, CLI_POOL_FAMILIES))],
+        "starcoder2-15b": [lambda: _train_cli(os.path.join(train_dir.name, "cli"), train_cli)],
+        "olmo-1b": []})
+
     # -- 1a. the dense variants (ROADMAP A8(a)) at their published widths ----
     arch_runs = {}
     for name, n_layers in ARCHS:
@@ -668,6 +732,12 @@ def main() -> int:
 
     # -- 1e. the paper's own CNN (ROADMAP A8(f)), progressive inference -------
     arch_runs[f"arch {CNN}"] = _cnn_phase(dev, ops)
+    torch.cuda.empty_cache()
+
+    # -- 1f. training (ROADMAP A12(b)) and serving from its checkpoint -------
+    arch_runs["train"] = _train_phase(dev, ops, train_cli)
+    train_dir.cleanup()
+    gc.collect()
     torch.cuda.empty_cache()
 
     # -- 2. divide on the card -----------------------------------------------
@@ -786,8 +856,6 @@ def main() -> int:
     calib = _calibrate_phase(model, prog, dev, ops, prompt, clean_fps, session["arrivals_v3"])
     log(f"[calibrate] launches on the path {calib['counts']}, dequant_matmul by route "
         f"{calib['routes']}; {time.perf_counter() - t0:.1f} s")
-    _cli_phase("olmo-1b", CLI_STREAM, CLI_POOL,
-               families=(CLI_STREAM_FAMILIES, CLI_POOL_FAMILIES))
 
     # -- 5. stage 8 one tensor at a time -------------------------------------
     # the accumulators after stage 7, stage 8's operands, and the batched
@@ -986,9 +1054,11 @@ def main() -> int:
         f"(ragged slot with a short chunk, free and decoding slots masked): max |err| "
         f"{v_err:.3e}; each of the {T} rows equal (torch.equal) to a flash_decode launch")
 
-    # -- 7. whole path: 2 layers at full width, card against CPU -------------
+    # -- 7. whole path: 2 layers at full width, card against CPU, and the
+    # queued CLIs' processes beside its CPU side -----------------------------
     t0 = time.perf_counter()
-    path_err, chunk_err = _whole_path(cfg, dev)
+    with _beside(BESIDE_PATH.pop("olmo-1b"), BESIDE_GIB["olmo-1b"]):
+        path_err, chunk_err = _whole_path(cfg, dev)
     log(f"[path] 2-layer full width, cuda kernels vs cpu plain versions, teacher-forced "
         f"logits at all 8 stages: max |err| / max |logit| = {path_err:.3e}; prefill "
         f"chunk and verify logits at stages 1 and 8: {chunk_err:.3e} (tolerance "
@@ -2265,7 +2335,6 @@ def _cli_phase(arch: str, *runs, families=()) -> None:
     ``--metrics``: its file parses as Prometheus text and holds every
     family of its set (the reference launcher's, ``CLI_STREAM_FAMILIES``,
     ``CLI_POOL_FAMILIES``)."""
-    import tempfile
 
     from repro_torch.obs.exporters import parse_prometheus
 
@@ -2296,6 +2365,47 @@ def _cli_phase(arch: str, *runs, families=()) -> None:
                     f"launcher's {len(families[i])} for this mode; kernel_launches_total "
                     + str({k: int(v) for k, v in got["kernel_launches_total"]["samples"].items()}))
             log(f"[cli] {' '.join(cmd[1:])}: exit 0 in {wall:.1f} s")
+
+
+@contextlib.contextmanager
+def _beside(runs: list, need_gib: float):
+    """Runs each of ``runs`` (CLI phases, each starting its processes) in
+    turn in a thread of its own while the block runs, a ``[path]`` whose
+    CPU side times nothing; joins it when the block ends, the block's
+    failure first, else the thread's. With under ``need_gib`` GiB free on
+    the card (the block's and the processes' peaks) they run after the
+    block instead."""
+    import threading
+
+    if not runs:
+        yield
+        return
+    torch.cuda.empty_cache()
+    free = torch.cuda.mem_get_info()[0] / 2 ** 30
+    if free < need_gib:
+        log(f"[beside] {free:.1f} GiB free, under {need_gib}: {len(runs)} CLI runs after the "
+            f"[path]")
+        yield
+        for fn in runs:
+            fn()
+        return
+    failed = []
+
+    def run():
+        try:
+            for fn in runs:
+                fn()
+        except BaseException as e:      # re-raised by the caller's thread
+            failed.append(e)
+
+    thread = threading.Thread(target=run)
+    thread.start()
+    try:
+        yield
+    finally:
+        thread.join()
+    if failed:
+        raise failed[0]
 
 
 def _upgrade_phase(prog, dev, ops):
@@ -3427,7 +3537,9 @@ def _arch_phase(name: str, n_layers, dev, ops) -> dict:
     ``quantize(leaf).q``, B2 on every distinct weight shape, B3 and B4 at
     the arch's heads against their plain versions, and the decode step's
     B2, B3 and a verify pass's B4 timed. Then ``_whole_path`` at stages 1
-    and 8, and (at full depth) the CLI. Returns the launch counts and B2's
+    and 8 (at ``ARCH_PATH_LAYERS`` layers; the CLIs queued in
+    ``BESIDE_PATH`` under ``name`` beside it), and (at full depth) the
+    CLI. Returns the launch counts and B2's
     launches by route over the paths, and the kernels' rows."""
     from repro_torch.configs import get_config
     from repro_torch.models.model import build_model
@@ -3461,14 +3573,14 @@ def _arch_phase(name: str, n_layers, dev, ops) -> dict:
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     depth = ARCH_PATH_LAYERS.get(name, 2)
-    path_err, chunk_err = _whole_path(cfg, dev, stages=(1, 8), cpu_divides=False,
-                                      n_layers=depth)
-    log(f"{run.tag} [path] {depth} layers at full width, cuda kernels vs cpu plain versions, each "
-        f"side ingesting its own copy of the card's planes, fingerprints equal at stages 1 and "
-        f"8: "
-        f"teacher-forced logits at stages 1 and 8 max |err| / max |logit| = {path_err:.3e}; "
-        f"prefill chunk and verify logits at stages 1 and 8: {chunk_err:.3e} (tolerance "
-        f"{PATH_RTOL}); {time.perf_counter() - t0:.1f} s")
+    with _beside(BESIDE_PATH.pop(name, []), BESIDE_GIB.get(name, 0)):
+        path_err, chunk_err = _whole_path(cfg, dev, stages=(1, 8), cpu_divides=False,
+                                          n_layers=depth)
+    log(f"{run.tag} [path] {depth} layers at full width, cuda kernels vs cpu plain versions, "
+        f"each side ingesting its own copy of the card's planes, fingerprints equal at "
+        f"stages 1 and 8: teacher-forced logits at stages 1 and 8 max |err| / max |logit| = "
+        f"{path_err:.3e}; prefill chunk and verify logits at stages 1 and 8: "
+        f"{chunk_err:.3e} (tolerance {PATH_RTOL}); {time.perf_counter() - t0:.1f} s")
     gc.collect()
     torch.cuda.empty_cache()
     if n_layers is None:
@@ -4200,7 +4312,7 @@ def _recurrent_phase(cfg, dev, ops) -> dict:
     weight shape, B3 at the shared block's heads), then wire-fed and in
     float residency (:func:`_arch_wire`); the pool, each request alone
     against it, masked states (:func:`_rec_pool`); speculation and a mesh
-    refused; ``_whole_path`` at 2 layers; the CLI at full depth. Logs each
+    refused; ``_whole_path`` at 2 layers; the CLI at full depth queued beside phase 7. Logs each
     path's seconds and the phase's peak device memory. Returns the launch
     counts, B2's launches by route and the kernels' rows."""
     from repro_torch.configs import get_config
@@ -4247,7 +4359,7 @@ def _recurrent_phase(cfg, dev, ops) -> dict:
     del prog
     timed("path", lambda: _rec_path(run))
     if cfg.n_layers == full:
-        timed("cli", lambda: _cli_phase(cfg.name, CLI_STREAM))
+        BESIDE_PATH["olmo-1b"].append(lambda: _cli_phase(cfg.name, CLI_STREAM))
     log(f"{run.tag} launches on the paths {run.counts}, dequant_matmul by route {run.routes}; "
         f"seconds by path {seconds}; peak device memory "
         f"{torch.cuda.max_memory_allocated() / 1e9:.1f} GB; "
@@ -5187,7 +5299,7 @@ def _cross_phase(dev, ops) -> dict:
     B4 over the self and the cross caches); the stream from v3 wire bytes
     and float residency (:func:`_arch_wire`); ``SpeculativeEngine`` at
     stage 8 against plain greedy tokens (:func:`_arch_spec`); the pool
-    refused; the CLI. Returns the launch counts, B2's launches by route and
+    refused; the CLI queued beside phase 7. Returns the launch counts, B2's launches by route and
     the kernels' rows."""
     from repro_torch.configs import get_config
     from repro_torch.models.model import build_model
@@ -5233,7 +5345,7 @@ def _cross_phase(dev, ops) -> dict:
     timed("pool refused", lambda: _refused(run.tag, "encoder-decoder", lambda: SlotPoolEngine(
         model, prog, n_slots=2, max_len=PROMPT + STEPS, resident="quantized", device=dev)))
     del prog
-    timed("cli", lambda: _cli_phase(cfg.name, CLI_STREAM))
+    BESIDE_PATH["olmo-1b"].append(lambda: _cli_phase(cfg.name, CLI_STREAM))
     log(f"{run.tag} launches on the paths {run.counts}, dequant_matmul by route {run.routes}; "
         f"seconds by path {seconds}; peak device memory "
         f"{torch.cuda.max_memory_allocated() / 1e9:.1f} GB; "
@@ -5826,6 +5938,364 @@ def _cnn_phase(dev, ops) -> dict:
             f"library {row['library_ms']:.4f} ms; host issue {row['host_ms']:.4f} ms")
     log(f"{tag} launches on the paths {acc}; {time.perf_counter() - t_phase:.1f} s")
     return {"counts": acc, "routes": routes, "kern": kern}
+
+
+def _train_cli(cli_dir: str, result: dict) -> None:
+    """``[train cli]``'s process: ``python -m repro_torch.launch.train
+    --arch olmo-1b --steps 2 --ckpt-dir <cli_dir> --ckpt-every 2`` at full
+    width; its command, exit code, output and seconds go into ``result``
+    for :func:`_train_phase` to check."""
+    cmd = [sys.executable, "-m", "repro_torch.launch.train", "--arch", "olmo-1b", "--steps",
+           "2", "--ckpt-dir", cli_dir, "--ckpt-every", "2"]
+    env = {**os.environ, "PYTHONPATH": os.path.join(ROOT, "src")}
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=CLI_TIMEOUT_S, env=env,
+                          cwd=ROOT)
+    result.update(cmd=cmd, dir=cli_dir, rc=proc.returncode, out=proc.stdout, err=proc.stderr,
+                  s=time.perf_counter() - t0)
+
+
+def _train_phase(dev, ops, cli: dict) -> dict:
+    """``[train]``: ROADMAP A12(b) on the card. ``[train cli]``: the
+    launcher's run (:func:`_train_cli`, a process of its own beside an
+    earlier ``[path]``, ``cli`` its result) exited 0 with the launcher's
+    three lines. ``[train step]`` (:func:`_train_step_check`): 2 layers of
+    olmo-1b at full width, a train step on the card against the CPU's plain
+    path. ``[train]``: the whole of olmo-1b through ``train(...)`` for
+    ``TRAIN_STEPS`` steps at 8 x 128 with a checkpoint at the last step
+    (B6 in ``save``): every step's loss finite, every leaf changed; step
+    ms on the device's clock and the host's, tokens/s, peak memory.
+    ``[train ckpt]``: the manifest's 8 stages (their sizes equal to the
+    CLI's checkpoint's); the files through a client on the card (B1 a
+    stage), whose stage-8 accumulators are ``quantize(p).q`` of every
+    trained tensor, bit for bit; a held-out batch's loss (float32
+    activations) from stages 1, 2, 4 and 8, each nearer to the float
+    params' than the stage before, stage 8 within ``TRAIN_STAGE8_RTOL``
+    of it. ``[train serve]``: the files as one stream through a
+    ``WireStoreReceiver`` to ``ProgressiveServer(resident="quantized")``,
+    stages landing mid-decode, tokens ``torch.equal`` to a server over the
+    in-memory ``divide`` of the same params (B2, B3). Returns the launch
+    counts and B2's launches by route."""
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import wire
+    from repro_torch.core.progressive import divide, tree_flatten_with_path
+    from repro_torch.core.quantize import quantize
+    from repro_torch.models.model import build_model
+    from repro_torch.serving.engine import ProgressiveServer, WireStoreReceiver
+    from repro_torch.train import checkpoint
+    from repro_torch.train.data import DataConfig, MarkovMotifDataset
+    from repro_torch.train.loop import train
+    from repro_torch.transmission import ProgressiveClient
+
+    t_phase = time.perf_counter()
+    acc, routes = {}, {}
+    cfg = get_config("olmo-1b")
+    model = build_model(cfg)
+    tmp = tempfile.TemporaryDirectory()
+    check(cli.get("rc") == 0, ("[train cli]", cli.get("rc"), cli.get("err", "not run")[-3000:]))
+    lines = cli["out"].strip().splitlines()
+    check(len(lines) == 3 and lines[-1].endswith("over 2 steps"), ("[train cli]", lines[-3:]))
+    for line in lines:
+        log(f"[train cli] {line}")
+    cli_manifest = checkpoint.manifest(cli["dir"])
+    log(f"[train cli] {' '.join(cli['cmd'][1:])}: exit 0 in {cli['s']:.1f} s (the process "
+        f"alone, beside [arch starcoder2-15b x2]'s [path]); manifest {cli_manifest}")
+    _train_step_check(cfg, dev)
+
+    # [train]: the whole model through train(), a checkpoint at the end
+    ckpt = os.path.join(tmp.name, "ckpt")
+    data_cfg = DataConfig(vocab=cfg.vocab, seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH)
+    init = model.init(torch.Generator(device=dev).manual_seed(0), device=dev)
+    init_heads = {p: leaf.reshape(-1)[:4096].clone() for p, leaf in tree_flatten_with_path(init)}
+    del init
+    starts = []
+    prof = torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                              torch.profiler.ProfilerActivity.CUDA])
+
+    def clock(batch):
+        # an event at each step's start, on the device's clock; the
+        # profiler over step TRAIN_PROFILED alone
+        if len(starts) == TRAIN_PROFILED + 1:
+            torch.cuda.synchronize()
+            prof.stop()
+        starts.append(torch.cuda.Event(enable_timing=True))
+        starts[-1].record()
+        if len(starts) == TRAIN_PROFILED + 1:
+            prof.start()
+        return batch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(ops)
+    t0 = time.perf_counter()
+    res = train(model, steps=TRAIN_STEPS, data_cfg=data_cfg, ckpt_dir=ckpt,
+                ckpt_every=TRAIN_STEPS, log_every=1, extra_batch=clock, device=dev)
+    end = torch.cuda.Event(enable_timing=True)
+    end.record()
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    got, _ = _tally(acc, routes, "[train]")
+    leaves = dict(tree_flatten_with_path(res.params))
+    check(got["plane_extract"] == 8 * len(leaves) and sum(got.values()) == got["plane_extract"],
+          ("[train]", got))
+    losses = [h["loss"] for h in res.history]
+    check([h["step"] for h in res.history] == list(range(TRAIN_STEPS))
+          and all(math.isfinite(x) for x in losses), ("[train]", losses))
+    check(all(not torch.equal(leaves[p].detach().reshape(-1)[:4096], h)
+              for p, h in init_heads.items()), "[train] a leaf did not change")
+    del init_heads
+    dev_ms = [a.elapsed_time(b) for a, b in zip(starts, starts[1:] + [end])]
+    walls = [h["wall_s"] for h in res.history]
+    wall_ms = [1e3 * (b - a) for a, b in zip([0.0] + walls, walls)]
+    tok = TRAIN_BATCH * TRAIN_SEQ
+    n_params = sum(v.numel() for v in leaves.values())
+    log(f"[train] olmo-1b whole ({cfg.n_layers} layers, {n_params} weights), {TRAIN_STEPS} "
+        f"steps at {TRAIN_BATCH} x {TRAIN_SEQ} through train(), bfloat16 activations, remat "
+        f"{cfg.remat}: losses {[round(x, 4) for x in losses]}, grad norms "
+        f"{[round(h['grad_norm'], 4) for h in res.history]}, lr "
+        f"{[h['lr'] for h in res.history]}; every loss finite, every leaf changed")
+    save_s = train_s - walls[-1]
+    plain = [x for i, x in enumerate(wall_ms[1:], 1) if i != TRAIN_PROFILED]
+    busy, top = _kernel_ms(prof)
+    log(f"[train] a step (the first with its warm-up, step {TRAIN_PROFILED} under "
+        f"torch.profiler): host clock {[round(x, 2) for x in wall_ms]} ms, device clock from "
+        f"one step's start to the next's {[round(x, 2) for x in dev_ms[:-1]]} ms; tokens/s over "
+        f"the other steps after the first {tok * len(plain) / (sum(plain) / 1e3):.1f}; the "
+        f"checkpoint save after the last step {save_s:.2f} s; peak device memory "
+        f"{peak_gb:.2f} GiB; train() {train_s:.1f} s; launches {got} (B6 in save)")
+    log(f"[train] step {TRAIN_PROFILED}'s kernels: "
+        + (f"{busy:.2f} ms of device time ({busy / (sum(plain) / len(plain)):.1%} of an "
+           f"unprofiled step's host-clock ms); by kernel, the largest: "
+           + "; ".join(f"{k[:70]} {v:.2f} ms x{n}" for k, v, n in top)
+           if busy else "not measured (the profiler showed no device time)"))
+
+    # [train ckpt]: the manifest, the stage-8 accumulators, the stage losses
+    res.opt_state = None
+    gc.collect()
+    torch.cuda.empty_cache()
+    man = checkpoint.manifest(ckpt)
+    check(sorted(man["stage_bytes"]) == list(range(1, 9)) and man["n_tensors"] == len(leaves),
+          ("[train ckpt]", man))
+    check(man["stage_bytes"] == cli_manifest["stage_bytes"]
+          and man["n_tensors"] == cli_manifest["n_tensors"],
+          ("[train cli] stage sizes differ", man, cli_manifest))
+    with open(os.path.join(ckpt, "header.bin"), "rb") as f:
+        meta, _ = wire.decode_header(f.read())
+    torch.cuda.synchronize()
+    reset_counts(ops)
+    t0 = time.perf_counter()
+    client = checkpoint.feed(ckpt, device=dev)
+    torch.cuda.synchronize()
+    feed_s = time.perf_counter() - t0
+    got, _ = _tally(acc, routes, "[train ckpt]")
+    check(client.stages_complete == 8 and got["plane_or_segments"] == 8
+          and sum(got.values()) == 8, ("[train ckpt]", got))
+    for i, t in enumerate(meta["tensors"]):
+        leaf = leaves[tuple(t["path"].split("/"))]
+        check(torch.equal(client.store._slice_acc(i), quantize(leaf.detach(), 16).q),
+              f"[train ckpt] stage-8 accumulator of {t['path']} differs from quantize(p).q")
+    del client
+    held = {k: torch.from_numpy(v).to(dev)
+            for k, v in MarkovMotifDataset(data_cfg).batch(10 ** 6).items()}
+    fp32 = build_model(dataclasses.replace(cfg, dtype=torch.float32))
+    stage_loss, load_s = {}, {}
+    reset_counts(ops)
+    with torch.no_grad():
+        want = float(fp32.loss(res.params, held)[0])
+        for s in TRAIN_LOSS_STAGES:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            approx = checkpoint.load_into(ckpt, res.params, stages=s, device=dev)
+            torch.cuda.synchronize()
+            load_s[s] = time.perf_counter() - t0
+            stage_loss[s] = float(fp32.loss(approx, held)[0])
+            del approx
+    got, _ = _tally(acc, routes, "[train ckpt]")
+    check(got["plane_or_segments"] == sum(TRAIN_LOSS_STAGES), ("[train ckpt]", got))
+    # each stage's distance from the float params' loss: on weights a few
+    # steps from their random init the loss's gradient is far from 0, so a
+    # stage's quantization noise moves the loss by a first-order term of
+    # either sign, and a signed loss may rise from stage 4 to 8; its size
+    # shrinks 4x a bit
+    dist = [abs(stage_loss[s] - want) for s in TRAIN_LOSS_STAGES]
+    check(all(math.isfinite(stage_loss[s]) for s in TRAIN_LOSS_STAGES)
+          and all(a > b for a, b in zip(dist, dist[1:])),
+          ("[train ckpt] the stages' losses do not approach the float params'", stage_loss, want))
+    rel8 = abs(stage_loss[8] - want) / abs(want)
+    check(rel8 <= TRAIN_STAGE8_RTOL, ("[train ckpt] stage 8", stage_loss[8], want))
+    log(f"[train ckpt] {len(leaves)} tensors, header {man['header_bytes']} B, stages "
+        f"{man['stage_bytes']} B (equal to the CLI's); the files through a client on the card "
+        f"(B1 a stage) in {feed_s:.2f} s; stage-8 accumulators equal quantize(p).q of every "
+        f"trained tensor; held-out loss (float32 activations) by stage "
+        + ", ".join(f"{s}: {stage_loss[s]:.6f}" for s in TRAIN_LOSS_STAGES)
+        + f", the float params' {want:.6f}, each stage nearer to it (by "
+        + ", ".join(f"{d:.3e}" for d in dist)
+        + f"; stage 8 off by {rel8:.3e} of it, tolerance "
+        f"{TRAIN_STAGE8_RTOL}); load_into s by stage "
+        + ", ".join(f"{s}: {load_s[s]:.2f}" for s in TRAIN_LOSS_STAGES))
+    del fp32
+
+    # [train serve]: the checkpoint's files as one stream against the
+    # in-memory divide of the same params
+    prompt = torch.randint(0, cfg.vocab, (BATCH, PROMPT),
+                           generator=torch.Generator().manual_seed(1))
+    files = [os.path.join(ckpt, "header.bin")] + [os.path.join(ckpt, f"stage_{s:02d}.bin")
+                                                  for s in range(1, 9)]
+    torch.cuda.synchronize()
+    reset_counts(ops)
+    with torch.no_grad():
+        prog = divide(res.params)
+    del res, leaves
+    gc.collect()
+    client = ProgressiveClient(device=dev)
+
+    def stream(i: int) -> None:
+        with open(files[i], "rb") as f:
+            while chunk := f.read(CHUNK_MAX):
+                client.feed(chunk)
+
+    def arrive(i: int) -> bool:
+        if i not in TRAIN_ARRIVALS:
+            return False
+        stream(client.stages_complete + 1)
+        return True
+
+    max_len = PROMPT + TRAIN_SERVE_STEPS
+    fed = ProgressiveServer(model, prog, max_len=max_len, resident="quantized", device=dev,
+                            receiver=WireStoreReceiver(client, prog))
+    stream(0)
+    stream(1)
+    fed.receive_stage()
+    fed.start({"tokens": prompt})
+    got_res = fed.decode(TRAIN_SERVE_STEPS, stage_arrival=arrive)
+    mem = ProgressiveServer(model, prog, max_len=max_len, resident="quantized", device=dev)
+    mem.receive_stage()
+    mem.start({"tokens": prompt})
+    want_res = mem.decode(TRAIN_SERVE_STEPS, stage_arrival=lambda i: i in TRAIN_ARRIVALS)
+    got, by = _tally(acc, routes, "[train serve]")
+    check(fed.stage == mem.stage == 8 and got_res.stage_at_step == want_res.stage_at_step,
+          ("[train serve]", got_res.stage_at_step, want_res.stage_at_step))
+    check(torch.equal(got_res.tokens, want_res.tokens), "[train serve] tokens differ")
+    layers = cfg.n_layers
+    calls = [(layers * 7, BATCH * PROMPT), (1, BATCH)] + pass_calls(layers, TRAIN_SERVE_STEPS,
+                                                                    BATCH)
+    check(got["plane_extract"] == 8 * len(prog.tensors) and got["plane_or_segments"] == 16
+          and got["decode_attention"] == 2 * layers * TRAIN_SERVE_STEPS
+          and by == expect_routes(calls + calls), ("[train serve]", got, by))
+    log(f"[train serve] the checkpoint's files streamed in chunks of up to {CHUNK_MAX} B "
+        f"through a WireStoreReceiver to ProgressiveServer(resident='quantized'), stages "
+        f"{got_res.stage_at_step[0]}->{got_res.stage_at_step[-1]} over "
+        f"{TRAIN_SERVE_STEPS} steps (upgrades {got_res.upgrades}): tokens "
+        f"{tuple(got_res.tokens.shape)} torch.equal to a server over the in-memory divide; "
+        f"launches {got}, dequant_matmul by route {by}")
+    del fed, mem, prog, client
+    tmp.cleanup()
+    log(f"[train] launches on the paths {acc}; {time.perf_counter() - t_phase:.1f} s")
+    return {"counts": acc, "routes": routes, "kern": {}}
+
+
+def _train_step_check(cfg, dev) -> None:
+    """``[train step]``: a train step of ``TRAIN_STEP_LAYERS`` layers of
+    olmo-1b at full width on one seeded ``MarkovMotifDataset`` batch
+    (``TRAIN_STEP_BATCH`` x ``TRAIN_SEQ``), bfloat16 activations, on the
+    card and on the CPU (the plain path) from the same float32 params: the
+    loss within ``TRAIN_LOSS_RTOL``, every leaf's gradient within
+    ``TRAIN_GRAD_RTOL`` of its largest |g| on the CPU, and AdamW on the
+    card's gradients on both within ``TRAIN_OPT_RTOL`` of each leaf's
+    largest |p|. The card's step is timed on the host's clock and, under
+    ``torch.profiler``, as the sum of its kernels' device time."""
+    from repro_torch.core.progressive import tree_flatten_with_path, tree_skeleton, tree_unflatten
+    from repro_torch.models.model import build_model
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train.data import DataConfig, MarkovMotifDataset
+
+    tag = "[train step]"
+    t_phase = time.perf_counter()
+    small = dataclasses.replace(cfg, n_layers=TRAIN_STEP_LAYERS)
+    model = build_model(small)
+    params = model.init(torch.Generator(device=dev).manual_seed(3), device=dev)
+    flat = dict(tree_flatten_with_path(params))
+    batch = {k: torch.from_numpy(v) for k, v in MarkovMotifDataset(DataConfig(
+        vocab=cfg.vocab, seq_len=TRAIN_SEQ, global_batch=TRAIN_STEP_BATCH)).batch(0).items()}
+    skeleton = tree_skeleton(params)
+    trees, losses, grads = {}, {}, {}
+    where = {"cpu": torch.device("cpu"), "card": dev}
+    for side, d in where.items():
+        trees[side] = tree_unflatten(skeleton,
+                                     {p: v.to(d).requires_grad_(True) for p, v in flat.items()})
+        leaves = [v for _, v in tree_flatten_with_path(trees[side])]
+        b = {k: v.to(d) for k, v in batch.items()}
+        t0 = time.perf_counter()
+        loss, _ = model.loss(trees[side], b)
+        grads[side] = torch.autograd.grad(loss, leaves)
+        losses[side] = float(loss.detach())
+        log(f"{tag} {side}: loss {losses[side]:.6f}, forward and backward "
+            f"{time.perf_counter() - t0:.2f} s (host clock, synchronised)")
+    del params
+    l_err = abs(losses["card"] - losses["cpu"]) / abs(losses["cpu"])
+    check(l_err <= TRAIN_LOSS_RTOL, (tag, losses))
+    g_err = {}
+    for (path, _), a, b in zip(tree_flatten_with_path(trees["cpu"]), grads["card"],
+                               grads["cpu"]):
+        g_err["/".join(path)] = float((a.cpu() - b).abs().max()) / float(b.abs().max())
+    check(max(g_err.values()) <= TRAIN_GRAD_RTOL, (tag, g_err))
+    # AdamW on the card's gradients on both sides, from zeroed moments
+    ocfg = opt.OptConfig(warmup_steps=1)
+    paths = list(flat)
+    for side, tree in trees.items():
+        g = tree_unflatten(skeleton, {p: v.to(where[side]) for p, v in zip(paths, grads["card"])})
+        opt.update(ocfg, g, opt.init(tree), tree)
+    o_err = max(float((a.detach().cpu() - b.detach()).abs().max()) / float(b.detach().abs().max())
+                for (_, a), (_, b) in zip(tree_flatten_with_path(trees["card"]),
+                                          tree_flatten_with_path(trees["cpu"])))
+    check(o_err <= TRAIN_OPT_RTOL, (tag, "update", o_err))
+    # the card's step alone: host clock, and its kernels' device time
+    tree = trees["card"]
+    leaves = [v for _, v in tree_flatten_with_path(tree)]
+    b = {k: v.to(dev) for k, v in batch.items()}
+    state = opt.init(tree)
+
+    def step():
+        loss, _ = model.loss(tree, b)
+        g = torch.autograd.grad(loss, leaves)
+        opt.update(ocfg, tree_unflatten(skeleton, dict(zip(paths, g))), state, tree)
+
+    step()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    step()
+    torch.cuda.synchronize()
+    host = (time.perf_counter() - t0) * 1e3
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        step()
+        torch.cuda.synchronize()
+    busy, _ = _kernel_ms(prof)
+    log(f"{tag} {TRAIN_STEP_LAYERS} layers of olmo-1b at full width, "
+        f"{TRAIN_STEP_BATCH} x {TRAIN_SEQ} tokens, bfloat16 activations on both sides: loss "
+        f"card {losses['card']:.6f}, cpu {losses['cpu']:.6f}, off by {l_err:.3e} (tolerance "
+        f"{TRAIN_LOSS_RTOL}); largest gradient error against the leaf's max |g| "
+        f"{max(g_err.values()):.3e} (tolerance {TRAIN_GRAD_RTOL}; by leaf "
+        + ", ".join(f"{k} {v:.2e}" for k, v in g_err.items())
+        + f"); AdamW on the same gradients {o_err:.3e} (tolerance {TRAIN_OPT_RTOL}); the "
+        f"card's step (loss, gradients, update) {host:.2f} ms on the host's clock, its kernels "
+        + (f"{busy:.2f} ms of device time (torch.profiler)" if busy else
+           "not measured (the profiler showed no device time)")
+        + f"; {time.perf_counter() - t_phase:.1f} s")
+
+
+def _kernel_ms(prof, top: int = 8) -> tuple[float, list]:
+    """A profile's device time in ms, summed over its CUDA kernels (not the
+    CPU ops, whose device time counts the same kernels again), and its
+    ``top`` kernels by time: (name, ms, calls)."""
+    rows = [(e.key, e.self_device_time_total / 1e3, e.count) for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+    rows.sort(key=lambda r: -r[1])
+    return sum(r[1] for r in rows), rows[:top]
 
 
 def _cnn_images(size: int, batch: int) -> np.ndarray:

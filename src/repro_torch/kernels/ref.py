@@ -90,8 +90,10 @@ def dequant_matmul_ref(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor,
     to its top ``keep`` of ``bits`` bits (:func:`mask_q`). Returns
     float32."""
     q = mask_q(q, None if keep is None else keep.reshape(()), bits)
-    w = q.to(torch.float32) * scale.to(torch.float32).reshape(()) \
-        + offset.to(torch.float32).reshape(())
+    # the affine in place on the one float32 copy: the same roundings as
+    # out of place, without two more weight-sized temporaries
+    w = q.to(torch.float32, copy=True)
+    w.mul_(scale.to(torch.float32).reshape(())).add_(offset.to(torch.float32).reshape(()))
     return x.to(torch.float32) @ w
 
 

@@ -3,14 +3,14 @@
 self-attention of a decoder block and the cross-attention of an
 encoder-decoder or vision block.
 
-Counterpart of ``src/repro/models/attention.py`` for the ``prefill``,
-``decode``, ``verify`` and ``prefill_chunk`` modes, with or without a
-window. The caches keep the kernels' native layout from prefill on, so a
-decode step, a verify block or a prefill chunk writes its tokens into the
-cache *in place* (PyTorch tensors are mutable; the reference returns new
-arrays) and reads the cache with ``ops.decode_attention``,
-``ops.verify_attention`` or ``ops.prefill_attention`` without a
-transpose or a pad.
+Counterpart of ``src/repro/models/attention.py`` for the ``full``
+(training), ``prefill``, ``decode``, ``verify`` and ``prefill_chunk``
+modes, with or without a window. The caches keep the kernels' native
+layout from prefill on, so a decode step, a verify block or a prefill
+chunk writes its tokens into the cache *in place* (PyTorch tensors are
+mutable; the reference returns new arrays) and reads the cache with
+``ops.decode_attention``, ``ops.verify_attention`` or
+``ops.prefill_attention`` without a transpose or a pad.
 
 A sliding-window block keeps a ring: position p lives in slot
 ``p % ring``, and the kernels get each slot's position from
@@ -203,6 +203,8 @@ def self_attention(cfg: ArchConfig, p, x: torch.Tensor, *, mode: str, cache, pos
     over the last ``window`` positions held in a ring cache. ``mode`` is
     one of:
 
+    * ``full``: the prefill's attention over the whole sequence without a
+      cache (training and ``Model.forward``); returns (out, None);
     * ``prefill``: returns the prompt's native caches (a ring of
       ``window`` slots with a window); ``pos`` None, or the (B,) valid
       lengths of a bucket-padded prompt (one shared length), whose padded
@@ -231,7 +233,7 @@ def self_attention(cfg: ArchConfig, p, x: torch.Tensor, *, mode: str, cache, pos
     B, Tq, _ = x.shape
     rows = dense_rows(mode)
     q, k, v = project_qkv(cfg, p, x, x, rows=rows)
-    if mode == "prefill":
+    if mode in ("full", "prefill"):
         q_pos = torch.arange(Tq, dtype=torch.int32, device=x.device)
         if pos is not None:
             # a bucket-padded prompt: positions at or after the valid
@@ -247,6 +249,9 @@ def self_attention(cfg: ArchConfig, p, x: torch.Tensor, *, mode: str, cache, pos
         q = rope(q, q_pos, theta)
         k = rope(k, q_pos, theta)
         out = chunked_attention(q, k, v, q_pos, q_pos, window=window, chunk=cfg.attn_chunk)
+        out = dense(out.reshape(B, Tq, -1), p["wo"], dtype=cfg.dtype)
+        if mode == "full":
+            return out, None
         if window:
             rk, rv = make_ring_cache(k, v, window)
             new_cache = {"k": rk, "v": rv}
@@ -254,7 +259,7 @@ def self_attention(cfg: ArchConfig, p, x: torch.Tensor, *, mode: str, cache, pos
             # one transpose at prefill; decode never transposes
             new_cache = {"k": k.transpose(1, 2).contiguous(),
                          "v": v.transpose(1, 2).contiguous()}
-        return dense(out.reshape(B, Tq, -1), p["wo"], dtype=cfg.dtype), new_cache
+        return out, new_cache
     if mode == "decode":
         tok_pos = decode_pos_vector(pos, B, x.device)[:, None]      # (B, 1)
     elif mode == "verify":

@@ -81,6 +81,7 @@ class ArchConfig:
     vision_tokens: int = 0      # image embeddings a request (0 = no vision memory)
     d_vision: int = 0           # their width, projected to d_model by vision_proj
     dtype: Any = torch.bfloat16  # activations and KV caches
+    remat: bool = True          # recompute each cycle's activations in the backward pass
 
     @property
     def hd(self) -> int:

@@ -3,6 +3,9 @@
 Counterpart of ``src/repro/models/model.py`` for the decoders:
 
     init(generator, device=)           -> params
+    forward(params, batch)             -> (full logits, aux)
+    loss(params, batch, ce_chunk=)     -> (scalar, metrics); chunked CE
+    input_specs(batch=, seq_len=, mode=) -> meta-device stand-ins of the inputs
     prefill(params, batch, n_valid=)   -> (last_logits, caches)
     decode_step(params, caches, tokens, pos) -> (logits, caches)
     prefill_chunk(params, caches, tokens, tok_pos) -> (logits, caches)
@@ -12,12 +15,16 @@ Counterpart of ``src/repro/models/model.py`` for the decoders:
                                           grown for decoding
     enc_len(seq_len)                   -> slots of a cross cache
 
-The four forward entry points take ``aux=``, a dict like
+The four serving entry points take ``aux=``, a dict like
 ``transformer.zero_aux()``'s, into which a stack with mixture-of-experts
 blocks adds their ``balance_loss`` and ``dropped_frac`` (the reference
-returns them from ``forward`` only; serving drops them).
+returns them from ``forward`` and ``loss`` only; serving drops them).
+``forward`` and ``loss`` run the stack in ``full`` mode (no caches, each
+cycle of layers rematerialised under ``cfg.remat``), which autograd
+differentiates: training runs them under ``torch.autograd``.
 
-``batch`` is a dict with ``"tokens"``: (B, S) int, and for a
+``batch`` is a dict with ``"tokens"``: (B, S) int (and ``"labels"``,
+(B, S) int, -1 for a position without one, for ``loss``), and for a
 cross-attention arch its memory's input: ``"enc_input"`` (B, S_enc,
 d_model), the encoder's frame embeddings (S_enc = ``enc_len(S)`` as the
 reference's stub makes them), or ``"vision_embeds"`` (B, vision_tokens,
@@ -33,6 +40,7 @@ from typing import Any
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from repro_torch import resolve_device, to_device
 from repro_torch.models import transformer as tfm
@@ -105,6 +113,75 @@ class Model:
         w = params["embed"].T if self.cfg.tie_embeddings else params["lm_head"]
         logits = dense(x.to(torch.float32), w, dtype=torch.float32, rows=dense_rows(mode))
         return softcap(logits, self.cfg.logit_softcap)
+
+    def _hidden(self, params, batch):
+        """The final-normed hidden states of a ``full`` pass (B, S, d) and
+        the auxiliaries summed over the MoE blocks (zeros without any)."""
+        cfg = self.cfg
+        tokens = batch["tokens"]
+        aux = tfm.zero_aux(tokens.device)
+        enc_out = self._encode(params, batch)
+        x = self._embed(params, tokens)
+        x, _ = tfm.run_stack(cfg, params["decoder"], x, mode="full", aux=aux, enc_out=enc_out)
+        return apply_norm(cfg, params["final_norm"], x), aux
+
+    def forward(self, params, batch):
+        """Full logits (B, S, V) float32, softcapped, and the auxiliaries
+        ``{"balance_loss", "dropped_frac"}`` (float32 scalars)."""
+        x, aux = self._hidden(params, batch)
+        return self._unembed(params, x), aux
+
+    def loss(self, params, batch, *, ce_chunk: int = 512):
+        """Chunked cross-entropy, never the whole (B, S, V) logits: the
+        sequence in chunks of ``min(ce_chunk, S)`` positions (labels
+        padded with -1), each chunk's float32 logits softcapped, the
+        negative log-likelihood ``logsumexp - gold`` summed over the
+        positions whose label is not negative and divided by their count
+        (at least 1). Returns ``(ce + 0.01 * balance_loss, {"ce", **aux})``,
+        as the reference's ``loss``."""
+        cfg = self.cfg
+        x, aux = self._hidden(params, batch)
+        labels = torch.as_tensor(batch["labels"]).to(x.device)
+        S = x.shape[1]
+        C = min(ce_chunk, S)
+        pad = (-S) % C
+        if pad:
+            x = F.pad(x, (0, 0, 0, pad))
+            labels = F.pad(labels, (0, pad), value=-1)
+        w = (params["embed"].T if cfg.tie_embeddings else params["lm_head"]).to(torch.float32)
+        nll_sum = n_valid = torch.zeros((), device=x.device)
+        for c0 in range(0, x.shape[1], C):
+            ll = labels[:, c0:c0 + C]
+            logits = softcap(x[:, c0:c0 + C].to(torch.float32) @ w, cfg.logit_softcap)
+            gold = torch.gather(logits, -1, torch.clamp(ll, min=0).long()[..., None])[..., 0]
+            valid = (ll >= 0).to(torch.float32)
+            nll_sum = nll_sum + ((torch.logsumexp(logits, dim=-1) - gold) * valid).sum()
+            n_valid = n_valid + valid.sum()
+        ce = nll_sum / torch.clamp(n_valid, min=1.0)
+        return ce + 0.01 * aux["balance_loss"], {"ce": ce, **aux}
+
+    def input_specs(self, *, batch: int, seq_len: int, mode: str) -> dict:
+        """Stand-ins for every model input on the ``meta`` device (shapes
+        and dtypes, no storage), the reference's ``ShapeDtypeStruct``s.
+        ``mode``: ``train`` (tokens and labels), ``prefill`` (tokens) or
+        ``decode`` (one token a row); the first two add a cross-attention
+        arch's memory input (``ArchConfig.memory_input``)."""
+        def spec(shape, dtype):
+            return torch.empty(shape, dtype=dtype, device="meta")
+
+        if mode == "train":
+            specs = {"tokens": spec((batch, seq_len), torch.int32),
+                     "labels": spec((batch, seq_len), torch.int32)}
+        elif mode == "prefill":
+            specs = {"tokens": spec((batch, seq_len), torch.int32)}
+        elif mode == "decode":
+            specs = {"tokens": spec((batch, 1), torch.int32)}
+        else:
+            raise ValueError(mode)
+        mem = self.cfg.memory_input(seq_len)
+        if mode != "decode" and mem is not None:
+            specs[mem[0]] = spec((batch,) + mem[1], self.cfg.dtype)
+        return specs
 
     def prefill(self, params, batch, n_valid=None, *, aux=None):
         """Logits after the last prompt token, and the prompt's caches.

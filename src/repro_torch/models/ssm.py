@@ -362,6 +362,7 @@ def slstm_step(cfg: ArchConfig, p, u: torch.Tensor, cache, *, rows: str = "decod
 
 
 RECURRENT_KINDS = ("mamba2", "mlstm", "slstm")
+FORWARD = {"mamba2": mamba2_forward, "mlstm": mlstm_forward, "slstm": slstm_forward}
 STEP = {"mamba2": mamba2_step, "mlstm": mlstm_step, "slstm": slstm_step}
 INIT = {"mamba2": mamba2_init, "mlstm": mlstm_init, "slstm": slstm_init}
 INIT_CACHE = {"mamba2": mamba2_init_cache, "mlstm": mlstm_init_cache,

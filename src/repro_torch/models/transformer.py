@@ -21,7 +21,9 @@ quantize.
 from __future__ import annotations
 
 import dataclasses
+
 import torch
+import torch.utils.checkpoint
 
 from repro_torch.core.plane_store import ShardedLeaf, leaf_to
 from repro_torch.core.quantize import QuantizedTensor
@@ -174,6 +176,7 @@ def _cross_apply(cfg: ArchConfig, kind: str, p, x: torch.Tensor, *, mode: str, c
       cache is their native layout (``cross``), or ``{"self": the
       self-attention's cache, "cross": that}`` (``selfcross``). With a
       bucket-padded prompt (``pos``) only the self-attention is masked;
+    * ``full``: the prefill's pass keeping no cache (training);
     * ``decode`` and ``verify``: the memory read from the cache through
       B3 or B4 (:func:`attention.cross_attention`, its positions kept in
       ``mem_pos``), never written;
@@ -186,17 +189,18 @@ def _cross_apply(cfg: ArchConfig, kind: str, p, x: torch.Tensor, *, mode: str, c
         # the memory comes from the admission's encoder pass, which a
         # chunk step does not run
         raise NotImplementedError(f"chunked prefill is not supported for {kind} blocks")
-    if mode not in ("prefill", "decode", "verify"):
+    if mode not in ("full", "prefill", "decode", "verify"):
         raise ValueError(f"unknown mode {mode!r}")
     rows = dense_rows(mode)
-    native = mode != "prefill"
+    native = mode in ("decode", "verify")
 
     def attend(pa, h, mem):
         if native:
             return attn.cross_attention(cfg, pa, h, mem, native=True, rows=rows,
                                         positions=mem_pos), mem
         kv = attn.cross_kv(cfg, pa, enc_out)
-        return attn.cross_attention(cfg, pa, h, kv, native=False), attn.to_native_kv(kv)
+        return (attn.cross_attention(cfg, pa, h, kv, native=False),
+                None if mode == "full" else attn.to_native_kv(kv))
 
     if kind == "cross":
         h = apply_norm(cfg, p["norm1"], x)
@@ -215,13 +219,14 @@ def _cross_apply(cfg: ArchConfig, kind: str, p, x: torch.Tensor, *, mode: str, c
     x = x + c_out
     h2 = apply_norm(cfg, p["norm2"], x)
     x = x + attn.mlp_apply(cfg, p["mlp"], h2, rows=rows)
-    return x, {"self": new_self, "cross": new_cross}, None
+    return x, None if mode == "full" else {"self": new_self, "cross": new_cross}, None
 
 
 def _recurrent_apply(cfg: ArchConfig, kind: str, p, x: torch.Tensor, *, mode: str, cache,
                      pos):
     """A recurrent block in each mode:
 
+    * ``full``: the prompt's pass keeping no state (training);
     * ``prefill``: the prompt's pass and its state (the chunked SSD for
       ``mamba2``);
     * ``decode``: one step; the new state goes into ``cache`` in place
@@ -239,6 +244,8 @@ def _recurrent_apply(cfg: ArchConfig, kind: str, p, x: torch.Tensor, *, mode: st
             f"(recurrent state has no overwrite-only rollback)")
     h = apply_norm(cfg, p["norm1"], x)
     rows = dense_rows(mode)
+    if mode == "full":
+        return x + ssm.FORWARD[kind](cfg, p["mixer"], h, rows=rows), None, None
     if mode == "prefill":
         out, new_cache = ssm.prefill(cfg, kind, p["mixer"], h, rows=rows)
         return x + out, new_cache, None
@@ -268,6 +275,19 @@ def _mask_recurrent(new_cache: dict, cache: dict, pos_vec: torch.Tensor) -> None
         new = new_cache[name]
         old.copy_(torch.where(live.reshape((-1,) + (1,) * (new.ndim - 1)), new,
                               old.to(new.dtype)))
+
+
+def layers_of(tree, n: int) -> list:
+    """The ``n`` layers of a stacked tree, ``layer(tree, r)`` for each r,
+    where a float tensor's layers come from one ``unbind``: its gradient
+    is one stack of the layers' gradients, where a ``select`` a layer would
+    each scatter into a zeroed tensor of the whole stack."""
+    if isinstance(tree, dict):
+        per = {k: layers_of(v, n) for k, v in tree.items()}
+        return [{k: v[r] for k, v in per.items()} for r in range(n)]
+    if isinstance(tree, torch.Tensor):
+        return list(torch.unbind(tree, 0))
+    return [layer(tree, r) for r in range(n)]
 
 
 def layer(tree, r: int):
@@ -351,8 +371,13 @@ def run_stack(cfg: ArchConfig, params: dict, x: torch.Tensor, *, mode: str,
               enc_out: torch.Tensor | None = None):
     """Returns (x, caches). ``prefill`` builds the prompt's caches (stacked
     like the params); ``decode``, ``verify`` and ``prefill_chunk`` write
-    into ``caches`` in place and return them; ``full`` (an encoder stack
-    of ``enc_attn`` blocks) keeps none and returns None. The cycles run
+    into ``caches`` in place and return them; ``full`` (training,
+    ``Model.forward``, an encoder stack) keeps none and returns None, and
+    with ``cfg.remat``, when autograd records and a parameter requires
+    grad, each cycle of layers runs under
+    ``torch.utils.checkpoint`` (non-reentrant): its activations are
+    recomputed in the backward pass, as the reference's ``jax.checkpoint``
+    of the cycle body, which changes no number. The cycles run
     first, layer by layer, then the tail; a ``shared_attn`` block takes
     ``shared``'s weights and its own use's cache; every block gets
     ``enc_out``, the memory a cross-attention block reads at prefill, and
@@ -366,30 +391,53 @@ def run_stack(cfg: ArchConfig, params: dict, x: torch.Tensor, *, mode: str,
             for k in aux:
                 aux[k] = aux[k] + a[k]
 
+    # the memory's positions, built by the first cross block to read them
+    mem_pos: dict = {}
+    # training takes each stacked leaf's layers from one unbind
+    # (:func:`layers_of`); the other modes take a layer's views as they
+    # reach it
+    stacked = ({slot: layers_of(p, cfg.n_cycles) for slot, p in params["cycles"].items()}
+               if mode == "full" and cfg.n_cycles else None)
+
     def weights(part: str, slot: str, kind: str, r=None):
         if kind == "shared_attn":
             return params["shared"]
-        return params[part][slot] if r is None else layer(params[part][slot], r)
+        if r is None:
+            return params[part][slot]
+        return stacked[slot][r] if stacked is not None else layer(params[part][slot], r)
 
-    # the memory's positions, built by the first cross block to read them
-    mem_pos: dict = {}
-    per_layer: dict[str, list] = {f"{j}_{kind}": [] for j, kind in enumerate(cfg.cycle)}
-    for r in range(cfg.n_cycles):
+    def block(kind, p, x, c):
+        return block_apply(cfg, kind, p, x, mode=mode, cache=c, pos=pos,
+                           with_aux=aux is not None, enc_out=enc_out, mem_pos=mem_pos)
+
+    def cycle(r: int, x: torch.Tensor):
+        """Layer r of every cycle slot: (x, the slots' new caches, their
+        auxiliaries in order); no side effect, so that a checkpoint may run
+        it again."""
+        new, auxes = {}, []
         for j, kind in enumerate(cfg.cycle):
             slot = f"{j}_{kind}"
             c = layer(caches["cycles"][slot], r) if caches is not None else None
-            x, nc, a = block_apply(cfg, kind, weights("cycles", slot, kind, r), x,
-                                   mode=mode, cache=c, pos=pos, with_aux=aux is not None,
-                                   enc_out=enc_out, mem_pos=mem_pos)
+            x, new[slot], a = block(kind, weights("cycles", slot, kind, r), x, c)
+            auxes.append(a)
+        return x, new, auxes
+
+    remat = mode == "full" and cfg.remat and torch.is_grad_enabled() and _requires_grad(params)
+    per_layer: dict[str, list] = {f"{j}_{kind}": [] for j, kind in enumerate(cfg.cycle)}
+    for r in range(cfg.n_cycles):
+        if remat:
+            x, new, auxes = torch.utils.checkpoint.checkpoint(cycle, r, x, use_reentrant=False)
+        else:
+            x, new, auxes = cycle(r, x)
+        for slot, nc in new.items():
             per_layer[slot].append(nc)
+        for a in auxes:
             add(a)
     tail = {}
     for i, kind in enumerate(cfg.tail):
         slot = f"{i}_{kind}"
         c = caches["tail"][slot] if caches is not None else None
-        x, tail[slot], a = block_apply(cfg, kind, weights("tail", slot, kind), x, mode=mode,
-                                       cache=c, pos=pos, with_aux=aux is not None,
-                                       enc_out=enc_out, mem_pos=mem_pos)
+        x, tail[slot], a = block(kind, weights("tail", slot, kind), x, c)
         add(a)
     if mode == "full":
         return x, None
@@ -397,6 +445,12 @@ def run_stack(cfg: ArchConfig, params: dict, x: torch.Tensor, *, mode: str,
         return x, caches
     return x, {"cycles": {slot: _stack(cs) for slot, cs in per_layer.items() if cs},
                "tail": tail}
+
+
+def _requires_grad(tree) -> bool:
+    if isinstance(tree, dict):
+        return any(_requires_grad(v) for v in tree.values())
+    return isinstance(tree, torch.Tensor) and tree.requires_grad
 
 
 def _stack(trees: list):

@@ -24,7 +24,13 @@ plain greedy decoding, exactly. Mixture of experts: B2 at the router
 (N = 8) and the expert slots, ``expert_dense`` on per-expert slot views
 with per-expert masks within the same 1e-4, MoE verify rows equal to
 decode steps exactly, and (sharded serving) a bank on 2 and 4 logical
-shards equal to the unsharded bank exactly.
+shards equal to the unsharded bank exactly. Training: a train step's
+loss and every leaf's gradient on the card within 1e-4 (relative to the
+CPU's loss and to the leaf's largest |g|) of the CPU's on the same
+float32 parameters and batch; the optimizer's update on the same
+gradients within 1e-6; a progressive checkpoint saved on the card (B6)
+byte-identical to the CPU's, and loaded through the client on the card
+(B1 a stage) to ``quantize(leaf).q`` at stage 8.
 """
 import dataclasses
 
@@ -1783,3 +1789,88 @@ def test_cnn_progressive_inference_against_plain(dev, size, batch):
     assert bitplane.launches - before == 8
     for i, t in enumerate(prog.tensors):
         assert torch.equal(client.store._slice_acc(i), quantize(params[t.path[0]], 16).q), t.path
+
+
+def _train_batch(vocab: int, B: int = 2, S: int = 32) -> dict:
+    rng = np.random.default_rng(0)
+    toks = rng.integers(0, vocab, (B, S + 1)).astype(np.int32)
+    return {"tokens": torch.from_numpy(toks[:, :-1]), "labels": torch.from_numpy(toks[:, 1:])}
+
+
+@pytest.mark.parametrize("arch", ["olmo-1b", "mixtral-8x22b", "xlstm-125m"])
+def test_train_step_on_card_against_cpu(dev, arch):
+    """Reduced float32 archs (dense, MoE, recurrent): the loss and each
+    leaf's gradient on the card against the CPU's plain path on the same
+    params and batch, then one AdamW update on the CPU's gradients on
+    both. The card's float32 matmuls sum in other orders (TF32 off), hence
+    the tolerances."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.progressive import tree_flatten_with_path, tree_skeleton, tree_unflatten
+    from repro_torch.models.model import build_model
+    from repro_torch.train import optimizer as opt
+
+    cfg = get_config(arch).reduced()
+    model = build_model(cfg)
+    cpu = model.init(torch.Generator().manual_seed(0), device="cpu")
+    flat = dict(tree_flatten_with_path(cpu))
+    skeleton = tree_skeleton(cpu)
+    batch = _train_batch(cfg.vocab)
+    trees, losses, grads = {}, {}, {}
+    for side in ("cpu", "cuda"):
+        trees[side] = tree_unflatten(skeleton,
+                                     {p: v.to(side).requires_grad_(True) for p, v in flat.items()})
+        loss, _ = model.loss(trees[side], {k: v.to(side) for k, v in batch.items()})
+        leaves = [v for _, v in tree_flatten_with_path(trees[side])]
+        losses[side] = float(loss.detach())
+        grads[side] = [g.cpu() for g in torch.autograd.grad(loss, leaves)]
+    assert abs(losses["cuda"] - losses["cpu"]) <= 1e-4 * abs(losses["cpu"])
+    for a, b in zip(grads["cuda"], grads["cpu"]):
+        assert float((a - b).abs().max()) <= 1e-4 * float(b.abs().max()) + 1e-9
+    ocfg = opt.OptConfig(lr=1e-3, warmup_steps=1)
+    paths = list(flat)
+    for side, tree in trees.items():
+        g = tree_unflatten(skeleton, {p: v.to(side) for p, v in zip(paths, grads["cpu"])})
+        opt.update(ocfg, g, opt.init(tree), tree)
+    for (p, a), (_, b) in zip(tree_flatten_with_path(trees["cuda"]),
+                              tree_flatten_with_path(trees["cpu"])):
+        a, b = a.detach().cpu(), b.detach()
+        assert float((a - b).abs().max()) <= 1e-6 * float(b.abs().max()) + 1e-9, p
+
+
+def test_checkpoint_on_card(dev, tmp_path):
+    """Reduced olmo-1b trained two steps on the card, then saved there (B6,
+    8 launches a tensor): the files equal a CPU save's of the same params;
+    the checkpoint fed to a client on the card (B1, one launch a stage)
+    holds ``quantize(leaf).q`` of every tensor at stage 8, and
+    ``load_flat`` its leaves."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import wire
+    from repro_torch.core.progressive import tree_flatten_with_path, tree_skeleton, tree_unflatten
+    from repro_torch.core.quantize import quantize
+    from repro_torch.models.model import build_model
+    from repro_torch.train import checkpoint
+    from repro_torch.train.data import DataConfig
+    from repro_torch.train.loop import train
+
+    cfg = get_config("olmo-1b").reduced()
+    res = train(build_model(cfg), steps=2, device=dev,
+                data_cfg=DataConfig(vocab=cfg.vocab, seq_len=32, global_batch=2))
+    assert all(np.isfinite(h["loss"]) for h in res.history)
+    leaves = dict(tree_flatten_with_path(res.params))
+    before = bitplane.plane_extract_launches
+    prog = checkpoint.save(res.params, str(tmp_path / "card"))
+    assert bitplane.plane_extract_launches - before == 8 * len(prog.tensors) == 8 * len(leaves)
+    checkpoint.save(tree_unflatten(tree_skeleton(res.params),
+                                   {p: v.detach().cpu() for p, v in leaves.items()}),
+                    str(tmp_path / "cpu"))
+    for f in ["header.bin"] + [f"stage_{s:02d}.bin" for s in range(1, 9)]:
+        assert (tmp_path / "card" / f).read_bytes() == (tmp_path / "cpu" / f).read_bytes(), f
+    before = bitplane.launches
+    client = checkpoint.feed(str(tmp_path / "card"), device=dev)
+    assert bitplane.launches - before == 8 and client.stages_complete == 8
+    for i, t in enumerate(prog.tensors):
+        assert torch.equal(client.store._slice_acc(i), quantize(leaves[t.path].detach(), 16).q)
+    flat = checkpoint.load_flat(str(tmp_path / "card"), device=dev)
+    want = client.materialize()
+    assert sorted(flat) == sorted(wire.path_str(p) for p in leaves)
+    assert all(torch.equal(flat[k], want[k]) for k in want)
