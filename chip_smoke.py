@@ -45,9 +45,15 @@ with the launch counts set to 0 just before it and read just after:
    within ``PATH_RTOL``; the pool's 12 requests, then each alone in a pool
    of the same size stepped at the busy pool's stages, tokens
    ``torch.equal``; a chunk tick and a decode step leaving every masked
-   slot's recurrent state ``torch.equal``; ``SpeculativeEngine`` and a
-   serving mesh refused; B2 on every weight shape, B3 and B4 at the
-   shared block's heads; ``[path]`` at 2 layers (a sLSTM and a mLSTM
+   slot's recurrent state ``torch.equal``; ``SpeculativeEngine``
+   refused; B2 on every weight shape, B3 and B4 at the shared block's
+   heads; ``[mesh]``: the single stream on 2 logical shards, ``conv_w``
+   and ``r`` gathered home, every logit and token ``torch.equal`` to one
+   device's, B7 and B2 launches a decode step as reckoned from its
+   weights (54 and 103 for xlstm-125m, whose mLSTM ``w_if`` shards of 4
+   columns B7 joins; 36 and 73 for zamba2-7b x13), ``gathered_bytes``
+   logged, and for xlstm-125m B7 on a decode step's split weights timed
+   against single-device B2; ``[path]`` at 2 layers (a sLSTM and a mLSTM
    block; two Mamba-2 blocks as a tail, no full cycle), a prefill chunk
    and no verify; the CLI for xlstm-125m (beside phase 7);
 1b. ``[arch gemma3-27b x6]``: sliding windows over ring caches, qk-norm,
@@ -105,13 +111,19 @@ with the launch counts set to 0 just before it and read just after:
    plain; the pool refused; B2 on every distinct weight shape (``embed.T``
    at N = 256,206 included), B3 and B4 over the self caches and the cross
    caches (16 slots, half a 32-key chunk, every row at ``q_pos = S``),
-   verify rows equal to decode rows, timed beside SDPA; the CLI.
+   verify rows equal to decode rows, timed beside SDPA; ``[mesh]``: the
+   single stream on 2 logical shards (the encoder pass and the cross
+   caches on the home device, 108 B7 calls and 217 B2 launches a decode
+   step), every logit and token equal to one device's; the CLI.
    ``[vision path]``: llama-3.2-vision-90b's cross path at its reduced
    config with its gates drawn away from 0: the single stream with a
    decode step's launches checked, its logits against the CPU's plain
    versions teacher-forced within ``PATH_RTOL``; ``SpeculativeEngine``,
    tokens equal to plain; the pool's batch-1 fall-back with an image a
-   request, each request alone equal to the busy pool; B3 and B4 over its
+   request, each request alone equal to the busy pool; ``[mesh]``: the
+   single stream on 2 logical shards (``vision_proj`` and the untied
+   ``lm_head`` through B7), every logit and token equal to one device's;
+   B3 and B4 over its
    cross cache; then over 20 cross caches at the published heads (B 4,
    Kh 8, G 8, hd 128, Tv 1601, T 5), timed beside SDPA and the bound;
 1e. ``[arch progressivenet-cnn]``: the paper's own CNN (ROADMAP A8(f))
@@ -443,8 +455,14 @@ MOE_SPEC_K = 4
 # [mesh] inside an arch phase: its single stream (and for mixtral-8x22b
 # speculation, float residency, the stage-8 banks and a decode step under
 # the sync guard) on n logical shards of the card, over the planes the
-# phase holds, for each n here
-MESH_ARCH_SHARDS = {"starcoder2-15b": (2,), "gemma3-27b": (2,), "mixtral-8x22b": (2, 4)}
+# phase holds, for each n here: the dense, windowed and MoE archs; the
+# recurrent ones (their conv_w and r gathered home) with B7 timed on
+# xlstm-125m's decode-step weights; the cross-attention ones (the encoder
+# pass or vision_proj on the home device, the cross caches written there)
+MESH_ARCH_SHARDS = {"starcoder2-15b": (2,), "gemma3-27b": (2,), "mixtral-8x22b": (2, 4),
+                    "xlstm-125m": (2,), "zamba2-7b": (2,), "seamless-m4t-medium": (2,),
+                    "llama-3.2-vision-90b": (2,)}
+MESH_B7_TIMED = "xlstm-125m"
 # [arch seamless-m4t-medium]: cross attention and encoders (ROADMAP A8(e))
 # at seamless-m4t-medium's published widths and depth (715,466,752
 # weights); [vision path]: llama-3.2-vision-90b's cross path at its
@@ -4067,14 +4085,25 @@ def _arch_fp(run, prog, receiver, prompt, store) -> None:
                   f"({found[dt][2]} within the margin)" for dt in models if dt != fp_dtype))
 
 
-def _mesh_b2_step(cfg, n: int) -> tuple[int, int]:
+def _mesh_b2_step(cfg, n: int, step_weights=None) -> tuple[int, int]:
     """A decode step's B7 calls and B2 launches on n shards: every layer
     weight (the attention's four, then the MLP's three or the router) and
     an untied ``lm_head`` through B7, n B2 launches each but for a router
     whose n parts are too narrow for the one-pass kernels (B7 joins its
     columns for one launch); each expert's three slots one B2 launch on
     its owning shard; a tied ``embed.T`` one B2 launch on the gathered
-    table."""
+    table. ``step_weights``, the (name, N) of each B2 weight a decode step
+    runs (a recurrent or cross-attention arch's), reckons from them by
+    the same rules: N divisible by n is one B7 call of n B2 launches, or
+    of one where the N / n columns are not a multiple of 8 but the N
+    columns are (the one-pass kernels' loads: B7 joins them); N
+    indivisible is a whole-routed weight, one B2 launch; ``embed.T`` one
+    on the gathered table."""
+    if step_weights is not None:
+        b7 = sum(1 for name, N in step_weights if name != "embed.T" and N % n == 0)
+        b2 = sum(1 if name == "embed.T" or N % n or ((N // n) % 8 and N % 8 == 0) else n
+                 for name, N in step_weights)
+        return b7, b2
     L, E = cfg.n_layers, cfg.n_experts
     b7 = (5 if E else 7) * L + (0 if cfg.tie_embeddings else 1)
     joined = L if E and (E // n) % 8 else 0
@@ -4119,6 +4148,8 @@ def _mesh_stream(run, prog, mesh, max_len: int, model) -> None:
 
     cfg, L, dev, n = run.cfg, run.cfg.n_layers, run.dev, mesh.shape["model"]
     want_logits, want_tokens = run.stream
+    step_weights = getattr(run, "step_weights", None)
+    b3 = getattr(run, "attn_layers", L)
     lm = LogitLog(model)
     srv = ProgressiveServer(lm, prog, max_len=max_len, resident="quantized", mesh=mesh,
                             device=dev)
@@ -4126,12 +4157,14 @@ def _mesh_stream(run, prog, mesh, max_len: int, model) -> None:
     torch.cuda.synchronize()
     reset_counts(run.ops)
     srv.receive_stage()
-    srv.start({"tokens": run.prompt})
+    srv.start(_batch(run, run.prompt))
     after_prefill = counts()
     res = srv.decode(STEPS, stage_arrival=lambda i: i in ARRIVALS)
     got, by = _tally(run.counts, run.routes, f"{run.tag} [mesh]")
     per_step = {k: (got[k] - after_prefill[k]) / STEPS for k in got}
-    b7, b2 = _mesh_b2_step(cfg, n)
+    b7, b2 = _mesh_b2_step(cfg, n, step_weights)
+    one_b2 = (len(step_weights) if step_weights is not None
+              else L * (5 + 3 * cfg.n_experts if cfg.n_experts else 7) + 1)
     rep = srv.resident_report()
     decode_s = sum(s for _, s in res.window_s)
     check(len(lm.logits) == len(want_logits) == 1 + STEPS, (len(lm.logits), len(want_logits)))
@@ -4140,17 +4173,90 @@ def _mesh_stream(run, prog, mesh, max_len: int, model) -> None:
     check(torch.equal(res.tokens.cpu(), want_tokens) and srv.stage == 8,
           f"{run.tag} [mesh] n={n}: sharded tokens differ from one device's")
     check(per_step["sharded_dequant_matmul"] == b7 and per_step["dequant_matmul"] == b2
-          and per_step["decode_attention"] == L, (per_step, b7, b2))
+          and per_step["decode_attention"] == b3, (per_step, b7, b2, b3))
     check(got["plane_or_segments"] == 8 * n and got["flash_verify"] == 0, got)
     check(rep["quantized_bytes"] == 2 * (run.n_params - run.n_fp), rep)
+    gathered = sorted(k for k, g in srv.state.store._gathered.items() if g)
     log(f"{run.tag} [mesh] {n} logical shards of the card, the single stream (quantized, "
         f"stages landing mid-decode): {len(lm.logits)} logits and {res.tokens.numel()} tokens "
         f"equal (torch.equal) to one device's; a decode step {b7} B7 calls, {b2} B2 launches "
-        f"(one device: {L * (5 + 3 * cfg.n_experts if cfg.n_experts else 7) + 1}), "
-        f"{L} B3; launches {got}, B2 by route {by}; resident {rep['quantized_bytes']} B "
-        f"quantized as one device, {rep['gathered_bytes']} B gathered; decode {STEPS} steps x "
-        f"{BATCH} with 7 upgrades: {decode_s:.3f} s, {BATCH * STEPS / decode_s:.1f} tokens/s, "
+        f"(one device: {one_b2}), {b3} B3; launches {got}, B2 by route {by}; resident "
+        f"{rep['quantized_bytes']} B quantized as one device, {rep['gathered_bytes']} B "
+        f"gathered ({len(gathered)} leaves: {', '.join(map(str, gathered[:3]))}"
+        f"{', ...' if len(gathered) > 3 else ''}); decode {STEPS} steps x {BATCH} with 7 "
+        f"upgrades: {decode_s:.3f} s, {BATCH * STEPS / decode_s:.1f} tokens/s, "
         f"{decode_s / STEPS * 1e3:.2f} ms/step; {time.perf_counter() - t0:.1f} s")
+    if cfg.name == MESH_B7_TIMED:
+        run.kern["sharded_dequant_matmul"] = _mesh_b7_row(run, srv.params, mesh)
+
+
+def _mesh_b7_row(run, P, mesh) -> dict:
+    """B7 on one decode step's split weights (``run.step_weights`` less the
+    unembedding) at M = BATCH through ``common.dense``, as the sharded
+    stream runs them, against single-device B2 on the same weights
+    gathered, timed in turns (B2, B7, B2, B7) on the device; held against
+    the plain version (``ref.sharded_dequant_matmul_ref``) on the same
+    inputs; the bound and the library call (a matmul a shard on the
+    dequantized parts) beside them."""
+    from repro_torch.core.plane_store import ShardedLeaf
+    from repro_torch.kernels import ref
+    from repro_torch.models.common import dense
+
+    cfg, dev, n = run.cfg, run.dev, mesh.shape["model"]
+    xg = torch.Generator(device=dev).manual_seed(11)
+    named = [(nm, w) for nm, w in run.weights_of(P)
+             if nm != "embed.T" and isinstance(w, ShardedLeaf)]
+    xs = {}
+    for _, w in named:
+        K = w.shape[0]
+        if K not in xs:
+            xs[K] = torch.randn((BATCH, K), generator=xg, device=dev).to(cfg.dtype)
+    calls = [(xs[w.shape[0]], w, w.gather()) for _, w in named]
+
+    def b7():
+        for x, w, _ in calls:
+            dense(x, w, dtype=cfg.dtype, rows="decode")
+
+    def b2():
+        for x, _, whole in calls:
+            dense(x, whole, dtype=cfg.dtype, rows="decode")
+
+    t = {"b2": [], "b7": []}
+    for _ in range(2):
+        t["b2"].append(device_ms(b2, 3))
+        t["b7"].append(device_ms(b7, 3))
+    err, mag = 0.0, 0.0
+    for x, w, _ in calls:
+        y = dense(x, w, dtype=torch.float32, rows="decode")
+        yr = ref.sharded_dequant_matmul_ref(x, [p.q for p in w.parts],
+                                            [p.scale for p in w.parts],
+                                            [p.offset for p in w.parts], bits=16)
+        m = float(yr.abs().max())
+        e = float((y - yr).abs().max())
+        check(e <= DQMM_RTOL * m, (run.tag, "B7 against its plain version", e, m))
+        err, mag = max(err, e), max(mag, m)
+    bound, by = _dqmm_bound([(x, whole) for x, _, whole in calls])
+    dense_sh = [[p.q.to(torch.float32) * p.scale.reshape(()) + p.offset.reshape(())
+                 for p in w.parts] for _, w, _ in calls]
+    xf = [x.float() for x, _, _ in calls]
+    row = {"ms": min(t["b7"]), "b2_ms": min(t["b2"]),
+           "plain_ms": device_ms(lambda: [ref.sharded_dequant_matmul_ref(
+               x, [p.q for p in w.parts], [p.scale for p in w.parts],
+               [p.offset for p in w.parts], bits=16) for x, w, _ in calls], 1),
+           "library_ms": device_ms(lambda: [torch.cat([torch.matmul(x, d) for d in ds], dim=1)
+                                            for x, ds in zip(xf, dense_sh)], 3),
+           "host_ms": host_ms(b7, 3), "bound_ms": bound, "bound_by": by, "max_abs_err": err,
+           "by_turn": t,
+           "per": f"{cfg.name}'s decode step's {len(calls)} split weights at {n} logical "
+                  f"shards, M = {BATCH}"}
+    del dense_sh, xf
+    log(f"{run.tag} [mesh] [time] B7 on a decode step's {len(calls)} split weights at {n} "
+        f"shards (M = {BATCH}): B7 {', '.join(f'{v:.4f}' for v in t['b7'])} ms, single-device "
+        f"B2 on the same weights {', '.join(f'{v:.4f}' for v in t['b2'])} ms, in turns on the "
+        f"device; bound {bound:.4f} ms ({by}); plain {row['plain_ms']:.4f} ms, library "
+        f"{row['library_ms']:.4f} ms; host issue {row['host_ms']:.3f} ms; against the plain "
+        f"version max |err| {err:.3e} (largest max |y| {mag:.1f}, tolerance {DQMM_RTOL} of it)")
+    return row
 
 
 def _moe_mesh(run, prog, mesh, one) -> None:
@@ -4311,8 +4417,10 @@ def _recurrent_phase(cfg, dev, ops) -> dict:
     name and route, the prefill against the step recurrence, B2 on every
     weight shape, B3 at the shared block's heads), then wire-fed and in
     float residency (:func:`_arch_wire`); the pool, each request alone
-    against it, masked states (:func:`_rec_pool`); speculation and a mesh
-    refused; ``_whole_path`` at 2 layers; the CLI at full depth queued beside phase 7. Logs each
+    against it, masked states (:func:`_rec_pool`); speculation refused;
+    the single stream on a serving mesh (:func:`_arch_mesh`, at
+    ``MESH_ARCH_SHARDS``); ``_whole_path`` at 2 layers; the CLI at full
+    depth queued beside phase 7. Logs each
     path's seconds and the phase's peak device memory. Returns the launch
     counts, B2's launches by route and the kernels' rows."""
     from repro_torch.configs import get_config
@@ -4326,7 +4434,8 @@ def _recurrent_phase(cfg, dev, ops) -> dict:
     run = types.SimpleNamespace(
         tag=f"[arch {cfg.name}{'' if cfg.n_layers == full else f' x{cfg.n_layers}'}]",
         cfg=cfg, model=build_model(cfg), dev=dev, ops=ops, counts={}, routes={}, kern={},
-        mesh_shards=(), attn_layers=uses, fp_dtype=torch.float32,
+        mesh_shards=MESH_ARCH_SHARDS.get(cfg.name, ()), attn_layers=uses,
+        fp_dtype=torch.float32, weights_of=lambda P: _rec_weights(cfg, P),
         prompt=torch.randint(0, cfg.vocab, (BATCH, PROMPT),
                              generator=torch.Generator().manual_seed(1)))
     blocks = {k: _stack_kinds(cfg).count(k) for k in dict.fromkeys(_stack_kinds(cfg))}
@@ -4356,6 +4465,7 @@ def _recurrent_phase(cfg, dev, ops) -> dict:
     timed("wire and fp", lambda: _arch_wire(run, prog, tokens))
     timed("pool", lambda: _rec_pool(run, prog))
     timed("refusals", lambda: _rec_refusals(run, prog))
+    timed("mesh", lambda: _arch_mesh(run, prog, PROMPT + STEPS))
     del prog
     timed("path", lambda: _rec_path(run))
     if cfg.n_layers == full:
@@ -4419,6 +4529,7 @@ def _rec_single(run, prog) -> torch.Tensor:
     named = _rec_weights(cfg, srv.params)
     check(len(named) == rec + attn + 1 and all(dqm.one_pass(w.q) for _, w in named),
           f"{run.tag} a weight is off the one-pass kernels")
+    run.step_weights = [(nm, w.q.shape[1]) for nm, w in named]
     run.kern["dequant_matmul"] = _named_b2_row(run, srv.params, named, xg)
     if uses:
         slot = f"{cfg.cycle.index('shared_attn')}_shared_attn"
@@ -4538,18 +4649,15 @@ def _rec_masked(run, pool) -> None:
 
 
 def _rec_refusals(run, prog) -> None:
-    """``SpeculativeEngine`` and a serving mesh raise for a recurrent arch."""
-    from repro_torch.launch.mesh import make_serving_mesh
-    from repro_torch.serving import ProgressiveServer, SpecConfig, SpeculativeEngine
+    """``SpeculativeEngine`` raises for a recurrent arch (a serving mesh
+    serves it: ``[mesh]``)."""
+    from repro_torch.serving import SpecConfig, SpeculativeEngine
 
     _refused(run.tag, "rollback", lambda: SpeculativeEngine(
         run.model, prog, max_len=PROMPT + SPEC_TOKENS + 9, spec=SpecConfig(draft_bits=4, k=4),
         device=run.dev))
-    _refused(run.tag, "ROADMAP A13", lambda: ProgressiveServer(
-        run.model, prog, max_len=PROMPT + STEPS, resident="quantized",
-        mesh=make_serving_mesh(2, devices=[run.dev] * 2), device=run.dev))
     log(f"{run.tag} refusals: SpeculativeEngine (no overwrite-only rollback of a recurrent "
-        f"state) and a serving mesh (ROADMAP A13) raise NotImplementedError")
+        f"state) raises NotImplementedError")
 
 
 def _rec_path(run) -> None:
@@ -5299,8 +5407,10 @@ def _cross_phase(dev, ops) -> dict:
     B4 over the self and the cross caches); the stream from v3 wire bytes
     and float residency (:func:`_arch_wire`); ``SpeculativeEngine`` at
     stage 8 against plain greedy tokens (:func:`_arch_spec`); the pool
-    refused; the CLI queued beside phase 7. Returns the launch counts, B2's launches by route and
-    the kernels' rows."""
+    refused; the single stream on a serving mesh (:func:`_arch_mesh`, the
+    encoder pass on the home device, every projection through B7); the
+    CLI queued beside phase 7. Returns the launch counts, B2's launches by
+    route and the kernels' rows."""
     from repro_torch.configs import get_config
     from repro_torch.models.model import build_model
     from repro_torch.serving import SlotPoolEngine
@@ -5320,7 +5430,7 @@ def _cross_phase(dev, ops) -> dict:
 
     run = types.SimpleNamespace(
         tag=f"[arch {cfg.name}]", cfg=cfg, model=model, dev=dev, ops=ops, counts={},
-        routes={}, kern={}, mesh_shards=(), attn_layers=2 * L,
+        routes={}, kern={}, mesh_shards=MESH_ARCH_SHARDS.get(cfg.name, ()), attn_layers=2 * L,
         spec_b2=(frame_b2 + prompt_b2, step_b2), memory=memory,
         prompt=torch.randint(0, cfg.vocab, (BATCH, PROMPT),
                              generator=torch.Generator().manual_seed(1)))
@@ -5344,6 +5454,7 @@ def _cross_phase(dev, ops) -> dict:
     timed("spec", lambda: _arch_spec(run, prog, run.prompt))
     timed("pool refused", lambda: _refused(run.tag, "encoder-decoder", lambda: SlotPoolEngine(
         model, prog, n_slots=2, max_len=PROMPT + STEPS, resident="quantized", device=dev)))
+    timed("mesh", lambda: _arch_mesh(run, prog, PROMPT + STEPS))
     del prog
     BESIDE_PATH["olmo-1b"].append(lambda: _cli_phase(cfg.name, CLI_STREAM))
     log(f"{run.tag} launches on the paths {run.counts}, dequant_matmul by route {run.routes}; "
@@ -5417,6 +5528,7 @@ def _cross_single(run, prog) -> torch.Tensor:
     named.append(("embed.T", srv.params["embed"].T))
     check(len(named) == step_b2 and all(dqm.one_pass(w.q) for _, w in named),
           f"{run.tag} a weight is off the one-pass kernels")
+    run.step_weights = [(nm, w.q.shape[1]) for nm, w in named]
     run.kern["dequant_matmul"] = _named_b2_row(run, srv.params, named, xg)
     stacked = srv.caches["cycles"]["0_selfcross"]
     run.kern["decode_attention"], run.kern["flash_verify"] = _memory_rows(
@@ -5609,12 +5721,15 @@ def _vision_phase(dev, ops) -> dict:
     versions; ``SpeculativeEngine`` at stage 8, tokens equal to plain;
     the pool's batch-1 fall-back with each request's image, an upgrade a
     window, each request alone in a 1-slot pool at the busy pool's stages
-    ``torch.equal``. Then B3 and B4 over the stream's cross cache (Tv =
-    16), and over a cross cache at llama-3.2-vision-90b's published heads
-    (Kh 8, G 8, hd 128, Tv 1601, B 4, T 5), whose rows it returns with the
-    counts."""
+    ``torch.equal``; the single stream on a serving mesh
+    (:func:`_arch_mesh`: ``vision_proj`` and every projection through
+    B7, the cross cache written on the home device). Then B3 and B4 over
+    the stream's cross cache (Tv = 16), and over a cross cache at
+    llama-3.2-vision-90b's published heads (Kh 8, G 8, hd 128, Tv 1601, B
+    4, T 5), whose rows it returns with the counts."""
     from repro_torch.configs import get_config
-    from repro_torch.core.progressive import divide
+    from repro_torch.core.progressive import divide, tree_flatten_with_path
+    from repro_torch.models.common import quantized_resident_eligible
     from repro_torch.models.model import build_model
     from repro_torch.models.transformer import layer
     from repro_torch.serving import ProgressiveServer
@@ -5629,6 +5744,9 @@ def _vision_phase(dev, ops) -> dict:
     gates = params["decoder"]["cycles"]["4_cross"]
     for name in ("gate_attn", "gate_mlp"):
         gates[name].copy_(torch.empty_like(gates[name]).uniform_(0.5, 1.0, generator=g))
+    n_params = sum(t.numel() for _, t in tree_flatten_with_path(params))
+    n_fp = sum(t.numel() for k, t in tree_flatten_with_path(params)
+               if not quantized_resident_eligible(k))
     torch.cuda.synchronize()
     reset_counts(ops)
     prog = divide(params)
@@ -5677,6 +5795,9 @@ def _vision_phase(dev, ops) -> dict:
               for a, b in zip(lm.logits, want))
     check(len(lm.logits) == len(want) and err <= PATH_RTOL, (tag, err))
     caches = srv.caches
+    step_weights = [(nm, w.q.shape[1]) for nm, w in _vision_weights(srv.params)]
+    check(len(step_weights) == step_b2, step_weights)
+    stream = (lm.logits, res.tokens.cpu())
     log(f"{tag} single stream: stages {res.stage_at_step[0]}->{res.stage_at_step[-1]}, per "
         f"decode step dequant_matmul {per_step['dequant_matmul']:.0f} and decode_attention "
         f"{per_step['decode_attention']:.0f} (4 self, 1 cross over {cfg.vision_tokens} "
@@ -5684,6 +5805,15 @@ def _vision_phase(dev, ops) -> dict:
         f"{err:.3e} of the CPU's plain versions teacher-forced, relative to the largest "
         f"(tolerance {PATH_RTOL})")
     del srv, cpu, lm
+    gc.collect()
+
+    # the single stream on a serving mesh, against the stream above
+    _arch_mesh(types.SimpleNamespace(
+        tag=tag, cfg=cfg, model=model, dev=dev, ops=ops, counts=acc, routes=routes, kern={},
+        mesh_shards=MESH_ARCH_SHARDS[VISION], attn_layers=5, prompt=prompt,
+        memory=lambda _: {"vision_embeds": images}, stream=stream,
+        step_weights=step_weights, n_params=n_params, n_fp=n_fp), prog, PROMPT + STEPS)
+    del stream
     gc.collect()
 
     # speculation against plain greedy tokens at stage 8
@@ -5735,6 +5865,20 @@ def _vision_phase(dev, ops) -> dict:
     log(f"{tag} launches on the paths {acc}, dequant_matmul by route {routes}; "
         f"{time.perf_counter() - t_phase:.1f} s")
     return {"counts": acc, "routes": routes, "kern": kern}
+
+
+def _vision_weights(P) -> list:
+    """The vision stack's decode-step B2 weights, (name, view) in the order
+    it runs them: each ``attn`` layer's seven, the ``cross`` block's
+    ``wq``, ``wo`` and MLP, the untied ``lm_head``."""
+    from repro_torch.models.transformer import layer
+
+    cyc = P["decoder"]["cycles"]
+    out = [(f"attn{j}", w) for j in range(4) for w in _layer_weights(layer(cyc[f"{j}_attn"], 0))]
+    cross = layer(cyc["4_cross"], 0)
+    out += [("cross.wq", cross["attn"]["wq"]), ("cross.wo", cross["attn"]["wo"])]
+    out += [(f"cross.mlp.{k}", cross["mlp"][k]) for k in ("wi_gate", "wi_up", "wo")]
+    return out + [("lm_head", P["lm_head"])]
 
 
 def _vision_pool(tag, model, prog, dev, ops, acc, routes) -> None:

@@ -589,11 +589,48 @@ class ShardedLeaf:
     expert for a bank divided in slices. The model's ``dense`` runs a
     dense weight through ``ops.sharded_dequant_matmul`` (quantized) or a
     matmul a shard (float), ``expert_dense`` a bank a shard, and each
-    gathers the outputs."""
+    gathers the outputs.
+
+    Those two are its only reads. A leaf the model reads any other way
+    (elementwise, indexed, cast) is gathered whole by the store
+    (``launch.sharding.GATHERED_LEAVES``); a ``ShardedLeaf`` that reaches
+    such a read anyway raises ``TypeError`` naming the leaf (``name``,
+    its ``a/b/c`` path), from any torch function, operator, index or
+    tensor method, rather than being gathered quietly."""
 
     parts: tuple
     axis: int
     mesh: Any
+    name: str = ""
+
+    def _refuse(self, *_args, **_kwargs):
+        raise TypeError(
+            f"sharded leaf {self.name or '<unnamed>'!r} (split on axis {self.axis} over "
+            f"{len(self.parts)} shards) reached a read other than common.dense or "
+            "common.expert_dense; a leaf the model reads whole must be gathered "
+            "(launch.sharding.GATHERED_LEAVES)")
+
+    __getitem__ = __setitem__ = __iter__ = __array__ = _refuse
+    __add__ = __radd__ = __sub__ = __rsub__ = __mul__ = __rmul__ = _refuse
+    __truediv__ = __rtruediv__ = __matmul__ = __rmatmul__ = __neg__ = __pow__ = _refuse
+
+    def __getattr__(self, attr):
+        # only for attributes the dataclass lacks: a tensor's raise
+        # TypeError, anything else the usual AttributeError
+        if not attr.startswith("__") and hasattr(torch.Tensor, attr):
+            self._refuse()
+        raise AttributeError(f"{type(self).__name__!r} object has no attribute {attr!r}")
+
+    @classmethod
+    def __torch_function__(cls, func, types, args=(), kwargs=None):
+        stack = [*args, *(kwargs or {}).values()]
+        while stack:
+            a = stack.pop()
+            if isinstance(a, cls):
+                a._refuse()
+            if isinstance(a, (list, tuple)):
+                stack.extend(a)
+        return NotImplemented
 
     @property
     def quantized(self) -> bool:
@@ -669,22 +706,23 @@ class ShardedPlaneStore:
     Leaves come back as :class:`ShardedLeaf` objects (``axis`` the split
     dim, or the slice axis, counted from the end), except the ones
     sharded serving gathers (``launch.sharding.GATHERED_LEAVES``: the
-    tied embedding, whose split dim the unembedding contracts), which are
-    concatenated into one tensor on the home device when an ingest
-    touched them, on the device, without a host sync. The eq.-(5)
-    constants stay shard-local: each sub-store computes its own.
+    tied embedding, whose split dim the unembedding contracts, and a
+    Mamba-2 block's ``conv_w`` and an sLSTM block's ``r``, which the
+    recurrences read elementwise), which are concatenated into one tensor
+    on the home device when an ingest touched them, on the device,
+    without a host sync, in either residency. The eq.-(5) constants stay
+    shard-local: each sub-store computes its own. The routes do not
+    depend on a block's family: every arch the single-device store takes
+    shards, as the reference's does.
 
     Left for later, raising ``NotImplementedError``: replica rows (a mesh
-    with ``data`` > 1) and models with recurrent or cross-attention blocks
-    (``launch.sharding.check_shardable``), ROADMAP A13."""
+    with ``data`` > 1), ROADMAP A13."""
 
     def __init__(self, entries: list[dict], mesh, *, block: int = DEFAULT_BLOCK):
         from repro_torch.launch.mesh import check_serving_mesh
-        from repro_torch.launch.sharding import (check_shardable, gathered_for_serving,
-                                                 serving_spec_for_param)
+        from repro_torch.launch.sharding import gathered_for_serving, serving_spec_for_param
 
         check_serving_mesh(mesh)
-        check_shardable(_path(e["key"]) for e in entries)
         self.mesh = mesh
         self.block = block
         self.device = mesh.home
@@ -784,8 +822,9 @@ class ShardedPlaneStore:
     def gathered_bytes(self) -> int:
         """Device bytes of the leaves the store holds as copies on the home
         device beside its sub-stores: the gathered leaves
-        (``launch.sharding.GATHERED_LEAVES``, the tied embedding: a whole (vocab,
-        d_model) tensor on top of its split accumulators) and whole-routed
+        (``launch.sharding.GATHERED_LEAVES``: the tied embedding, a whole
+        (vocab, d_model) tensor on top of its split accumulators, and the
+        recurrent blocks' ``conv_w`` and ``r``) and whole-routed
         leaves owned by another device. Each tensor counts once; a
         truncated view shares its tensor. ``resident_bytes() +
         gathered_bytes()`` is what the store holds on all its devices,
@@ -910,7 +949,7 @@ class ShardedPlaneStore:
         if kind == "whole":
             return leaf_to(parts[0], self.device)
         ndim = len(self.shapes[self._groups[key][0]]) + (kind == "expert")
-        leaf = ShardedLeaf(parts=parts, axis=ax - ndim, mesh=self.mesh)
+        leaf = ShardedLeaf(parts=parts, axis=ax - ndim, mesh=self.mesh, name=_path(key))
         return leaf.gather() if self._gathered[key] else leaf
 
     def _fp_leaf(self, key):

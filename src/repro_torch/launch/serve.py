@@ -35,12 +35,17 @@ progressivenet-cnn, as for the reference launcher, that is the decoder
 its ``ArchConfig`` describes (4 layers, d_model 64, vocab 10); the CNN
 itself is ``configs/progressivenet_cnn.cnn_init`` and ``cnn_apply``. A
 cross-attention arch's memory input is zeros, as the reference launcher
-makes it. With ``--mesh-shards`` a MoE arch's
-expert banks split on their expert dim, each shard running its own
-experts. For xlstm-125m and zamba2-7b ``--speculative`` raises (a
-recurrent state has no overwrite-only rollback for rejected drafts), and
-for them and the cross-attention archs so does ``--mesh-shards``
-(ROADMAP A13). seamless-m4t-medium refuses ``--pool-clients`` (the pool's
+makes it. ``--mesh-shards`` serves every one of these archs (the CNN
+itself, ``cnn_apply``, is not an engine's model): a MoE arch's expert
+banks split on their expert dim, each shard running its own experts; a
+recurrent arch's Mamba-2 ``conv_w`` and sLSTM ``r``, which the
+recurrences read elementwise, are gathered whole on the home device
+beside the tied embedding (``launch.sharding.GATHERED_LEAVES``); a
+cross-attention arch runs its encoder pass or ``vision_proj`` and writes
+its cross caches on the home device, every projection sharded. For
+xlstm-125m and zamba2-7b ``--speculative`` raises (a recurrent state has
+no overwrite-only rollback for rejected drafts). seamless-m4t-medium
+refuses ``--pool-clients`` (the pool's
 caches have one length, its cross caches the prompt's); the pool admits
 llama-3.2-vision-90b at batch 1, but the session's clients send no image
 embeddings, so its requests raise as the reference's fail.

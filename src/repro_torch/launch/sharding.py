@@ -14,12 +14,23 @@ import re
 
 from repro_torch.launch.mesh import Mesh, model_axis
 
-# The leaves whose split dim the model contracts: the tied embedding
-# (vocab, d_model) is split on d_model, and the unembedding
-# ``x @ embed.T`` sums over d_model. Sharded serving never adds partial
-# sums (they would reorder the float adds), so it gathers such a leaf
-# whole on the home device after each upgrade that touches it.
-GATHERED_LEAVES = frozenset({"embed"})
+# The leaves sharded serving gathers whole on the home device, when an
+# ingest touched them, on the device and without a host sync, because
+# the model reads them other than as a dense weight split on its output
+# dim:
+# * the tied embedding (vocab, d_model), split on d_model, whose
+#   unembedding ``x @ embed.T`` sums over the split dim (sharded serving
+#   never adds partial sums: they would reorder the float adds);
+# * a Mamba-2 block's ``conv_w`` (conv_width, d_inner), split on d_inner,
+#   and an sLSTM block's ``r`` (H, hd, 4 hd), split on 4 hd, which the
+#   recurrences read elementwise (the depthwise conv's taps; the per-head
+#   recurrent einsum). The reference reads them whole through GSPMD's
+#   gather. The rule matches the block slot, never a bare leaf name.
+GATHERED_LEAVES = (
+    re.compile(r"^embed$"),
+    re.compile(r"(^|/)\d+_mamba2/(.+/)?conv_w$"),
+    re.compile(r"(^|/)\d+_slstm/(.+/)?r$"),
+)
 
 
 def _divides(n: int, k: int) -> bool:
@@ -59,25 +70,7 @@ def serving_spec_for_param(path: str, shape: tuple, mesh: Mesh) -> tuple:
     return ()
 
 
-_RECURRENT_SLOT = re.compile(r"(^|/)\d+_(mamba2|mlstm|slstm)/")
-_CROSS_SLOT = re.compile(r"(^|/)\d+_(enc_attn|cross|selfcross)/")
-
-
-def check_shardable(paths) -> None:
-    """Raise for a model sharded serving does not take yet (ROADMAP A13):
-    one with recurrent blocks, whose ``conv_w`` and ``r`` the rules above
-    would split on their last dim while the recurrences read them
-    elementwise; one with an encoder or cross-attention blocks, whose
-    memory caches and encoder pass no sharded engine builds yet."""
-    paths = list(paths)
-    for pattern, what in ((_RECURRENT_SLOT, "recurrent"), (_CROSS_SLOT, "cross-attention")):
-        kinds = sorted({m.group(2) for p in paths if (m := pattern.search(p))})
-        if kinds:
-            raise NotImplementedError(f"sharded serving of {what} blocks {kinds} is still "
-                                      "to be ported (ROADMAP A13)")
-
-
 def gathered_for_serving(path: str) -> bool:
-    """Whether sharded serving gathers this leaf on the home device
-    (:data:`GATHERED_LEAVES`)."""
-    return path.rsplit("/", 1)[-1] in GATHERED_LEAVES
+    """Whether sharded serving gathers this leaf (an ``a/b/c`` path) on
+    the home device (:data:`GATHERED_LEAVES`)."""
+    return any(rule.search(path) for rule in GATHERED_LEAVES)

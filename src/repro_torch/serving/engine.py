@@ -492,9 +492,10 @@ class SlotPoolEngine(PrecisionManagedEngine):
     ``extras`` keys and per-request shapes are checked at submit, as the
     reference checks them.
 
-    Left for later, raising ``NotImplementedError``: a mesh for an arch
-    with recurrent or cross-attention blocks (A13: its sharded store
-    raises). The reference's
+    ``mesh=`` takes every arch the pool takes: each projection runs on
+    the sharded store through ``ops.sharded_dequant_matmul``, while the
+    caches, the recurrent states and their per-slot zeroing stay on the
+    home device. The reference's
     ``decode_cache_size``/``prefill_cache_size`` count JAX executables
     and have no counterpart: nothing is compiled here.
     """

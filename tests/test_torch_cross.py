@@ -23,8 +23,9 @@ spread so that each changes the outputs). Held:
   and to the port's plain greedy tokens;
 * ``Model.grow_caches`` pads a ``selfcross`` block's ``self`` part only;
 * refusals: the slot pool ("encoder-decoder"), a ``prefill_chunk`` over
-  a ``selfcross`` block, a serving mesh (ROADMAP A13); the CLI serves
-  ``--arch seamless-m4t-medium --reduced``.
+  a ``selfcross`` block; a serving mesh of 2 logical shards serves, its
+  tokens those of one device; the CLI serves ``--arch
+  seamless-m4t-medium --reduced``, with ``--mesh-shards 2`` too.
 
 The reference's division, engines and speculation run in processes of
 their own (:class:`Reference`, one a job), started with the module's
@@ -579,15 +580,22 @@ def test_refusals(seamless):
                             torch.zeros((2, 4), dtype=torch.int32))
     with pytest.raises(ValueError, match="enc_input"):
         model.prefill(params, {"tokens": torch.zeros((1, 8), dtype=torch.int64)})
+    # a serving mesh is no refusal: the sharded server, speculation and
+    # client serve (tests/test_torch_sharded_families.py holds them)
     mesh = make_serving_mesh(2, devices=["cpu"] * 2)
-    for ctor in (lambda: ProgressiveServer(model, prog, max_len=MAX_LEN, mesh=mesh, device="cpu"),
-                 lambda: SpeculativeEngine(model, prog, max_len=MAX_LEN, mesh=mesh,
-                                           device="cpu")):
-        with pytest.raises(NotImplementedError, match="ROADMAP A13"):
-            ctor()
+    key, memory = memory_input(model.cfg, 2, 2, 8)
+    batch = {"tokens": _prompt(1, (2, 8)), key: memory}
+    tokens = {}
+    for m in (None, mesh):
+        srv = ProgressiveServer(model, prog, max_len=MAX_LEN, mesh=m, device="cpu")
+        srv.receive_stage()
+        srv.start(batch)
+        tokens[m is None] = srv.decode(4).tokens
+    assert torch.equal(tokens[False], tokens[True])
+    SpeculativeEngine(model, prog, max_len=MAX_LEN, mesh=mesh, device="cpu")
     client = ProgressiveClient(mesh=mesh, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP A13"):
-        client.feed(wire.encode(prog))
+    client.feed(wire.encode(prog))
+    assert client.complete
 
 
 @pytest.mark.parametrize("mode", ["default", "quantized", "speculative"])
@@ -603,8 +611,14 @@ def test_cli_seamless_reduced(mode, capsys):
 
 
 @pytest.mark.parametrize("flags,match", [(["--pool-clients", "2"], "encoder-decoder"),
-                                         (["--mesh-shards", "2"], "ROADMAP A13")],
+                                         (["--mesh-shards", "2"], None)],
                          ids=["pool", "mesh_shards"])
-def test_cli_refusals(flags, match):
+def test_cli_refusals(flags, match, capsys):
+    """``--pool-clients`` raises; ``--mesh-shards 2`` serves, token for
+    token the run without it."""
+    argv = ["--arch", "seamless-m4t-medium", "--reduced", "--device", "cpu"]
+    if match is None:
+        rec.cli_tokens(argv + ["--decode-steps", "6", "--resident", "quantized"], flags, capsys)
+        return
     with pytest.raises(NotImplementedError, match=match):
-        serve.main(["--arch", "seamless-m4t-medium", "--reduced", "--device", "cpu"] + flags)
+        serve.main(argv + flags)

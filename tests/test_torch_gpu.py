@@ -1600,6 +1600,45 @@ def test_sharded_server_equals_one_device_at_every_stage(dev):
                     assert (l0 - l1).abs().max().item() <= 1e-2 * l0.abs().max().item()
 
 
+@pytest.mark.parametrize("name", ["xlstm-125m", "zamba2-7b"])
+def test_sharded_recurrent_serving_equals_one_device(dev, name):
+    """A recurrent arch (bfloat16; zamba2-7b at 13 layers, both uses of the
+    shared block) on 2 logical shards, its ``conv_w`` and ``r`` gathered
+    home: the quantized server, an upgrade every other step, every logit
+    and token ``torch.equal`` to one device's; the chunked pool's tokens
+    equal."""
+    from repro_torch.serving import PoolRequest, ProgressiveServer, SlotPoolEngine
+
+    pool1 = _recurrent_pool(dev, name, **({"n_layers": 13} if name == "zamba2-7b" else {}))
+    model, prog = pool1.model, pool1.prog
+    prompt = torch.randint(0, 128, (3, 12), generator=torch.Generator().manual_seed(4))
+    runs, pools = [], []
+    for n in (None, 2):
+        mesh = None if n is None else _mesh(dev, n)
+        srv = ProgressiveServer(model, prog, max_len=12 + 16, resident="quantized", mesh=mesh,
+                                device=dev)
+        srv.receive_stage()
+        srv.start({"tokens": prompt})
+        steps = [(None, srv.last_logits.clone())]
+        for i in range(16):
+            if srv.stage < prog.n_stages and i % 2 == 0:
+                srv.receive_stage()
+            steps.append((srv.decode(1).tokens, srv.last_logits.clone()))
+        assert srv.stage == 8
+        runs.append(steps)
+        pool = SlotPoolEngine(model, prog, n_slots=3, max_len=40, resident="quantized",
+                              dispatch_window=2, prefill_chunk=4, mesh=mesh, device=dev)
+        pool.receive_stage()
+        rng = np.random.default_rng(0)
+        for rid in range(5):
+            pool.submit(PoolRequest(rid=rid, prompt=rng.integers(0, 128, 3 + 3 * rid),
+                                    max_new_tokens=6))
+        pools.append(pool.run(on_window=lambda _: pool.upgrade_if_available()))
+    for (t0, l0), (t1, l1) in zip(*runs):
+        assert torch.equal(l0, l1) and (t0 is None or torch.equal(t0, t1))
+    assert pools[0] == pools[1] and len(pools[0]) == 5
+
+
 def test_serving_mesh_needs_cards_unless_told(dev):
     from repro_torch.launch.mesh import home_device, make_serving_mesh
 

@@ -266,13 +266,23 @@ def test_parts_left_for_later_raise(models, monkeypatch, kw):
     if "window" in kw:
         # sliding windows (tests/test_torch_sliding_window.py) and recurrent
         # blocks (tests/test_torch_recurrent.py) are ported: such a pool
-        # admits without buckets; a recurrent pool on a mesh is not ported
+        # admits without buckets; a recurrent pool on a mesh serves too
+        # (tests/test_torch_sharded_families.py), a request's tokens those
+        # of the pool on one device
         swa = build_model(model.cfg.reduced(**REDUCED, cycle=("swa",), window=kw.pop("window")))
         assert not SlotPoolEngine(swa, prog, device="cpu", **POOL).prefill_buckets
         model = build_model(model.cfg.reduced(**REDUCED, cycle=("mamba2",)))
         assert not SlotPoolEngine(model, prog, device="cpu", **POOL).prefill_buckets
         prog = divide(model.init(torch.Generator(), device="cpu"))
-        kw["mesh"] = make_serving_mesh(2, devices=["cpu"] * 2)
+        out = {}
+        for mesh in (None, make_serving_mesh(2, devices=["cpu"] * 2)):
+            pool = SlotPoolEngine(model, prog, mesh=mesh, device="cpu", **POOL)
+            pool.receive_stage()
+            pool.submit(PoolRequest(rid=0, prompt=np.arange(6, dtype=np.int32),
+                                    max_new_tokens=4))
+            out[mesh is None] = pool.run(on_window=lambda _: pool.upgrade_if_available())
+        assert out[False] == out[True] and len(out[True][0]) == 4
+        return
     if "telemetry" in kw:
         # telemetry is ported (tests/test_torch_telemetry.py): the pool
         # serves with REPRO_TELEMETRY set, and with the registry on its

@@ -21,8 +21,9 @@ norm scales spread around 1). Held:
   ``LOGIT_ATOL``, greedy tokens identical at stages 1, 4 and 8);
   ``SlotPoolEngine`` chunked (upgrades mid-stream, a slot reused after an
   eviction) and at batch 1 (buckets off): tokens identical;
-* refusals: speculation, a bucket-padded prefill, a mesh (ROADMAP A13);
-  the CLI serves ``--arch xlstm-125m --reduced``.
+* refusals: speculation, a bucket-padded prefill; a serving mesh of 2
+  logical shards serves, its tokens those of one device; the CLI serves
+  ``--arch xlstm-125m --reduced``, with ``--mesh-shards 2`` too.
 
 The reference's division, engines and pools run in processes of their
 own (:class:`Reference`), one a job, started with the module's fixture
@@ -527,14 +528,20 @@ def test_refusals(xlstm):
     with pytest.raises(NotImplementedError, match="recurrent states"):
         model.prefill(params, {"tokens": torch.zeros((1, 8), dtype=torch.int64)},
                       n_valid=np.asarray([5], np.int32))
+    # a serving mesh is no refusal: the sharded server, pool and client
+    # serve (tests/test_torch_sharded_families.py holds them)
     mesh = make_serving_mesh(2, devices=["cpu"] * 2)
-    with pytest.raises(NotImplementedError, match="ROADMAP A13"):
-        ProgressiveServer(model, prog, max_len=MAX_LEN, mesh=mesh, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP A13"):
-        SlotPoolEngine(model, prog, n_slots=2, max_len=MAX_LEN, mesh=mesh, device="cpu")
+    tokens = {}
+    for m in (None, mesh):
+        srv = ProgressiveServer(model, prog, max_len=MAX_LEN, mesh=m, device="cpu")
+        srv.receive_stage()
+        srv.start({"tokens": _prompt(1, (2, 8))})
+        tokens[m is None] = srv.decode(4).tokens
+    assert torch.equal(tokens[False], tokens[True])
+    SlotPoolEngine(model, prog, n_slots=2, max_len=MAX_LEN, mesh=mesh, device="cpu")
     client = ProgressiveClient(mesh=mesh, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP A13"):
-        client.feed(wire.encode(prog))
+    client.feed(wire.encode(prog))
+    assert client.complete
 
 
 @pytest.mark.parametrize("mode", ["default", "pool"])
@@ -546,12 +553,32 @@ def test_cli_xlstm_reduced(mode, capsys):
     assert "served" in capsys.readouterr().out
 
 
+def cli_tokens(argv, flags, capsys) -> None:
+    """``flags`` serve: the run's tokens and per-step stages equal the run
+    without them (a serving mesh of logical shards on the CPU)."""
+    def lines(text):
+        return [line for line in text.splitlines() if line.startswith(("tokens[0]",
+                                                                       "stage per step"))]
+    serve.main(argv)
+    plain = capsys.readouterr().out
+    serve.main(argv + flags)
+    got = capsys.readouterr().out
+    assert "serving mesh: 2 model shards" in got
+    assert lines(got) == lines(plain) and len(lines(plain)) == 2
+
+
 @pytest.mark.parametrize("flags,match", [(["--speculative"], "rollback"),
-                                         (["--mesh-shards", "2"], "ROADMAP A13")],
+                                         (["--mesh-shards", "2"], None)],
                          ids=["speculative", "mesh_shards"])
-def test_cli_refusals(flags, match):
+def test_cli_refusals(flags, match, capsys):
+    """``--speculative`` raises; ``--mesh-shards 2`` serves, token for token
+    the run without it."""
+    argv = ["--arch", "xlstm-125m", "--reduced", "--device", "cpu"]
+    if match is None:
+        cli_tokens(argv + ["--decode-steps", "6", "--resident", "quantized"], flags, capsys)
+        return
     with pytest.raises(NotImplementedError, match=match):
-        serve.main(["--arch", "xlstm-125m", "--reduced", "--device", "cpu"] + flags)
+        serve.main(argv + flags)
 
 
 # ---------------------------------------------------------------------------

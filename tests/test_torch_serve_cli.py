@@ -81,16 +81,25 @@ def test_cli_mixtral_reduced(mode, capsys):
     assert "served" in capsys.readouterr().out
 
 
-def test_cli_parts_still_to_port_raise():
-    """What the launcher still lacks raises naming its ROADMAP item: a
-    serving mesh for a recurrent arch (A13). Every arch serves
-    (``--mesh-shards`` is ported: ``tests/test_torch_sharded.py``; the
-    recurrent archs: ``tests/test_torch_recurrent.py``; the cross-attention
-    ones: ``tests/test_torch_cross.py``, ``tests/test_torch_vision.py``;
+def test_cli_parts_still_to_port_raise(capsys):
+    """The launcher lacks nothing it once refused: a serving mesh for a
+    recurrent arch (ROADMAP A13) serves zamba2-7b, token for token the run
+    without it. Every arch serves (``--mesh-shards``:
+    ``tests/test_torch_sharded.py``, ``tests/test_torch_sharded_archs.py``
+    and ``tests/test_torch_sharded_families.py``; the recurrent archs:
+    ``tests/test_torch_recurrent.py``; the cross-attention ones:
+    ``tests/test_torch_cross.py``, ``tests/test_torch_vision.py``;
     progressivenet-cnn, the last: ``tests/test_torch_cnn.py``)."""
-    with pytest.raises(NotImplementedError, match="A13"):
-        serve.main(["--arch", "xlstm-125m", "--reduced", "--device", "cpu",
-                    "--mesh-shards", "2"])
+    def lines(text):
+        return [line for line in text.splitlines() if line.startswith(("tokens[0]",
+                                                                       "stage per step"))]
+    argv = ["--arch", "zamba2-7b", "--reduced", "--device", "cpu", "--decode-steps", "6"]
+    serve.main(argv)
+    plain = capsys.readouterr().out
+    serve.main(argv + ["--mesh-shards", "2"])
+    sharded = capsys.readouterr().out
+    assert "serving mesh: 2 model shards" in sharded
+    assert lines(sharded) == lines(plain) and len(lines(plain)) == 2
 
 
 def test_cli_defaults_to_the_card():

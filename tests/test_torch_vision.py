@@ -29,7 +29,8 @@ from numpy. Held:
   batched ``(1, T, D)`` image, before anything is admitted or launched;
   a session pool, whose clients send no image (the reference fails
   there too, with a ``KeyError``); the CLI serves ``--arch
-  llama-3.2-vision-90b --reduced``.
+  llama-3.2-vision-90b --reduced``, with ``--mesh-shards 2`` token for
+  token as without.
 """
 import numpy as np
 import pytest
@@ -44,7 +45,7 @@ from repro_torch.serving import (PoolRequest, SlotPoolEngine, SpecConfig,
 from repro_torch.transmission import Session
 from repro_torch.transmission.simulator import BandwidthTrace
 from test_torch_cross import (SPEC, check_server, check_speculative, start_cross)
-from test_torch_recurrent import MAX_LEN, SIZE, check_config, check_division
+from test_torch_recurrent import MAX_LEN, SIZE, check_config, check_division, cli_tokens
 
 POOL = dict(n_slots=2, max_len=MAX_LEN, dispatch_window=4, resident="quantized")
 SPEC_POOL = dict(n_slots=2, max_len=MAX_LEN, dispatch_window=4)
@@ -244,8 +245,14 @@ def test_cli_vision_reduced(mode, capsys):
 @pytest.mark.parametrize("flags,exc,match", [
     (["--pool-clients", "2"], ValueError, "vision_embeds"),
     (["--pool-clients", "2", "--chunked-prefill"], NotImplementedError, "cross-attention"),
-    (["--mesh-shards", "2"], NotImplementedError, "ROADMAP A13")],
+    (["--mesh-shards", "2"], None, None)],
     ids=["pool", "chunked_pool", "mesh_shards"])
-def test_cli_refusals(flags, exc, match):
+def test_cli_refusals(flags, exc, match, capsys):
+    """The session pool and chunked admission raise; ``--mesh-shards 2``
+    serves, token for token the run without it."""
+    argv = ["--arch", "llama-3.2-vision-90b", "--reduced", "--device", "cpu"]
+    if exc is None:
+        cli_tokens(argv + ["--decode-steps", "6", "--resident", "quantized"], flags, capsys)
+        return
     with pytest.raises(exc, match=match):
-        serve.main(["--arch", "llama-3.2-vision-90b", "--reduced", "--device", "cpu"] + flags)
+        serve.main(argv + flags)
