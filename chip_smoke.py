@@ -25,7 +25,8 @@ with the launch counts set to 0 just before it and read just after:
    the arch's heads, against their plain versions (verify rows equal to
    decode rows); ``[path]`` (phase 7) at stages 1 and 8 for starcoder2-15b
    and minitron-4b at 1 layer (olmo-1b's ``[cli]`` runs beside
-   minitron-4b's, ``[train cli]`` beside starcoder2-15b's); the CLI for
+   minitron-4b's, ``[train cli]`` and the examples on the CPU beside
+   starcoder2-15b's); the CLI for
    minitron-4b at full width; ``[mesh]`` for starcoder2-15b x2: its single
    stream on 2 logical shards of the card, every logit and token
    ``torch.equal`` to the phase's single-device stream (B7 on every layer
@@ -264,7 +265,21 @@ with the launch counts set to 0 just before it and read just after:
 7. run the same 2-layer full-width model on the card (kernels) and on
    the CPU (plain versions) and compare teacher-forced decode, prefill
    chunk and verify logits; xlstm-125m's and seamless-m4t-medium's CLI
-   processes run beside it (it times nothing);
+   processes run beside it (it times nothing), and so do the examples on
+   the card. ``[examples]`` (ROADMAP A12(d)): the four scripts of
+   ``examples_torch/`` at the reduced configs of the reference's
+   examples, a process each on the card and on the CPU (beside
+   starcoder2-15b's ``[path]``), ``progressive_serving.py`` with five flag
+   sets (``EXAMPLE_RUNS``), each exit 0: quickstart's blob, stages and
+   ``t=`` times equal to the CPU's, its logits within ``PATH_RTOL``, its
+   stage 8 equal to the singleton quantized model (the script's own
+   check); train_then_transmit at its default 300 steps, its logged steps
+   and stage bytes equal to the CPU's, its stage-8 accuracy within
+   ``EXAMPLE_ACC_TOL`` of its float params'; progressive_serving's blob,
+   stage arrivals and (but under ``--speculative``) per-step stages,
+   upgrades and event log equal to the CPU's; expert_priority_moe's
+   tensor counts equal and MSEs within ``PATH_RTOL``; a line an example
+   with its launches by kernel;
 8. time each kernel at the paths' shapes beside its bound, its plain
    version and one PyTorch call (or chain of calls) that computes the
    same function: ``dequant_matmul`` over a decode step's (M = 4), the
@@ -534,6 +549,21 @@ CLI_POOL_FAMILIES = CLI_STREAM_FAMILIES - {"session_decode_steps_total"} | {
     "engine_upgrades_total", "engine_window_steps", "pool_window_tokens"}
 # v2 entropy coding is host numpy (core/entropy.py): its encode and decode
 # are timed on the 2-layer full-width model's attn.wq units (8 planes)
+# [examples] (ROADMAP A12(d)): each script of examples_torch/ in a process
+# of its own, its main() once a flag set (the launch counts set to 0
+# before each), at the reduced configs the reference's examples use: on
+# the CPU beside starcoder2-15b's [path] and on the card beside phase 7's,
+# with EXAMPLE_THREADS host threads each. train_then_transmit at its
+# default 300 steps, its stage-8 accuracy on the card within
+# EXAMPLE_ACC_TOL of the float params', the reference's Table II bound
+# (benchmarks/table2_accuracy.py:231)
+EXAMPLE_RUNS = (("quickstart", ([],)), ("train_then_transmit", ([],)),
+                ("progressive_serving", ([], ["--resident", "quantized"], ["--speculative"],
+                                         ["--flash-crowd", "4"], ["--scheduled"])),
+                ("expert_priority_moe", ([],)))
+EXAMPLE_ACC_TOL = 0.02
+EXAMPLE_THREADS = 1
+EXAMPLE_TIMEOUT_S = 400
 
 
 def check(ok: bool, what="check failed") -> None:
@@ -717,15 +747,20 @@ def main() -> int:
         f"cuda {torch.version.cuda}")
 
     # the CLIs beside the [path]s: olmo-1b's beside minitron-4b's, the
-    # training launcher beside starcoder2-15b's, the recurrent and cross
-    # archs' (queued by their phases) beside phase 7's
+    # training launcher and the examples on the CPU beside starcoder2-15b's,
+    # the examples on the card and the recurrent and cross archs' CLIs
+    # (queued by their phases) beside phase 7's
     train_dir = tempfile.TemporaryDirectory()
     train_cli: dict = {}
+    examples_dir = tempfile.TemporaryDirectory()
+    examples: dict = {}
     BESIDE_PATH.update({
         "minitron-4b": [lambda: _cli_phase("olmo-1b", CLI_STREAM, CLI_POOL,
                                            families=(CLI_STREAM_FAMILIES, CLI_POOL_FAMILIES))],
-        "starcoder2-15b": [lambda: _train_cli(os.path.join(train_dir.name, "cli"), train_cli)],
-        "olmo-1b": []})
+        "starcoder2-15b": [lambda: _examples_start("cpu", examples_dir.name),
+                           lambda: _train_cli(os.path.join(train_dir.name, "cli"), train_cli),
+                           lambda: _examples_wait("cpu", examples)],
+        "olmo-1b": [lambda: _examples_start("cuda", examples_dir.name)]})
 
     # -- 1a. the dense variants (ROADMAP A8(a)) at their published widths ----
     arch_runs = {}
@@ -1075,12 +1110,18 @@ def main() -> int:
     # -- 7. whole path: 2 layers at full width, card against CPU, and the
     # queued CLIs' processes beside its CPU side -----------------------------
     t0 = time.perf_counter()
+    BESIDE_PATH["olmo-1b"].append(lambda: _examples_wait("cuda", examples))
     with _beside(BESIDE_PATH.pop("olmo-1b"), BESIDE_GIB["olmo-1b"]):
         path_err, chunk_err = _whole_path(cfg, dev)
     log(f"[path] 2-layer full width, cuda kernels vs cpu plain versions, teacher-forced "
         f"logits at all 8 stages: max |err| / max |logit| = {path_err:.3e}; prefill "
         f"chunk and verify logits at stages 1 and 8: {chunk_err:.3e} (tolerance "
         f"{PATH_RTOL}); {time.perf_counter() - t0:.1f} s")
+    # the examples' runs (on the CPU beside starcoder2-15b's [path], on the
+    # card beside this one) against each other
+    examples_launches = _examples_phase(examples)
+    examples_dir.cleanup()
+    log(f"[examples] launches on the card over the four examples {examples_launches}")
 
     # -- 8. timings at the path's shapes -------------------------------------
     # Device times replay CUDA graphs, so the host's launch rate does not
@@ -2424,6 +2465,192 @@ def _beside(runs: list, need_gib: float):
         thread.join()
     if failed:
         raise failed[0]
+
+
+# an example's process: the script's main() once a flag set with
+# --device, the launch counts set to 0 before each; its results, the
+# counts by kernel and route and the seconds of each run, in a file
+_EXAMPLE_DRIVER = """
+import json, runpy, sys, time
+sys.path.insert(0, sys.argv[1])
+import chip_smoke as cs
+import torch
+from repro_torch.kernels import ops
+script, out_path, device, runs = sys.argv[2], sys.argv[3], sys.argv[4], json.loads(sys.argv[5])
+torch.set_num_threads(cs.EXAMPLE_THREADS)
+main = runpy.run_path(script)["main"]
+results = []
+for argv in runs:
+    cs.reset_counts(ops)
+    t0 = time.perf_counter()
+    out = main(argv + ["--device", device])
+    if device == "cuda":
+        torch.cuda.synchronize()
+    results.append({"argv": argv, "s": time.perf_counter() - t0, "counts": cs.counts(),
+                    "routes": cs.route_counts(), "out": out})
+torch.save(results, out_path)
+"""
+
+
+# the examples' processes still running: main's caller stops any left
+EXAMPLE_PROCS: dict = {}
+
+
+def _examples_start(device: str, out_dir: str) -> None:
+    """Start the four scripts of ``examples_torch/`` on ``device``, a
+    process each, all at once (``EXAMPLE_RUNS``), each with a ``TMPDIR`` of
+    its own; :func:`_examples_wait` waits for them."""
+    env = {**os.environ, "PYTHONPATH": os.path.join(ROOT, "src"),
+           "OMP_NUM_THREADS": str(EXAMPLE_THREADS)}
+    for name, runs in EXAMPLE_RUNS:
+        tmp = os.path.join(out_dir, f"{name}.{device}")
+        os.makedirs(tmp)
+        out, log_path = os.path.join(tmp, "results.pt"), os.path.join(tmp, "log")
+        with open(log_path, "w") as f:
+            EXAMPLE_PROCS[name, device] = (subprocess.Popen(
+                [sys.executable, "-c", _EXAMPLE_DRIVER, ROOT,
+                 os.path.join(ROOT, "examples_torch", f"{name}.py"), out, device,
+                 json.dumps(runs)], stdout=f, stderr=subprocess.STDOUT,
+                env={**env, "TMPDIR": tmp}, cwd=ROOT), out, log_path, time.perf_counter())
+
+
+def _examples_wait(device: str, results: dict) -> None:
+    """Wait for :func:`_examples_start`'s processes on ``device`` (killing
+    any past ``EXAMPLE_TIMEOUT_S``) and put each one's exit code, output
+    file, log and seconds in ``results`` under ``(name, device)`` for
+    :func:`_examples_phase`."""
+    running = {k: v for k, v in EXAMPLE_PROCS.items() if k[1] == device}
+    deadline = min(t0 for *_, t0 in running.values()) + EXAMPLE_TIMEOUT_S
+    while running:
+        for key, (proc, out, log_path, t0) in list(running.items()):
+            rc = proc.poll()
+            if rc is None and time.perf_counter() > deadline:
+                proc.kill()
+                rc = f"killed after {EXAMPLE_TIMEOUT_S} s"
+            if rc is not None:
+                proc.wait()
+                results[key] = {"rc": rc, "out": out, "log": log_path,
+                                "s": time.perf_counter() - t0}
+                del running[key], EXAMPLE_PROCS[key]
+        time.sleep(0.1)
+
+
+def _stop_examples() -> None:
+    for proc, *_ in EXAMPLE_PROCS.values():
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+
+
+def _examples_phase(results: dict) -> dict:
+    """``[examples]`` (ROADMAP A12(d)): the runs of :func:`_examples_start`
+    on the card and on the CPU, each exit 0 (each script checks itself:
+    quickstart that its stage-8 leaves equal ``dequantize(quantize(leaf,
+    16))``); the integer outputs of the card's runs equal the CPU's (the
+    weights are drawn on the host but for training's, which ``train``
+    draws on the device: its logged steps and stage bytes); quickstart's
+    and the MoE demo's floats within ``PATH_RTOL``; the trained model's
+    stage-8 accuracy on the card within ``EXAMPLE_ACC_TOL`` of its float
+    params'. Logs a line per example with its launches by kernel on the
+    card; returns them summed over the examples."""
+    check(len(results) == 2 * len(EXAMPLE_RUNS), sorted(results))
+    for key, r in results.items():
+        with open(r["log"]) as f:
+            check(r["rc"] == 0, ("examples", key, r["rc"], f.read()[-3000:]))
+    got = {key: torch.load(r["out"], weights_only=False) for key, r in results.items()}
+    total: dict = {}
+
+    def launches(name) -> dict:
+        by = {}
+        for run in got[name, "cuda"]:
+            for k, v in run["counts"].items():
+                by[k] = by.get(k, 0) + v
+                total[k] = total.get(k, 0) + v
+        return {k: v for k, v in by.items() if v}
+
+    def seconds(name) -> str:
+        return (f"{sum(r['s'] for r in got[name, 'cuda']):.1f} s in main() on the card "
+                f"({results[name, 'cuda']['s']:.1f} s with the process), "
+                f"{sum(r['s'] for r in got[name, 'cpu']):.1f} s on the CPU "
+                f"({results[name, 'cpu']['s']:.1f} s)")
+
+    # quickstart: the same host-drawn weights, so the same blob
+    c, h = (got["quickstart", d][0]["out"] for d in ("cuda", "cpu"))
+    for k in ("blob_bytes", "n_stages", "singleton_bytes", "download_s", "stages"):
+        check(c[k] == h[k], ("quickstart", k, c[k], h[k]))
+    err = max(float((c["logits"][s] - h["logits"][s]).abs().max())
+              / float(h["logits"][s].abs().max()) for s in h["logits"])
+    check(err <= PATH_RTOL, ("quickstart logits", err))
+    log(f"[examples] quickstart: {c['blob_bytes']} B in {c['n_stages']} stages, the t= lines "
+        f"{[round(t, 2) for t, _, _ in c['stages']]} s equal to the CPU's; logits at every "
+        f"stage within {err:.3e} of the CPU's max |logit| (tolerance {PATH_RTOL}); stage 8 "
+        f"equal to the singleton quantized model; launches {launches('quickstart')}; "
+        f"{seconds('quickstart')}")
+
+    # train_then_transmit: train draws its init on the device, so only what
+    # does not follow the trained values is held against the CPU (the
+    # header's JSON carries each tensor's float range)
+    c, h = (got["train_then_transmit", d][0]["out"] for d in ("cuda", "cpu"))
+    check([x["step"] for x in c["history"]] == [x["step"] for x in h["history"]],
+          "train_then_transmit: logged steps differ")
+    check(c["manifest"]["stage_bytes"] == h["manifest"]["stage_bytes"],
+          (c["manifest"], h["manifest"]))
+    acc = c["accuracy"]
+    check(abs(acc[8] - acc[0]) <= EXAMPLE_ACC_TOL, ("stage 8 against fp32", acc))
+    log(f"[examples] train_then_transmit: {len(c['history'])} logged steps equal to the "
+        f"CPU's, loss {c['history'][0]['loss']:.4f} -> {c['history'][-1]['loss']:.4f} "
+        f"(CPU {h['history'][0]['loss']:.4f} -> {h['history'][-1]['loss']:.4f}); stage "
+        f"bytes {sorted(set(c['manifest']['stage_bytes'].values()))} x 8 equal, header "
+        f"{c['manifest']['header_bytes']} B (CPU {h['manifest']['header_bytes']}); "
+        f"held-out accuracy by stages 1-8 "
+        f"{[round(acc[s], 4) for s in range(1, 9)]}, fp32 {acc[0]:.4f} (CPU "
+        f"{[round(h['accuracy'][s], 4) for s in range(1, 9)]}, fp32 "
+        f"{h['accuracy'][0]:.4f}); stage 8 within {abs(acc[8] - acc[0]):.4f} of fp32 "
+        f"(tolerance {EXAMPLE_ACC_TOL}); launches {launches('train_then_transmit')}; "
+        f"{seconds('train_then_transmit')}")
+
+    # progressive_serving: the byte clock's outputs equal the CPU's; tokens
+    # reported (float32 reduced models, sums in other orders)
+    for run, cpu_run in zip(got["progressive_serving", "cuda"],
+                            got["progressive_serving", "cpu"]):
+        c, h, flags = run["out"], cpu_run["out"], " ".join(run["argv"]) or "(default)"
+        check(c["blob_bytes"] == h["blob_bytes"] and c["arrivals"] == h["arrivals"], flags)
+        if "--speculative" in run["argv"]:
+            same = "rounds {} and {} on the CPU".format(c["speculation"]["rounds"],
+                                                       h["speculation"]["rounds"])
+        else:
+            for k in ("stage_at_step", "stage_log", "admissions", "upgrades", "jsonl",
+                      "final_stage"):
+                check(c.get(k) == h.get(k), (flags, k))
+            same = f"{c['n_events']} events, the event log equal to the CPU's"
+        if isinstance(c["tokens"], dict):
+            agree = sum(c["tokens"][r] == h["tokens"][r] for r in c["tokens"])
+            tokens = f"{agree} of {len(c['tokens'])} clients' tokens equal to the CPU's"
+        else:
+            eq = int((c["tokens"] == h["tokens"]).sum())
+            tokens = f"{eq} of {c['tokens'].numel()} tokens equal to the CPU's"
+        log(f"[examples] progressive_serving {flags}: {c['blob_bytes']} B, stages at "
+            f"{[round(a, 2) for a in c['arrivals']]} s, {len(c['upgrades'])} upgrades, "
+            f"final stage {c['final_stage']}; {same}; {tokens}; launches "
+            f"{ {k: v for k, v in run['counts'].items() if v} }, dequant_matmul by route "
+            f"{run['routes']}; {run['s']:.1f} s")
+    log(f"[examples] progressive_serving: {len(got['progressive_serving', 'cuda'])} runs; "
+        f"launches {launches('progressive_serving')}; {seconds('progressive_serving')}")
+
+    # expert_priority_moe: the same host-drawn weights and batches
+    c, h = (got["expert_priority_moe", d][0]["out"] for d in ("cuda", "cpu"))
+    check((c["n_tensors"], c["n_tensors_unsliced"]) == (h["n_tensors"], h["n_tensors_unsliced"]),
+          "expert_priority_moe: tensor counts differ")
+    check(int(c["counts"].sum()) == int(h["counts"].sum()))
+    err = max(abs(c["mse"][k] - h["mse"][k]) / h["mse"][k] for k in h["mse"])
+    check(err <= PATH_RTOL, ("expert_priority_moe MSE", err))
+    log(f"[examples] expert_priority_moe: {c['n_tensors']} tensors sliced "
+        f"({c['n_tensors_unsliced']} unsliced) as on the CPU; router counts "
+        f"{c['counts'].tolist()} (CPU {h['counts'].tolist()}); MSE by (frac, order) "
+        f"{ {k: round(v, 6) for k, v in c['mse'].items()} }, within {err:.3e} of the CPU's "
+        f"(tolerance {PATH_RTOL}); launches {launches('expert_priority_moe')}; "
+        f"{seconds('expert_priority_moe')}")
+    return total
 
 
 def _upgrade_phase(prog, dev, ops):
@@ -6860,4 +7087,8 @@ def _to_cpu(tree):
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    try:
+        code = main()
+    finally:
+        _stop_examples()
+    sys.exit(code)

@@ -1913,3 +1913,58 @@ def test_checkpoint_on_card(dev, tmp_path):
     want = client.materialize()
     assert sorted(flat) == sorted(wire.path_str(p) for p in leaves)
     assert all(torch.equal(flat[k], want[k]) for k in want)
+
+
+def _example(name: str):
+    """``examples_torch/<name>.py`` as a module (its ``__main__`` block
+    does not run)."""
+    import importlib.util
+    import pathlib
+
+    path = pathlib.Path(__file__).resolve().parents[1] / "examples_torch" / f"{name}.py"
+    spec = importlib.util.spec_from_file_location(f"examples_torch_{name}", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.parametrize("name, argv, kernels", [
+    ("quickstart", [], ("plane_extract", "plane_or_segments")),
+    ("train_then_transmit", ["--steps", "4"], ("plane_extract", "plane_or_segments")),
+    ("progressive_serving", ["--decode-steps", "4"], ("plane_or_segments", "decode_attention")),
+    ("progressive_serving", ["--decode-steps", "4", "--resident", "quantized"],
+     ("dequant_matmul", "decode_attention")),
+    ("progressive_serving", ["--decode-steps", "4", "--speculative"],
+     ("dequant_matmul", "flash_verify")),
+    ("progressive_serving", ["--decode-steps", "4", "--flash-crowd", "2"],
+     ("plane_or_segments", "flash_verify")),
+    ("expert_priority_moe", [], ("plane_extract", "plane_or_segments")),
+], ids=["quickstart", "train", "serve", "serve-quantized", "serve-speculative",
+        "serve-crowd", "moe"])
+def test_example_runs_on_the_card(dev, name, argv, kernels, tmp_path, monkeypatch):
+    """Each script of ``examples_torch/`` runs to its end on the card at
+    small arguments (its ``main`` with ``--device cuda``), launching the
+    kernels of its path; quickstart checks its stage-8 leaves against the
+    singleton quantized model itself."""
+    import tempfile
+
+    def launches() -> dict:
+        return {"plane_extract": bitplane.plane_extract_launches,
+                "plane_or_segments": bitplane.launches,
+                "dequant_matmul": dequant_matmul.launches,
+                "decode_attention": decode_attention.launches,
+                "flash_verify": verify_attention.launches}
+
+    monkeypatch.setattr(tempfile, "tempdir", str(tmp_path))
+    before = launches()
+    out = _example(name).main(argv + ["--device", "cuda"])
+    after = launches()
+    assert all(after[k] > before[k] for k in kernels), (after, before)
+    if name == "quickstart":
+        assert out["n_stages"] == 8 and len(out["logits"]) == 8
+    elif name == "train_then_transmit":
+        assert abs(out["accuracy"][8] - out["accuracy"][0]) <= 0.02
+    elif name == "progressive_serving":
+        assert out["blob_bytes"] > 0 and out["upgrades"]
+    else:
+        assert out["n_tensors"] == 22 and int(out["counts"].sum()) == 4 * 64 * 2
